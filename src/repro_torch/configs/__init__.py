@@ -1,0 +1,29 @@
+"""Architecture registry of the port, selectable via ``--arch <id>``.
+
+Each ``src/repro_torch/configs/<id>.py`` module exports ``CONFIG`` (the
+exact published dimensions, cited) and ``SMOKE`` (a reduced same-family
+variant for the CPU tests).  The serving slice ports the dense decoder
+only; the rest of the zoo is ROADMAP queue 1, item 8.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+_MODULES = {
+    "llama3.2-1b": "llama3p2_1b",
+}
+
+ARCH_IDS = list(_MODULES)
+ALL_IDS = list(_MODULES)
+
+
+def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
+    if arch_id not in _MODULES:
+        raise KeyError(
+            f"arch {arch_id!r} is not ported yet (ROADMAP queue 1, "
+            f"item 8: rest of the zoo); ported: {ARCH_IDS}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_MODULES[arch_id]}")
+    return mod.SMOKE if smoke else mod.CONFIG

@@ -1,0 +1,244 @@
+"""Doorbell synchronization (paper Sec. 4.5, Fig. 8, Listing 3).
+
+Each data chunk has a dedicated semaphore ("doorbell") living in the pool.
+Only the chunk's *owner* (producer) may update it: STALE -> READY after the
+write completes, followed by an explicit flush so other sockets observe the
+change.  Consumers spin: read doorbell; if STALE, invalidate the cached line
+and re-read after a short sleep.
+
+Doorbell *addresses* are derived by pure index calculation against a
+pre-allocated doorbell region (no allocator, no metadata) - that is the
+paper's "lightweight, index-calculation-based" locking mechanism.
+
+This module provides the host-side (Python) state machine used by the
+functional pool emulation and the event-driven simulator.  The TPU mesh
+backend needs no doorbells: data dependence of the ppermute chain enforces
+the same RAW ordering (see DESIGN.md, hardware adaptation).
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+DOORBELL_BYTES = 64  # one cache line per doorbell
+
+
+class DoorbellState(enum.IntEnum):
+    STALE = 0
+    READY = 1
+
+
+@dataclasses.dataclass
+class DoorbellRegion:
+    """Pre-allocated doorbell buffer at the base of the pool address space.
+
+    ``capacity`` is the number of doorbell entries.  The region occupies
+    ``capacity * DOORBELL_BYTES`` bytes (= ``DB_offset`` in Eq. 3).
+    """
+
+    capacity: int
+    _states: list[int] = dataclasses.field(default_factory=list)
+    # Telemetry for tests / the simulator.
+    rings: int = 0
+    polls: int = 0
+    flushes: int = 0
+
+    def __post_init__(self) -> None:
+        if self.capacity <= 0:
+            raise ValueError("doorbell capacity must be positive")
+        self._states = [DoorbellState.STALE] * self.capacity
+
+    @property
+    def region_bytes(self) -> int:
+        return self.capacity * DOORBELL_BYTES
+
+    def address(self, index: int) -> int:
+        """Index-calculated doorbell address (no metadata lookup)."""
+        self._check(index)
+        return index * DOORBELL_BYTES
+
+    def ring(self, index: int) -> None:
+        """Producer: mark READY and flush (Listing 3 lines 5-7)."""
+        self._check(index)
+        self._states[index] = DoorbellState.READY
+        self.rings += 1
+        self.flushes += 1  # explicit flush for cross-socket visibility
+
+    def is_ready(self, index: int) -> bool:
+        """Consumer poll: invalidate + re-read (Listing 3 lines 9-13)."""
+        self._check(index)
+        self.polls += 1
+        self.flushes += 1  # cache-line invalidation before the re-read
+        return self._states[index] == DoorbellState.READY
+
+    def reset(self, index: int) -> None:
+        """Owner resets the doorbell for buffer reuse between collectives."""
+        self._check(index)
+        self._states[index] = DoorbellState.STALE
+
+    def reset_all(self) -> None:
+        for i in range(self.capacity):
+            self._states[i] = DoorbellState.STALE
+
+    def _check(self, index: int) -> None:
+        if not 0 <= index < self.capacity:
+            raise IndexError(
+                f"doorbell index {index} out of range [0, {self.capacity})")
+
+
+@dataclasses.dataclass
+class RefcountRegion:
+    """Shared-ownership words in pool memory, doorbell-style.
+
+    The pooled KV prefix cache (``repro_torch.serving.kvcache``) needs a
+    cross-engine reference count per pooled entry: how many engines
+    currently hold the entry's blocks live.  Each count is a single
+    word at the index-calculated address ``i * DOORBELL_BYTES`` in a
+    dedicated region after the doorbells - the same allocator-free
+    addressing as ``DoorbellRegion``, and the same store+flush /
+    invalidate+re-read discipline (every update flushes so other
+    sockets observe it; every read invalidates first).
+
+    Updates route through the pool fault shim
+    (``core.pool.check_fault``) so injected pool faults surface exactly
+    where the real pool store would fail.  A refcount word is only
+    meaningful once the entry's *commit* doorbell rang: publishers
+    write payload blocks, set the count, then ring - readers that poll
+    a STALE doorbell never trust the count.
+    """
+
+    capacity: int
+    _counts: list[int] = dataclasses.field(default_factory=list)
+    # Telemetry, doorbell-style.
+    updates: int = 0
+    polls: int = 0
+    flushes: int = 0
+
+    def __post_init__(self) -> None:
+        if self.capacity <= 0:
+            raise ValueError("refcount capacity must be positive")
+        self._counts = [0] * self.capacity
+
+    @property
+    def region_bytes(self) -> int:
+        return self.capacity * DOORBELL_BYTES
+
+    def address(self, index: int) -> int:
+        """Index-calculated refcount word address."""
+        self._check(index)
+        return index * DOORBELL_BYTES
+
+    def acquire(self, index: int, rank: int = 0) -> int:
+        """Increment and flush; returns the new count."""
+        return self._update(index, +1, rank)
+
+    def release(self, index: int, rank: int = 0) -> int:
+        """Decrement and flush; returns the new count (>= 0 enforced:
+        a double release is a protocol bug, not a no-op)."""
+        if self._counts[index] <= 0:
+            raise ValueError(
+                f"refcount word {index} released below zero")
+        return self._update(index, -1, rank)
+
+    def read(self, index: int) -> int:
+        """Invalidate + re-read one count word."""
+        self._check(index)
+        self.polls += 1
+        self.flushes += 1
+        return self._counts[index]
+
+    def reset(self, index: int) -> None:
+        """Owner resets the word when the entry's blocks are reclaimed."""
+        self._check(index)
+        self._counts[index] = 0
+
+    def _update(self, index: int, delta: int, rank: int) -> int:
+        self._check(index)
+        from repro_torch.core import pool as _pool  # late: pool imports us
+        _pool.check_fault("refcount", rank=rank, index=index,
+                          offset=self.address(index))
+        self._counts[index] += delta
+        self.updates += 1
+        self.flushes += 1
+        return self._counts[index]
+
+    def _check(self, index: int) -> None:
+        if not 0 <= index < self.capacity:
+            raise IndexError(
+                f"refcount index {index} out of range "
+                f"[0, {self.capacity})")
+
+
+@dataclasses.dataclass
+class HeartbeatRegion:
+    """Per-rank liveness words in pool memory, reusing the doorbell
+    protocol.
+
+    Rank ``r``'s heartbeat is a single word at the index-calculated
+    address ``r * DOORBELL_BYTES`` in a dedicated region after the
+    doorbells — same allocator-free addressing as ``DoorbellRegion``.
+    A live rank overwrites its word with the current step index once
+    per step and flushes (a producer "ring"); the failure monitor polls
+    every word (invalidate + re-read, a consumer poll) and treats a
+    word that has stopped advancing as a missing rank.
+
+    Pulses route through the pool fault hook (``core.pool.check_fault``)
+    so injected rank deaths and pool faults surface exactly where a
+    real pool store would fail: a dead rank's pulse raises
+    ``PoolAccessError`` and its word goes stale on its own.
+    """
+
+    nranks: int
+    _words: list[int] = dataclasses.field(default_factory=list)
+    # Telemetry, doorbell-style.
+    pulses: int = 0
+    polls: int = 0
+    flushes: int = 0
+
+    def __post_init__(self) -> None:
+        if self.nranks <= 0:
+            raise ValueError("heartbeat region needs at least one rank")
+        self._words = [-1] * self.nranks  # -1: never pulsed
+
+    @property
+    def region_bytes(self) -> int:
+        return self.nranks * DOORBELL_BYTES
+
+    def address(self, rank: int) -> int:
+        """Index-calculated heartbeat address for ``rank``."""
+        self._check(rank)
+        return rank * DOORBELL_BYTES
+
+    def pulse(self, rank: int, step: int) -> None:
+        """Rank ``rank`` publishes liveness for ``step`` (store + flush).
+
+        Raises ``PoolAccessError`` if a fault hook decides this rank's
+        pool store fails (rank death, transient pool fault)."""
+        self._check(rank)
+        from repro_torch.core import pool as _pool  # late: pool imports us
+        _pool.check_fault("heartbeat", rank=rank, step=step,
+                          offset=self.address(rank))
+        self._words[rank] = step
+        self.pulses += 1
+        self.flushes += 1
+
+    def read(self, rank: int) -> int:
+        """Monitor poll: invalidate + re-read one liveness word."""
+        self._check(rank)
+        self.polls += 1
+        self.flushes += 1
+        return self._words[rank]
+
+    def read_all(self) -> tuple[int, ...]:
+        return tuple(self.read(r) for r in range(self.nranks))
+
+    def stale_ranks(self, step: int, timeout_steps: int) -> list[int]:
+        """Ranks whose word is more than ``timeout_steps`` behind
+        ``step`` (or never pulsed)."""
+        return [r for r in range(self.nranks)
+                if step - self.read(r) > timeout_steps]
+
+    def _check(self, rank: int) -> None:
+        if not 0 <= rank < self.nranks:
+            raise IndexError(
+                f"heartbeat rank {rank} out of range [0, {self.nranks})")

@@ -1,0 +1,224 @@
+"""Serving launcher of the port: request-level generation on the GPU.
+
+Two modes:
+
+* default - the fixed-batch path (one ``generate`` call, reported as
+  tok/s);
+* ``--trace poisson`` - an open-loop request trace: ``--requests``
+  arrivals drawn from a Poisson process (``--arrival-rate`` requests
+  per decode step) are submitted against the continuous-batching
+  engine and reported as req/s + latency percentiles.
+  ``--prompt-reuse`` draws that fraction of prompts from a shared
+  prefix, exercising the CXL-pooled prefix cache (prefix sharing is
+  auto-enabled when reuse > 0).
+
+Runs on the CUDA card unless ``--device cpu`` is given.  Params are
+random, from a seeded ``torch.Generator``.  ``--plan``,
+``--online-retune``, ``--topology``, ``--placement``, ``--ckpt`` and
+``--metrics-out`` of the reference launcher are not ported yet
+(ROADMAP queue 1).
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --batch 4 --prompt-len 1024 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --smoke --device cpu --trace poisson --requests 8 \\
+      --prompt-reuse 0.5
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.device import resolve_device
+from repro_torch.models import model
+from repro_torch.serving import (Request, SamplingParams, ServeConfig,
+                                 ServeEngine)
+
+
+def _pct(sorted_vals: list, q: float) -> float:
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1, int(q * (len(sorted_vals) - 1)))
+    return sorted_vals[i]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def make_trace(cfg, args) -> tuple:
+    """(requests, arrival steps) of the Poisson trace, from ``--seed``."""
+    rng = np.random.default_rng(args.seed)
+    bt = args.kv_block_tokens
+    prefix_len = args.prefix_len
+    if prefix_len is None:
+        # longest block-aligned prefix that still leaves a suffix
+        prefix_len = max(bt, (args.prompt_len - 1) // bt * bt)
+    prefix_len = min(prefix_len, args.prompt_len - 1)
+    shared = rng.integers(0, cfg.vocab_size, prefix_len)
+    arrivals = np.cumsum(rng.exponential(
+        1.0 / args.arrival_rate, args.requests))   # in decode steps
+    reqs = []
+    for i in range(args.requests):
+        if rng.random() < args.prompt_reuse:
+            toks = np.concatenate([shared, rng.integers(
+                0, cfg.vocab_size, args.prompt_len - prefix_len)])
+        else:
+            toks = rng.integers(0, cfg.vocab_size, args.prompt_len)
+        reqs.append(Request(
+            id=f"req{i}", tokens=toks,
+            sampling=SamplingParams(temperature=args.temperature,
+                                    seed=args.seed + i),
+            max_new_tokens=args.new_tokens))
+    return reqs, arrivals
+
+
+def run_trace(eng: ServeEngine, cfg, args) -> dict:
+    """Open-loop Poisson request trace against the live engine; prints
+    and returns the summary (wall clock around synchronised steps)."""
+    reqs, arrivals = make_trace(cfg, args)
+    _sync(eng.device)
+    t0 = time.perf_counter()
+    born, done = {}, {}
+    step, nxt = 0, 0
+    while nxt < len(reqs) or not eng.sched.idle:
+        if (eng.sched.idle and nxt < len(reqs)
+                and arrivals[nxt] > step):
+            step = int(np.ceil(arrivals[nxt]))   # skip the idle gap
+        while nxt < len(reqs) and arrivals[nxt] <= step:
+            eng.submit(reqs[nxt])
+            born[reqs[nxt].id] = time.perf_counter()
+            nxt += 1
+        eng.step()
+        _sync(eng.device)
+        step += 1
+        for rid, (status, _fresh) in eng.poll().items():
+            if status == "finished" and rid not in done:
+                done[rid] = time.perf_counter()
+    wall = time.perf_counter() - t0
+    lats = sorted(done[r] - born[r] for r in done)
+    toks = len(done) * args.new_tokens
+    c = eng.counters
+    summary = {"requests": len(done), "wall_s": wall,
+               "req_per_s": len(done) / wall, "tok_per_s": toks / wall,
+               "latency_p50_s": _pct(lats, 0.5),
+               "latency_p99_s": _pct(lats, 0.99),
+               "preemptions": eng.sched.preemption_count, **c}
+    print(f"{cfg.name}: trace poisson  {len(done)} requests in "
+          f"{wall:.2f}s ({len(done) / wall:.2f} req/s, "
+          f"{toks / wall:.1f} tok/s)")
+    print(f"  latency p50 {summary['latency_p50_s']:.3f}s  "
+          f"p99 {summary['latency_p99_s']:.3f}s  "
+          f"decode steps {c['decode_steps']}  "
+          f"prefills {c['prefills']}")
+    print(f"  prefix hits {c['prefix_hits']} "
+          f"({c['prefix_hit_tokens']} tokens pooled)  "
+          f"evictions {c['evictions']}  restores {c['restores']}  "
+          f"replays {c['replays']}  "
+          f"preemptions {eng.sched.preemption_count}")
+    return summary
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
+    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--window", type=int, default=None)
+    ap.add_argument("--trace", choices=["poisson"], default=None,
+                    help="request-trace mode: submit --requests "
+                         "Poisson arrivals through submit/step/poll "
+                         "and report req/s + latency percentiles "
+                         "instead of the fixed batch")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="trace mode: number of requests")
+    ap.add_argument("--arrival-rate", type=float, default=0.5,
+                    help="trace mode: mean arrivals per decode step")
+    ap.add_argument("--prompt-reuse", type=float, default=0.0,
+                    help="trace mode: fraction of prompts sharing a "
+                         "common prefix (> 0 auto-enables "
+                         "--prefix-sharing)")
+    ap.add_argument("--prefix-len", type=int, default=None,
+                    help="shared-prefix tokens for --prompt-reuse "
+                         "(default: longest block-aligned prefix)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--decode-slots", type=int, default=4,
+                    help="dense decode lanes (engine batch)")
+    ap.add_argument("--kv-block-tokens", type=int, default=16,
+                    help="tokens per paged HBM KV block")
+    ap.add_argument("--hbm-budget-blocks", type=int, default=None,
+                    help="HBM KV block budget (default: enough for "
+                         "every slot at max_seq; lower it to force "
+                         "eviction to the pool)")
+    ap.add_argument("--pool-budget-mib", type=int, default=64,
+                    help="CXL pool budget for evictions + pooled "
+                         "prefixes (MiB)")
+    ap.add_argument("--scheduler", choices=["continuous", "static"],
+                    default="continuous",
+                    help="'static' is the batch-synchronous baseline "
+                         "(admits only when the engine drained)")
+    ap.add_argument("--kv-placement",
+                    choices=["auto", "pool", "recompute"],
+                    default="auto",
+                    help="eviction placement: 'auto' prices the pool "
+                         "round-trip vs recompute (live oracle)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="publish complete prompt blocks to the "
+                         "pooled prefix store and restore them for "
+                         "later matching prompts")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card; "
+                         "'cpu' runs on the CPU)")
+    return ap
+
+
+def engine_from_args(args) -> tuple:
+    """(cfg, engine) for parsed launcher arguments; params come from a
+    ``torch.Generator`` seeded 0 on the engine's device."""
+    cfg = get_config(args.arch, smoke=args.smoke)
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = model.init_params(cfg, gen, device, torch.float32)
+    scfg = ServeConfig(
+        max_seq=args.prompt_len + args.new_tokens + 8,
+        window=args.window, temperature=args.temperature,
+        decode_slots=args.decode_slots,
+        kv_block_tokens=args.kv_block_tokens,
+        hbm_budget_blocks=args.hbm_budget_blocks,
+        pool_budget_bytes=args.pool_budget_mib << 20,
+        scheduler=args.scheduler, kv_placement=args.kv_placement,
+        prefix_sharing=(args.prefix_sharing
+                        or args.prompt_reuse > 0.0))
+    return cfg, ServeEngine(cfg, params, scfg, device=device)
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    cfg, eng = engine_from_args(args)
+    if args.trace:
+        run_trace(eng, cfg, args)
+        return
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (args.batch, args.prompt_len))}
+    _sync(eng.device)
+    t0 = time.perf_counter()
+    out = eng.generate(batch, max_new_tokens=args.new_tokens)
+    _sync(eng.device)
+    dt = time.perf_counter() - t0
+    print(f"{cfg.name}: {out.shape} in {dt:.2f}s "
+          f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
+    print(out[: min(2, args.batch)].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,125 @@
+"""Decoder rows and layer-group assembly.
+
+Port of ``repro/models/blocks.py`` for row kind ``a`` (pre-norm
+attention + pre-norm SwiGLU FFN).  Consecutive rows of one kind form a
+group whose params are stacked along a leading layer axis (the
+reference's ``g<i>`` layout); the model loops over a group's layers in
+Python where the reference runs ``lax.scan``.  The other kinds (MoE,
+Mamba, shared attention, cross-attention) come with the rest of the zoo.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.pcontext import ParallelContext
+
+Params = dict
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    kind: str          # 'a' | 'e' | '1' | '2'
+    count: int
+    shared: bool = False   # single param set reused `count` times
+
+
+def scan_groups(cfg: ModelConfig) -> list[Group]:
+    """Groups in pattern order; consecutive same-kind rows merge."""
+    groups: list[Group] = []
+    for ch in cfg.layer_pattern:
+        shared = ch == "a" and cfg.shared_attention
+        if groups and groups[-1].kind == ch \
+                and groups[-1].shared == shared:
+            groups[-1] = Group(ch, groups[-1].count + 1, shared)
+        else:
+            groups.append(Group(ch, 1, shared))
+    return groups
+
+
+def _ported(kind: str, cfg: ModelConfig) -> None:
+    if kind != "a" or cfg.shared_attention or cfg.encoder is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: row kind {kind!r} (or shared/cross attention) "
+            f"is not ported yet (ROADMAP queue 1, item 8)")
+
+
+# ----------------------------------------------------------------------- #
+# row init / forward
+# ----------------------------------------------------------------------- #
+
+def init_row(gen: torch.Generator, kind: str, cfg: ModelConfig, tp: int,
+             dtype, device, layers_: int = 1) -> Params:
+    """Params of ``layers_`` stacked rows (leading layer axis)."""
+    _ported(kind, cfg)
+    ones = torch.ones((layers_, cfg.d_model), dtype=torch.float32,
+                      device=device)
+    return {"norm1": ones,
+            "attn": layers.init_attention(gen, cfg, tp, dtype, device,
+                                          layers_),
+            "norm2": ones.clone(),
+            "ffn": layers.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype,
+                                   device, layers_)}
+
+
+def row_prefill(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
+                pc: ParallelContext, positions: torch.Tensor, cache: dict,
+                window: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence forward that also fills this row's decode cache
+    ``cache`` ({'k','v'}: (B, max_seq, n_kv, hd), written in place where
+    the reference returns a new one).  Returns h."""
+    _ported(kind, cfg)
+    attn_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
+    out, (k, v) = layers.attention_forward(
+        p["attn"], attn_in, cfg, pc, positions, causal=True,
+        window=window, return_kv=True)
+    h = h + out
+    _kv_to_cache(k, v, cache)
+    ff_in = layers.rms_norm(h, p["norm2"], cfg.norm_eps)
+    return h + layers.ffn_forward(p["ffn"], ff_in, pc)
+
+
+def _kv_to_cache(k: torch.Tensor, v: torch.Tensor, cache: dict) -> None:
+    """(B, L, n_kv, hd) head layout -> the first L positions of the
+    decode cache (B, max_seq, n_kv, hd); positions past L stay zero
+    (unsharded: the whole sequence is local)."""
+    l, max_seq = k.shape[1], cache["k"].shape[1]
+    if l > max_seq:
+        raise ValueError(f"prefill length {l} exceeds max_seq {max_seq}")
+    cache["k"][:, :l] = k
+    cache["v"][:, :l] = v
+
+
+def row_decode(p: Params, h: torch.Tensor, kind: str, cache: dict,
+               pos: torch.Tensor, cfg: ModelConfig, pc: ParallelContext,
+               window: Optional[int] = None,
+               active: Optional[torch.Tensor] = None):
+    """Single-token decode for one row; writes the row's cache
+    ``{'k','v'}`` in place (see ``layers.decode_attention``).
+    Returns (h, cache)."""
+    _ported(kind, cfg)
+    attn_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
+    kv_write = pos % window if window is not None else pos
+    out, _, _ = layers.decode_attention(
+        p["attn"], attn_in, cache["k"], cache["v"], pos, cfg, pc,
+        window=window, kv_write_pos=kv_write, active=active)
+    h = h + out
+    ff_in = layers.rms_norm(h, p["norm2"], cfg.norm_eps)
+    h = h + layers.ffn_forward(p["ffn"], ff_in, pc)
+    return h, cache
+
+
+def row_cache_init(kind: str, cfg: ModelConfig, pc: ParallelContext,
+                   batch: int, max_seq: int, dtype, device,
+                   layers_: int = 1) -> dict:
+    """Zero decode cache of ``layers_`` stacked rows:
+    {'k','v'}: (layers_, batch, max_seq, n_kv, hd)."""
+    _ported(kind, cfg)
+    d = layers.attn_dims(cfg, pc.tp)
+    shape = (layers_, batch, max_seq, d.n_kv, d.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,0 +1,332 @@
+"""Core layers: RMSNorm, RoPE, GQA attention (prefill/decode), SwiGLU FFN,
+embeddings.
+
+Port of ``repro/models/layers.py`` for the serving slice, unsharded
+(tp = 1): the tensor-parallel collectives of the reference are the
+identity here (``pcontext``).  Names, layouts and the float32 math
+follow the reference; ``rms_norm`` and the long-sequence branch of
+``attention_scores`` go through the hand-written CUDA kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.pcontext import ParallelContext
+
+Params = dict
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (the fused all-gather matmul path comes with training)."""
+    return x @ w
+
+
+# ---------------------------------------------------------------------- #
+# initialization helpers
+# ---------------------------------------------------------------------- #
+
+def _dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
+                device) -> torch.Tensor:
+    scale = 1.0 / math.sqrt(in_dim)
+    return (torch.randn(shape, generator=gen, device=device)
+            * scale).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """Normalise over the last axis (f32 math, result in x's dtype)
+    through the RMSNorm kernel, rows flattened to (T, D)."""
+    d = x.shape[-1]
+    return _rn.rms_norm(x.reshape(-1, d), scale, eps).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------- #
+# rotary position embeddings
+# ---------------------------------------------------------------------- #
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (torch.tensor(theta, dtype=torch.float32,
+                               device=device) ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)            # (hd/2,)
+    angles = positions[..., :, None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., None, :]                    # (..,s,1,hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- #
+# attention
+# ---------------------------------------------------------------------- #
+
+@dataclasses.dataclass(frozen=True)
+class AttnDims:
+    """Local (per-tp-shard) attention dimensions."""
+    n_q: int          # local query heads (after padding / tp split)
+    n_kv: int         # local kv heads (sharded) or full kv heads (repl.)
+    head_dim: int
+    kv_sharded: bool
+
+
+def attn_dims(cfg: ModelConfig, tp: int) -> AttnDims:
+    if cfg.kv_sharded(tp) and cfg.padded_heads(tp) != cfg.n_heads:
+        # sharded kv + padded q would misalign shard-local GQA grouping
+        raise ValueError(
+            f"{cfg.name}: q-head padding with sharded kv unsupported")
+    return AttnDims(n_q=cfg.padded_heads(tp) // tp,
+                    n_kv=(cfg.n_kv_heads // tp if cfg.kv_sharded(tp)
+                          else cfg.n_kv_heads),
+                    head_dim=cfg.head_dim,
+                    kv_sharded=cfg.kv_sharded(tp))
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype,
+                   device, layers: int = 1) -> Params:
+    """GLOBAL param shapes with a leading ``layers`` axis.  Q heads padded
+    to a multiple of tp; padded head weights zeroed so the padding is
+    numerically inert under any tp."""
+    dm, hd = cfg.d_model, cfg.head_dim
+    hq_pad = cfg.padded_heads(tp)
+    n_kv = cfg.n_kv_heads
+    real = cfg.n_heads * hd
+    wq = _dense_init(gen, (layers, dm, hq_pad * hd), dm, dtype, device)
+    wk = _dense_init(gen, (layers, dm, n_kv * hd), dm, dtype, device)
+    wv = _dense_init(gen, (layers, dm, n_kv * hd), dm, dtype, device)
+    wo = _dense_init(gen, (layers, hq_pad * hd, dm), cfg.n_heads * hd,
+                     dtype, device)
+    if hq_pad != cfg.n_heads:
+        wq[..., real:] = 0.0
+        wo[:, real:, :] = 0.0
+    return {"wq": wq, "wk": wk, "wv": wv, "wo": wo}
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=2)
+
+
+def _gqa_index(n_q_glob_start: int, n_q: int, n_kv: int, cfg: ModelConfig,
+               device) -> torch.Tensor:
+    """kv head of each query head: global index // unpadded group size,
+    clipped to the last kv head (padded q heads are inert)."""
+    g = max(1, cfg.n_heads // max(cfg.n_kv_heads, 1))
+    q_glob = n_q_glob_start + torch.arange(n_q, device=device)
+    return torch.clamp(q_glob // g, 0, n_kv - 1)
+
+
+def select_kv(k: torch.Tensor, v: torch.Tensor, d: AttnDims,
+              cfg: ModelConfig, pc: ParallelContext):
+    """Map each *local* query head to its GQA kv head (see the
+    reference: aligned repeat for sharded kv, clipped global index for
+    replicated kv)."""
+    if d.kv_sharded:
+        rep = d.n_q // d.n_kv
+        return _repeat_kv(k, rep), _repeat_kv(v, rep)
+    idx = _gqa_index(pc.tp_index() * d.n_q, d.n_q, d.n_kv, cfg, k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def select_kv_global(k: torch.Tensor, v: torch.Tensor, hq_full: int,
+                     cfg: ModelConfig):
+    """Same mapping for the decode path where all q heads are present:
+    hq_full may include padding; k/v hold all kv heads."""
+    idx = _gqa_index(0, hq_full, k.shape[2], cfg, k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+FLASH_THRESHOLD = 1024  # sequences this long use blocked attention
+
+
+def attention_scores(q, k, v, causal: bool, window: Optional[int] = None,
+                     q_offset: int = 0):
+    """Attention.  q: (B,Lq,H,hd), k/v: (B,Lk,H,hd).  Long sequences
+    dispatch to the blocked flash kernel (O(L) memory)."""
+    if q.shape[1] >= FLASH_THRESHOLD and k.shape[1] >= FLASH_THRESHOLD:
+        from repro_torch.models.flash import flash_attention
+        return flash_attention(q, k, v, causal, window, q_offset)
+    hd = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    logits = logits / math.sqrt(hd)
+    lq, lk = q.shape[1], k.shape[1]
+    if causal:
+        qpos = torch.arange(lq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(lk, device=q.device)[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def attention_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                      pc: ParallelContext, positions: torch.Tensor,
+                      causal: bool = True,
+                      window: Optional[int] = None,
+                      return_kv: bool = False):
+    """Full-sequence self-attention (prefill).  Returns the output, and
+    with ``return_kv`` also the roped (k, v) before GQA expansion.
+    (Cross-attention comes with the encoder-decoder models.)"""
+    d = attn_dims(cfg, pc.tp)
+    b, l, _ = x.shape
+    q = dense(x, params["wq"]).reshape(b, l, d.n_q, d.head_dim)
+    k = dense(x, params["wk"]).reshape(b, l, d.n_kv, d.head_dim)
+    v = dense(x, params["wv"]).reshape(b, l, d.n_kv, d.head_dim)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    kk, vv = select_kv(k, v, d, cfg, pc)
+    out = attention_scores(q, kk, vv, causal=causal, window=window)
+    out = dense(out.reshape(b, l, d.n_q * d.head_dim), params["wo"])
+    out = pc.tp_all_reduce(out)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# -- decode path --------------------------------------------------------- #
+
+def decode_attention(params: Params, x: torch.Tensor, cache_k, cache_v,
+                     pos: torch.Tensor, cfg: ModelConfig,
+                     pc: ParallelContext,
+                     window: Optional[int] = None,
+                     kv_write_pos: Optional[torch.Tensor] = None,
+                     active: Optional[torch.Tensor] = None):
+    """One-token decode against an unsharded KV cache.
+
+    x: (B, 1, d_model).  cache_{k,v}: (B, S, n_kv, hd).  ``pos``: the
+    position being written - a 0-d int tensor (whole batch at one
+    position) or a ``(B,)`` int tensor (per-slot positions, the
+    continuous-batching engine).  For a ring-buffer window cache the
+    caller passes ``kv_write_pos`` = pos % window (same rank as ``pos``).
+
+    Unlike the reference, which returns new caches, this writes the new
+    token's k/v into ``cache_k``/``cache_v`` IN PLACE.  ``active`` (a
+    (B,) bool tensor, vector ``pos`` only) limits the write to those
+    slots, so an inactive slot's cache is left exactly as it was.
+
+    Returns (attn_out (B,1,d_model), cache_k, cache_v).
+    """
+    d = attn_dims(cfg, pc.tp)
+    b = x.shape[0]
+    s_len = cache_k.shape[1]
+    vec = pos.dim() > 0
+
+    q = dense(x, params["wq"]).reshape(b, 1, d.n_q, d.head_dim)
+    rope_pos = pos.reshape(b, 1) if vec else pos.reshape(1)
+    q = apply_rope(q, rope_pos, cfg.rope_theta)
+    k_new = dense(x, params["wk"]).reshape(b, 1, d.n_kv, d.head_dim)
+    v_new = dense(x, params["wv"]).reshape(b, 1, d.n_kv, d.head_dim)
+    k_new = apply_rope(k_new, rope_pos, cfg.rope_theta)
+
+    write = (kv_write_pos if kv_write_pos is not None else pos) % s_len
+    if vec:
+        rows = torch.arange(b, device=x.device)
+        k_row = k_new[:, 0].to(cache_k.dtype)
+        v_row = v_new[:, 0].to(cache_v.dtype)
+        if active is not None:
+            keep = active.reshape(b, 1, 1)
+            k_row = torch.where(keep, k_row, cache_k[rows, write])
+            v_row = torch.where(keep, v_row, cache_v[rows, write])
+        cache_k[rows, write] = k_row
+        cache_v[rows, write] = v_row
+    else:
+        if active is not None:
+            raise ValueError("active slots need per-slot (vector) pos")
+        cache_k[:, write] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[:, write] = v_new[:, 0].to(cache_v.dtype)
+
+    kk, vv = select_kv_global(cache_k, cache_v, d.n_q, cfg)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float())
+    logits = logits / math.sqrt(d.head_dim)
+    # mask invalid cache slots
+    sp = torch.arange(s_len, device=x.device)[None, None, None, :]
+    pv = pos.reshape(b, 1, 1, 1) if vec else pos
+    if window is not None:
+        # ring buffer: before the buffer wraps (pos < window) only slots
+        # <= pos hold data; afterwards every slot is live.
+        valid = (sp <= pv) | (pv >= window)
+    else:
+        valid = sp <= pv
+    logits = logits.masked_fill(~valid, float("-inf"))
+    m = pc.tp_psum_max(logits.amax(dim=-1))                # (B,H,1)
+    p = torch.exp(logits - m[..., None])
+    p = torch.where(valid, p, 0.0)
+    l_glob = pc.tp_all_reduce(p.sum(dim=-1))               # (B,H,1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(vv.dtype), vv)
+    o = pc.tp_all_reduce(o.float())
+    out = o / torch.clamp(l_glob, min=1e-20).transpose(1, 2)[..., None]
+    out = dense(out.to(x.dtype).reshape(b, 1, d.n_q * d.head_dim),
+                params["wo"])
+    out = pc.tp_all_reduce(out)
+    return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------- #
+# SwiGLU FFN
+# ---------------------------------------------------------------------- #
+
+def init_ffn(gen: torch.Generator, d_model: int, d_ff_local: int, dtype,
+             device, layers: int = 1) -> Params:
+    return {
+        "wg": _dense_init(gen, (layers, d_model, d_ff_local), d_model,
+                          dtype, device),
+        "wu": _dense_init(gen, (layers, d_model, d_ff_local), d_model,
+                          dtype, device),
+        "wd": _dense_init(gen, (layers, d_ff_local, d_model), d_ff_local,
+                          dtype, device),
+    }
+
+
+def ffn_forward(params: Params, x: torch.Tensor,
+                pc: ParallelContext) -> torch.Tensor:
+    h = F.silu(dense(x, params["wg"])) * dense(x, params["wu"])
+    return pc.tp_all_reduce(dense(h, params["wd"]))
+
+
+# ---------------------------------------------------------------------- #
+# embeddings
+# ---------------------------------------------------------------------- #
+
+def init_embedding(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype,
+                   device) -> Params:
+    """GLOBAL shapes; vocab padded to a multiple of tp."""
+    v_pad = cfg.padded_vocab(tp)
+    p = {"tok": (torch.randn((v_pad, cfg.d_model), generator=gen,
+                             device=device) * 0.02).to(dtype)}
+    if not cfg.tie_embeddings:
+        p["head"] = _dense_init(gen, (cfg.d_model, v_pad), cfg.d_model,
+                                dtype, device)
+    return p
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                 pc: ParallelContext) -> torch.Tensor:
+    return params["tok"][tokens]
+
+
+def lm_logits(params: Params, h: torch.Tensor, cfg: ModelConfig,
+              pc: ParallelContext) -> torch.Tensor:
+    """(B, L, V) logits.  A tied head multiplies by a transposed *view*
+    of the embedding table: the (V, d_model) table is never copied."""
+    w = params.get("head")
+    if w is None:
+        w = params["tok"].t()
+    return h @ w

@@ -1,0 +1,103 @@
+"""The port stands alone: no module of ``repro_torch`` imports ``jax`` or
+the ``repro`` package, and its entry points never fall back to the CPU
+on their own."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+PKG = SRC / "repro_torch"
+
+
+def _modules() -> list:
+    out = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(SRC).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        out.append(".".join(parts))
+    return out
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for m in {_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m, mod in sys.modules.items() if mod is not "
+            "None and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def _imported_names(tree) -> set:
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize("path", sorted(p.relative_to(PKG).as_posix()
+                                        for p in PKG.rglob("*.py")))
+def test_no_jax_or_repro_import_statement(path):
+    names = _imported_names(ast.parse((PKG / path).read_text()))
+    bad = sorted(n for n in names
+                 if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_engine_without_device_refuses_cpu_fallback():
+    """With no CUDA card and no explicit device="cpu", constructing the
+    engine (or its params) raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.serving import ServeConfig, ServeEngine
+    cfg = get_config("llama3.2-1b", smoke=True)
+    params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                               "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(cfg, params, ServeConfig(max_seq=16))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_params(cfg, torch.Generator().manual_seed(0))
+    eng = ServeEngine(cfg, params, ServeConfig(max_seq=16), device="cpu")
+    out = eng.generate({"tokens": np.ones((1, 4), np.int64)}, 2)
+    assert out.shape == (1, 2)
+
+
+def test_launcher_rejects_unported_flags():
+    from repro_torch.launch import serve
+    ap = serve.build_parser()
+    for flag in ("--plan", "--online-retune", "--topology", "--placement",
+                 "--ckpt", "--metrics-out"):
+        with pytest.raises(SystemExit):
+            ap.parse_args(["--arch", "llama3.2-1b", flag, "x"])
+    args = ap.parse_args(["--arch", "llama3.2-1b", "--smoke", "--device",
+                          "cpu", "--batch", "2", "--prompt-len", "8",
+                          "--new-tokens", "3"])
+    cfg, eng = serve.engine_from_args(args)
+    assert eng.device.type == "cpu" and cfg.name == "llama3.2-smoke"
+
+
+def test_unported_arch_names_the_roadmap():
+    from repro_torch.configs import get_config
+    with pytest.raises(KeyError, match="ROADMAP"):
+        get_config("falcon-mamba-7b")

@@ -1,0 +1,155 @@
+"""The port's kernels: the plain versions against the JAX package's
+Pallas kernels (interpret mode) and jnp twins on the same numpy inputs.
+Shapes and tolerances mirror tests/test_kernels.py and
+tests/test_flash_jnp.py.  The CUDA kernels themselves are held against
+the plain versions in tests/test_torch_cuda.py, on a card."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops, ref
+from repro.models import layers as jax_layers
+from repro.models.flash import flash_attention as jax_flash
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.models import flash as torch_flash
+from repro_torch.models import layers
+
+RNG = np.random.default_rng(0)
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values in both frameworks (bf16 rounds identically)."""
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a, jd), torch.as_tensor(a).to(td)
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+# -- rms_norm ------------------------------------------------------------ #
+
+@pytest.mark.parametrize("t,d", [(64, 128), (300, 256), (1000, 384)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_plain_vs_pallas_and_layers(t, d, dtype):
+    jx, tx = _pair(RNG.standard_normal((t, d)).astype(np.float32), dtype)
+    s = RNG.standard_normal((d,)).astype(np.float32)
+    got = rn.rms_norm(tx, torch.as_tensor(s))       # CPU: plain version
+    tol = dict(rtol=2e-2 if dtype == "bfloat16" else 1e-5, atol=1e-2)
+    pallas = ops.rms_norm(jx, jnp.asarray(s), rows=128)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), **tol)
+    np.testing.assert_allclose(
+        _f32(got), _f32(jax_layers.rms_norm(jx, jnp.asarray(s))), **tol)
+    np.testing.assert_allclose(_f32(got), _f32(ref.rms_norm_ref(
+        jx, jnp.asarray(s))), **tol)
+
+
+def test_layers_rms_norm_flattens_rows():
+    x = RNG.standard_normal((2, 5, 64)).astype(np.float32)
+    s = RNG.standard_normal((64,)).astype(np.float32)
+    got = layers.rms_norm(torch.as_tensor(x), torch.as_tensor(s))
+    want = jax_layers.rms_norm(jnp.asarray(x), jnp.asarray(s))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_rms_norm_wrapper_checks():
+    with pytest.raises(ValueError):
+        rn.rms_norm(torch.zeros(4, 8), torch.zeros(7))
+    with pytest.raises(TypeError):
+        rn.rms_norm(torch.zeros(4, 8, dtype=torch.float16), torch.zeros(8))
+
+
+# -- flash attention ----------------------------------------------------- #
+
+def _bhld_to_model(x: np.ndarray) -> torch.Tensor:
+    """(BH, L, D) -> model layout (B=BH, L, H=1, D)."""
+    return torch.as_tensor(x)[:, :, None, :]
+
+
+@pytest.mark.parametrize("bh,l,d", [(4, 256, 64), (2, 512, 128),
+                                    (1, 384, 64)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 128),
+                                           (False, None)])
+def test_flash_plain_vs_pallas(bh, l, d, causal, window):
+    q, k, v = (RNG.standard_normal((bh, l, d)).astype(np.float32)
+               for _ in range(3))
+    want = ops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=causal,
+                               window=window)
+    got = fa.flash_attention(_bhld_to_model(q), _bhld_to_model(k),
+                             _bhld_to_model(v), causal=causal,
+                             window=window)
+    np.testing.assert_allclose(got[:, :, 0].numpy(), np.asarray(want),
+                               rtol=1e-4, atol=2e-5)
+
+
+def test_flash_plain_vs_pallas_bf16():
+    arrs = [RNG.standard_normal((2, 256, 64)).astype(np.float32)
+            for _ in range(3)]
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "bfloat16") for a in arrs)
+    want = ops.flash_attention(jq, jk, jv)
+    got = fa.flash_attention(tq[:, :, None], tk[:, :, None],
+                             tv[:, :, None])
+    np.testing.assert_allclose(_f32(got[:, :, 0]), _f32(want), rtol=5e-2,
+                               atol=5e-2)
+
+
+@pytest.mark.parametrize("l,blk,causal,window", [
+    (128, 64, True, None), (200, 64, True, None), (256, 64, True, 96),
+    (128, 32, False, None), (512, 128, True, 128)])
+def test_flash_plain_vs_jnp_blocked(l, blk, causal, window):
+    """Ragged L (200 with 64-row blocks) included."""
+    q, k, v = (RNG.standard_normal((2, l, 4, 32)).astype(np.float32)
+               for _ in range(3))
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     causal, window, 0, blk)
+    got = torch_flash.flash_attention(torch.as_tensor(q),
+                                      torch.as_tensor(k),
+                                      torch.as_tensor(v), causal, window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("lq,lk,window", [(64, 200, None), (37, 130, 48),
+                                          (100, 100, None)])
+def test_flash_plain_vs_jnp_q_offset(lq, lk, window):
+    """A q chunk at the end of a longer (ragged) kv sequence: causal on
+    absolute positions, q_offset = Lk - Lq."""
+    q = RNG.standard_normal((1, lq, 2, 32)).astype(np.float32)
+    k, v = (RNG.standard_normal((1, lk, 2, 32)).astype(np.float32)
+            for _ in range(2))
+    off = lk - lq
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True,
+                     window, off, 64)
+    got = fa.flash_attention(torch.as_tensor(q), torch.as_tensor(k),
+                             torch.as_tensor(v), True, window, off)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=2e-6)
+
+
+def test_flash_plain_kv_len_masks_ragged_edge():
+    """kv_len < Lk equals attention over the first kv_len keys."""
+    q, k, v = (torch.as_tensor(RNG.standard_normal((1, 20, 2, 64))
+                               .astype(np.float32)) for _ in range(3))
+    got = fa.flash_attention(q[:, :10], k, v, causal=False, kv_len=13)
+    want = fa.flash_attention(q[:, :10], k[:, :13], v[:, :13],
+                              causal=False)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_flash_wrapper_checks():
+    x = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError):
+        fa.flash_attention(x, x, x, window=0)
+    with pytest.raises(ValueError):
+        fa.flash_attention(x, x, x, kv_len=9)
+    with pytest.raises(ValueError):
+        fa.flash_attention(x, x[:, :, :1], x)
