@@ -8,31 +8,53 @@ Run from the root of a checkout, on a machine with one H100:
 
 Phases (each fails the run if its check fails):
 
-1. build     - build both CUDA kernels from ``src/repro_torch/kernels/csrc``
-               (one nvcc per source, in parallel);
-2. parity    - each kernel against its plain PyTorch version on the card,
-               at the serving path's shapes, f32 and bf16;
-3. timing    - each kernel, its plain version and one PyTorch library call
-               on the same inputs (device time from CUDA events, L2
-               flushed before every call), beside the kernel's roofline
-               bound;
-4. reference - the smoke-size model on the card against the same model on
-               the CPU (prefill at L = 1100, through the flash kernel, and
-               three per-slot decode steps);
-5. serve     - Llama-3.2-1B at full width (f32, seeded random params):
-               a fixed batch of 4 x 1024-token prompts with a roomy HBM
-               budget, the same with a budget 4 blocks short and eviction
-               to the pool (greedy tokens must match), then a Poisson
-               trace of 8 requests with half the prompts sharing a pooled
-               prefix.  The kernels' launch counters are zeroed before
-               each run and read after it: both kernels must have run.
+1. build       - build every CUDA kernel from ``src/repro_torch/kernels/
+                 csrc`` (one nvcc per source, all started together);
+2. parity      - each kernel against its plain PyTorch version on the
+                 card: rms_norm and flash_attention at the serving path's
+                 shapes (f32, bf16) and their gradients (the kernel path's
+                 autograd against autograd through the plain version);
+                 chunked_reduce (f32, bf16; n_src 2, 4, 16; the training
+                 path's segment length and a ragged one); all_gather_matmul
+                 at the training path's shapes (f32);
+3. timing      - each kernel, its plain version and one PyTorch library
+                 call on the same inputs (device time from CUDA events, L2
+                 flushed before every call), beside the kernel's roofline
+                 bound, at the main paths' shapes;
+4. reference   - the smoke-size model on the card against the same model
+                 on the CPU (prefill at L = 1100, through the flash kernel,
+                 and three per-slot decode steps);
+5. serve       - Llama-3.2-1B at full width (f32, seeded random params):
+                 a fixed batch of 4 x 1024-token prompts with a roomy HBM
+                 budget, the same with a budget 4 blocks short and eviction
+                 to the pool (greedy tokens must match), then a Poisson
+                 trace of 8 requests with half the prompts sharing a pooled
+                 prefix;
+6. collectives - every flat collective on 4 ranks sharing the card, ring
+                 (gloo) and cxl (the pinned shared host pool), at 1, 16 and
+                 256 MB per rank: each rank's result against a numpy oracle
+                 (bitwise), and the median time;
+7. train       - FSDP training on 4 ranks sharing the card: the smoke
+                 model on the card against the same run on the CPU (losses
+                 over 3 steps), then Llama-3.2-1B at full width and depth
+                 through the launcher's flags, ``--backend cxl
+                 --fuse-kernels``, ``--backend cxl`` and ``--backend ring``
+                 (``--mesh 4x1 --batch 4 --seq 1024``, 3 steps each, the
+                 same seeded params and batches): the three step-0 losses
+                 agree, every run's loss falls, and one extra step of the
+                 first run is profiled.
 
-The last three lines of standard output are the kernels' JSON line, the
-card's name and power limit, and the result line.  The full record goes
-to ``chiprun_out/chip_smoke.json``.
+The kernels' launch counters are zeroed before each serving run and
+before each training step (in the rank processes), and read after it:
+every kernel must have run on the training path, and rms_norm and
+flash_attention on the serving path too.  The last three lines of
+standard output are the kernels' JSON line, the card's name and power
+limit, and the result line.  The full record goes to
+``chip_smoke.json`` in the output directory that ``main`` names.
 """
 from __future__ import annotations
 
+import datetime
 import json
 import pathlib
 import subprocess
@@ -47,11 +69,49 @@ import torch  # noqa: E402
 
 HBM_BW = 3.35e12                                   # H100 SXM, bytes/s
 PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}   # FLOP/s
+# (rtol, atol).  chunked_reduce: the kernel and torch sum the sources in
+# other orders, n_src - 1 roundings of partial sums up to about 16
+# (f32), one ulp of the output (bf16).  Gradients: the same backward
+# code on both paths, in other summation orders.
 TOL = {"rms_norm": {torch.float32: (1e-5, 1e-5),
                     torch.bfloat16: (1e-2, 1e-2)},
        "flash_attention": {torch.float32: (1e-4, 2e-5),
-                           torch.bfloat16: (2e-2, 2e-2)}}
+                           torch.bfloat16: (2e-2, 2e-2)},
+       "chunked_reduce": {torch.float32: (1e-6, 2e-5),
+                          torch.bfloat16: (8e-3, 8e-3)},
+       "grad": {torch.float32: (1e-4, 1e-4)}}
 PROMPT, NEW, SLOTS, BT = 1024, 16, 4, 16
+DP, TRAIN_BATCH, TRAIN_STEPS = 4, 4, 3
+# all_gather_matmul on the training path (--fuse-kernels): x (T, n*Ks) @
+# (n, Ks, N) for wq, wk/wv and wg/wu of Llama-3.2-1B, T = 1024 tokens of
+# one rank.  wo and wd are FSDP-sharded on their dim 1 (dim 0 carries the
+# model axis), so they gather concatenated; wd's shape is checked too.
+AGM_SHAPES = ((1024, 4, 512, 2048), (1024, 4, 512, 512),
+              (1024, 4, 512, 8192), (1024, 4, 2048, 2048))
+AGM_MAIN = (1024, 4, 512, 8192)
+RAGGED = 1000003
+
+
+def gemm_tol(k: int) -> tuple:
+    """Two f32 matrix products over a contraction of K unit-normal
+    products, summed in other orders (the kernel keeps one running sum
+    per output; cuBLAS may split K): the partial sums grow like sqrt(K),
+    so the rounding's random walk has a spread of about K * 2^-24, and
+    the largest of some 10^7 outputs reaches several times that."""
+    return 1e-4, 8 * k * 2.0 ** -24
+
+
+KERNELS = {   # name -> (source, the Pallas TPU kernel it replaces)
+    "rms_norm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                 "src/repro/kernels/rmsnorm.py:36"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:91"),
+    "chunked_reduce": ("src/repro_torch/kernels/csrc/chunked_reduce.cu",
+                       "src/repro/kernels/chunked_reduce.py:40"),
+    "all_gather_matmul": ("src/repro_torch/kernels/csrc/"
+                          "all_gather_matmul.cu",
+                          "src/repro/kernels/fused_collectives.py:192"),
+}
 
 
 def log(msg: str) -> None:
@@ -125,16 +185,196 @@ def device_profile(fn) -> dict:
             "top": [{"kernel": k[:80], "us": t} for k, t in kern[:8]]}
 
 
+def grad_parity(randn, rn, fa, fc) -> list:
+    """Gradients through each differentiable kernel path (kernel
+    forward, explicit backward) against autograd through the plain
+    version, on the same inputs and the same upstream gradient."""
+    out = []
+
+    def compare(name, shape, fns, inputs, g,
+                tol=TOL["grad"][torch.float32]):
+        res = []
+        for fn in fns:
+            xs = [t.clone().requires_grad_() for t in inputs]
+            (fn(*xs) * g).sum().backward()
+            res.append([t.grad for t in xs])
+        errs = [close(a, b, *tol) for a, b in zip(*res)]
+        out.append({"kernel": name, "check": "grad", "shape": shape,
+                    "dtype": str(torch.float32), "tolerance": tol,
+                    "max_abs_err": max(e for e, _ in errs),
+                    "ok": all(ok for _, ok in errs)})
+
+    compare("rms_norm", [PROMPT, 2048], (rn.rms_norm, rn.rms_norm_plain),
+            [randn(PROMPT, 2048), randn(2048)], randn(PROMPT, 2048))
+    qkv = [randn(1, PROMPT, 32, 64) for _ in range(3)]
+    compare("flash_attention", [1, PROMPT, 32, 64],
+            (lambda q, k, v: fa.flash_attention_train(q, k, v, True),
+             lambda q, k, v: fa.flash_attention_plain(q, k, v, True)),
+            qkv, randn(1, PROMPT, 32, 64))
+    t, n, ks, nout = AGM_MAIN
+    # dx contracts over N, dw over T: both through torch.matmul, batched
+    # over the shards on one side and whole on the other
+    compare("all_gather_matmul", list(AGM_MAIN),
+            (fc.fused_dense, lambda x, w: x @ w.reshape(n * ks, nout)),
+            [randn(t, n * ks), randn(n, ks, nout)], randn(t, nout),
+            gemm_tol(max(t, n * ks, nout)))
+    return out
+
+
+def _train_args(extra: list) -> list:
+    """The drive command's flags.  The full-width runs take --lr 3e-5:
+    3 steps give the launcher's schedule no warm-up, and AdamW's first
+    steps move every weight by about lr; on these random weights the
+    loss along that path bottoms out before 1e-4 of travel, so at lr
+    3e-4 and 1e-4 the second update overshoots (losses 12.12, 11.40,
+    14.21 and 12.12, 10.57, 13.14 under all three backends alike)."""
+    return ["--arch", "llama3.2-1b", "--mesh", f"{DP}x1", "--steps",
+            str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
+            str(PROMPT)] + extra
+
+
+def _summarise_profile(per_rank: list) -> dict:
+    """Device time by kernel summed over the ranks.  The ranks' contexts
+    time-slice the card, so a kernel's recorded span can include time
+    the card spent on another rank: these sums say where each rank's
+    device time goes, not how busy the card was (``SmiSampler`` says
+    that)."""
+    top: dict = {}
+    for p in per_rank:
+        for k in p["top"]:
+            top[k["kernel"]] = top.get(k["kernel"], 0.0) + k["us"]
+    return {"wall_us": max(p["wall_us"] for p in per_rank),
+            "kernel_us_sum": sum(p["kernel_us"] for p in per_rank),
+            "copy_us_sum": sum(p["copy_us"] for p in per_rank),
+            "top": [{"kernel": k, "us": v} for k, v in
+                    sorted(top.items(), key=lambda kv: -kv[1])[:12]]}
+
+
+class SmiSampler:
+    """``nvidia-smi``'s utilization.gpu (the share of each sample period
+    in which a kernel of any process ran on the card), power and SM
+    clock, sampled every 100 ms while the ``with`` block lasts."""
+
+    QUERY = "timestamp,utilization.gpu,power.draw,clocks.sm"
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu={self.QUERY}",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.rows = []
+        for line in out.splitlines():
+            parts = [p.strip() for p in line.split(",")]
+            try:
+                t = datetime.datetime.strptime(
+                    parts[0], "%Y/%m/%d %H:%M:%S.%f").timestamp()
+                self.rows.append((t, *(float(p) for p in parts[1:4])))
+            except (ValueError, IndexError):   # a malformed sample line
+                continue
+        return False
+
+    def between(self, t0: float, t1: float) -> dict:
+        rows = [r for r in self.rows if t0 <= r[0] <= t1]
+        if not rows:
+            return {"samples": 0}
+        mean = np.mean(np.asarray(rows)[:, 1:], axis=0)
+        return {"samples": len(rows), "utilization_gpu_mean": mean[0],
+                "power_w_mean": mean[1], "sm_clock_mhz_mean": mean[2]}
+
+
+def train_phase() -> dict:
+    """Phase 7: FSDP training on DP ranks sharing the card."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model
+
+    out: dict = {}
+    # the smoke model: the card's training path against the CPU's
+    scfg = get_config("llama3.2-1b", smoke=True)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        path = os.path.join(tmp, "params.npz")
+        train.save_params_npz(model.init_params(
+            scfg, torch.Generator().manual_seed(0), "cpu"), path)
+        spec = train.spec_from_args(train.build_parser().parse_args(
+            _train_args(["--smoke", "--backend", "cxl",
+                         "--fuse-kernels"])))
+        losses = {}
+        for device in ("cuda", "cpu"):
+            run = train.run_ranks(dataclasses.replace(
+                spec, device=device, params_path=path))[0]
+            losses[device] = [s["loss"] for s in run["steps"]]
+    err = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"]))
+                       / np.abs(losses["cpu"])))
+    out["smoke_card_vs_cpu"] = {"losses": losses, "max_rel_err": err}
+    log(f"[train] smoke model, 3 steps, card vs CPU losses {losses} "
+        f"(max rel err {err:.2e}, rtol 2e-4)")
+    if not err <= 2e-4:
+        fail(f"smoke training on the card differs from the CPU: {losses}")
+
+    # full width and depth, through the launcher's flags
+    runs = {}
+    for label, extra in (("cxl_fused", ["--backend", "cxl",
+                                        "--fuse-kernels"]),
+                         ("cxl", ["--backend", "cxl"]),
+                         ("ring", ["--backend", "ring"])):
+        spec = train.spec_from_args(train.build_parser().parse_args(
+            _train_args(extra + ["--lr", "3e-5"])))
+        spec = dataclasses.replace(spec, profile=label == "cxl_fused")
+        t0 = time.perf_counter()
+        with SmiSampler() as smi:
+            run = train.run_ranks(spec)[0]
+        run["wall_s"] = time.perf_counter() - t0
+        steady = run["steps"][1:]      # step 0 carries the warm-up
+        run["smi_steady"] = smi.between(steady[0]["t_start"],
+                                        steady[-1]["t_end"])
+        log(f"[train] {label} nvidia-smi over steps 1-{len(steady)}: "
+            f"{json.dumps(run['smi_steady'])}")
+        if run.get("profile"):
+            run["profile"] = _summarise_profile(run["profile"])
+            log(f"[train] {label} profile {json.dumps(run['profile'])}")
+        for i, s in enumerate(run["steps"]):
+            log(f"[train] {label} step {i} loss {s['loss']:.6f} "
+                f"{s['step_s']:.3f}s pool {s['pool_bytes']} B launches "
+                f"{json.dumps(s['launches'])}")
+        log(f"[train] {label}: {run['wall_s']:.1f}s with spawn and set-up,"
+            f" peak memory per rank {run.get('peak_memory_gib')} GiB")
+        runs[label] = run
+    out["full_width"] = runs
+    losses = {k: [s["loss"] for s in r["steps"]] for k, r in runs.items()}
+    first = losses["cxl_fused"][0]
+    for label, ls in losses.items():
+        if not all(np.isfinite(ls)):
+            fail(f"{label}: a loss is not finite: {ls}")
+        if abs(ls[0] - first) > 1e-4 * abs(first):
+            fail(f"step-0 losses disagree: {label} {ls[0]} vs "
+                 f"cxl_fused {first}")
+        if not ls[-1] < ls[0]:
+            fail(f"{label}: the loss did not fall: {ls}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from repro_torch.configs import get_config
+    from repro_torch.core import tree
     from repro_torch.kernels import build
+    from repro_torch.kernels import chunked_reduce as cr
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_collectives as fc
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.launch import serve
-    from repro_torch.models import model
+    from repro_torch.models import model, sharding
     from repro_torch.models.pcontext import UNSHARDED
     from repro_torch.serving import ServeConfig, ServeEngine
 
@@ -182,6 +422,33 @@ def main() -> int:
                            "shape": [1, lq, lk, 32, 64], "window": window,
                            "q_offset": q_off, "dtype": str(dtype),
                            "max_abs_err": err, "ok": ok})
+    # the training slice: one rank's segment of a row's FSDP grad bucket
+    cfg = get_config("llama3.2-1b")
+    rs_len = sum(x[0].numel() for x in tree.leaves(
+        model.abstract_params(cfg)["g0"])
+        if x[0].numel() >= sharding.FSDP_MIN_SIZE) // DP
+    for dtype in (torch.float32, torch.bfloat16):
+        for n_src in (2, 4, 16):
+            for length in (rs_len, RAGGED):
+                x = randn(n_src, length, dtype=dtype)
+                err, ok = close(cr.chunked_reduce(x),
+                                cr.chunked_reduce_plain(x),
+                                *TOL["chunked_reduce"][dtype])
+                parity.append({"kernel": "chunked_reduce",
+                               "shape": [n_src, length],
+                               "dtype": str(dtype), "max_abs_err": err,
+                               "tolerance": TOL["chunked_reduce"][dtype],
+                               "ok": ok})
+    for t, n, ks, nout in AGM_SHAPES:
+        x, w = randn(t, n * ks), randn(n, ks, nout)
+        err, ok = close(fc.all_gather_matmul(x, w),
+                        fc.all_gather_matmul_plain(x, w), *gemm_tol(n * ks))
+        parity.append({"kernel": "all_gather_matmul",
+                       "shape": [t, n, ks, nout], "dtype": str(torch.float32),
+                       "max_abs_err": err, "tolerance": gemm_tol(n * ks),
+                       "ok": ok})
+    parity += grad_parity(randn, rn, fa, fc)
+    del x, w
     torch.cuda.synchronize()
     record["parity"] = parity
     for p in parity:
@@ -220,11 +487,35 @@ def main() -> int:
     }
     xd = randn(SLOTS, 2048)
     timing["rms_norm"]["decode_ms"] = timer(lambda: rn.rms_norm(xd, s))
+    xr = randn(DP, rs_len)
+    timing["chunked_reduce"] = {
+        "ms": timer(lambda: cr.chunked_reduce(xr)),
+        "plain_ms": timer(lambda: cr.chunked_reduce_plain(xr)),
+        "library_ms": timer(lambda: torch.sum(xr, 0)),
+        "bytes": (DP + 1) * rs_len * 4, "flops": DP * rs_len,
+        "shape": [DP, rs_len]}
+    agm = {}
+    for t, n, ks, nout in AGM_SHAPES:
+        xa, wa = randn(t, n * ks), randn(n, ks, nout)
+        agm[f"{t}x{n * ks}@{n}x{ks}x{nout}"] = {
+            "ms": timer(lambda: fc.all_gather_matmul(xa, wa)),
+            "plain_ms": timer(lambda: fc.all_gather_matmul_plain(xa, wa)),
+            "library_ms": timer(lambda: torch.matmul(
+                xa, wa.reshape(n * ks, nout))),
+            "bytes": (t * n * ks + n * ks * nout + t * nout) * 4,
+            "flops": 2 * t * n * ks * nout, "shape": [t, n, ks, nout]}
+    t, n, ks, nout = AGM_MAIN
+    timing["all_gather_matmul"] = dict(agm[f"{t}x{n * ks}@{n}x{ks}x{nout}"])
+    for rec in list(agm.values()) + list(timing.values()):
+        byte_ms = rec["bytes"] / HBM_BW * 1e3
+        op_ms = rec["flops"] / PEAK[torch.float32] * 1e3
+        rec["bound_ms"] = max(byte_ms, op_ms)
+        rec["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
+    record["all_gather_matmul_shapes"] = agm
+    for key, rec in agm.items():
+        log(f"[timing] all_gather_matmul {key} {json.dumps(rec)}")
+    del xr, xa, wa
     for name, t in timing.items():
-        byte_ms = t["bytes"] / HBM_BW * 1e3
-        op_ms = t["flops"] / PEAK[torch.float32] * 1e3
-        t["bound_ms"] = max(byte_ms, op_ms)
-        t["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
         log(f"[timing] {name} {json.dumps(t)}")
     record["timing"] = timing
     del x, s, q, k, v, qh, kh, vh, xd
@@ -371,30 +662,55 @@ def main() -> int:
     record["serve"] = serve_rec
     record["launches"] = launches
 
-    # 6. launch check ----------------------------------------------------
-    total = {n: sum(p[n] for p in launches.values())
-             for n in ("rms_norm", "flash_attention")}
-    for name, n in total.items():
+    del params, eng, trace
+    torch.cuda.empty_cache()
+
+    # 6. collectives on one card ------------------------------------------
+    from repro_torch.launch import collectives
+    t0 = time.perf_counter()
+    rows = collectives.bench(DP, (1, 16, 256), reps=3, device="cuda")
+    for r in rows:
+        log(f"[collectives] {json.dumps(r)}")
+    record["collectives"] = rows
+    log(f"[collectives] {len(rows)} cells in "
+        f"{time.perf_counter() - t0:.1f}s")
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"collectives disagree with the numpy oracle: {bad}")
+
+    # 7. training ---------------------------------------------------------
+    record["train"] = train_phase()
+    train_launches = {n: sum(s["launches"][n] for run in
+                             record["train"]["full_width"].values()
+                             for s in run["steps"])
+                      for n in KERNELS}
+    record["train"]["launches"] = train_launches
+
+    # 8. launch check ----------------------------------------------------
+    serve_launches = {n: sum(p[n] for p in launches.values())
+                      for n in ("rms_norm", "flash_attention")}
+    for name, n in serve_launches.items():
         if n <= 0:
             fail(f"the serving path never launched the {name} kernel")
+    for name, n in train_launches.items():
+        if n <= 0:
+            fail(f"the training path never launched the {name} kernel")
 
-    # 7. output lines ----------------------------------------------------
-    replaces = {"rms_norm": "src/repro/kernels/rmsnorm.py:36",
-                "flash_attention": "src/repro/kernels/flash_attention.py:91"}
+    # 9. output lines ----------------------------------------------------
     kernels = []
-    for name in ("rms_norm", "flash_attention"):
+    for name in KERNELS:
         t = timing[name]
         main = [p for p in parity if p["kernel"] == name
-                and p["dtype"] == str(torch.float32)]
+                and p["dtype"] == str(torch.float32) and "check" not in p]
+        by_path = {"train": train_launches[name]}
+        if name in serve_launches:
+            by_path["serve"] = serve_launches[name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/"
-                      f"{'rmsnorm' if name == 'rms_norm' else name}.cu",
-            "replaces": replaces[name], "launches": total[name],
-            "launches_by_run": {k: v[name] for k, v in launches.items()},
-            "max_abs_err": main[0]["max_abs_err"],
-            "tolerance": TOL[name][torch.float32],
-            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(p["max_abs_err"] for p in main),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "shape": t["shape"],
             "dtype": "float32"})

@@ -26,3 +26,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (a no-op on the CPU), so a host
+    clock read after it times the work and not its enqueueing."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

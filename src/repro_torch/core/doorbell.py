@@ -11,14 +11,17 @@ pre-allocated doorbell region (no allocator, no metadata) - that is the
 paper's "lightweight, index-calculation-based" locking mechanism.
 
 This module provides the host-side (Python) state machine used by the
-functional pool emulation and the event-driven simulator.  The TPU mesh
-backend needs no doorbells: data dependence of the ppermute chain enforces
-the same RAW ordering (see DESIGN.md, hardware adaptation).
+functional pool emulation and the event-driven simulator, and
+:class:`EpochWords`, the same index-addressed words living in a shared
+host buffer, which the ``cxl`` backend's :class:`core.pool.SharedPool`
+rings across processes.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+
+import numpy as np
 
 DOORBELL_BYTES = 64  # one cache line per doorbell
 
@@ -242,3 +245,42 @@ class HeartbeatRegion:
         if not 0 <= rank < self.nranks:
             raise IndexError(
                 f"heartbeat rank {rank} out of range [0, {self.nranks})")
+
+
+class EpochWords:
+    """Index-addressed int64 words in shared pool memory, one per
+    ``DOORBELL_BYTES`` cache line, holding an epoch (a per-call sequence
+    number) rather than a READY flag: the same words serve every call,
+    so a consumer waits for "the word reached my epoch", and a word left
+    over from an earlier call can never read as ready.
+
+    ``mem`` is a uint8 numpy view of the shared buffer (every process
+    maps the same bytes).  Only the owner of a word stores to it; an
+    aligned 8-byte store is atomic on the host, so readers see the old
+    or the new epoch, never a torn one.
+    """
+
+    def __init__(self, mem: np.ndarray, capacity: int):
+        if capacity <= 0:
+            raise ValueError("epoch word capacity must be positive")
+        nbytes = capacity * DOORBELL_BYTES
+        if mem.dtype != np.uint8 or mem.nbytes < nbytes:
+            raise ValueError(f"need {nbytes} bytes of uint8 pool memory "
+                             f"for {capacity} words")
+        self.capacity = capacity
+        self._words = mem[:nbytes].view(np.int64)
+
+    def ring(self, index: int, epoch: int) -> None:
+        """Owner: publish ``epoch`` in word ``index``."""
+        self._check(index)
+        self._words[index * (DOORBELL_BYTES // 8)] = epoch
+
+    def read(self, index: int) -> int:
+        """Any rank: the epoch word ``index`` holds now."""
+        self._check(index)
+        return int(self._words[index * (DOORBELL_BYTES // 8)])
+
+    def _check(self, index: int) -> None:
+        if not 0 <= index < self.capacity:
+            raise IndexError(
+                f"word index {index} out of range [0, {self.capacity})")

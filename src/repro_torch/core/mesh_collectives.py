@@ -1,0 +1,399 @@
+"""The flat collectives of the port, over a ``torch.distributed`` group.
+
+Port of the flat primitives of ``repro.core.mesh_collectives`` (all_gather,
+reduce_scatter, all_reduce in ``faithful`` and ``two_phase`` mode,
+all_to_all, broadcast, reduce, gather, scatter, and the p2p ring shift),
+with the reference's semantics: rank-major ``tiled`` layout along axis 0,
+a leading dim that must divide the axis for reduce_scatter / all_to_all /
+scatter (``ValueError``), padding in two-phase mode, and zeros on the
+non-root ranks of reduce and gather.
+
+Two realizations:
+
+* ``ring_*`` - the group's built-in collectives (the baseline; what NCCL
+  would do across cards).  The ranks of a one-card mesh run on ``gloo``,
+  which takes CUDA tensors only for broadcast and all_reduce, so the other
+  primitives stage CUDA tensors through the host.
+* the plain names - the paper's pool schedules on the shared host pool
+  (``core.pool.SharedPool``): every rank publishes its buffer into its own
+  partition, consumers retrieve the byte ranges they need, and a reduce /
+  reduce-scatter / all-reduce lands the N partials of the rank's segment
+  in one (n_src, L) buffer that the ``chunked_reduce`` kernel sums.  The
+  slicing factor is the number of doorbell-committed chunks per round
+  (``core.pool.split_window``).  On the TPU the reference realized these
+  schedules as ppermute rings; here they are what the paper built.
+
+Hierarchical (tuple) axes and the ragged/grouped schedules are not ported
+yet (ROADMAP queue 1, items 5-6).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core.pool import SharedPool
+from repro_torch.kernels.chunked_reduce import chunked_reduce
+
+DEFAULT_CHUNKS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """One flat mesh axis: this rank's place in a process group, and the
+    shared pool its ``cxl`` collectives run on (None: ring only)."""
+
+    name: str
+    rank: int
+    size: int
+    group: Optional[dist.ProcessGroup] = None    # None: the default group
+    pool: Optional[SharedPool] = None
+
+    def global_rank(self, r: int) -> int:
+        return r if self.group is None else dist.get_global_rank(
+            self.group, r)
+
+    def need_pool(self) -> SharedPool:
+        if self.pool is None:
+            raise ValueError(f"axis {self.name!r} has no shared pool: the "
+                             f"cxl backend needs one")
+        return self.pool
+
+
+def _lead(x: torch.Tensor) -> int:
+    return x.shape[0] if x.dim() else 1
+
+
+def _check_divides(x: torch.Tensor, n: int) -> None:
+    if _lead(x) % n:
+        raise ValueError(f"leading dim {_lead(x)} must divide axis {n}")
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """A flat uint8 view of a contiguous tensor."""
+    return x.reshape(-1).view(torch.uint8)
+
+
+def _gathered_shape(x: torch.Tensor, n: int) -> tuple:
+    return (n * _lead(x),) + tuple(x.shape[1:])
+
+
+def _split_chunks(x: torch.Tensor, n_chunks: int) -> list:
+    """Split along axis 0 (the paper's slicing factor), one chunk when
+    the leading dim does not divide: the reference's rule.  The pool
+    schedules commit ``len`` of it chunks per round, each behind its own
+    doorbell."""
+    lead = _lead(x)
+    if n_chunks <= 1 or x.dim() == 0 or lead % n_chunks:
+        return [x]
+    return list(torch.split(x, lead // n_chunks))
+
+
+def _segment(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Rank 0's segment of ``x`` split over ``n`` ranks (for its shape)."""
+    return x[:_lead(x) // n] if x.dim() else x
+
+
+# --------------------------------------------------------------------- #
+# ring: the group's built-in collectives
+# --------------------------------------------------------------------- #
+
+def _host(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous().cpu()
+
+
+def ring_all_gather(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    if ax.size == 1:
+        return x
+    out = torch.empty(_gathered_shape(x, ax.size), dtype=x.dtype)
+    dist.all_gather_into_tensor(out, _host(x), group=ax.group)
+    return out.to(x.device)
+
+
+def ring_reduce_scatter(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    if ax.size == 1:
+        return x
+    _check_divides(x, ax.size)
+    out = torch.empty((x.shape[0] // ax.size,) + tuple(x.shape[1:]),
+                      dtype=x.dtype)
+    dist.reduce_scatter_tensor(out, _host(x), group=ax.group)
+    return out.to(x.device)
+
+
+def ring_all_reduce(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    if ax.size == 1:
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=ax.group)
+    return out
+
+
+def ring_all_to_all(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    if ax.size == 1:
+        return x
+    _check_divides(x, ax.size)
+    out = torch.empty(x.shape, dtype=x.dtype)
+    dist.all_to_all_single(out, _host(x), group=ax.group)
+    return out.to(x.device)
+
+
+def ring_broadcast(x: torch.Tensor, ax: AxisGroup,
+                   root: int = 0) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.broadcast(out, src=ax.global_rank(root), group=ax.group)
+    return out
+
+
+def ring_reduce(x: torch.Tensor, ax: AxisGroup,
+                root: int = 0) -> torch.Tensor:
+    out = _host(x).clone()
+    dist.reduce(out, dst=ax.global_rank(root), group=ax.group)
+    if ax.rank != root:
+        return torch.zeros_like(x)
+    return out.to(x.device)
+
+
+def ring_gather(x: torch.Tensor, ax: AxisGroup,
+                root: int = 0) -> torch.Tensor:
+    parts = [torch.empty(x.shape, dtype=x.dtype) for _ in range(ax.size)] \
+        if ax.rank == root else None
+    dist.gather(_host(x), parts, dst=ax.global_rank(root), group=ax.group)
+    if ax.rank != root:
+        return torch.zeros(_gathered_shape(x, ax.size), dtype=x.dtype,
+                           device=x.device)
+    return torch.cat([p.reshape((_lead(x),) + tuple(x.shape[1:]))
+                      for p in parts]).to(x.device)
+
+
+def ring_scatter(x: torch.Tensor, ax: AxisGroup,
+                 root: int = 0) -> torch.Tensor:
+    _check_divides(x, ax.size)
+    seg = (x.shape[0] // ax.size,) + tuple(x.shape[1:])
+    parts = [p.contiguous() for p in _host(x).reshape(
+        (ax.size,) + seg)] if ax.rank == root else None
+    out = torch.empty(seg, dtype=x.dtype)
+    dist.scatter(out, parts, src=ax.global_rank(root), group=ax.group)
+    return out.to(x.device)
+
+
+def ring_p2p(x: torch.Tensor, ax: AxisGroup, shift: int = 1) -> torch.Tensor:
+    n = ax.size
+    if n == 1 or shift % n == 0:
+        return x
+    out = torch.empty(x.shape, dtype=x.dtype)
+    reqs = [dist.isend(_host(x), ax.global_rank((ax.rank + shift) % n),
+                       group=ax.group),
+            dist.irecv(out, ax.global_rank((ax.rank - shift) % n),
+                       group=ax.group)]
+    for r in reqs:
+        r.wait()
+    return out.to(x.device)
+
+
+# --------------------------------------------------------------------- #
+# cxl: the paper's schedules on the shared host pool
+# --------------------------------------------------------------------- #
+
+def _others(ax: AxisGroup) -> list:
+    """Peers in the paper's read rotation, from (rank + 1) % n."""
+    return [(ax.rank + t) % ax.size for t in range(1, ax.size)]
+
+
+def all_gather(x: torch.Tensor, ax: AxisGroup,
+               n_chunks: int = DEFAULT_CHUNKS) -> torch.Tensor:
+    """Every rank publishes its shard; every rank retrieves the others'
+    into a rank-major output (``tiled=True`` semantics)."""
+    n = ax.size
+    if n == 1:
+        return x
+    x = x.contiguous()
+    s = x.numel() * x.element_size()
+    out = torch.empty(_gathered_shape(x, n), dtype=x.dtype, device=x.device)
+    ob = _bytes(out)
+    ob[ax.rank * s:(ax.rank + 1) * s].copy_(_bytes(x))
+    ax.need_pool().exchange(_bytes(x), s,
+                            [(p, 0, ob[p * s:(p + 1) * s])
+                             for p in _others(ax)],
+                            len(_split_chunks(x, n_chunks)))
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, ax: AxisGroup,
+                   n_chunks: int = DEFAULT_CHUNKS) -> torch.Tensor:
+    """Rank r returns ``sum_ranks(x)[r*seg:(r+1)*seg]``: it retrieves the
+    N partials of its own segment and reduces them locally."""
+    n = ax.size
+    if n == 1:
+        return x
+    _check_divides(x, n)
+    x = x.contiguous()
+    flat = x.reshape(-1)
+    seg_len = flat.numel() // n
+    sb = seg_len * flat.element_size()
+    buf = torch.empty((n, seg_len), dtype=x.dtype, device=x.device)
+    bb = _bytes(buf)
+    xb = _bytes(flat)
+    lo, hi = ax.rank * sb, (ax.rank + 1) * sb
+    bb[lo:hi].copy_(xb[lo:hi])
+    # nobody reads my own segment of my buffer: leave it unpublished
+    ax.need_pool().exchange(xb, flat.numel() * flat.element_size(),
+                            [(p, lo, bb[p * sb:(p + 1) * sb])
+                             for p in _others(ax)],
+                            len(_split_chunks(_segment(x, n), n_chunks)),
+                            skip=(lo, hi))
+    return chunked_reduce(buf).reshape((x.shape[0] // n,)
+                                       + tuple(x.shape[1:]))
+
+
+def all_reduce(x: torch.Tensor, ax: AxisGroup, *, mode: str = "two_phase",
+               n_chunks: int = DEFAULT_CHUNKS) -> torch.Tensor:
+    """``faithful``: every rank retrieves every peer's full buffer and
+    reduces locally (the paper's Sec. 5.2 algorithm).  ``two_phase``:
+    reduce_scatter + all_gather of the padded flat buffer."""
+    n = ax.size
+    if n == 1:
+        return x
+    if mode == "faithful":
+        x = x.contiguous()
+        flat = x.reshape(-1)
+        s = flat.numel() * flat.element_size()
+        buf = torch.empty((n, flat.numel()), dtype=x.dtype, device=x.device)
+        bb = _bytes(buf)
+        bb[ax.rank * s:(ax.rank + 1) * s].copy_(_bytes(flat))
+        ax.need_pool().exchange(_bytes(flat), s,
+                                [(p, 0, bb[p * s:(p + 1) * s])
+                                 for p in _others(ax)],
+                                len(_split_chunks(x, n_chunks)))
+        return chunked_reduce(buf).reshape(x.shape)
+    if mode == "two_phase":
+        flat = x.reshape(-1)
+        pad = (-flat.numel()) % n
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        seg = reduce_scatter(flat, ax, n_chunks=n_chunks)
+        full = all_gather(seg, ax, n_chunks=n_chunks)
+        if pad:
+            full = full[:-pad]
+        return full.reshape(x.shape)
+    raise ValueError(f"unknown all_reduce mode {mode!r}")
+
+
+def all_to_all(x: torch.Tensor, ax: AxisGroup,
+               n_chunks: int = DEFAULT_CHUNKS) -> torch.Tensor:
+    """Segment p of the result is rank p's segment ``my_rank``."""
+    n = ax.size
+    if n == 1:
+        return x
+    _check_divides(x, n)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    xb, ob = _bytes(x), _bytes(out)
+    sb = xb.numel() // n
+    lo, hi = ax.rank * sb, (ax.rank + 1) * sb
+    ob[lo:hi].copy_(xb[lo:hi])
+    ax.need_pool().exchange(xb, xb.numel(),
+                            [(p, lo, ob[p * sb:(p + 1) * sb])
+                             for p in _others(ax)],
+                            len(_split_chunks(_segment(x, n), n_chunks)),
+                            skip=(lo, hi))
+    return out
+
+
+def broadcast(x: torch.Tensor, ax: AxisGroup, root: int = 0,
+              n_chunks: int = DEFAULT_CHUNKS) -> torch.Tensor:
+    """The root publishes; every other rank retrieves."""
+    n = ax.size
+    if n == 1:
+        return x
+    x = x.contiguous()
+    k = len(_split_chunks(x, n_chunks))
+    s = x.numel() * x.element_size()
+    if ax.rank == root:
+        ax.need_pool().exchange(_bytes(x), s, [], k)
+        return x
+    out = torch.empty_like(x)
+    ax.need_pool().exchange(None, s, [(root, 0, _bytes(out))], k)
+    return out
+
+
+def reduce(x: torch.Tensor, ax: AxisGroup, root: int = 0,
+           n_chunks: int = DEFAULT_CHUNKS) -> torch.Tensor:
+    """The root retrieves every peer's buffer and reduces it; the other
+    ranks publish and return zeros."""
+    n = ax.size
+    if n == 1:
+        return x
+    x = x.contiguous()
+    k = len(_split_chunks(x, n_chunks))
+    flat = x.reshape(-1)
+    s = flat.numel() * flat.element_size()
+    if ax.rank != root:
+        ax.need_pool().exchange(_bytes(flat), s, [], k)
+        return torch.zeros_like(x)
+    buf = torch.empty((n, flat.numel()), dtype=x.dtype, device=x.device)
+    bb = _bytes(buf)
+    bb[root * s:(root + 1) * s].copy_(_bytes(flat))
+    ax.need_pool().exchange(None, s, [(p, 0, bb[p * s:(p + 1) * s])
+                                      for p in _others(ax)], k)
+    return chunked_reduce(buf).reshape(x.shape)
+
+
+def gather(x: torch.Tensor, ax: AxisGroup, root: int = 0,
+           n_chunks: int = DEFAULT_CHUNKS) -> torch.Tensor:
+    """Gather-to-root (rank order along axis 0); non-root ranks zeros."""
+    n = ax.size
+    if n == 1:
+        return x
+    x = x.contiguous()
+    k = len(_split_chunks(x, n_chunks))
+    s = x.numel() * x.element_size()
+    if ax.rank != root:
+        ax.need_pool().exchange(_bytes(x), s, [], k)
+        return torch.zeros(_gathered_shape(x, n), dtype=x.dtype,
+                           device=x.device)
+    out = torch.empty(_gathered_shape(x, n), dtype=x.dtype, device=x.device)
+    ob = _bytes(out)
+    ob[root * s:(root + 1) * s].copy_(_bytes(x))
+    ax.need_pool().exchange(None, s, [(p, 0, ob[p * s:(p + 1) * s])
+                                      for p in _others(ax)], k)
+    return out
+
+
+def scatter(x: torch.Tensor, ax: AxisGroup, root: int = 0,
+            n_chunks: int = DEFAULT_CHUNKS) -> torch.Tensor:
+    """Rank r receives segment r of the root's axis 0."""
+    n = ax.size
+    if n == 1:
+        return x
+    _check_divides(x, n)
+    x = x.contiguous()
+    k = len(_split_chunks(x, n_chunks))
+    seg = (x.shape[0] // n,) + tuple(x.shape[1:])
+    xb = _bytes(x)
+    sb = xb.numel() // n
+    if ax.rank == root:
+        lo, hi = root * sb, (root + 1) * sb
+        ax.need_pool().exchange(xb, xb.numel(), [], k, skip=(lo, hi))
+        return x[root * seg[0]:(root + 1) * seg[0]]
+    out = torch.empty(seg, dtype=x.dtype, device=x.device)
+    ax.need_pool().exchange(None, xb.numel(),
+                            [(root, ax.rank * sb, _bytes(out))], k)
+    return out
+
+
+def p2p_shift(x: torch.Tensor, ax: AxisGroup, shift: int = 1,
+              n_chunks: int = DEFAULT_CHUNKS) -> torch.Tensor:
+    """Every rank sends ``x`` to the rank ``shift`` ahead and returns the
+    payload from the rank ``shift`` behind (cyclic): a pool write, a
+    doorbell commit and the consumer's read."""
+    n = ax.size
+    if n == 1 or shift % n == 0:
+        return x
+    x = x.contiguous()
+    k = len(_split_chunks(x, n_chunks))
+    out = torch.empty_like(x)
+    ax.need_pool().exchange(_bytes(x), x.numel() * x.element_size(),
+                            [((ax.rank - shift) % n, 0, _bytes(out))], k)
+    return out

@@ -1,20 +1,35 @@
-"""Pool fault shim and the fixed-size block allocator of the pool tier.
+"""Pool fault shim, the block allocator of the pool tier, and the shared
+host pool of the ``cxl`` backend.
 
 Ported from ``repro.core.pool`` (framework-free): the fault hook that
-every emulated pool access consults, bounded retry-with-backoff, and
+every pool access consults, bounded retry-with-backoff, and
 :class:`PoolBlockAllocator`, which the serving KV tier
 (``repro_torch.serving.kvcache``) stores evicted and prefix-shared cache
 pages in.  ``PoolEmulator``, ``execute`` and ``run_collective`` (the
 collective schedule emulation) come with the pool-machinery slice.
+
+:class:`SharedPool` is the pool as the paper built it, on one host: a
+buffer every rank maps (pinned with ``cudaHostRegister`` when the ranks
+run on a card), one data partition per rank (N->N writers never touch
+another rank's partition), and two regions of epoch words
+(``core.doorbell.EpochWords``): a doorbell per (producer, chunk) and a
+done word per consumer.  Producers publish chunks with device-to-host
+copies and ring the chunk's doorbell only once the copy has landed;
+consumers poll, retrieve with host-to-device copies, and ring their done
+word once those copies have landed, which is what lets a producer
+overwrite its partition in the next round.
 """
 from __future__ import annotations
 
+import os
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
-from repro_torch.core.hw import CXL_POOL, CXLPoolConfig
+from repro_torch.core.doorbell import DOORBELL_BYTES, EpochWords
+from repro_torch.core.hw import CXL_POOL, CXLPoolConfig, MiB
 
 
 class PoolAccessError(RuntimeError):
@@ -208,3 +223,212 @@ class PoolBlockAllocator:
         if not 0 <= block < self.num_blocks:
             raise IndexError(
                 f"pool block {block} out of range [0, {self.num_blocks})")
+
+
+# --------------------------------------------------------------------- #
+# the shared host pool of the cxl backend
+# --------------------------------------------------------------------- #
+
+DEFAULT_PARTITION_BYTES = 256 * MiB   # one rank's window per round
+MAX_CHUNKS = 64                       # doorbells per producer
+_PAGE = 4096
+_CHUNK_ALIGN = 256
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def split_window(lo: int, hi: int, n_chunks: int) -> list:
+    """The slicing factor on the pool: byte range [lo, hi) of one round
+    cut into at most ``n_chunks`` chunks (256-byte aligned, the last one
+    ragged), each with its own doorbell, so a consumer retrieves chunk k
+    while the producer still writes chunk k+1."""
+    if hi <= lo:
+        return []
+    n = max(1, min(int(n_chunks), MAX_CHUNKS))
+    step = _round_up(-(-(hi - lo) // n), _CHUNK_ALIGN)
+    return [(a, min(hi, a + step)) for a in range(lo, hi, step)]
+
+
+def create_backing(nbytes: int) -> tuple:
+    """Anonymous shared memory for a pool of ``nbytes`` (``memfd``: not
+    bounded by the size of ``/dev/shm``).  Returns (path, fd): every
+    process of this host maps ``path``; the creator keeps ``fd`` open
+    until the ranks are done and then closes it."""
+    fd = os.memfd_create("repro-cxl-pool")
+    os.ftruncate(fd, nbytes)
+    return f"/proc/{os.getpid()}/fd/{fd}", fd
+
+
+class SharedPool:
+    """One rank's handle on the shared host pool.
+
+    Layout: ``nranks * MAX_CHUNKS`` doorbell words, ``nranks`` done
+    words (one cache line each, page-rounded), then ``nranks`` data
+    partitions of ``partition_bytes``.  A collective is one
+    :meth:`exchange`: every rank may publish a byte buffer and retrieve
+    byte ranges of the others'.  A buffer larger than the partition
+    streams through it in rounds; each round is one epoch on every rank
+    (all ranks issue the same collectives in the same order, so their
+    epochs agree).  Every wait has a deadline and raises
+    :class:`PoolAccessError`, so a lost rank fails instead of hanging.
+    """
+
+    def __init__(self, path: str, nranks: int, rank: int,
+                 partition_bytes: int, device, *,
+                 timeout_s: float = 600.0, poll_s: float = 50e-6):
+        if not 0 <= rank < nranks:
+            raise ValueError(f"rank {rank} out of range [0, {nranks})")
+        self.nranks, self.rank = nranks, rank
+        self.partition_bytes = _round_up(int(partition_bytes), _PAGE)
+        self.device = torch.device(device)
+        self.timeout_s, self.poll_s = timeout_s, poll_s
+        self.words_bytes = self.words_region_bytes(nranks)
+        total = self.total_bytes(nranks, partition_bytes)
+        self.buf = torch.from_file(path, shared=True, size=total,
+                                   dtype=torch.uint8)
+        self._registered = False
+        if self.device.type == "cuda":
+            # portable (flag 1): pinned for every context of the process
+            err = torch.cuda.cudart().cudaHostRegister(
+                self.buf.data_ptr(), total, 1)
+            if int(err) != 0:
+                raise RuntimeError(f"cudaHostRegister of the {total}-byte "
+                                   f"pool failed: cudaError {int(err)}")
+            self._registered = True
+        mem = self.buf.numpy()
+        n_bells = nranks * MAX_CHUNKS
+        self.doorbells = EpochWords(mem, n_bells)
+        self.done = EpochWords(mem[n_bells * DOORBELL_BYTES:], nranks)
+        self.epoch = 0
+        # telemetry: bytes this rank copied into / out of the pool
+        self.bytes_published = 0
+        self.bytes_retrieved = 0
+        self.rounds = 0
+
+    @staticmethod
+    def words_region_bytes(nranks: int) -> int:
+        return _round_up((nranks * MAX_CHUNKS + nranks) * DOORBELL_BYTES,
+                         _PAGE)
+
+    @classmethod
+    def total_bytes(cls, nranks: int, partition_bytes: int) -> int:
+        return cls.words_region_bytes(nranks) \
+            + nranks * _round_up(int(partition_bytes), _PAGE)
+
+    def partition(self, rank: int) -> torch.Tensor:
+        """Rank ``rank``'s data partition (a uint8 view of the pool)."""
+        off = self.words_bytes + rank * self.partition_bytes
+        return self.buf[off:off + self.partition_bytes]
+
+    def close(self) -> None:
+        if self._registered:
+            torch.cuda.cudart().cudaHostUnregister(self.buf.data_ptr())
+            self._registered = False
+
+    # -- one collective -------------------------------------------------
+
+    def exchange(self, send: Optional[torch.Tensor], nbytes: int,
+                 wants: Sequence[tuple], n_chunks: int,
+                 skip: Optional[tuple] = None) -> None:
+        """Publish ``send`` (a flat uint8 tensor of ``nbytes``, or None
+        when this rank publishes nothing) and retrieve ``wants``: tuples
+        (src rank, byte offset in src's buffer, flat uint8 destination),
+        each destination filled with ``dst.numel()`` bytes from there.
+        ``nbytes`` is the size of every producer's buffer (the same on
+        all ranks); ``skip`` is a byte range of ``send`` nobody reads,
+        left unpublished.  Returns once every wanted byte has landed."""
+        cuda = self.device.type == "cuda"
+        window = self.partition_bytes
+        for lo in range(0, max(nbytes, 1), window):
+            hi = min(nbytes, lo + window)
+            self.epoch += 1
+            chunks = split_window(lo, hi, n_chunks)
+            if send is not None:
+                self._wait_done(self.epoch - 1)
+                self._publish(send, lo, chunks, skip, cuda)
+            self._retrieve(wants, lo, chunks, cuda)
+            self.done.ring(self.rank, self.epoch)
+            self.rounds += 1
+
+    def _deadline_passed(self, t_end: float, what: str) -> None:
+        if time.monotonic() > t_end:
+            raise PoolAccessError(
+                f"rank {self.rank}: {what} not reached within "
+                f"{self.timeout_s:.0f}s (epoch {self.epoch})")
+
+    def _wait_done(self, epoch: int) -> None:
+        """A producer may overwrite its partition only once every
+        consumer has finished the previous round."""
+        t_end = time.monotonic() + self.timeout_s
+        for c in range(self.nranks):
+            if c == self.rank:
+                continue
+            while self.done.read(c) < epoch:
+                self._deadline_passed(t_end, f"done word of rank {c}")
+                time.sleep(self.poll_s)
+
+    def _publish(self, send, lo, chunks, skip, cuda) -> None:
+        part = self.partition(self.rank)
+        base = self.words_bytes + self.rank * self.partition_bytes
+        events = []
+        for a, b in chunks:
+            for u, v in _minus((a, b), skip):
+                check_fault("write", rank=self.rank, offset=base + u - lo,
+                            size=v - u)
+                part[u - lo:v - lo].copy_(send[u:v], non_blocking=cuda)
+                self.bytes_published += v - u
+            if cuda:
+                ev = torch.cuda.Event()
+                ev.record()
+                events.append(ev)
+        for ci in range(len(chunks)):
+            if cuda:
+                # ring only once the chunk's copy has landed in the pool
+                events[ci].synchronize()
+            self.doorbells.ring(self.rank * MAX_CHUNKS + ci, self.epoch)
+
+    def _retrieve(self, wants, lo, chunks, cuda) -> None:
+        pending = []
+        for src, src_lo, dst in wants:
+            src_hi = src_lo + dst.numel()
+            for ci, (a, b) in enumerate(chunks):
+                u, v = max(a, src_lo), min(b, src_hi)
+                if u < v:
+                    pending.append((src, ci, u, v, dst, src_lo))
+        # the paper's read rotation: start from (rank + 1) % nranks
+        pending.sort(key=lambda t: ((t[0] - self.rank - 1) % self.nranks,
+                                    t[1]))
+        copied = bool(pending)
+        t_end = time.monotonic() + self.timeout_s
+        while pending:
+            rest = []
+            for item in pending:
+                src, ci, u, v, dst, src_lo = item
+                if self.doorbells.read(src * MAX_CHUNKS + ci) < self.epoch:
+                    rest.append(item)
+                    continue
+                base = self.words_bytes + src * self.partition_bytes
+                check_fault("read", rank=self.rank, src=src,
+                            offset=base + u - lo, size=v - u)
+                dst[u - src_lo:v - src_lo].copy_(
+                    self.partition(src)[u - lo:v - lo], non_blocking=cuda)
+                self.bytes_retrieved += v - u
+            if len(rest) == len(pending):
+                self._deadline_passed(t_end, f"doorbell of rank "
+                                             f"{rest[0][0]} chunk "
+                                             f"{rest[0][1]}")
+                time.sleep(self.poll_s)
+            pending = rest
+        if cuda and copied:
+            # done may be rung only once the retrieved bytes have landed
+            torch.cuda.current_stream(self.device).synchronize()
+
+
+def _minus(span: tuple, skip: Optional[tuple]) -> list:
+    """``span`` minus the ``skip`` range, as 0-2 non-empty ranges."""
+    a, b = span
+    if skip is None or skip[1] <= a or skip[0] >= b:
+        return [(a, b)]
+    return [(u, v) for u, v in ((a, skip[0]), (skip[1], b)) if u < v]

@@ -20,7 +20,8 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch"
-KERNELS = ("rmsnorm", "flash_attention")
+KERNELS = ("rmsnorm", "flash_attention", "chunked_reduce",
+           "all_gather_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -12,7 +12,10 @@
 // Semantics follow models/flash.py exactly: scores are (q . k) * 1/sqrt(D)
 // in f32, masked scores are NEG_INF = -1e30 (not -inf), the running max,
 // normaliser and accumulator are f32 and rescaled per kv tile, and the
-// output is acc / max(l, 1e-20).
+// output is acc / max(l, 1e-20).  For the training path's recompute
+// backward the kernel can also write each row's running max m and
+// normaliser l (f32, (B, Lq, H)); the serving call passes null pointers and
+// skips that write.
 //
 // What bounds it on the H100: operations.  It does 4*D flops per unmasked
 // (query, key) pair, about 2*B*H*Lq*Lk*D for a causal mask, against reading
@@ -112,9 +115,10 @@ __device__ __forceinline__ float row_sum(float v) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int Lq,
-                     int Lk, int H, int causal, int window, int q_offset,
-                     int kv_len, float scale) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
+                     int Lq, int Lk, int H, int causal, int window,
+                     int q_offset, int kv_len, float scale) {
   constexpr int DP = D + 1;
   constexpr int DJ = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -231,13 +235,19 @@ __global__ void __launch_bounds__(kThreads)
     T* orow = ob + static_cast<size_t>(qi) * row_stride;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = from_f32<T>(acc[i][j] / l);
+    if (m_out != nullptr && tx == 0) {  // the 16 lanes of a row agree
+      const size_t row = (b * Lq + qi) * H + h;
+      m_out[row] = m_run[i];
+      l_out[row] = l_run[i];
+    }
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Lq, int Lk, int H, int causal, int window,
-                   int q_offset, int kv_len, cudaStream_t stream) {
+                   float* m_out, float* l_out, int B, int Lq, int Lk, int H,
+                   int causal, int window, int q_offset, int kv_len,
+                   cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   static bool configured = false;
   if (!configured) {
@@ -251,8 +261,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Lq, Lk, H, causal,
-      window, q_offset, kv_len, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), m_out, l_out, Lq, Lk, H,
+      causal, window, q_offset, kv_len, scale);
   return cudaGetLastError();
 }
 
@@ -263,16 +273,19 @@ extern "C" {
 // q/o: (B, Lq, H, D), k/v: (B, Lk, H, D), contiguous, 16-byte aligned.
 // D in {32, 64, 128}; dtype: 0 = float32, 1 = bfloat16.  window <= 0
 // means no window.
-// Keys at positions >= kv_len (<= Lk) are masked.
+// Keys at positions >= kv_len (<= Lk) are masked.  m_out / l_out: null, or
+// (B, Lq, H) f32 for each row's running max and normaliser.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int Lq, int Lk, int H, int D,
+                           void* o, void* m_out, void* l_out, int B, int Lq,
+                           int Lk, int H, int D,
                            int causal, int window, int q_offset, int kv_len,
                            int dtype, void* stream) {
   if (B <= 0 || Lq <= 0 || H <= 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH(T, DD)                                                 \
-  return launch<T, DD>(q, k, v, o, B, Lq, Lk, H, causal, window, q_offset, \
-                       kv_len, st)
+  return launch<T, DD>(q, k, v, o, static_cast<float*>(m_out),            \
+                       static_cast<float*>(l_out), B, Lq, Lk, H, causal,   \
+                       window, q_offset, kv_len, st)
   if (dtype == 0 && D == 32) REPRO_FLASH(float, 32);
   if (dtype == 0 && D == 64) REPRO_FLASH(float, 64);
   if (dtype == 0 && D == 128) REPRO_FLASH(float, 128);

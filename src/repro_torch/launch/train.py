@@ -1,0 +1,314 @@
+"""Training launcher: FSDP training of a dense decoder on one host.
+
+Port of ``repro.launch.train`` for the flags of the FSDP path:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --mesh 4x1 --backend cxl --steps 3 --batch 4 --seq 1024 \\
+      [--fuse-kernels]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --smoke --device cpu --mesh 4x1 --backend cxl --steps 3 --seq 64
+
+The launcher spawns one process per rank (``spawn`` start method); rank
+r runs on ``cuda:(r % device_count)``, so the ranks of a one-card host
+share that card, and on the CPU with ``--device cpu``.  The ranks form a
+``gloo`` process group (file rendezvous in a temporary directory); with
+``--backend cxl`` they also map one shared host pool (``memfd``, pinned
+on each rank with ``cudaHostRegister``) with a 256 MiB partition per
+rank (less for a model whose params are smaller): larger collectives
+stream through it in rounds.  Every kernel is built in this process
+before the ranks start, so they never run ``nvcc`` at once.
+
+Not ported yet: ``--backend auto``, plans and placements (ROADMAP queue 1,
+items 5-6), pipeline stages (item 9), checkpoints, metrics/trace export,
+faults and resilience (item 10), tensor parallelism (item 3).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import gc
+import json
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core import ledger, tree
+from repro_torch.core.device import resolve_device, synchronize
+from repro_torch.core.pool import DEFAULT_PARTITION_BYTES
+from repro_torch.data.pipeline import SyntheticTokens, local_batch
+from repro_torch.kernels import build
+from repro_torch.kernels.chunked_reduce import chunked_reduce
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.fused_collectives import all_gather_matmul
+from repro_torch.kernels.rmsnorm import rms_norm
+from repro_torch.launch import ranks
+from repro_torch.launch.mesh import make_host_mesh, parse_mesh
+from repro_torch.models import model, sharding
+from repro_torch.optim import adamw_init
+from repro_torch.training.train_loop import (TrainConfig, leaf_params,
+                                             make_sharded_train_step)
+
+KERNEL_COUNTERS = {"rms_norm": rms_norm, "flash_attention": flash_attention,
+                   "chunked_reduce": chunked_reduce,
+                   "all_gather_matmul": all_gather_matmul}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--mesh", default="4x1",
+                    help="DPxTP; every rank is a process of this host")
+    ap.add_argument("--backend", choices=["ring", "cxl"], default="ring")
+    ap.add_argument("--slicing-factor", type=int, default=4)
+    ap.add_argument("--allreduce-mode", default="two_phase",
+                    choices=["two_phase", "faithful"])
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--bucket-mb", type=float, default=25.0)
+    ap.add_argument("--prefetch", type=int, default=1, choices=[0, 1])
+    ap.add_argument("--fuse-kernels", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default: the card) or cpu")
+    return ap
+
+
+def tcfg_from_args(args) -> TrainConfig:
+    """The reference launcher's TrainConfig (warmup min(20, steps // 5),
+    no clipping)."""
+    return TrainConfig(lr=args.lr, warmup=min(20, args.steps // 5),
+                       total_steps=args.steps, backend=args.backend,
+                       slicing_factor=args.slicing_factor,
+                       allreduce_mode=args.allreduce_mode,
+                       microbatches=args.microbatches, clip_norm=None,
+                       bucket_mb=args.bucket_mb, prefetch=args.prefetch,
+                       fuse_kernels=args.fuse_kernels)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunSpec:
+    """What every rank runs: the model, the data, and one training run
+    per TrainConfig in ``variants`` (each from the same params and the
+    same batches)."""
+
+    arch: str
+    smoke: bool
+    variants: tuple
+    steps: int
+    batch: int
+    seq: int
+    dp: int
+    device: str                       # "cuda" or "cpu"
+    params_path: Optional[str] = None  # .npz of full params; else seed 0
+    capture_grads: bool = False       # return step 0's synced grads
+    profile: bool = False             # one extra step under the profiler
+    timeout_s: float = 600.0
+
+
+def load_params_npz(path: str, device) -> dict:
+    """Full params from the .npz ``save_params_npz`` writes (the
+    reference's params as numpy) -> this package's params on ``device``."""
+    with np.load(path) as f:
+        return model.params_from_numpy(tree.from_paths([
+            (tuple(k.split("/")), f[k]) for k in f.files]), device)
+
+
+def save_params_npz(params, path: str) -> None:
+    """Full params (tensors or numpy) -> the .npz ``RunSpec`` reads."""
+    np.savez(path, **{"/".join(p): np.asarray(
+        x.detach().cpu() if isinstance(x, torch.Tensor) else x)
+        for p, x in tree.leaves_with_paths(params)})
+
+
+def _counters() -> dict:
+    return {k: f.launches for k, f in KERNEL_COUNTERS.items()}
+
+
+def _profile_step(run_step, dev) -> dict:
+    """Device time by kernel for one step of this rank, with copies
+    (Memcpy) apart from kernels, and the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        synchronize(dev)
+        t0 = time.perf_counter()
+        run_step()
+        synchronize(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = sorted(((e.key, e.self_device_time_total)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda kv: -kv[1])
+    copies = sum(t for k, t in kern if k.startswith("Memcpy"))
+    return {"wall_us": wall_us, "copy_us": copies,
+            "kernel_us": sum(t for _, t in kern) - copies,
+            "top": [{"kernel": k[:80], "us": t} for k, t in kern[:12]]}
+
+
+def _rank_run(ctx: ranks.RankContext, spec: RunSpec) -> list:
+    return [_run_variant(ctx, spec, tcfg) for tcfg in spec.variants]
+
+
+def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig):
+    """One training run on this rank: the params (seed 0 or the .npz)
+    sharded for FSDP, AdamW from zero, ``spec.steps`` steps on this
+    rank's slice of the synthetic batches."""
+    rank, dev, pool = ctx.rank, ctx.device, ctx.pool
+    cfg = get_config(spec.arch, smoke=spec.smoke)
+    mesh = make_host_mesh(spec.dp, rank,
+                          pool if tcfg.backend == "cxl" else None)
+    step, pspecs, _pc = make_sharded_train_step(cfg, tcfg, mesh)
+    if spec.params_path is not None:
+        full = load_params_npz(spec.params_path, dev)
+    else:
+        full = model.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = leaf_params(sharding.shard_params(full, pspecs, "data", rank,
+                                               spec.dp))
+    del full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    opt = adamw_init(params)
+    data = iter(SyntheticTokens(cfg, batch=spec.batch, seq=spec.seq))
+    out = {"steps": [], "grads": None, "profile": None}
+
+    def to_dev(b):
+        lb = local_batch(b, rank, spec.dp)
+        return {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                for k, v in lb.items()}
+
+    for i, gb in zip(range(spec.steps), data):
+        batch = to_dev(gb)
+        for f in KERNEL_COUNTERS.values():
+            f.launches = 0
+        ledger.reset()
+        pool_before = 0 if pool is None else \
+            pool.bytes_published + pool.bytes_retrieved
+        synchronize(dev)
+        t_start, t0 = time.time(), time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        loss = float(metrics["loss"])
+        synchronize(dev)
+        snap = ledger.snapshot()
+        rec = {"loss": loss, "step_s": time.perf_counter() - t0,
+               "t_start": t_start, "t_end": time.time(),
+               "lr": metrics["lr"], "launches": _counters(),
+               "wire_bytes": snap["wire_bytes"],
+               "fused_bytes": snap["fused_bytes"],
+               "pool_bytes": (0 if pool is None else
+                              pool.bytes_published + pool.bytes_retrieved
+                              - pool_before)}
+        out["steps"].append(rec)
+        if spec.capture_grads and i == 0:
+            out["grads"] = {"/".join(p): x.grad.detach().cpu().numpy()
+                            for p, x in tree.leaves_with_paths(params)}
+    if spec.profile and dev.type == "cuda":
+        batch = to_dev(next(data))
+        out["profile"] = _profile_step(
+            lambda: step(params, opt, batch), dev)
+    if dev.type == "cuda":
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) \
+            / 2**30
+    del params, opt
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def pool_window(cfg) -> int:
+    """Pool partition per rank: 256 MiB, or the model's whole params
+    (plus a page) when they are smaller, since no collective of a step
+    moves more; larger calls stream through the partition in rounds."""
+    abstract = model.abstract_params(cfg)
+    total = sum(x.numel() * x.element_size() for x in tree.leaves(abstract))
+    return min(DEFAULT_PARTITION_BYTES, total + 4096)
+
+
+def run_ranks(spec: RunSpec) -> list:
+    """Spawn ``spec.dp`` ranks, run every variant, and merge the ranks'
+    records: one dict per variant with the per-step loss (rank 0's; the
+    loss is the dp mean, the same on every rank), the slowest rank's
+    step time, the pool bytes and kernel launches summed over ranks,
+    and (``capture_grads``) every rank's step-0 synced grad shards."""
+    if spec.device == "cuda":
+        resolve_device("cuda")        # raises without a card
+        build.build_all()             # once, before the ranks start
+    cfg = get_config(spec.arch, smoke=spec.smoke)
+    need_pool = any(t.backend == "cxl" for t in spec.variants)
+    per_rank = ranks.spawn(
+        _rank_run, spec.dp, (spec,), device=spec.device,
+        partition_bytes=pool_window(cfg) if need_pool else 0,
+        timeout_s=spec.timeout_s,
+        wait_s=spec.timeout_s * (1 + len(spec.variants) * (spec.steps + 1)))
+    return [_merge([r[v] for r in per_rank], tcfg)
+            for v, tcfg in enumerate(spec.variants)]
+
+
+def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
+    steps = []
+    for i, rec0 in enumerate(per_rank[0]["steps"]):
+        recs = [r["steps"][i] for r in per_rank]
+        steps.append({
+            "loss": rec0["loss"], "lr": rec0["lr"],
+            "step_s": max(r["step_s"] for r in recs),
+            "t_start": min(r["t_start"] for r in recs),
+            "t_end": max(r["t_end"] for r in recs),
+            "pool_bytes": sum(r["pool_bytes"] for r in recs),
+            "launches": {k: sum(r["launches"][k] for r in recs)
+                         for k in KERNEL_COUNTERS},
+            "wire_bytes_rank0": rec0["wire_bytes"],
+            "fused_bytes_rank0": rec0["fused_bytes"]})
+    out = {"backend": tcfg.backend, "fuse_kernels": tcfg.fuse_kernels,
+           "microbatches": tcfg.microbatches, "prefetch": tcfg.prefetch,
+           "steps": steps}
+    if per_rank[0]["grads"] is not None:
+        out["grads"] = [r["grads"] for r in per_rank]
+    if per_rank[0].get("peak_memory_gib") is not None:
+        out["peak_memory_gib"] = [r["peak_memory_gib"] for r in per_rank]
+    if per_rank[0]["profile"] is not None:
+        out["profile"] = [r["profile"] for r in per_rank]
+    return out
+
+
+def spec_from_args(args) -> RunSpec:
+    """The run the launcher's flags describe (one variant)."""
+    dp, _tp = parse_mesh(args.mesh)
+    if args.batch % (dp * args.microbatches):
+        raise SystemExit(f"--batch {args.batch} must split over {dp} "
+                         f"data ranks x {args.microbatches} microbatches")
+    return RunSpec(arch=args.arch, smoke=args.smoke,
+                   variants=(tcfg_from_args(args),), steps=args.steps,
+                   batch=args.batch, seq=args.seq, dp=dp,
+                   device=resolve_device(args.device).type)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = build_parser().parse_args(argv)
+    spec = spec_from_args(args)
+    dp, device = spec.dp, spec.device
+    cfg = get_config(args.arch, smoke=args.smoke)
+    print(f"training {cfg.name} on mesh data={dp} model=1 ({device}) "
+          f"backend={args.backend} fuse_kernels={args.fuse_kernels}",
+          flush=True)
+    t0 = time.time()
+    run = run_ranks(spec)[0]
+    for i, s in enumerate(run["steps"]):
+        print(f"step {i:5d} loss {s['loss']:.4f} lr {s['lr']:.2e} "
+              f"step {s['step_s']:.2f}s pool {s['pool_bytes'] / 2**20:.1f}"
+              f" MiB launches {json.dumps(s['launches'])}", flush=True)
+    print(f"done in {time.time() - t0:.1f}s", flush=True)
+    return run
+
+
+if __name__ == "__main__":
+    main()

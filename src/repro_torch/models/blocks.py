@@ -66,6 +66,21 @@ def init_row(gen: torch.Generator, kind: str, cfg: ModelConfig, tp: int,
                                    device, layers_)}
 
 
+def row_forward(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
+                pc: ParallelContext, positions: torch.Tensor,
+                causal: bool = True, window: Optional[int] = None):
+    """Full-sequence forward for one row (training).  Returns
+    (h, aux_loss); dense rows have no auxiliary loss."""
+    _ported(kind, cfg)
+    attn_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
+    h = h + layers.attention_forward(p["attn"], attn_in, cfg, pc,
+                                     positions, causal=causal,
+                                     window=window)
+    ff_in = layers.rms_norm(h, p["norm2"], cfg.norm_eps)
+    h = h + layers.ffn_forward(p["ffn"], ff_in, pc)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
 def row_prefill(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
                 pc: ParallelContext, positions: torch.Tensor, cache: dict,
                 window: Optional[int] = None) -> torch.Tensor:

@@ -1,11 +1,12 @@
-"""Core layers: RMSNorm, RoPE, GQA attention (prefill/decode), SwiGLU FFN,
-embeddings.
+"""Core layers: RMSNorm, RoPE, GQA attention (train/prefill/decode),
+SwiGLU FFN, embeddings, cross-entropy.
 
-Port of ``repro/models/layers.py`` for the serving slice, unsharded
-(tp = 1): the tensor-parallel collectives of the reference are the
-identity here (``pcontext``).  Names, layouts and the float32 math
-follow the reference; ``rms_norm`` and the long-sequence branch of
-``attention_scores`` go through the hand-written CUDA kernels.
+Port of ``repro/models/layers.py`` at tp = 1: the tensor-parallel
+collectives of the reference are the identity here (``pcontext``).
+Names, layouts and the float32 math follow the reference; ``rms_norm``,
+the long-sequence branch of ``attention_scores`` and ``dense`` on a
+gathered FSDP shard stack go through the hand-written CUDA kernels, all
+differentiable.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.overlap import StackedShards
+from repro_torch.kernels import fused_collectives as _fc
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.pcontext import ParallelContext
@@ -23,8 +26,14 @@ from repro_torch.models.pcontext import ParallelContext
 Params = dict
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` (the fused all-gather matmul path comes with training)."""
+def dense(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` where ``w`` may be a rank-major ``StackedShards`` stack
+    from the fused FSDP gather (``TrainConfig.fuse_kernels``): the stack
+    streams through the ``all_gather_matmul`` kernel (``fused_dense``)
+    instead of being concatenated first.  Plain tensors take the
+    ordinary matmul."""
+    if isinstance(w, StackedShards):
+        return _fc.fused_dense(x, w.shards)
     return x @ w
 
 
@@ -330,3 +339,27 @@ def lm_logits(params: Params, h: torch.Tensor, cfg: ModelConfig,
     if w is None:
         w = params["tok"].t()
     return h @ w
+
+
+def sharded_xent(logits_local: torch.Tensor, labels: torch.Tensor,
+                 pc: ParallelContext, mask: Optional[torch.Tensor] = None,
+                 vocab_size: Optional[int] = None) -> torch.Tensor:
+    """Cross-entropy of the reference's ``sharded_xent`` at tp = 1 (the
+    vocab is whole on every rank; the tp collectives are the identity).
+    logits_local: (B, L, V); labels: (B, L) ids.  ``vocab_size``
+    excludes padded vocabulary ids from the softmax; the max is a
+    constant offset of the log-sum-exp, so it is detached."""
+    v_local = logits_local.shape[-1]
+    logits = logits_local.float()
+    if vocab_size is not None and vocab_size < v_local:
+        gid = pc.tp_index() * v_local + torch.arange(v_local,
+                                                     device=logits.device)
+        logits = logits.masked_fill(gid >= vocab_size, float("-inf"))
+    m = pc.tp_psum_max(logits.amax(dim=-1)).detach()
+    z = pc.tp_all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1))
+    lab = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = torch.log(z) + m - pc.tp_all_reduce(lab)
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -1,11 +1,13 @@
-"""Top-level language model for serving: init, prefill, decode.
+"""Top-level language model: init, train forward (loss), prefill, decode.
 
-Port of the serving half of ``repro/models/model.py`` for decoder-only
-text models built from ``a`` rows.  Params keep the reference's tree
-(``embed``/``final_norm``/``g<i>`` groups with a leading layer axis), so
-``params_from_numpy`` is a renaming, not a reshuffle.  Layer groups run
-as Python loops where the reference runs ``lax.scan``; decode caches are
-updated in place.
+Port of ``repro/models/model.py`` for decoder-only text models built from
+``a`` rows.  Params keep the reference's tree (``embed``/``final_norm``/
+``g<i>`` groups with a leading layer axis), so ``params_from_numpy`` is a
+renaming, not a reshuffle.  Layer groups run as Python loops where the
+reference runs ``lax.scan``; decode caches are updated in place.
+``remat`` maps to ``torch.utils.checkpoint`` (non-reentrant): a row's
+activations, and the FSDP gathers issued inside it, are recomputed in
+the backward pass, as ``jax.checkpoint`` replays them.
 """
 from __future__ import annotations
 
@@ -13,6 +15,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core import ledger
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import blocks, layers
@@ -47,6 +52,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def abstract_params(cfg: ModelConfig, tp: int = 1,
+                    dtype=torch.float32) -> Params:
+    """The params' tree of shapes and dtypes as meta tensors (nothing is
+    allocated): what spec construction walks."""
+    if tp != 1:
+        raise NotImplementedError("tp > 1 is not ported yet (ROADMAP "
+                                  "queue 1, item 3)")
+    return init_params(cfg, torch.Generator(), "meta", dtype)
+
+
 def params_from_numpy(tree, device) -> Params:
     """The reference's params as numpy (``jax.tree.map(np.asarray,
     params)``) -> this package's params on ``device``."""
@@ -66,6 +81,97 @@ def _layer(p: Params, i: int) -> Params:
     """Layer ``i`` of a stacked group (views, no copy)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in p.items()}
+
+
+# ----------------------------------------------------------------------- #
+# training forward
+# ----------------------------------------------------------------------- #
+
+def _maybe_remat(fn, remat: bool):
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _run_groups(params: Params, h, cfg, pc, positions, remat: bool,
+                window=None, gather_fn=None, prefetch: int = 0):
+    """Run every layer group.  ``gather_fn(group_key, row_params)`` is the
+    FSDP hook; ``prefetch >= 1`` is the reference's double-buffered
+    schedule: row ``l + 1``'s gather is issued (under
+    ``ledger.hidden()``) in the same body that computes row ``l``, and
+    the gathered params ride to the next body as its input (so, as in
+    the reference, each row's gathered params live until its backward).
+    """
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    prefetching = gather_fn is not None and prefetch >= 1
+
+    def make_body(kind, group_key):
+        def body(hh, p):
+            if gather_fn is not None:
+                p = gather_fn(group_key, p)   # FSDP: gather row params
+            return blocks.row_forward(p, hh, kind, cfg, pc, positions,
+                                      window=window)
+        return _maybe_remat(body, remat)
+
+    def make_prefetch_body(kind, group_key):
+        def body(hh, p_cur, p_next):
+            out, aux = blocks.row_forward(p_cur, hh, kind, cfg, pc,
+                                          positions, window=window)
+            # issued after the row's compute: the gather saves no tensor
+            # for backward, so the remat replay (checkpoint's early stop)
+            # ends before it instead of gathering row l+1 again
+            with ledger.hidden():
+                p_pre = gather_fn(group_key, p_next)
+            return out, aux, p_pre
+        return _maybe_remat(body, remat)
+
+    def make_consume(kind):
+        def body(hh, p):
+            return blocks.row_forward(p, hh, kind, cfg, pc, positions,
+                                      window=window)
+        return _maybe_remat(body, remat)
+
+    for gi, g in enumerate(blocks.scan_groups(cfg)):
+        stacked = params[f"g{gi}"]
+        if prefetching:
+            gathered = gather_fn(f"g{gi}", _layer(stacked, 0))  # prologue
+            step = make_prefetch_body(g.kind, f"g{gi}")
+            for i in range(1, g.count):
+                h, aux, gathered = step(h, gathered, _layer(stacked, i))
+                aux_total = aux_total + aux
+            h, aux = make_consume(g.kind)(h, gathered)
+            aux_total = aux_total + aux
+        else:
+            body = make_body(g.kind, f"g{gi}")
+            for i in range(g.count):
+                h, aux = body(h, _layer(stacked, i))
+                aux_total = aux_total + aux
+    return h, aux_total
+
+
+def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
+            pc: ParallelContext, remat: bool = True,
+            window: Optional[int] = None, gather_fn=None,
+            prefetch: int = 0):
+    """batch: tokens (B, L), labels (B, L), optional loss_mask.
+    ``gather_fn`` is the FSDP hook (``sharding.fsdp_gather_fn`` /
+    ``core.overlap.make_gather_fn``); ``prefetch >= 1`` double-buffers
+    it.  Returns (loss, aux_dict)."""
+    if gather_fn is not None:
+        # embed is used at both ends of the step: gather once up front.
+        params = dict(params, embed=gather_fn("embed", params["embed"]))
+    tokens = batch["tokens"]
+    h = layers.embed_tokens(params["embed"], tokens, cfg, pc)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, aux = _run_groups(params, h, cfg, pc, positions, remat=remat,
+                         window=window, gather_fn=gather_fn,
+                         prefetch=prefetch)
+    h = layers.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = layers.lm_logits(params["embed"], h, cfg, pc)
+    xent = layers.sharded_xent(logits, batch["labels"], pc,
+                               mask=batch.get("loss_mask"),
+                               vocab_size=cfg.vocab_size)
+    return xent + aux, {"xent": xent, "aux": aux}
 
 
 # ----------------------------------------------------------------------- #

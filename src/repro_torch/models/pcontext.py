@@ -1,9 +1,11 @@
 """Parallel context: how a model invocation is sharded.
 
-All model code takes a ``ParallelContext``.  The serving slice runs
-unsharded (``UNSHARDED``, tp = 1), so every tensor-parallel collective
-below is the identity.  A context with ``tp > 1`` raises until the
-``Communicator`` is ported (ROADMAP queue 1, the collectives slice).
+All model code takes a ``ParallelContext``.  Every collective goes
+through its ``Communicator`` (``core.api``), so ``ring`` vs ``cxl`` is a
+launch flag, never a model change.  The data-parallel (FSDP) operations
+are ported; a context with ``tp > 1`` raises until tensor parallelism is
+ported (ROADMAP queue 1, item 3), so the tensor-parallel collectives
+below are the identity.
 """
 from __future__ import annotations
 
@@ -12,19 +14,21 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.api import Communicator
+
 
 @dataclasses.dataclass(frozen=True)
 class ParallelContext:
     tp_axis: Optional[str] = None                 # model/tensor parallel
-    dp_axis: Optional[str] = None                 # data/FSDP axis
+    dp_axis: Optional[str] = None                 # data/FSDP axis (flat)
     tp: int = 1                                   # static tp size
+    comm: Communicator = dataclasses.field(default_factory=Communicator)
 
     def __post_init__(self):
-        if self.tp != 1 or self.tp_axis is not None \
-                or self.dp_axis is not None:
+        if self.tp != 1 or self.tp_axis is not None:
             raise NotImplementedError(
-                "sharded contexts need the Communicator, which is not "
-                "ported yet (ROADMAP queue 1: collectives slice)")
+                "tensor parallelism (tp > 1) is not ported yet (ROADMAP "
+                "queue 1, item 3)")
 
     def tp_all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         return x
@@ -34,6 +38,12 @@ class ParallelContext:
 
     def tp_index(self) -> int:
         return 0
+
+    def dp_all_reduce_mean(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dp_axis is None:
+            return x
+        total = self.comm.all_reduce(x, self.dp_axis)
+        return total / self.comm.axis_size(self.dp_axis)
 
 
 UNSHARDED = ParallelContext()

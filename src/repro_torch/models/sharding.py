@@ -1,0 +1,153 @@
+"""Parameter sharding specs: FSDP over the data axis (the paper's Sec. 5.5
+case study: FSDP AllGather before use, ReduceScatter on grads - both
+through the ``Communicator``).
+
+Port of ``repro.models.sharding`` for flat axes.  A spec is a plain tuple
+with one entry per dim: an axis name or None.  ``param_specs`` assigns:
+
+* the tensor-parallel dim (over ``model``): Megatron column/row rules
+  per leaf name, as the reference writes them (with tp = 1 the axis has
+  size 1, so it shards nothing);
+* the FSDP dim (over the dp axis): the first remaining dim (after a
+  stacked group's layer dim) that divides dp, for leaves of at least
+  ``FSDP_MIN_SIZE`` elements.  Smaller leaves (norms) stay replicated
+  and get their grads summed by ``sync_grads``.
+
+The placement alias registry and tuple (hierarchical) dp axes are not
+ported yet (ROADMAP queue 1, item 6).
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+from repro_torch.core import tree
+from repro_torch.models.pcontext import ParallelContext
+
+FSDP_MIN_SIZE = 65536
+
+# leaf name -> dim sharded over the model axis (None = replicated)
+TP_DIM = {
+    "wq": 1, "wk": 1, "wv": 1, "wo": 0,
+    "wg": None, "wu": None, "wd": None,    # resolved by rank below
+    "tok": 0, "head": 1,
+    "norm1": None, "norm2": None, "final_norm": None,
+}
+
+# Axis sizes for spec construction; set by callers before building specs
+# (module-level, as in the reference, so spec building stays a tree walk).
+_MESH_SIZES: dict = {}
+
+
+def set_mesh_sizes(sizes: dict) -> None:
+    _MESH_SIZES.clear()
+    _MESH_SIZES.update(sizes)
+
+
+def _is_stacked(names: tuple) -> bool:
+    """Group entries 'g<i>' hold layer-stacked params."""
+    return any(n == "encoder" or (n.startswith("g") and n[1:].isdigit())
+               for n in names[:-1])
+
+
+def _tp_dim(names: tuple, rank: int, stacked: bool) -> Optional[int]:
+    leaf = names[-1]
+    parent = names[-2] if len(names) > 1 else ""
+    base_rank = rank - (1 if stacked else 0)
+    if leaf in ("wg", "wu", "wd"):
+        if parent == "moe" or base_rank == 3:
+            return 0
+        return 1 if leaf in ("wg", "wu") else 0
+    if leaf in ("wk", "wv") and parent in ("attn", "xattn"):
+        return 1
+    return TP_DIM.get(leaf)
+
+
+def param_specs(params: Any, cfg, *, model_axis: str = "model",
+                dp_axis: Optional[str] = None, fsdp: bool = True) -> Any:
+    """Spec tree matching ``params`` (tensors, meta tensors included)."""
+    tp = _MESH_SIZES.get(model_axis, 1)
+    dp = _MESH_SIZES.get(dp_axis, 1) if dp_axis is not None else 1
+
+    def spec_for(names, leaf) -> tuple:
+        shape = tuple(leaf.shape)
+        rank = len(shape)
+        stacked = _is_stacked(names)
+        tp_d = _tp_dim(names, rank, stacked)
+        if tp_d is not None and stacked:
+            tp_d += 1
+        if tp_d is not None and not cfg.kv_sharded(tp) and \
+                names[-1] in ("wk", "wv"):
+            tp_d = None
+        dims: list = [None] * rank
+        if tp_d is not None:
+            dims[tp_d] = model_axis
+        numel = 1
+        for d in shape:
+            numel *= d
+        if fsdp and dp_axis is not None and numel >= FSDP_MIN_SIZE:
+            for i in range(1 if stacked else 0, rank):
+                if dims[i] is None and shape[i] % dp == 0:
+                    dims[i] = dp_axis
+                    break
+        return tuple(dims)
+
+    return tree.map_with_path(spec_for, params)
+
+
+def row_specs(specs: Any) -> Any:
+    """Drop the leading (layer) dim of stacked specs: specs of one row's
+    param slice, used by the per-row FSDP gather."""
+    return tree.map_with_path(
+        lambda names, s: s[1:] if _is_stacked(names) and s else s, specs)
+
+
+def _dim_of(spec: tuple, axis) -> Optional[int]:
+    for i, s in enumerate(spec):
+        if s == axis:
+            return i
+    return None
+
+
+def shard_params(full: Any, specs: Any, dp_axis: str, rank: int,
+                 n: int) -> Any:
+    """This rank's FSDP shards of the full params: the ``rank``-th of
+    ``n`` equal slices of each leaf along its dp dim (contiguous copies);
+    replicated leaves are copied whole."""
+    def shard(path, x):
+        dim = _dim_of(tree.get(specs, path), dp_axis)
+        if dim is None:
+            return x.clone()
+        return x.chunk(n, dim=dim)[rank].contiguous()
+    return tree.map_with_path(shard, full)
+
+
+def sync_grads(grads: Any, specs: Any, pc: ParallelContext,
+               dp_axis: Optional[str]) -> Any:
+    """Sum the grads of replicated params over the dp axis (FSDP leaves
+    already got their sum through the gather's transpose).  Per-leaf
+    reference path; the trainer uses ``core.overlap.bucketed_sync_grads``
+    (same result, fused size-capped buffers)."""
+    def fix(path, g):
+        spec = tree.get(specs, path)
+        if dp_axis is not None and dp_axis not in spec:
+            g = pc.comm.all_reduce(g, dp_axis)
+        return g
+    return tree.map_with_path(fix, grads)
+
+
+def fsdp_gather_fn(all_row_specs: dict, pc: ParallelContext, dp_axis: str):
+    """Returns gather(group_key, row_params) -> gathered params: one
+    AllGather per dp-sharded leaf, whose autograd transpose is the
+    matching ReduceScatter (per-leaf reference path; the trainer uses
+    ``core.overlap.make_gather_fn``)."""
+    def gather(group_key: str, row_params):
+        specs = all_row_specs[group_key]
+
+        def g(path, x):
+            dim = _dim_of(tree.get(specs, path), dp_axis)
+            if dim is None:
+                return x
+            full = pc.comm.all_gather(x.movedim(dim, 0), dp_axis)
+            return full.movedim(0, dim)
+        return tree.map_with_path(g, row_params)
+    return gather

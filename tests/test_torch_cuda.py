@@ -124,3 +124,152 @@ def test_engine_on_card_matches_cpu_and_evicts_bitwise(cuda):
     got = eng.generate({"tokens": toks}, 6)
     assert eng.counters["evictions"] > 0 and eng.counters["restores"] > 0
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------- #
+# the training slice: chunked_reduce, all_gather_matmul, gradients, pool
+# ---------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("n_src", [2, 4, 16])
+@pytest.mark.parametrize("length", [1 << 20, 1000003, 8, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_reduce_kernel_vs_plain(cuda, n_src, length, dtype):
+    """Ragged L (1000003, 3) takes the masked scalar path.  Both sum in
+    f32 but in another order: f32 agrees to the n_src - 1 roundings of
+    partial sums up to about 16 (<= 15 * ulp(16) / 2 = 1.4e-5: atol
+    2e-5), bf16 to one ulp of the output."""
+    from repro_torch.kernels import chunked_reduce as cr
+    x = _randn((n_src, length), DTYPES[dtype], cuda)
+    before = cr.chunked_reduce.launches
+    got = cr.chunked_reduce(x)
+    torch.cuda.synchronize()
+    assert cr.chunked_reduce.launches == before + 1
+    assert got.dtype == x.dtype and got.shape == (length,)
+    tol = (1e-6, 2e-5) if dtype == "float32" else (8e-3, 8e-3)
+    torch.testing.assert_close(got.float(),
+                               cr.chunked_reduce_plain(x).float(),
+                               rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("t,n,ks,nout", [
+    (1024, 4, 512, 2048), (1024, 4, 512, 512), (1024, 4, 512, 8192),
+    (1024, 4, 2048, 2048), (100, 3, 37, 130)])   # the last one ragged
+def test_all_gather_matmul_kernel_vs_plain(cuda, t, n, ks, nout):
+    """f32 FMA in another order than cuBLAS's f32 GEMM (TF32 off).  The
+    kernel keeps one running sum per output over K unit-normal products;
+    the partial sums grow like sqrt(K), so the rounding's spread is
+    about K * 2^-24 and the largest of ~10^6 outputs several times that
+    (measured: 1.3e-4 at K = 2048, 2.3e-3 at K = 8192): atol
+    8 * K * 2^-24, rtol 1e-4."""
+    from repro_torch.kernels import fused_collectives as fc
+    x = _randn((t, n * ks), torch.float32, cuda)
+    w = _randn((n, ks, nout), torch.float32, cuda)
+    before = fc.all_gather_matmul.launches
+    got = fc.all_gather_matmul(x, w)
+    torch.cuda.synchronize()
+    assert fc.all_gather_matmul.launches == before + 1
+    torch.testing.assert_close(got, fc.all_gather_matmul_plain(x, w),
+                               rtol=1e-4, atol=8 * n * ks * 2.0 ** -24)
+
+
+def test_all_gather_matmul_reads_a_strided_stack(cuda):
+    """The fused FSDP gather hands the kernel a strided view of the
+    gathered bucket (shards ``elems`` apart, not Ks * N)."""
+    from repro_torch.kernels import fused_collectives as fc
+    n, ks, nout, extra = 4, 64, 96, 1000
+    bucket = _randn((n, ks * nout + extra), torch.float32, cuda)
+    w = bucket[:, extra:].reshape(n, ks, nout)
+    assert not w.is_contiguous()
+    x = _randn((33, n * ks), torch.float32, cuda)
+    torch.testing.assert_close(fc.all_gather_matmul(x, w),
+                               fc.all_gather_matmul_plain(x, w),
+                               rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="contraction"):
+        fc.all_gather_matmul(x[:, 1:], w)
+
+
+def test_fused_dense_grads_kernel_vs_plain(cuda):
+    from repro_torch.kernels import fused_collectives as fc
+    n, ks, nout = 4, 128, 256
+    x0 = _randn((2, 64, n * ks), torch.float32, cuda)
+    w0 = _randn((n, ks, nout), torch.float32, cuda)
+    g = _randn((2, 64, nout), torch.float32, cuda)
+    res = []
+    for fn in (fc.fused_dense,
+               lambda x, w: x @ w.reshape(n * ks, nout)):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        (fn(x, w) * g).sum().backward()
+        res.append((x.grad, w.grad))
+    for a, b in zip(*res):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_grads_kernel_vs_plain(cuda, dtype):
+    """The kernel's output carries a gradient: x.grad and scale.grad
+    through the kernel path equal autograd through the plain version
+    (the same backward code runs on both; the forward differs by the
+    kernel's rounding)."""
+    x0 = _randn((1024, 2048), DTYPES[dtype], cuda)
+    s0 = _randn((2048,), torch.float32, cuda)
+    g = _randn((1024, 2048), DTYPES[dtype], cuda)
+    res = []
+    for fn in (rn.rms_norm, rn.rms_norm_plain):
+        x, s = x0.clone().requires_grad_(), s0.clone().requires_grad_()
+        (fn(x, s).float() * g.float()).sum().backward()
+        res.append((x.grad, s.grad))
+    tol = (1e-4, 1e-4) if dtype == "float32" else (1e-2, 1e-2)
+    for a, b in zip(*res):
+        assert a is not None and b is not None
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol[0],
+                                   atol=tol[1])
+
+
+@pytest.mark.parametrize("lq,window", [(1024, None), (1000, None),
+                                       (512, 128)])
+def test_flash_grads_kernel_vs_plain(cuda, lq, window):
+    """dq/dk/dv through the kernel forward (which also writes the rows'
+    max and normaliser) and the recompute VJP, against autograd through
+    the dense plain version."""
+    q0, k0, v0 = (_randn((1, lq, 4, 64), torch.float32, cuda)
+                  for _ in range(3))
+    g = _randn((1, lq, 4, 64), torch.float32, cuda)
+    res = []
+    for fn in (lambda q, k, v: fa.flash_attention_train(q, k, v, True,
+                                                        window),
+               lambda q, k, v: fa.flash_attention_plain(q, k, v, True,
+                                                        window)):
+        q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+        before = fa.flash_attention.launches
+        (fn(q, k, v) * g).sum().backward()
+        res.append((q.grad, k.grad, v.grad))
+    assert fa.flash_attention.launches == before    # the plain one: none
+    for a, b in zip(*res):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _pool_collectives(ctx):
+    from repro_torch.launch import collectives as co
+    xs = [co.bench_input_numpy(r, 64) for r in range(ctx.nranks)]
+    out = {}
+    for name in ("all_reduce_two_phase", "all_reduce_faithful",
+                 "all_gather"):
+        comm = co.communicator(ctx, "cxl", name)
+        y = co.call(comm, name, co.bench_input(ctx.rank, 64, ctx.device))
+        assert y.device.type == "cuda"
+        out[name] = bool(np.array_equal(y.cpu().numpy(),
+                                        co.oracle(name, xs, ctx.rank)))
+    out["retrieved"] = ctx.pool.bytes_retrieved
+    return out
+
+
+def test_cxl_collectives_on_card_through_pinned_pool(cuda):
+    """Two ranks share the card and a pinned host pool: all-reduce (both
+    modes, reduced by the chunked_reduce kernel) and all-gather, bitwise
+    against the numpy oracle."""
+    from repro_torch.launch import ranks
+    res = ranks.spawn(_pool_collectives, 2, device="cuda",
+                      partition_bytes=1 << 20, timeout_s=300)
+    for r in res:
+        assert r.pop("retrieved") > 0
+        assert all(r.values()), r

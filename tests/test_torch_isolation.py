@@ -101,3 +101,30 @@ def test_unported_arch_names_the_roadmap():
     from repro_torch.configs import get_config
     with pytest.raises(KeyError, match="ROADMAP"):
         get_config("falcon-mamba-7b")
+
+
+def test_train_entry_points_without_device_refuse_cpu_fallback():
+    """The training and collectives launchers default to the card: with
+    no card and no ``--device cpu`` they raise before spawning a rank."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    from repro_torch.launch import collectives, train
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "llama3.2-1b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        collectives.main(["--sizes-mb", "1"])
+
+
+def test_train_launcher_rejects_unported_flags_and_tp():
+    from repro_torch.launch import train
+    ap = train.build_parser()
+    for flag in ("--plan", "--topology", "--placement", "--pp-stages",
+                 "--ckpt", "--metrics-out"):
+        with pytest.raises(SystemExit):
+            ap.parse_args(["--arch", "llama3.2-1b", flag, "x"])
+    with pytest.raises(SystemExit):
+        ap.parse_args(["--arch", "llama3.2-1b", "--backend", "auto"])
+    args = ap.parse_args(["--arch", "llama3.2-1b", "--mesh", "2x2",
+                          "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.spec_from_args(args)
