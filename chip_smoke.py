@@ -8,28 +8,35 @@ Run from the root of a checkout, on a machine with one H100:
 
 Phases (each fails the run if its check fails):
 
-1. build       - build every CUDA kernel from ``src/repro_torch/kernels/
-                 csrc`` (one nvcc per source, all started together);
+1. build       - build the five CUDA kernels from ``src/repro_torch/
+                 kernels/csrc`` (one nvcc per source, all started together);
 2. parity      - each kernel against its plain PyTorch version on the
                  card: rms_norm and flash_attention at the serving path's
                  shapes (f32, bf16) and their gradients (the kernel path's
                  autograd against autograd through the plain version);
                  chunked_reduce (f32, bf16; n_src 2, 4, 16; the training
                  path's segment length and a ragged one); all_gather_matmul
-                 at the training path's shapes (f32);
+                 at the training path's shapes (f32); ssm_scan (y and the
+                 final state) at the JAX test shapes, Falcon's prefill and
+                 decode shapes, a ragged L from a random state, and bf16;
 3. timing      - each kernel, its plain version and one PyTorch library
                  call on the same inputs (device time from CUDA events, L2
                  flushed before every call), beside the kernel's roofline
                  bound, at the main paths' shapes;
-4. reference   - the smoke-size model on the card against the same model
-                 on the CPU (prefill at L = 1100, through the flash kernel,
-                 and three per-slot decode steps);
+4. reference   - the smoke-size models on the card against the same models
+                 on the CPU: Llama (prefill at L = 1100, through the flash
+                 kernel) and Falcon-Mamba (prefill at L = 300, through the
+                 ssm_scan kernel), each with three per-slot decode steps;
 5. serve       - Llama-3.2-1B at full width (f32, seeded random params):
                  a fixed batch of 4 x 1024-token prompts with a roomy HBM
                  budget, the same with a budget 4 blocks short and eviction
                  to the pool (greedy tokens must match), then a Poisson
                  trace of 8 requests with half the prompts sharing a pooled
-                 prefix;
+                 prefix; then Falcon-Mamba-7B at full width (64 Mamba-1
+                 rows, d_model 4096, f32): the same fixed batch roomy and
+                 4 blocks short (whole-image eviction of the token-free SSM
+                 state), and a Poisson trace of 8 requests (prefix sharing
+                 turns itself off: the state has no token axis);
 6. collectives - every flat collective on 4 ranks sharing the card, ring
                  (gloo) and cxl (the pinned shared host pool), at 1, 16 and
                  256 MB per rank: each rank's result against a numpy oracle
@@ -47,7 +54,8 @@ Phases (each fails the run if its check fails):
 The kernels' launch counters are zeroed before each serving run and
 before each training step (in the rank processes), and read after it:
 every kernel must have run on the training path, and rms_norm and
-flash_attention on the serving path too.  The last three lines of
+flash_attention on the serving path too, rms_norm and ssm_scan on the
+SSM serving path.  The last three lines of
 standard output are the kernels' JSON line, the card's name and power
 limit, and the result line.  The full record goes to
 ``chip_smoke.json`` in the output directory that ``main`` names.
@@ -69,6 +77,7 @@ import torch  # noqa: E402
 
 HBM_BW = 3.35e12                                   # H100 SXM, bytes/s
 PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}   # FLOP/s
+EXP_RATE = 16 * 132 * 1.98e9    # SFU exps/s: 16 per clock per SM, 132 SMs
 # (rtol, atol).  chunked_reduce: the kernel and torch sum the sources in
 # other orders, n_src - 1 roundings of partial sums up to about 16
 # (f32), one ulp of the output (bf16).  Gradients: the same backward
@@ -79,6 +88,10 @@ TOL = {"rms_norm": {torch.float32: (1e-5, 1e-5),
                            torch.bfloat16: (2e-2, 2e-2)},
        "chunked_reduce": {torch.float32: (1e-6, 2e-5),
                           torch.bfloat16: (8e-3, 8e-3)},
+       # as tests/test_kernels.py holds the Pallas kernel; bf16: y rounds
+       # to bf16 after the f32 sum, the sum's order differs
+       "ssm_scan": {torch.float32: (1e-4, 1e-4),
+                    torch.bfloat16: (1e-2, 1e-2)},
        "grad": {torch.float32: (1e-4, 1e-4)}}
 PROMPT, NEW, SLOTS, BT = 1024, 16, 4, 16
 DP, TRAIN_BATCH, TRAIN_STEPS = 4, 4, 3
@@ -90,6 +103,16 @@ AGM_SHAPES = ((1024, 4, 512, 2048), (1024, 4, 512, 512),
               (1024, 4, 512, 8192), (1024, 4, 2048, 2048))
 AGM_MAIN = (1024, 4, 512, 8192)
 RAGGED = 1000003
+SSM_ARCH = "falcon-mamba-7b"
+# (B, L, D, N, from a random state): the JAX test shapes, Falcon's prefill
+# (1 x 1024) and decode (4 slots) shapes, a ragged L from a random state
+SSM_SHAPES = ((2, 256, 256, 16, False), (1, 128, 512, 8, False),
+              (2, 64, 128, 4, False), (1, PROMPT, 8192, 16, False),
+              (2, 300, 8192, 16, True), (SLOTS, 1, 8192, 16, True))
+SSM_BF16 = (2, 300, 8192, 16, True)
+# the kernels each serving path must launch
+SERVE_KERNELS = {"serve": ("rms_norm", "flash_attention"),
+                 "serve_ssm": ("rms_norm", "ssm_scan")}
 
 
 def gemm_tol(k: int) -> tuple:
@@ -111,6 +134,8 @@ KERNELS = {   # name -> (source, the Pallas TPU kernel it replaces)
     "all_gather_matmul": ("src/repro_torch/kernels/csrc/"
                           "all_gather_matmul.cu",
                           "src/repro/kernels/fused_collectives.py:192"),
+    "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan.py:72"),
 }
 
 
@@ -287,6 +312,222 @@ class SmiSampler:
                 "power_w_mean": mean[1], "sm_clock_mhz_mean": mean[2]}
 
 
+def ssm_inputs(randn, b, l, d, n, with_h0, dtype=torch.float32):
+    """x, dt, A, B, C, D of the selective scan as tests/test_kernels.py
+    draws them, and a random starting state or None."""
+    x = randn(b, l, d, dtype=dtype)
+    dt = (randn(b, l, d).abs() * 0.1).to(dtype)
+    a = -randn(d, n).abs()
+    bs, cs = randn(b, l, n, dtype=dtype), randn(b, l, n, dtype=dtype)
+    return (x, dt, a, bs, cs, randn(d)), (randn(b, d, n) if with_h0
+                                          else None)
+
+
+def ssm_cost(b, l, d, n, with_h0, itemsize: int = 4) -> dict:
+    """What the scan must move and compute: x and dt read, y written
+    (itemsize each), A, D, B and C read, h0 read if given, h_last
+    written (f32); one exp and 6 flops per (b, t, d, n) element
+    (dt*A, decay*h, +, drive*B, h*C, the sum over n)."""
+    nbytes = 3 * b * l * d * itemsize + 2 * b * l * n * itemsize \
+        + (d * n + d) * 4 + (1 + int(with_h0)) * b * d * n * 4
+    return {"bytes": nbytes, "flops": 6 * b * l * d * n,
+            "exps": b * l * d * n}
+
+
+def ssm_parity(randn, ss) -> list:
+    """ssm_scan's y and final state against the plain version."""
+    out = []
+    shapes = [(sh, torch.float32) for sh in SSM_SHAPES] + \
+        [(SSM_BF16, torch.bfloat16)]
+    for (b, l, d, n, with_h0), dtype in shapes:
+        args, h0 = ssm_inputs(randn, b, l, d, n, with_h0, dtype)
+        y, h = ss.ssm_scan(*args, h0=h0, return_state=True)
+        want_y, want_h = ss.ssm_scan_plain(*args, h0=h0, return_state=True)
+        errs = [close(y, want_y, *TOL["ssm_scan"][dtype]),
+                close(h, want_h, *TOL["ssm_scan"][torch.float32])]
+        out.append({"kernel": "ssm_scan", "shape": [b, l, d, n],
+                    "h0": with_h0, "dtype": str(dtype),
+                    "tolerance": TOL["ssm_scan"][dtype],
+                    "max_abs_err": max(e for e, _ in errs),
+                    "max_abs_err_h_last": errs[1][0],
+                    "ok": all(ok for _, ok in errs)})
+    return out
+
+
+def card_vs_cpu(arch: str, length: int, dev) -> tuple:
+    """The smoke-size model of ``arch`` on the card against the CPU with
+    the same params: prefill at ``length``, then three per-slot decode
+    steps; logits and the first group's cache leaves at rtol 2e-4, atol
+    2e-5 (cuBLAS and the CPU BLAS sum in other orders).  Returns (max abs
+    error, within tolerance)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model
+    from repro_torch.models.pcontext import UNSHARDED
+    cfg = get_config(arch, smoke=True)
+    cpu_params = model.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+    params = {"cpu": cpu_params,
+              "gpu": model.params_from_numpy(
+                  model.params_to_numpy(cpu_params), dev)}
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (1, length))
+    outs = {}
+    for name, d in (("cpu", torch.device("cpu")), ("gpu", dev)):
+        logits, caches = model.prefill(
+            params[name], {"tokens": torch.as_tensor(toks, device=d)}, cfg,
+            UNSHARDED, length + 4, cache_dtype=torch.float32)
+        steps = [logits]
+        pos = torch.tensor([length], device=d)
+        for i in range(3):
+            lg, caches = model.decode_step(
+                params[name], caches, torch.tensor([[7 + i]], device=d),
+                pos, cfg, UNSHARDED)
+            steps.append(lg)
+            pos = pos + 1
+        outs[name] = [t.cpu() for t in steps] + \
+            [caches[0][k].cpu() for k in sorted(caches[0])]
+    errs = [close(a, b, 2e-4, 2e-5) for a, b in zip(outs["gpu"],
+                                                    outs["cpu"])]
+    return max(e for e, _ in errs), all(ok for _, ok in errs)
+
+
+def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
+    """Serve ``arch`` at full width on the card (f32, params from seed 0):
+    a fixed batch of SLOTS x PROMPT prompts with a roomy HBM budget, the
+    same 4 blocks short with eviction to the pool (greedy tokens must
+    match, evictions and restores must happen), a Poisson trace of 8
+    requests through the launcher's flags (half the prompts share a
+    pooled prefix: hits where the cache has a token axis, none where it
+    has not), then step times, a profiled prefill and 5 profiled decode
+    steps, and the peak memory.  Kernel launches per run go to
+    ``launches[path]``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    from repro_torch.models.pcontext import UNSHARDED
+    from repro_torch.serving import ServeConfig, ServeEngine
+    cfg = get_config(arch)
+    counters = {"rms_norm": rn.rms_norm,
+                "flash_attention": fa.flash_attention,
+                "ssm_scan": ss.ssm_scan}
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init_params(cfg, torch.Generator(device=dev)
+                               .manual_seed(0), dev, torch.float32)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (SLOTS, PROMPT))
+    max_seq = PROMPT + NEW + 8
+    blocks_needed = SLOTS * -(-(PROMPT + NEW) // BT)
+    runs = launches.setdefault(path, {})
+
+    def run(label, fn):
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[label] = {k: f.launches for k, f in counters.items()}
+        log(f"[{path}] {label}: {wall:.2f}s  launches {runs[label]}")
+        return out, wall
+
+    def fixed(**kw):
+        eng = ServeEngine(cfg, params, ServeConfig(
+            max_seq=max_seq, decode_slots=SLOTS, kv_block_tokens=BT,
+            pool_budget_bytes=1 << 30, **kw), device=dev)
+        return eng, eng.generate({"tokens": prompts}, NEW)
+
+    (roomy, roomy_toks), roomy_s = run("fixed_roomy", lambda: fixed())
+    (tight, tight_toks), tight_s = run(
+        "fixed_pool_eviction",
+        lambda: fixed(kv_placement="pool",
+                      hbm_budget_blocks=blocks_needed - 4))
+    c = tight.counters
+    rec = {"model": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": "float32",
+           "cache_image_bytes": tight.layout.bytes_for(PROMPT + NEW),
+           "fixed_roomy": {"wall_s": roomy_s,
+                           "tok_per_s": SLOTS * NEW / roomy_s,
+                           **roomy.counters},
+           "fixed_pool_eviction": {"wall_s": tight_s,
+                                   "tok_per_s": SLOTS * NEW / tight_s,
+                                   "hbm_budget_blocks": blocks_needed - 4,
+                                   **c}}
+    log(f"[{path}] roomy tokens[0] {roomy_toks[0].tolist()}")
+    if roomy_toks.shape != (SLOTS, NEW) or roomy_toks.max() >= \
+            cfg.vocab_size or roomy_toks.min() < 0:
+        fail(f"{path}: bad token block {roomy_toks.shape}")
+    if not (c["evictions"] > 0 and c["restores"] > 0):
+        fail(f"{path}: pool run did not evict and restore: {c}")
+    if not np.array_equal(roomy_toks, tight_toks):
+        fail(f"{path}: pool-eviction run's greedy tokens differ from the "
+             f"roomy run")
+    sharable = roomy.layout.block_sharable
+    del roomy, tight
+
+    args = serve.build_parser().parse_args([
+        "--arch", arch, "--trace", "poisson", "--requests", "8",
+        "--prompt-reuse", "0.5", "--prompt-len", str(PROMPT),
+        "--new-tokens", str(NEW), "--decode-slots", str(SLOTS),
+        "--kv-block-tokens", str(BT), "--pool-budget-mib", "1024"])
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_seq=max_seq, decode_slots=SLOTS, kv_block_tokens=BT,
+        pool_budget_bytes=args.pool_budget_mib << 20, prefix_sharing=True),
+        device=dev)
+    trace, _ = run("trace_poisson", lambda: serve.run_trace(eng, cfg, args))
+    if trace["requests"] != 8 or (trace["prefix_hits"] > 0) != sharable:
+        fail(f"{path}: trace lost requests, or pooled prefix hits "
+             f"{trace['prefix_hits']} where the cache is "
+             f"{'' if sharable else 'not '}block-sharable: {trace}")
+
+    # step times at full width (after the counted runs)
+    one = torch.as_tensor(prompts[:1], device=dev)
+
+    def prefill():
+        model.prefill(params, {"tokens": one}, cfg, UNSHARDED, max_seq,
+                      cache_dtype=torch.float32)
+
+    pos = torch.full((SLOTS,), PROMPT, device=dev)
+    tok = torch.zeros((SLOTS, 1), dtype=torch.long, device=dev)
+
+    def decode():
+        model.decode_step(params, eng.caches, tok, pos, cfg, UNSHARDED)
+
+    def wall_ms(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    pre, dec = wall_ms(prefill, 3), wall_ms(decode, 10)
+    trace["profile_prefill"] = device_profile(prefill)
+    trace["profile_decode_5_steps"] = device_profile(
+        lambda: [decode() for _ in range(5)])
+    for key in ("profile_prefill", "profile_decode_5_steps"):
+        log(f"[profile] {path} {key} {json.dumps(trace[key])}")
+    trace["prefill_ms"] = float(np.median(pre))
+    trace["decode_step_ms"] = float(np.median(dec))
+    rec["trace_poisson"] = trace
+    rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{path}] trace: {trace['req_per_s']:.3f} req/s  "
+        f"{trace['tok_per_s']:.1f} tok/s  p50 {trace['latency_p50_s']:.3f}s"
+        f"  p99 {trace['latency_p99_s']:.3f}s  prefill(1x{PROMPT}) "
+        f"{trace['prefill_ms']:.1f} ms  decode step ({SLOTS} slots) "
+        f"{trace['decode_step_ms']:.2f} ms  prefix hits "
+        f"{trace['prefix_hits']}  peak memory "
+        f"{rec['peak_memory_gib']:.2f} GiB")
+    del params, eng
+    torch.cuda.empty_cache()
+    return rec
+
+
 def train_phase() -> dict:
     """Phase 7: FSDP training on DP ranks sharing the card."""
     import dataclasses
@@ -373,10 +614,9 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_collectives as fc
     from repro_torch.kernels import rmsnorm as rn
-    from repro_torch.launch import serve
+    from repro_torch.kernels import ssm_scan as ss
+    from repro_torch.launch import train
     from repro_torch.models import model, sharding
-    from repro_torch.models.pcontext import UNSHARDED
-    from repro_torch.serving import ServeConfig, ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -448,6 +688,7 @@ def main() -> int:
                        "max_abs_err": err, "tolerance": gemm_tol(n * ks),
                        "ok": ok})
     parity += grad_parity(randn, rn, fa, fc)
+    parity += ssm_parity(randn, ss)
     del x, w
     torch.cuda.synchronize()
     record["parity"] = parity
@@ -506,9 +747,26 @@ def main() -> int:
             "flops": 2 * t * n * ks * nout, "shape": [t, n, ks, nout]}
     t, n, ks, nout = AGM_MAIN
     timing["all_gather_matmul"] = dict(agm[f"{t}x{n * ks}@{n}x{ks}x{nout}"])
-    for rec in list(agm.values()) + list(timing.values()):
+    # ssm_scan as the SSM serving path calls it: a prefill (1 x PROMPT,
+    # from zero) and a decode step (SLOTS x 1, from the cached state),
+    # both writing the final state; no single PyTorch call computes it
+    scan = {}
+    for key, (b, l, with_h0) in (("prefill", (1, PROMPT, False)),
+                                 ("decode", (SLOTS, 1, True))):
+        args, h0 = ssm_inputs(randn, b, l, 8192, 16, with_h0)
+        scan[key] = {
+            "ms": timer(lambda: ss.ssm_scan(*args, h0=h0,
+                                            return_state=True)),
+            "plain_ms": timer(lambda: ss.ssm_scan_plain(
+                *args, h0=h0, return_state=True), iters=5),
+            "library_ms": None, **ssm_cost(b, l, 8192, 16, with_h0),
+            "shape": [b, l, 8192, 16]}
+    del args, h0
+    timing["ssm_scan"] = dict(scan["prefill"], decode=scan["decode"])
+    for rec in list(agm.values()) + list(timing.values()) + [scan["decode"]]:
         byte_ms = rec["bytes"] / HBM_BW * 1e3
-        op_ms = rec["flops"] / PEAK[torch.float32] * 1e3
+        op_ms = max(rec["flops"] / PEAK[torch.float32],
+                    rec.get("exps", 0) / EXP_RATE) * 1e3
         rec["bound_ms"] = max(byte_ms, op_ms)
         rec["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
     record["all_gather_matmul_shapes"] = agm
@@ -520,150 +778,24 @@ def main() -> int:
     record["timing"] = timing
     del x, s, q, k, v, qh, kh, vh, xd
 
-    # 4. reference: smoke model on the card vs on the CPU ----------------
-    scfg_small = get_config("llama3.2-1b", smoke=True)
-    cpu_params = model.init_params(scfg_small,
-                                   torch.Generator().manual_seed(0), "cpu")
-    gpu_params = model.params_from_numpy(model.params_to_numpy(cpu_params),
-                                         dev)
-    toks = np.random.default_rng(0).integers(0, scfg_small.vocab_size,
-                                             (1, 1100))
-    worst = 0.0
-    outs = {}
-    for name, params, d in (("cpu", cpu_params, torch.device("cpu")),
-                            ("gpu", gpu_params, dev)):
-        logits, caches = model.prefill(
-            params, {"tokens": torch.as_tensor(toks, device=d)},
-            scfg_small, UNSHARDED, 1104, cache_dtype=torch.float32)
-        steps = [logits]
-        pos = torch.tensor([1100], device=d)
-        for i in range(3):
-            lg, caches = model.decode_step(
-                params, caches, torch.tensor([[7 + i]], device=d), pos,
-                scfg_small, UNSHARDED)
-            steps.append(lg)
-            pos = pos + 1
-        outs[name] = [t.cpu() for t in steps] + \
-            [caches[0]["k"].cpu(), caches[0]["v"].cpu()]
-    for a, b in zip(outs["gpu"], outs["cpu"]):
-        err, ok = close(a, b, 2e-4, 2e-5)
-        worst = max(worst, err)
+    # 4. reference: smoke models on the card vs on the CPU ---------------
+    record["reference"] = {}
+    for arch, length in (("llama3.2-1b", 1100), (SSM_ARCH, 300)):
+        err, ok = card_vs_cpu(arch, length, dev)
+        record["reference"][arch] = {"prefill_len": length,
+                                     "max_abs_err": err}
+        log(f"[reference] {arch} smoke prefill L={length} + 3 decode "
+            f"steps, card vs CPU: max abs err {err:.3e} (rtol 2e-4, "
+            f"atol 2e-5)")
         if not ok:
-            fail(f"smoke model on the card differs from the CPU: "
+            fail(f"{arch} smoke model on the card differs from the CPU: "
                  f"max abs error {err}")
-    record["reference_max_abs_err"] = worst
-    log(f"[reference] smoke prefill L=1100 + 3 decode steps, card vs CPU:"
-        f" max abs err {worst:.3e} (rtol 2e-4, atol 2e-5)")
-    del cpu_params, gpu_params, outs
 
-    # 5. full-width serve -------------------------------------------------
-    cfg = get_config("llama3.2-1b")
-    torch.cuda.reset_peak_memory_stats()
-    params = model.init_params(cfg, torch.Generator(device=dev)
-                               .manual_seed(0), dev, torch.float32)
-    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                                (SLOTS, PROMPT))
-    max_seq = PROMPT + NEW + 8
-    blocks_needed = SLOTS * -(-(PROMPT + NEW) // BT)
+    # 5. full-width serve: Llama-3.2-1B, then Falcon-Mamba-7B -------------
     launches: dict = {}
-
-    def run(label, fn):
-        rn.rms_norm.launches = 0
-        fa.flash_attention.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches[label] = {"rms_norm": rn.rms_norm.launches,
-                           "flash_attention": fa.flash_attention.launches}
-        log(f"[serve] {label}: {wall:.2f}s  launches {launches[label]}")
-        return out, wall
-
-    def fixed(**kw):
-        eng = ServeEngine(cfg, params, ServeConfig(
-            max_seq=max_seq, decode_slots=SLOTS, kv_block_tokens=BT,
-            pool_budget_bytes=1 << 30, **kw), device=dev)
-        return eng, eng.generate({"tokens": prompts}, NEW)
-
-    (roomy, roomy_toks), roomy_s = run("fixed_roomy", lambda: fixed())
-    (tight, tight_toks), tight_s = run(
-        "fixed_pool_eviction",
-        lambda: fixed(kv_placement="pool",
-                      hbm_budget_blocks=blocks_needed - 4))
-    c = tight.counters
-    serve_rec = {"fixed_roomy": {"wall_s": roomy_s,
-                                 "tok_per_s": SLOTS * NEW / roomy_s,
-                                 **roomy.counters},
-                 "fixed_pool_eviction": {"wall_s": tight_s,
-                                         "tok_per_s": SLOTS * NEW / tight_s,
-                                         "hbm_budget_blocks":
-                                             blocks_needed - 4, **c}}
-    log(f"[serve] roomy tokens[0] {roomy_toks[0].tolist()}")
-    if roomy_toks.shape != (SLOTS, NEW) or roomy_toks.max() >= \
-            cfg.vocab_size or roomy_toks.min() < 0:
-        fail(f"bad token block {roomy_toks.shape}")
-    if not (c["evictions"] > 0 and c["restores"] > 0):
-        fail(f"pool run did not evict and restore: {c}")
-    if not np.array_equal(roomy_toks, tight_toks):
-        fail("pool-eviction run's greedy tokens differ from the roomy run")
-    del roomy, tight
-
-    args = serve.build_parser().parse_args([
-        "--arch", "llama3.2-1b", "--trace", "poisson", "--requests", "8",
-        "--prompt-reuse", "0.5", "--prompt-len", str(PROMPT),
-        "--new-tokens", str(NEW), "--decode-slots", str(SLOTS),
-        "--kv-block-tokens", str(BT), "--pool-budget-mib", "1024"])
-    eng = ServeEngine(cfg, params, ServeConfig(
-        max_seq=max_seq, decode_slots=SLOTS, kv_block_tokens=BT,
-        pool_budget_bytes=args.pool_budget_mib << 20, prefix_sharing=True),
-        device=dev)
-    trace, _ = run("trace_poisson", lambda: serve.run_trace(eng, cfg, args))
-    if not trace["prefix_hits"] > 0 or trace["requests"] != 8:
-        fail(f"trace: no pooled prefix hit or lost requests: {trace}")
-
-    # step times at full width (after the counted runs)
-    one = torch.as_tensor(prompts[:1], device=dev)
-    pre = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.prefill(params, {"tokens": one}, cfg, UNSHARDED, max_seq,
-                      cache_dtype=torch.float32)
-        torch.cuda.synchronize()
-        pre.append((time.perf_counter() - t0) * 1e3)
-    dec = []
-    pos = torch.full((SLOTS,), PROMPT, device=dev)
-    tok = torch.zeros((SLOTS, 1), dtype=torch.long, device=dev)
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model.decode_step(params, eng.caches, tok, pos, cfg, UNSHARDED)
-        torch.cuda.synchronize()
-        dec.append((time.perf_counter() - t0) * 1e3)
-    trace["profile_prefill"] = device_profile(lambda: model.prefill(
-        params, {"tokens": one}, cfg, UNSHARDED, max_seq,
-        cache_dtype=torch.float32))
-    trace["profile_decode_5_steps"] = device_profile(lambda: [
-        model.decode_step(params, eng.caches, tok, pos, cfg, UNSHARDED)
-        for _ in range(5)])
-    for key in ("profile_prefill", "profile_decode_5_steps"):
-        log(f"[profile] {key} {json.dumps(trace[key])}")
-    trace["prefill_ms"] = float(np.median(pre))
-    trace["decode_step_ms"] = float(np.median(dec))
-    serve_rec["trace_poisson"] = trace
-    serve_rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[serve] trace: {trace['req_per_s']:.3f} req/s  "
-        f"{trace['tok_per_s']:.1f} tok/s  p50 {trace['latency_p50_s']:.3f}s"
-        f"  p99 {trace['latency_p99_s']:.3f}s  prefill(1x{PROMPT}) "
-        f"{trace['prefill_ms']:.1f} ms  decode step ({SLOTS} slots) "
-        f"{trace['decode_step_ms']:.2f} ms  prefix hits "
-        f"{trace['prefix_hits']}")
-    record["serve"] = serve_rec
+    record["serve"] = serve_phase("llama3.2-1b", "serve", dev, launches)
+    record["serve_ssm"] = serve_phase(SSM_ARCH, "serve_ssm", dev, launches)
     record["launches"] = launches
-
-    del params, eng, trace
-    torch.cuda.empty_cache()
 
     # 6. collectives on one card ------------------------------------------
     from repro_torch.launch import collectives
@@ -683,15 +815,17 @@ def main() -> int:
     train_launches = {n: sum(s["launches"][n] for run in
                              record["train"]["full_width"].values()
                              for s in run["steps"])
-                      for n in KERNELS}
+                      for n in train.KERNEL_COUNTERS}
     record["train"]["launches"] = train_launches
 
     # 8. launch check ----------------------------------------------------
-    serve_launches = {n: sum(p[n] for p in launches.values())
-                      for n in ("rms_norm", "flash_attention")}
-    for name, n in serve_launches.items():
-        if n <= 0:
-            fail(f"the serving path never launched the {name} kernel")
+    serve_launches = {path: {n: sum(run[n] for run in launches[path]
+                                    .values()) for n in names}
+                      for path, names in SERVE_KERNELS.items()}
+    for path, counts in serve_launches.items():
+        for name, n in counts.items():
+            if n <= 0:
+                fail(f"the {path} path never launched the {name} kernel")
     for name, n in train_launches.items():
         if n <= 0:
             fail(f"the training path never launched the {name} kernel")
@@ -702,9 +836,11 @@ def main() -> int:
         t = timing[name]
         main = [p for p in parity if p["kernel"] == name
                 and p["dtype"] == str(torch.float32) and "check" not in p]
-        by_path = {"train": train_launches[name]}
-        if name in serve_launches:
-            by_path["serve"] = serve_launches[name]
+        by_path = {path: counts[name]
+                   for path, counts in serve_launches.items()
+                   if name in counts}
+        if name in train_launches:
+            by_path["train"] = train_launches[name]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1],

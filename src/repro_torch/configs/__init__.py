@@ -2,8 +2,9 @@
 
 Each ``src/repro_torch/configs/<id>.py`` module exports ``CONFIG`` (the
 exact published dimensions, cited) and ``SMOKE`` (a reduced same-family
-variant for the CPU tests).  The serving slice ports the dense decoder
-only; the rest of the zoo is ROADMAP queue 1, item 8.
+variant for the CPU tests).  Ported: the dense decoder (Llama) and the
+Mamba-1 SSM (Falcon-Mamba); the rest of the zoo is ROADMAP queue 1,
+item 8.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "llama3.2-1b": "llama3p2_1b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
 }
 
 ARCH_IDS = list(_MODULES)

@@ -24,6 +24,11 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --smoke --device cpu --trace poisson --requests 8 \\
       --prompt-reuse 0.5
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch falcon-mamba-7b --batch 4 --prompt-len 1024 --new-tokens 16
+
+A model whose cache has no token axis (Falcon-Mamba's SSM state) cannot
+share pooled prefixes: ``--prompt-reuse`` then runs plain prefills.
 """
 from __future__ import annotations
 

@@ -1,11 +1,12 @@
 """Decoder rows and layer-group assembly.
 
-Port of ``repro/models/blocks.py`` for row kind ``a`` (pre-norm
-attention + pre-norm SwiGLU FFN).  Consecutive rows of one kind form a
-group whose params are stacked along a leading layer axis (the
-reference's ``g<i>`` layout); the model loops over a group's layers in
-Python where the reference runs ``lax.scan``.  The other kinds (MoE,
-Mamba, shared attention, cross-attention) come with the rest of the zoo.
+Port of ``repro/models/blocks.py`` for row kinds ``a`` (pre-norm
+attention + pre-norm SwiGLU FFN) and ``1`` (pre-norm Mamba-1 block).
+Consecutive rows of one kind form a group whose params are stacked
+along a leading layer axis (the reference's ``g<i>`` layout); the model
+loops over a group's layers in Python where the reference runs
+``lax.scan``.  The other kinds (MoE, Mamba-2, shared attention,
+cross-attention) come with the rest of the zoo.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.pcontext import ParallelContext
 
@@ -42,7 +43,8 @@ def scan_groups(cfg: ModelConfig) -> list[Group]:
 
 
 def _ported(kind: str, cfg: ModelConfig) -> None:
-    if kind != "a" or cfg.shared_attention or cfg.encoder is not None:
+    if kind not in ("a", "1") or cfg.shared_attention \
+            or cfg.encoder is not None:
         raise NotImplementedError(
             f"{cfg.name}: row kind {kind!r} (or shared/cross attention) "
             f"is not ported yet (ROADMAP queue 1, item 8)")
@@ -58,6 +60,10 @@ def init_row(gen: torch.Generator, kind: str, cfg: ModelConfig, tp: int,
     _ported(kind, cfg)
     ones = torch.ones((layers_, cfg.d_model), dtype=torch.float32,
                       device=device)
+    if kind == "1":
+        return {"norm1": ones,
+                "mamba": ssm.init_mamba1(gen, cfg, tp, dtype, device,
+                                         layers_)}
     return {"norm1": ones,
             "attn": layers.init_attention(gen, cfg, tp, dtype, device,
                                           layers_),
@@ -72,22 +78,34 @@ def row_forward(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
     """Full-sequence forward for one row (training).  Returns
     (h, aux_loss); dense rows have no auxiliary loss."""
     _ported(kind, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if kind == "1":
+        m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
+        return h + ssm.mamba1_forward(p["mamba"], m_in, cfg, pc), aux
     attn_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
     h = h + layers.attention_forward(p["attn"], attn_in, cfg, pc,
                                      positions, causal=causal,
                                      window=window)
     ff_in = layers.rms_norm(h, p["norm2"], cfg.norm_eps)
     h = h + layers.ffn_forward(p["ffn"], ff_in, pc)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def row_prefill(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
                 pc: ParallelContext, positions: torch.Tensor, cache: dict,
                 window: Optional[int] = None) -> torch.Tensor:
     """Full-sequence forward that also fills this row's decode cache
-    ``cache`` ({'k','v'}: (B, max_seq, n_kv, hd), written in place where
-    the reference returns a new one).  Returns h."""
+    ``cache`` (attention {'k','v'}: (B, max_seq, n_kv, hd); Mamba-1
+    {'conv','ssm'}), written in place where the reference returns a new
+    one.  Returns h."""
     _ported(kind, cfg)
+    if kind == "1":
+        m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
+        out, (conv, st) = ssm.mamba1_forward(p["mamba"], m_in, cfg, pc,
+                                             return_state=True)
+        cache["conv"].copy_(conv)
+        cache["ssm"].copy_(st)
+        return h + out
     attn_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
     out, (k, v) = layers.attention_forward(
         p["attn"], attn_in, cfg, pc, positions, causal=True,
@@ -113,10 +131,23 @@ def row_decode(p: Params, h: torch.Tensor, kind: str, cache: dict,
                pos: torch.Tensor, cfg: ModelConfig, pc: ParallelContext,
                window: Optional[int] = None,
                active: Optional[torch.Tensor] = None):
-    """Single-token decode for one row; writes the row's cache
-    ``{'k','v'}`` in place (see ``layers.decode_attention``).
+    """Single-token decode for one row; writes the row's cache in place:
+    attention ``{'k','v'}`` (see ``layers.decode_attention``), Mamba-1
+    ``{'conv','ssm'}``.  With ``active`` ((B,) bool) only those slots'
+    state is written; an inactive slot's stays bitwise as it was.
     Returns (h, cache)."""
     _ported(kind, cfg)
+    if kind == "1":
+        m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
+        out, (conv, st) = ssm.mamba1_decode(
+            p["mamba"], m_in, (cache["conv"], cache["ssm"]), cfg, pc)
+        for key, new in (("conv", conv), ("ssm", st)):
+            if active is not None:
+                keep = active.reshape(-1, *([1] * (new.dim() - 1)))
+                new = torch.where(keep, new.to(cache[key].dtype),
+                                  cache[key])
+            cache[key].copy_(new)
+        return h + out, cache
     attn_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
     kv_write = pos % window if window is not None else pos
     out, _, _ = layers.decode_attention(
@@ -131,9 +162,17 @@ def row_decode(p: Params, h: torch.Tensor, kind: str, cache: dict,
 def row_cache_init(kind: str, cfg: ModelConfig, pc: ParallelContext,
                    batch: int, max_seq: int, dtype, device,
                    layers_: int = 1) -> dict:
-    """Zero decode cache of ``layers_`` stacked rows:
-    {'k','v'}: (layers_, batch, max_seq, n_kv, hd)."""
+    """Zero decode cache of ``layers_`` stacked rows: attention
+    {'k','v'}: (layers_, batch, max_seq, n_kv, hd); Mamba-1 {'conv':
+    (layers_, batch, d_conv - 1, d_inner) in ``dtype``, 'ssm': (layers_,
+    batch, d_inner, d_state) f32} (no token axis)."""
     _ported(kind, cfg)
+    if kind == "1":
+        conv_s, ssm_s = ssm.mamba_state_shapes(cfg, pc.tp, batch, 1)
+        return {"conv": torch.zeros((layers_,) + conv_s, dtype=dtype,
+                                    device=device),
+                "ssm": torch.zeros((layers_,) + ssm_s,
+                                   dtype=torch.float32, device=device)}
     d = layers.attn_dims(cfg, pc.tp)
     shape = (layers_, batch, max_seq, d.n_kv, d.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -44,8 +44,9 @@ def dense(x: torch.Tensor, w) -> torch.Tensor:
 def _dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
                 device) -> torch.Tensor:
     scale = 1.0 / math.sqrt(in_dim)
-    return (torch.randn(shape, generator=gen, device=device)
-            * scale).to(dtype)
+    # scaled in place: a full-width stack is never held twice
+    return torch.randn(shape, generator=gen, device=device) \
+        .mul_(scale).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,

@@ -1,7 +1,7 @@
 """Top-level language model: init, train forward (loss), prefill, decode.
 
 Port of ``repro/models/model.py`` for decoder-only text models built from
-``a`` rows.  Params keep the reference's tree (``embed``/``final_norm``/
+``a`` (attention) or ``1`` (Mamba-1) rows.  Params keep the reference's tree (``embed``/``final_norm``/
 ``g<i>`` groups with a leading layer axis), so ``params_from_numpy`` is a
 renaming, not a reshuffle.  Layer groups run as Python loops where the
 reference runs ``lax.scan``; decode caches are updated in place.
@@ -184,7 +184,8 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
             cache_dtype=torch.bfloat16, window: Optional[int] = None):
     """Full-sequence forward producing last-position logits (B, 1, V)
     and the decode cache (a list aligned with layer groups, each
-    {'k','v'}: (layers, B, max_seq, n_kv, hd))."""
+    {'k','v'}: (layers, B, max_seq, n_kv, hd) for attention rows or
+    {'conv','ssm'} for Mamba-1 rows, see ``blocks.row_cache_init``)."""
     tokens = batch["tokens"]
     h = layers.embed_tokens(params["embed"], tokens, cfg, pc)
     positions = torch.arange(h.shape[1], device=h.device)

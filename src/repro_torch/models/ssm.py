@@ -1,0 +1,147 @@
+"""Mamba-1 (S6 selective scan) blocks.
+
+Port of the Mamba-1 half of ``repro/models/ssm.py`` at tp = 1 (the
+reference's tp collectives are the identity here).  The in/x/dt/out
+products are plain ``torch.matmul``; the recurrence goes through the
+hand-written ``ssm_scan`` kernel (``kernels/ssm_scan.py``), in prefill
+and in decode, where the reference evaluates the same contraction with
+``associative_scan`` and an einsum with C.  The kernel starts from the
+cached state and returns the final one, so a decode step is the same
+call at L = 1.  Mamba-2 (SSD) is not ported yet (ROADMAP queue 1,
+item 8).
+
+Decode state per row: (conv_state (B, d_conv - 1, d_inner), ssm_state
+(B, d_inner, d_state) f32).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.pcontext import ParallelContext
+
+Params = dict
+
+
+def _dt_rank(cfg: ModelConfig) -> int:
+    return cfg.ssm.dt_rank or math.ceil(cfg.d_model / 16)
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor,
+                h0: Optional[torch.Tensor] = None):
+    """h_t = a_t * h_{t-1} + b_t along axis 1 (seq), step by step.
+    Returns all h_t and the final state."""
+    h = torch.zeros_like(b[:, 0]) if h0 is None else h0
+    hs = []
+    for t in range(b.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    h_all = torch.stack(hs, dim=1)
+    return h_all, h_all[:, -1]
+
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  x: (B, L, C); w: (C, K).  ``state`` is the
+    trailing K-1 inputs from the previous segment (decode).  Returns
+    (y, new_state).  The shifted-window sum over K, as the reference
+    writes it: ``F.conv1d`` would take cuDNN's TF32 path on the card."""
+    b, l, c = x.shape
+    k = w.shape[-1]
+    if state is None:
+        state = torch.zeros((b, k - 1, c), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)       # (B, L+K-1, C)
+    y = xp[:, 0:l] * w[:, 0]
+    for j in range(1, k):
+        y = y + xp[:, j:j + l] * w[:, j]
+    new_state = xp[:, -(k - 1):] if k > 1 else state
+    return y, new_state
+
+
+def init_mamba1(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype,
+                device, layers_: int = 1) -> Params:
+    """GLOBAL shapes with a leading ``layers_`` axis; ``in_proj`` is
+    stored as separate x/z tensors, as in the reference."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    r = _dt_rank(cfg)
+    lead = (layers_,)
+    f32 = dict(dtype=torch.float32, device=device)
+    a_log = torch.log(torch.arange(1, s.d_state + 1, **f32))
+    return {
+        "in_x": layers._dense_init(gen, lead + (cfg.d_model, d_in),
+                                   cfg.d_model, dtype, device),
+        "in_z": layers._dense_init(gen, lead + (cfg.d_model, d_in),
+                                   cfg.d_model, dtype, device),
+        "conv_w": torch.randn(lead + (d_in, s.d_conv), generator=gen,
+                              device=device).div_(math.sqrt(s.d_conv))
+        .to(dtype),
+        "x_proj": layers._dense_init(gen, lead + (d_in, r + 2 * s.d_state),
+                                     d_in, dtype, device),
+        "dt_proj": layers._dense_init(gen, lead + (r, d_in), r, dtype,
+                                      device),
+        "dt_bias": torch.zeros(lead + (d_in,), **f32),
+        "A_log": a_log.expand(lead + (d_in, s.d_state)).clone(),
+        "D": torch.ones(lead + (d_in,), **f32),
+        "out_proj": layers._dense_init(gen, lead + (d_in, cfg.d_model),
+                                       d_in, dtype, device),
+    }
+
+
+def mamba1_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                   pc: ParallelContext, state: Optional[tuple] = None,
+                   return_state: bool = False):
+    """x: (B, L, d_model).  state: (conv_state, ssm_state) for decode
+    continuation.  The scan runs in f32 on f32 copies of its inputs, as
+    the reference upcasts them."""
+    s = cfg.ssm
+    r = _dt_rank(cfg)
+    xin = x @ params["in_x"]                              # (B, L, d_in)
+    z = x @ params["in_z"]
+    conv_state = state[0] if state is not None else None
+    xc, new_conv = causal_conv1d(xin, params["conv_w"], conv_state)
+    xc = F.silu(xc)
+
+    proj = pc.tp_all_reduce(xc @ params["x_proj"])        # (B, L, r+2N)
+    dt_in, b_mat, c_mat = torch.split(proj, [r, s.d_state, s.d_state],
+                                      dim=-1)
+    # F.softplus returns its input above 20, where jax.nn.softplus is
+    # exact; the two agree within f32 rounding there.
+    dt = F.softplus(dt_in @ params["dt_proj"] + params["dt_bias"])
+
+    A = -torch.exp(params["A_log"])                       # (d_in, N)
+    h0 = state[1] if state is not None else None
+    y, h_last = ssm_scan(xc.float(), dt.float(), A,
+                         b_mat.float().contiguous(),
+                         c_mat.float().contiguous(), params["D"],
+                         h0=h0, return_state=True)
+    y = y.to(x.dtype) * F.silu(z)
+    out = pc.tp_all_reduce(y @ params["out_proj"])
+    if return_state:
+        return out, (new_conv, h_last)
+    return out
+
+
+def mamba1_decode(params: Params, x: torch.Tensor, state: tuple,
+                  cfg: ModelConfig, pc: ParallelContext):
+    """Single-token decode; x: (B, 1, d_model)."""
+    return mamba1_forward(params, x, cfg, pc, state=state,
+                          return_state=True)
+
+
+def mamba_state_shapes(cfg: ModelConfig, tp: int, batch: int,
+                       version: int) -> tuple:
+    """Decode-state shapes of one row: v1 -> (conv, ssm)."""
+    if version != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba-2 (SSD) rows are not ported yet (ROADMAP "
+            f"queue 1, item 8)")
+    s = cfg.ssm
+    d_loc = s.expand * cfg.d_model // tp
+    return ((batch, s.d_conv - 1, d_loc), (batch, d_loc, s.d_state))

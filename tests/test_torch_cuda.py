@@ -12,6 +12,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import ssm_scan as ss
 from repro_torch.models import model
 from repro_torch.models.pcontext import UNSHARDED
 from repro_torch.serving import ServeConfig, ServeEngine
@@ -113,6 +114,108 @@ def test_smoke_model_on_card_matches_cpu(cuda):
 
 def test_engine_on_card_matches_cpu_and_evicts_bitwise(cuda):
     cfg = get_config("llama3.2-1b", smoke=True)
+    cpu = model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = model.params_from_numpy(model.params_to_numpy(cpu), cuda)
+    toks = RNG.integers(0, cfg.vocab_size, (3, 8))
+    tight = dict(decode_slots=2, kv_block_tokens=4, hbm_budget_blocks=6)
+    want = ServeEngine(cfg, cpu, ServeConfig(max_seq=64, **tight),
+                       device="cpu").generate({"tokens": toks}, 6)
+    eng = ServeEngine(cfg, gpu, ServeConfig(max_seq=64, kv_placement="pool",
+                                            **tight))
+    got = eng.generate({"tokens": toks}, 6)
+    assert eng.counters["evictions"] > 0 and eng.counters["restores"] > 0
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------- #
+# the SSM slice: ssm_scan, Falcon-Mamba on the card
+# ---------------------------------------------------------------------- #
+
+def _scan_inputs(b, l, d, n, dtype, device, with_h0):
+    """x, dt, A, B, C, D (and h0) as tests/test_kernels.py draws them."""
+    x = _randn((b, l, d), dtype, device)
+    dt = (_randn((b, l, d), torch.float32, device).abs() * 0.1).to(dtype)
+    a = -_randn((d, n), torch.float32, device).abs()
+    bs, cs = (_randn((b, l, n), dtype, device) for _ in range(2))
+    dres = _randn((d,), torch.float32, device)
+    h0 = _randn((b, d, n), torch.float32, device) if with_h0 else None
+    return (x, dt, a, bs, cs, dres), h0
+
+
+@pytest.mark.parametrize("b,l,d,n,with_h0", [
+    (2, 256, 256, 16, False), (1, 128, 512, 8, False),
+    (2, 64, 128, 4, False),                      # the JAX test shapes
+    (1, 1024, 8192, 16, False),                  # Falcon prefill
+    (2, 300, 8192, 16, True),                    # ragged L, from a state
+    (4, 1, 8192, 16, True),                      # Falcon decode step
+    (3, 77, 100, 32, True),                      # ragged D, N = 32
+    (1, 40, 130, 2, False), (1, 33, 70, 1, True)])   # N = 2, 1
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_kernel_vs_plain(cuda, b, l, d, n, with_h0, dtype):
+    """y and h_last against the plain version (rtol/atol 1e-4 in f32, as
+    tests/test_kernels.py holds the Pallas kernel; bf16 y differs by a
+    rounding of the output), and two runs bitwise equal (no atomics)."""
+    args, h0 = _scan_inputs(b, l, d, n, DTYPES[dtype], cuda, with_h0)
+    before = ss.ssm_scan.launches
+    y, h = ss.ssm_scan(*args, h0=h0, return_state=True)
+    y2 = ss.ssm_scan(*args, h0=h0)
+    torch.cuda.synchronize()
+    assert ss.ssm_scan.launches == before + 2
+    want_y, want_h = ss.ssm_scan_plain(*args, h0=h0, return_state=True)
+    tol = (1e-4, 1e-4) if dtype == "float32" else (1e-2, 1e-2)
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol[0],
+                               atol=tol[1])
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+    assert y.dtype == DTYPES[dtype] and torch.equal(y, y2)
+
+
+def test_ssm_scan_kernel_refuses_grad(cuda):
+    """No backward kernel yet: an input that needs a gradient raises
+    rather than get an output without autograd history."""
+    args, _ = _scan_inputs(1, 8, 64, 16, torch.float32, cuda, False)
+    x = args[0].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ss.ssm_scan(x, *args[1:])
+    with torch.no_grad():
+        ss.ssm_scan(x, *args[1:])
+    strided = torch.cat([args[3], args[3]], dim=-1)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssm_scan(*args[:3], strided, *args[4:])
+
+
+def test_falcon_smoke_on_card_matches_cpu(cuda):
+    """Falcon-Mamba SMOKE: prefill at L = 300 and three per-slot decode
+    steps, the card (ssm_scan kernel) against the CPU (plain version),
+    logits and both cache leaves at rtol 2e-4, atol 2e-5."""
+    cfg = get_config("falcon-mamba-7b", smoke=True)
+    cpu = model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = model.params_from_numpy(model.params_to_numpy(cpu), cuda)
+    toks = RNG.integers(0, cfg.vocab_size, (2, 300))
+    outs = []
+    for params, dev in ((cpu, torch.device("cpu")), (gpu, cuda)):
+        before = ss.ssm_scan.launches
+        logits, caches = model.prefill(
+            params, {"tokens": torch.as_tensor(toks, device=dev)}, cfg,
+            UNSHARDED, 320, cache_dtype=torch.float32)
+        res = [logits]
+        pos = torch.tensor([300, 300], device=dev)
+        active = torch.tensor([True, False], device=dev)
+        for i in range(3):
+            lg, caches = model.decode_step(
+                params, caches, torch.tensor([[5 + i], [9]], device=dev),
+                pos, cfg, UNSHARDED, active=active)
+            res.append(lg)
+            pos = pos + 1
+        outs.append([t.cpu() for t in res + [caches[0]["conv"],
+                                             caches[0]["ssm"]]])
+    assert ss.ssm_scan.launches == before + 4 * cfg.n_layers
+    for a, b in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+def test_falcon_engine_on_card_matches_cpu_and_evicts_bitwise(cuda):
+    """Whole-image eviction of the token-free SSM cache on the card."""
+    cfg = get_config("falcon-mamba-7b", smoke=True)
     cpu = model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     gpu = model.params_from_numpy(model.params_to_numpy(cpu), cuda)
     toks = RNG.integers(0, cfg.vocab_size, (3, 8))

@@ -100,7 +100,7 @@ def test_launcher_rejects_unported_flags():
 def test_unported_arch_names_the_roadmap():
     from repro_torch.configs import get_config
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("falcon-mamba-7b")
+        get_config("zamba2-1.2b")
 
 
 def test_train_entry_points_without_device_refuse_cpu_fallback():
