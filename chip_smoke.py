@@ -8,7 +8,7 @@ Run from the root of a checkout, on a machine with one H100:
 
 Phases (each fails the run if its check fails):
 
-1. build       - build the five CUDA kernels from ``src/repro_torch/
+1. build       - build the seven CUDA kernels from ``src/repro_torch/
                  kernels/csrc`` (one nvcc per source, all started together);
 2. parity      - each kernel against its plain PyTorch version on the
                  card: rms_norm and flash_attention at the serving path's
@@ -19,10 +19,18 @@ Phases (each fails the run if its check fails):
                  at the training path's shapes (f32); ssm_scan (y and the
                  final state) at the JAX test shapes, Falcon's prefill and
                  decode shapes, a ragged L from a random state, and bf16;
+                 reduce_scatter_rmsnorm and reduce_scatter_adamw (f32 and
+                 bf16, weight decay 0 and 0.1) at the JAX test shapes, the
+                 training path's shapes and a ragged T / L;
 3. timing      - each kernel, its plain version and one PyTorch library
                  call on the same inputs (device time from CUDA events, L2
-                 flushed before every call), beside the kernel's roofline
-                 bound, at the main paths' shapes;
+                 flushed before every call; for the two reduce_scatter
+                 kernels, which no single call computes, the two-call
+                 composition), beside the kernel's roofline bound, at the
+                 main paths' shapes;
+3b. kernel API - ``repro_torch.kernels.ops.reduce_scatter_rmsnorm`` and
+                 ``reduce_scatter_adamw`` at the training path's shapes
+                 (the path that carries them in the JAX package too);
 4. reference   - the smoke-size models on the card against the same models
                  on the CPU: Llama (prefill at L = 1100, through the flash
                  kernel) and Falcon-Mamba (prefill at L = 300, through the
@@ -45,20 +53,25 @@ Phases (each fails the run if its check fails):
                  model on the card against the same run on the CPU (losses
                  over 3 steps), then Llama-3.2-1B at full width and depth
                  through the launcher's flags, ``--backend cxl
-                 --fuse-kernels``, ``--backend cxl`` and ``--backend ring``
-                 (``--mesh 4x1 --batch 4 --seq 1024``, 3 steps each, the
-                 same seeded params and batches): the three step-0 losses
-                 agree, every run's loss falls, and one extra step of the
-                 first run is profiled.
+                 --fuse-kernels``, ``--backend cxl``, ``--backend ring`` and
+                 ``--backend auto --plan`` on a plan that
+                 ``repro_torch.launch.tune --nranks 4 --sizes-mib 1 4 16 64
+                 256`` writes into ``OUT_DIR`` (``--mesh 4x1
+                 --batch 4 --seq 1024``, 3 steps each, the same seeded
+                 params and batches): the four step-0 losses agree, every
+                 run's loss falls, every collective call of the auto run
+                 took its plan cell, and one extra step of the first run is
+                 profiled.
 
 The kernels' launch counters are zeroed before each serving run and
 before each training step (in the rank processes), and read after it:
-every kernel must have run on the training path, and rms_norm and
+the training path's four kernels must have run on it, rms_norm and
 flash_attention on the serving path too, rms_norm and ssm_scan on the
-SSM serving path.  The last three lines of
+SSM serving path, and the two reduce_scatter kernels on the kernel API
+path (their counters are zeroed before it and read after).  The last three lines of
 standard output are the kernels' JSON line, the card's name and power
 limit, and the result line.  The full record goes to
-``chip_smoke.json`` in the output directory that ``main`` names.
+``chip_smoke.json`` in ``OUT_DIR``.
 """
 from __future__ import annotations
 
@@ -70,6 +83,7 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+OUT_DIR = ROOT / "chiprun_out"       # the record and the tuned plan
 sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
@@ -92,9 +106,31 @@ TOL = {"rms_norm": {torch.float32: (1e-5, 1e-5),
        # to bf16 after the f32 sum, the sum's order differs
        "ssm_scan": {torch.float32: (1e-4, 1e-4),
                     torch.bfloat16: (1e-2, 1e-2)},
-       "grad": {torch.float32: (1e-4, 1e-4)}}
+       "grad": {torch.float32: (1e-4, 1e-4)},
+       # the JAX test's bf16 band; f32 widened from its rtol 1e-6, atol
+       # 1e-7: the kernel and torch sum the D squares in other orders (a
+       # random walk of about sqrt(D) roundings of 2^-24 relative, 1e-6 at
+       # D = 2048), and the result is their rsqrt times values up to ~5
+       "reduce_scatter_rmsnorm": {torch.float32: (1e-5, 1e-6),
+                                  torch.bfloat16: (2e-2, 1e-2)},
+       # the JAX test's tolerances: every step is one IEEE-rounded op on
+       # both sides, only the shard sum may associate differently; a bf16
+       # param (p' only) takes the bf16 band
+       "reduce_scatter_adamw": {torch.float32: (1e-6, 1e-7),
+                                torch.bfloat16: (2e-2, 1e-2)}}
 PROMPT, NEW, SLOTS, BT = 1024, 16, 4, 16
 DP, TRAIN_BATCH, TRAIN_STEPS = 4, 4, 3
+TUNE_SIZES_MIB = ("1", "4", "16", "64", "256")
+# reduce_scatter_rmsnorm (n_src, T, D): the JAX test shapes, one rank's
+# 1024 tokens at d_model 2048, a ragged T
+RS_RMSNORM_SHAPES = ((2, 128, 64), (4, 256, 32), (3, 37, 48), (8, 1, 16),
+                     (DP, PROMPT, 2048), (DP, 1000, 2048))
+RS_RMSNORM_MAIN = (DP, PROMPT, 2048)
+# reduce_scatter_adamw (n_src, L, weight decay): the JAX test shapes; the
+# path's (DP, one rank's segment of a row's grads) and a ragged L follow
+RS_ADAMW_SHAPES = ((2, 2048, 0.0), (4, 3 * 2048, 0.1), (3, 1000, 0.0),
+                   (6, 7, 0.01))
+ADAMW_HYPER = (3e-3, 1.0 - 0.9 ** 3, 1.0 - 0.95 ** 3)    # lr, bc1, bc2
 # all_gather_matmul on the training path (--fuse-kernels): x (T, n*Ks) @
 # (n, Ks, N) for wq, wk/wv and wg/wu of Llama-3.2-1B, T = 1024 tokens of
 # one rank.  wo and wd are FSDP-sharded on their dim 1 (dim 0 carries the
@@ -136,7 +172,15 @@ KERNELS = {   # name -> (source, the Pallas TPU kernel it replaces)
                           "src/repro/kernels/fused_collectives.py:192"),
     "ssm_scan": ("src/repro_torch/kernels/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan.py:72"),
+    "reduce_scatter_adamw": ("src/repro_torch/kernels/csrc/"
+                             "reduce_scatter_adamw.cu",
+                             "src/repro/kernels/fused_collectives.py:130"),
+    "reduce_scatter_rmsnorm": ("src/repro_torch/kernels/csrc/"
+                               "reduce_scatter_rmsnorm.cu",
+                               "src/repro/kernels/fused_collectives.py:69"),
 }
+# the kernels the kernel API phase drives (no model path calls them)
+API_KERNELS = ("reduce_scatter_rmsnorm", "reduce_scatter_adamw")
 
 
 def log(msg: str) -> None:
@@ -354,6 +398,145 @@ def ssm_parity(randn, ss) -> list:
     return out
 
 
+def adamw_inputs(randn, rand, n, length, g_dtype=torch.float32,
+                 p_dtype=torch.float32) -> tuple:
+    """Grad partials, param and moments as tests/test_fused_kernels.py
+    draws them."""
+    return (randn(n, length, dtype=g_dtype), randn(length, dtype=p_dtype),
+            randn(length) * 0.1, rand(length) * 0.01)
+
+
+def rs_cost(name: str, shape: tuple, g_bytes: int = 4,
+            p_bytes: int = 4) -> dict:
+    """What each reduce_scatter kernel must move and compute: every input
+    read once, every output written once; flops per element: the n_src - 1
+    adds of the sum, then 4 for the norm (square, add, two multiplies) or
+    15 for AdamW (moments 6, bias corrections 2, sqrt, add, divide,
+    decay 2, step 2)."""
+    if name == "reduce_scatter_rmsnorm":
+        n, rows, d = shape
+        return {"bytes": (n + 1) * rows * d * g_bytes + 4 * d,
+                "flops": (n - 1 + 4) * rows * d}
+    n, length = shape
+    return {"bytes": (n * g_bytes + 2 * p_bytes + 16) * length,
+            "flops": (n - 1 + 15) * length}
+
+
+def rs_parity(randn, rand, fc, rs_len: int) -> list:
+    """Both reduce_scatter kernels against their plain versions."""
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, rows, d in RS_RMSNORM_SHAPES:
+            x, s = randn(n, rows, d, dtype=dtype), randn(d)
+            tol = TOL["reduce_scatter_rmsnorm"][dtype]
+            err, ok = close(fc.reduce_scatter_rmsnorm(x, s),
+                            fc.reduce_scatter_rmsnorm_plain(x, s), *tol)
+            out.append({"kernel": "reduce_scatter_rmsnorm",
+                        "shape": [n, rows, d], "dtype": str(dtype),
+                        "tolerance": tol, "max_abs_err": err, "ok": ok})
+    cases = [(n, length, wd, torch.float32, torch.float32)
+             for n, length, wd in RS_ADAMW_SHAPES]
+    for dtypes in ((torch.float32, torch.float32),
+                   (torch.float32, torch.bfloat16),
+                   (torch.bfloat16, torch.bfloat16)):
+        for length in (rs_len, RAGGED):
+            for wd in (0.0, 0.1):
+                cases.append((DP, length, wd, *dtypes))
+    for n, length, wd, g_dtype, p_dtype in cases:
+        args = adamw_inputs(randn, rand, n, length, g_dtype, p_dtype)
+        got = fc.reduce_scatter_adamw(*args, *ADAMW_HYPER, weight_decay=wd)
+        want = fc.reduce_scatter_adamw_plain(*args, *ADAMW_HYPER,
+                                             weight_decay=wd)
+        f32 = TOL["reduce_scatter_adamw"][torch.float32]
+        errs = [close(a, b, *(TOL["reduce_scatter_adamw"][p_dtype]
+                              if i == 0 else f32))
+                for i, (a, b) in enumerate(zip(got, want))]
+        out.append({"kernel": "reduce_scatter_adamw", "shape": [n, length],
+                    "weight_decay": wd, "dtype": str(p_dtype),
+                    "grad_dtype": str(g_dtype),
+                    "tolerance": TOL["reduce_scatter_adamw"][p_dtype],
+                    "max_abs_err": max(e for e, _ in errs),
+                    "ok": all(ok for _, ok in errs)})
+        del args, got, want
+    return out
+
+
+def rs_timing(timer, randn, rand, fc, rs_len: int) -> dict:
+    """Both reduce_scatter kernels at the training path's shapes (f32),
+    their plain versions, and the two-call PyTorch composition that
+    computes the same function (no single call does): ``F.rms_norm`` of
+    ``x.sum(0)``, and ``x.sum(0)`` then ``torch._fused_adamw_`` on one
+    tensor (its decoupled weight decay rounds otherwise, the work is the
+    same; it updates in place, so it runs on copies)."""
+    out = {}
+    n, rows, d = RS_RMSNORM_MAIN
+    x, s = randn(n, rows, d), randn(d)
+    out["reduce_scatter_rmsnorm"] = {
+        "ms": timer(lambda: fc.reduce_scatter_rmsnorm(x, s)),
+        "plain_ms": timer(lambda: fc.reduce_scatter_rmsnorm_plain(x, s)),
+        "library_ms": timer(lambda: torch.nn.functional.rms_norm(
+            x.sum(0), (d,), weight=s, eps=1e-5)),
+        "library": "F.rms_norm(x.sum(0))",
+        **rs_cost("reduce_scatter_rmsnorm", RS_RMSNORM_MAIN),
+        "shape": list(RS_RMSNORM_MAIN)}
+    del x
+    g, p, m, v = adamw_inputs(randn, rand, DP, rs_len)
+    pc, mc, vc = p.clone(), m.clone(), v.clone()
+    step = torch.tensor(3.0, device=g.device)
+    lr = ADAMW_HYPER[0]
+
+    def library():
+        gs = g.sum(0)
+        torch._fused_adamw_([pc], [gs], [mc], [vc], [], [step], lr=lr,
+                            beta1=0.9, beta2=0.95, weight_decay=0.1,
+                            eps=1e-8, amsgrad=False, maximize=False)
+
+    out["reduce_scatter_adamw"] = {
+        "ms": timer(lambda: fc.reduce_scatter_adamw(
+            g, p, m, v, *ADAMW_HYPER, weight_decay=0.1)),
+        "plain_ms": timer(lambda: fc.reduce_scatter_adamw_plain(
+            g, p, m, v, *ADAMW_HYPER, weight_decay=0.1)),
+        "library_ms": timer(library),
+        "library": "x.sum(0) + torch._fused_adamw_",
+        **rs_cost("reduce_scatter_adamw", (DP, rs_len)),
+        "shape": [DP, rs_len]}
+    pb = p.to(torch.bfloat16)
+    out["reduce_scatter_adamw"]["bf16_param"] = {
+        "ms": timer(lambda: fc.reduce_scatter_adamw(
+            g, pb, m, v, *ADAMW_HYPER, weight_decay=0.1)),
+        **rs_cost("reduce_scatter_adamw", (DP, rs_len), p_bytes=2)}
+    return out
+
+
+def kernel_api_phase(randn, rand, rs_len: int) -> dict:
+    """The path that carries the two reduce_scatter kernels, in the JAX
+    package too: its public kernel API, at the training path's shapes,
+    counters zeroed before and read after; results must be finite and
+    equal the plain versions within ``TOL``."""
+    from repro_torch.kernels import fused_collectives as fc
+    from repro_torch.kernels import ops
+    n, rows, d = RS_RMSNORM_MAIN
+    x, s = randn(n, rows, d), randn(d)
+    adamw = adamw_inputs(randn, rand, DP, rs_len)
+    counters = {k: getattr(fc, k) for k in API_KERNELS}
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    y = ops.reduce_scatter_rmsnorm(x, s)
+    new = ops.reduce_scatter_adamw(*adamw, *ADAMW_HYPER, weight_decay=0.1)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    errs = [close(y, fc.reduce_scatter_rmsnorm_plain(x, s),
+                  *TOL["reduce_scatter_rmsnorm"][torch.float32])]
+    errs += [close(a, b, *TOL["reduce_scatter_adamw"][torch.float32])
+             for a, b in zip(new, fc.reduce_scatter_adamw_plain(
+                 *adamw, *ADAMW_HYPER, weight_decay=0.1))]
+    ok = all(ok for _, ok in errs) and tuple(y.shape) == (rows, d) and \
+        all(tuple(t.shape) == (rs_len,) for t in new)
+    return {"launches": launches, "max_abs_err": max(e for e, _ in errs),
+            "ok": ok}
+
+
 def card_vs_cpu(arch: str, length: int, dev) -> tuple:
     """The smoke-size model of ``arch`` on the card against the CPU with
     the same params: prefill at ``length``, then three per-slot decode
@@ -528,6 +711,29 @@ def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
     return rec
 
 
+def check_auto_choices(run: dict, plan) -> dict:
+    """Every collective call of the auto run (rank 0's audit, each step)
+    took the knobs of its plan cell: no call fell back to the ring
+    baseline for want of a cell.  Returns and prints the per-primitive
+    decisions of step 0."""
+    knobs = ("backend", "slicing_factor", "allreduce_mode", "overlap",
+             "fused")
+    for i, step in enumerate(run["steps"]):
+        if not step["choices_rank0"]:
+            fail(f"auto run step {i} resolved no collective")
+        for c in step["choices_rank0"]:
+            cell = plan.lookup(c["primitive"], c["msg_bytes"], c["nranks"])
+            if cell is None or any(c[k] != getattr(cell, k) for k in knobs):
+                fail(f"auto run step {i}: {c} is not its plan cell {cell}")
+    by_prim: dict = {}
+    for c in run["steps"][0]["choices_rank0"]:
+        by_prim.setdefault(c["primitive"], []).append(
+            {k: c[k] for k in ("msg_bytes", *knobs, "calls")})
+    for prim, cells in sorted(by_prim.items()):
+        log(f"[train] auto {prim}: {json.dumps(cells)}")
+    return by_prim
+
+
 def train_phase() -> dict:
     """Phase 7: FSDP training on DP ranks sharing the card."""
     import dataclasses
@@ -561,12 +767,23 @@ def train_phase() -> dict:
     if not err <= 2e-4:
         fail(f"smoke training on the card differs from the CPU: {losses}")
 
+    # the plan the auto run resolves against, tuned for its 4 ranks
+    from repro_torch import tuner
+    from repro_torch.launch import tune
+    OUT_DIR.mkdir(exist_ok=True)
+    plan_path = str(OUT_DIR / "plan_auto.json")
+    tune.main(["--nranks", str(DP), "--sizes-mib", *TUNE_SIZES_MIB,
+               "--quiet", "--out", plan_path])
+    plan = tuner.load_plan(plan_path)
+
     # full width and depth, through the launcher's flags
     runs = {}
     for label, extra in (("cxl_fused", ["--backend", "cxl",
                                         "--fuse-kernels"]),
                          ("cxl", ["--backend", "cxl"]),
-                         ("ring", ["--backend", "ring"])):
+                         ("ring", ["--backend", "ring"]),
+                         ("auto", ["--backend", "auto", "--plan",
+                                   plan_path])):
         spec = train.spec_from_args(train.build_parser().parse_args(
             _train_args(extra + ["--lr", "3e-5"])))
         spec = dataclasses.replace(spec, profile=label == "cxl_fused")
@@ -590,6 +807,10 @@ def train_phase() -> dict:
             f" peak memory per rank {run.get('peak_memory_gib')} GiB")
         runs[label] = run
     out["full_width"] = runs
+    out["auto_choices"] = check_auto_choices(runs["auto"], plan)
+    log("[train] step times (s): " + json.dumps(
+        {k: [round(s["step_s"], 3) for s in r["steps"]]
+         for k, r in runs.items()}))
     losses = {k: [s["loss"] for s in r["steps"]] for k, r in runs.items()}
     first = losses["cxl_fused"][0]
     for label, ls in losses.items():
@@ -637,6 +858,9 @@ def main() -> int:
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
 
     parity = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -689,6 +913,7 @@ def main() -> int:
                        "ok": ok})
     parity += grad_parity(randn, rn, fa, fc)
     parity += ssm_parity(randn, ss)
+    parity += rs_parity(randn, rand, fc, rs_len)
     del x, w
     torch.cuda.synchronize()
     record["parity"] = parity
@@ -763,7 +988,9 @@ def main() -> int:
             "shape": [b, l, 8192, 16]}
     del args, h0
     timing["ssm_scan"] = dict(scan["prefill"], decode=scan["decode"])
-    for rec in list(agm.values()) + list(timing.values()) + [scan["decode"]]:
+    timing.update(rs_timing(timer, randn, rand, fc, rs_len))
+    for rec in list(agm.values()) + list(timing.values()) + [
+            scan["decode"], timing["reduce_scatter_adamw"]["bf16_param"]]:
         byte_ms = rec["bytes"] / HBM_BW * 1e3
         op_ms = max(rec["flops"] / PEAK[torch.float32],
                     rec.get("exps", 0) / EXP_RATE) * 1e3
@@ -777,6 +1004,14 @@ def main() -> int:
         log(f"[timing] {name} {json.dumps(t)}")
     record["timing"] = timing
     del x, s, q, k, v, qh, kh, vh, xd
+
+    # 3b. the kernel API: the path of the two reduce_scatter kernels -----
+    record["kernel_api"] = kernel_api_phase(randn, rand, rs_len)
+    log(f"[kernel_api] {json.dumps(record['kernel_api'])}")
+    if not record["kernel_api"]["ok"]:
+        fail("the kernel API's reduce_scatter kernels disagree with their "
+             "plain versions")
+    torch.cuda.empty_cache()
 
     # 4. reference: smoke models on the card vs on the CPU ---------------
     record["reference"] = {}
@@ -829,6 +1064,10 @@ def main() -> int:
     for name, n in train_launches.items():
         if n <= 0:
             fail(f"the training path never launched the {name} kernel")
+    api_launches = record["kernel_api"]["launches"]
+    for name in API_KERNELS:
+        if api_launches[name] <= 0:
+            fail(f"the kernel API path never launched the {name} kernel")
 
     # 9. output lines ----------------------------------------------------
     kernels = []
@@ -841,6 +1080,8 @@ def main() -> int:
                    if name in counts}
         if name in train_launches:
             by_path["train"] = train_launches[name]
+        if name in api_launches:
+            by_path["kernel_api"] = api_launches[name]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1],
@@ -855,9 +1096,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     record["nvidia_smi"] = smi
-    out = ROOT / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi.splitlines()[0] if smi else "nvidia-smi: no output")
     print(json.dumps({"ok": True, "device": {

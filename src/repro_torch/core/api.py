@@ -7,7 +7,12 @@ of the training stack goes through it, so the backend is a launch flag:
 * ``cxl``  - the paper's schedules on the shared host pool
              (``core.mesh_collectives``, ``core.pool.SharedPool``), with
              the slicing factor and the faithful-vs-two-phase AllReduce
-             both selectable.
+             both selectable;
+* ``auto`` - per-call selection from an autotuning ``Plan``
+             (``repro_torch.tuner``): each (primitive, message size, axis
+             size) resolves to the predicted-fastest (backend,
+             slicing_factor, allreduce_mode) of the plan's nearest cell,
+             and the ledger records the decision taken.
 
 An axis is named as in the reference (``"data"``); the communicator maps
 the name to this rank's :class:`~repro_torch.core.mesh_collectives.
@@ -24,22 +29,36 @@ sum over ranks, so a loss averaged with ``all_reduce(x) / n`` hands each
 rank a cotangent of 1, and synced grads are the sum of the ranks' local
 grads.
 
-Not ported yet: ``backend="auto"`` and plans (ROADMAP queue 1, item 5),
-tuple (hierarchical) axes and ragged levels (items 5-6).
+Under ``auto`` the plan comes from the Communicator's ``plan`` field,
+else the process-wide active plan, else the cached default plan
+(``tuner.runtime``).  Where the reference resolves once per call site at
+trace time, the port resolves at every call (``Plan.lookup`` memoises
+the answer), including backward collectives and remat replays, each at
+its own message size.  A cell's ``fused`` flag only tags the ledger's
+fused split, as in the reference; it never turns fused kernels on.  An
+axis covered by a topology level (the active topology, else the plan's)
+resolves against that level's cells, and the pool schedule never drives
+an ``ib``/``ici`` level.
+
+Not ported yet: tuple (hierarchical) axes and ragged (grouped) levels
+(ROADMAP queue 1, items 5-6).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Sequence, Union
+from typing import Mapping, Optional, Sequence, Union
 
 import torch
 
 from repro_torch.core import ledger
 from repro_torch.core import mesh_collectives as mc
+from repro_torch.core import topology as topo_mod
+from repro_torch.tuner import runtime as tuner_runtime
+from repro_torch.tuner.plan import Plan
 
 AxisSpec = Union[str, Sequence[str]]
 
-BACKENDS = ("ring", "cxl")
+BACKENDS = ("ring", "cxl", "auto")
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -53,12 +72,12 @@ class Communicator:
     allreduce_mode: str = "two_phase"   # 'faithful' reproduces Sec. 5.2
     axes: Mapping[str, mc.AxisGroup] = dataclasses.field(
         default_factory=dict, compare=False, repr=False)
+    # Autotuning plan for backend='auto'; falls back to the process-wide
+    # active plan (tuner.runtime) when None.
+    plan: Optional[Plan] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     def __post_init__(self):
-        if self.backend == "auto":
-            raise NotImplementedError(
-                "backend='auto' (plans, the tuner) is not ported yet "
-                "(ROADMAP queue 1, item 5)")
         if self.backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}")
         if self.allreduce_mode not in ("faithful", "two_phase"):
@@ -89,6 +108,79 @@ class Communicator:
     def axis_size(self, axis: AxisSpec) -> int:
         return self.axis(axis).size
 
+    # -- topology / plan resolution ---------------------------------------
+
+    def _topo(self) -> Optional[topo_mod.Topology]:
+        """The topology whose levels key the plan's cells: the
+        process-wide active one, else the plan's embedded one."""
+        active = topo_mod.get_active_topology()
+        if active is not None:
+            return active
+        if self.backend == "auto" and self.plan is not None:
+            return self.plan.topology()
+        return None
+
+    def _level(self, ax: mc.AxisGroup):
+        """(topology, the Level of ``ax``) or (topology or None, None)."""
+        topo = self._topo()
+        level = topo.level_for(ax.name) if topo is not None else None
+        if level is not None and level.grouped:
+            raise NotImplementedError(
+                f"axis {ax.name!r} is a grouped (ragged) topology level: "
+                f"the grouped schedules are not ported yet (ROADMAP queue "
+                f"1, item 6)")
+        return topo, level
+
+    def _choice(self, primitive: str, msg_bytes: int,
+                ax: mc.AxisGroup) -> tuple:
+        """Resolve (backend, slicing_factor, allreduce_mode, overlap,
+        fused) for one collective call over ``ax``, as the reference's
+        ``_choice`` does for a flat axis.  ``overlap``: the plan tuned
+        the cell against the compute it hides behind (the ledger books
+        its bytes as hidden); ``fused``: the plan priced the cell with
+        its epilogue in a fused kernel (the ledger's fused split)."""
+        if self.backend != "auto":
+            return (self.backend, self.slicing_factor,
+                    self.allreduce_mode, False, False)
+        topo, level = self._level(ax)
+        plan, epoch = self.plan, None
+        if plan is None:
+            plan, epoch = tuner_runtime.get_active_plan_versioned()
+            if plan is None:
+                plan = tuner_runtime.ensure_default_plan(topology=topo)
+                epoch = tuner_runtime.plan_epoch()
+        lkey = topo.level_key(ax.name) if level is not None else None
+        ch = plan.lookup(primitive, msg_bytes, ax.size, level=lkey)
+        if ch is None:     # primitive absent from the plan: ring baseline
+            backend, factor, mode, overlap, fz = (
+                "ring", self.slicing_factor, self.allreduce_mode, False,
+                False)
+            pred = base = 0.0
+        else:
+            backend, factor, mode, overlap = (
+                ch.backend, ch.slicing_factor, ch.allreduce_mode,
+                ch.overlap)
+            fz = bool(ch.fused)
+            ms = (plan.meta.get("online") or {}).get("min_samples", 1)
+            pred, base = ch.effective_time(ms), ch.baseline_time
+        if level is not None and backend not in level.backends():
+            backend = "ring"     # no pool schedule off the pool
+        ledger.record_choice(
+            primitive, msg_bytes, ax.size, backend, factor, mode,
+            overlap=overlap, fused=fz,
+            level=ax.name if level is not None else None,
+            fabric=level.fabric if level is not None else None,
+            predicted_time=pred, baseline_time=base, plan_epoch=epoch)
+        return backend, factor, mode, overlap, fz
+
+    def _rec(self, kind: str, wire: float, ax: mc.AxisGroup, ov: bool,
+             fz: bool = False) -> None:
+        _, level = self._level(ax)
+        ledger.record(kind, wire, hidden=True if ov else None,
+                      fused=True if fz else None,
+                      level=ax.name if level is not None else None,
+                      fabric=level.fabric if level is not None else None)
+
     # -- N->N primitives (the FSDP hot path), differentiable ---------------
 
     def all_reduce(self, x: torch.Tensor, axis: AxisSpec) -> torch.Tensor:
@@ -107,39 +199,42 @@ class Communicator:
     def _all_reduce(self, x: torch.Tensor,
                     ax: mc.AxisGroup) -> torch.Tensor:
         n, s = ax.size, _nbytes(x)
-        faithful = self.allreduce_mode == "faithful" and self.backend == "cxl"
-        ledger.record("all_reduce", s * (n - 1) if faithful
-                  else 2 * s * (n - 1) / n)
-        if self.backend == "ring":
+        backend, factor, mode, ov, _ = self._choice("all_reduce", s, ax)
+        wire = s * (n - 1) if mode == "faithful" and backend == "cxl" \
+            else 2 * s * (n - 1) / n
+        self._rec("all_reduce", wire, ax, ov)
+        if backend == "ring":
             return mc.ring_all_reduce(x, ax)
-        return mc.all_reduce(x, ax, mode=self.allreduce_mode,
-                             n_chunks=self.slicing_factor)
+        return mc.all_reduce(x, ax, mode=mode, n_chunks=factor)
 
     def _all_gather(self, x: torch.Tensor,
                     ax: mc.AxisGroup) -> torch.Tensor:
-        n = ax.size
-        ledger.record("all_gather", _nbytes(x) * (n - 1))
-        if self.backend == "ring":
+        n, s = ax.size, _nbytes(x)
+        backend, factor, _, ov, fz = self._choice("all_gather", s, ax)
+        self._rec("all_gather", s * (n - 1), ax, ov, fz)
+        if backend == "ring":
             return mc.ring_all_gather(x, ax)
-        return mc.all_gather(x, ax, n_chunks=self.slicing_factor)
+        return mc.all_gather(x, ax, n_chunks=factor)
 
     def _reduce_scatter(self, x: torch.Tensor,
                         ax: mc.AxisGroup) -> torch.Tensor:
-        n = ax.size
-        ledger.record("reduce_scatter", _nbytes(x) * (n - 1) / n)
-        if self.backend == "ring":
+        n, s = ax.size, _nbytes(x)
+        backend, factor, _, ov, fz = self._choice("reduce_scatter", s, ax)
+        self._rec("reduce_scatter", s * (n - 1) / n, ax, ov, fz)
+        if backend == "ring":
             return mc.ring_reduce_scatter(x, ax)
-        return mc.reduce_scatter(x, ax, n_chunks=self.slicing_factor)
+        return mc.reduce_scatter(x, ax, n_chunks=factor)
 
     # -- the other flat primitives -----------------------------------------
 
     def all_to_all(self, x: torch.Tensor, axis: AxisSpec) -> torch.Tensor:
         ax = self.axis(axis)
-        n = ax.size
-        ledger.record("all_to_all", _nbytes(x) * (n - 1) / n)
-        if self.backend == "ring":
+        n, s = ax.size, _nbytes(x)
+        backend, factor, _, ov, _ = self._choice("all_to_all", s, ax)
+        self._rec("all_to_all", s * (n - 1) / n, ax, ov)
+        if backend == "ring":
             return mc.ring_all_to_all(x, ax)
-        return mc.all_to_all(x, ax, n_chunks=self.slicing_factor)
+        return mc.all_to_all(x, ax, n_chunks=factor)
 
     def send(self, x: torch.Tensor, axis: AxisSpec, *,
              shift: int = 1) -> torch.Tensor:
@@ -149,21 +244,24 @@ class Communicator:
         ax = self.axis(axis)
         if ax.size == 1 or shift % ax.size == 0:
             return x
-        ledger.record("p2p", float(_nbytes(x)))
-        if self.backend == "ring":
+        s = _nbytes(x)
+        backend, factor, _, ov, _ = self._choice("p2p", s, ax)
+        self._rec("p2p", float(s), ax, ov)
+        if backend == "ring":
             return mc.ring_p2p(x, ax, shift=shift)
-        return mc.p2p_shift(x, ax, shift=shift,
-                            n_chunks=self.slicing_factor)
+        return mc.p2p_shift(x, ax, shift=shift, n_chunks=factor)
 
     def broadcast(self, x: torch.Tensor, axis: AxisSpec,
                   root: int = 0) -> torch.Tensor:
         ax = self.axis(axis)
         if ax.size == 1:
             return x
-        ledger.record("broadcast", float(_nbytes(x)))
-        if self.backend == "ring":
+        s = _nbytes(x)
+        backend, factor, _, ov, _ = self._choice("broadcast", s, ax)
+        self._rec("broadcast", float(s), ax, ov)
+        if backend == "ring":
             return mc.ring_broadcast(x, ax, root)
-        return mc.broadcast(x, ax, root=root, n_chunks=self.slicing_factor)
+        return mc.broadcast(x, ax, root=root, n_chunks=factor)
 
     def reduce(self, x: torch.Tensor, axis: AxisSpec,
                root: int = 0) -> torch.Tensor:
@@ -171,10 +269,12 @@ class Communicator:
         n = ax.size
         if n == 1:
             return x
-        ledger.record("reduce", 2 * _nbytes(x) * (n - 1) / n)
-        if self.backend == "ring":
+        s = _nbytes(x)
+        backend, factor, _, ov, _ = self._choice("reduce", s, ax)
+        self._rec("reduce", 2 * s * (n - 1) / n, ax, ov)
+        if backend == "ring":
             return mc.ring_reduce(x, ax, root)
-        return mc.reduce(x, ax, root=root, n_chunks=self.slicing_factor)
+        return mc.reduce(x, ax, root=root, n_chunks=factor)
 
     def gather(self, x: torch.Tensor, axis: AxisSpec,
                root: int = 0) -> torch.Tensor:
@@ -182,10 +282,12 @@ class Communicator:
         n = ax.size
         if n == 1:
             return x
-        ledger.record("gather", _nbytes(x) * (n - 1))
-        if self.backend == "ring":
+        s = _nbytes(x)
+        backend, factor, _, ov, _ = self._choice("gather", s, ax)
+        self._rec("gather", s * (n - 1), ax, ov)
+        if backend == "ring":
             return mc.ring_gather(x, ax, root)
-        return mc.gather(x, ax, root=root, n_chunks=self.slicing_factor)
+        return mc.gather(x, ax, root=root, n_chunks=factor)
 
     def scatter(self, x: torch.Tensor, axis: AxisSpec,
                 root: int = 0) -> torch.Tensor:
@@ -193,11 +295,13 @@ class Communicator:
         n = ax.size
         if n == 1:
             return x
+        s = _nbytes(x)
+        backend, factor, _, ov, _ = self._choice("scatter", s, ax)
         # root pushes every segment but its own: s*(n-1)/n wire bytes
-        ledger.record("scatter", _nbytes(x) * (n - 1) / n)
-        if self.backend == "ring":
+        self._rec("scatter", s * (n - 1) / n, ax, ov)
+        if backend == "ring":
             return mc.ring_scatter(x, ax, root)
-        return mc.scatter(x, ax, root=root, n_chunks=self.slicing_factor)
+        return mc.scatter(x, ax, root=root, n_chunks=factor)
 
 
 # ------------------------------------------------------------------------ #

@@ -4,8 +4,10 @@ NVIDIA H100 that the port's roofline prices compute against.
 The CXL-side numbers are taken directly from the paper's characterization
 (Fig. 3, Table 1, Sec. 2.2): a TITAN-II CXL 2.0 switch fronting six Micron
 CZ120 cards (PCIe/CXL Gen5 x8 each), three H100 nodes on Gen5 x16 links.
-They are copied unchanged from ``repro.core.hw``.  NVLink constants for
-the innermost fabric level come with the collectives slice.
+They are copied unchanged from ``repro.core.hw``.  The innermost fabric
+level (``ici`` in topology specs, the name kept so specs and plans
+interchange with the reference) gets NVLink-class constants of the H100
+SXM instead of the reference's chip-to-chip links.
 """
 from __future__ import annotations
 
@@ -67,6 +69,34 @@ class InfiniBandConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ICIConfig:
+    """Intra-node ring interconnect: the fabric of a topology's
+    innermost ``ici`` level, where collectives ride GPU-to-GPU links and
+    never touch the pool or the NIC (``core.topology``).
+
+    Defaults are NVLink 4 of the H100 SXM (see ``ICI_VARIANT``): the
+    data sheet's 900 GB/s per GPU counts both directions, so a ring
+    direction gets 450 GB/s.  ``efficiency``, ``message_overhead`` and
+    ``latency`` are modelling assumptions of this package, not data
+    sheet figures and not measured.  The fields are the reference's, so
+    topology JSON with ``ici`` overrides reads in both packages."""
+
+    link_bw: float = 450e9               # bytes/s per direction
+    efficiency: float = 0.80             # assumed share of line rate
+    message_overhead: float = 2e-6       # assumed per-hop issue cost
+    latency: float = 1e-6                # assumed hop latency
+
+    @property
+    def effective_bw(self) -> float:
+        return self.link_bw * self.efficiency
+
+
+# The part the ICIConfig defaults describe (NVIDIA H100 Tensor Core GPU
+# data sheet, SXM5 column: NVLink 900 GB/s).
+ICI_VARIANT = "H100 SXM5 80GB, NVLink 4"
+
+
+@dataclasses.dataclass(frozen=True)
 class GPUConfig:
     """Roofline constants of one NVIDIA GPU (dense rates, no sparsity).
 
@@ -103,4 +133,5 @@ class CostConfig:
 
 CXL_POOL = CXLPoolConfig()
 INFINIBAND = InfiniBandConfig()
+ICI = ICIConfig()
 COST = CostConfig()

@@ -5,8 +5,10 @@ Ported from ``repro.core.pool`` (framework-free): the fault hook that
 every pool access consults, bounded retry-with-backoff, and
 :class:`PoolBlockAllocator`, which the serving KV tier
 (``repro_torch.serving.kvcache``) stores evicted and prefix-shared cache
-pages in.  ``PoolEmulator``, ``execute`` and ``run_collective`` (the
-collective schedule emulation) come with the pool-machinery slice.
+pages in.  :class:`PoolEmulator`, :func:`execute` and :func:`run_collective`
+(copied unchanged) run a ``core.schedule.Schedule`` functionally against
+an in-memory byte pool, enforcing the doorbell protocol: the oracle for
+the placement math that the tuner's simulator prices.
 
 :class:`SharedPool` is the pool as the paper built it, on one host: a
 buffer every rank maps (pinned with ``cudaHostRegister`` when the ranks
@@ -28,8 +30,11 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.doorbell import DOORBELL_BYTES, EpochWords
+from repro_torch.core import schedule as sched
+from repro_torch.core.doorbell import (DOORBELL_BYTES, DoorbellRegion,
+                                      EpochWords)
 from repro_torch.core.hw import CXL_POOL, CXLPoolConfig, MiB
+from repro_torch.core.interleave import PoolLayout
 
 
 class PoolAccessError(RuntimeError):
@@ -223,6 +228,176 @@ class PoolBlockAllocator:
         if not 0 <= block < self.num_blocks:
             raise IndexError(
                 f"pool block {block} out of range [0, {self.num_blocks})")
+
+
+class PoolEmulator:
+    """A byte-addressable emulation of the unified pool address space."""
+
+    def __init__(self, layout: PoolLayout, num_doorbells: int):
+        self.layout = layout
+        total = layout.num_devices * layout.device_capacity
+        self.pool = np.zeros(total, dtype=np.uint8)
+        self.doorbells = DoorbellRegion(num_doorbells)
+        # (offset, size) of every write, for overlap auditing.
+        self.write_log: list[tuple[int, int, int]] = []  # (rank, off, size)
+
+    def device_of(self, pool_offset: int) -> int:
+        return pool_offset // self.layout.device_capacity
+
+    def write(self, op: sched.TransferOp, src: np.ndarray) -> None:
+        assert op.kind is sched.OpKind.WRITE
+        check_fault("write", rank=op.rank, offset=op.pool_offset,
+                    size=op.size)
+        data = src[op.buf_offset:op.buf_offset + op.size]
+        if self.device_of(op.pool_offset) != op.device:
+            raise AssertionError(
+                f"placement bug: offset {op.pool_offset} not on device "
+                f"{op.device}")
+        self.pool[op.pool_offset:op.pool_offset + op.size] = data
+        self.write_log.append((op.rank, op.pool_offset, op.size))
+        self.doorbells.ring(op.doorbell)
+
+    def try_read(self, op: sched.TransferOp, dst: np.ndarray,
+                 dtype: np.dtype) -> bool:
+        """Attempt the read; returns False if the doorbell is still STALE."""
+        assert op.kind is sched.OpKind.READ
+        check_fault("read", rank=op.rank, offset=op.pool_offset,
+                    size=op.size)
+        if not self.doorbells.is_ready(op.doorbell):
+            return False
+        chunk = self.pool[op.pool_offset:op.pool_offset + op.size]
+        view = dst[op.buf_offset:op.buf_offset + op.size]
+        if op.reduce:
+            acc = view.view(dtype)
+            acc += chunk.view(dtype)
+        else:
+            view[:] = chunk
+        return True
+
+    def audit_writes(self) -> None:
+        """Assert no two writes overlapped in the pool address space."""
+        spans = sorted((off, off + size, rank)
+                       for rank, off, size in self.write_log)
+        for (s0, e0, r0), (s1, e1, r1) in zip(spans, spans[1:]):
+            if s1 < e0:
+                raise AssertionError(
+                    f"overlapping pool writes: rank {r0} [{s0},{e0}) vs "
+                    f"rank {r1} [{s1},{e1})")
+
+
+def _recv_nbytes(s: sched.Schedule, rank: int) -> int:
+    p, n, nr = s.primitive, s.msg_bytes, s.nranks
+    if p in ("broadcast", "scatter", "all_reduce", "all_to_all"):
+        return n
+    if p == "reduce":
+        return n  # only meaningful at root
+    if p in ("gather", "all_gather"):
+        return n * nr
+    if p == "reduce_scatter":
+        return n // nr
+    raise ValueError(p)
+
+
+def _init_recv(s: sched.Schedule, rank: int, send: np.ndarray,
+               recv: np.ndarray) -> None:
+    """Local (non-pool) data movement: own contributions."""
+    p, n, nr = s.primitive, s.msg_bytes, s.nranks
+    seg = n // nr if p in ("reduce_scatter", "all_to_all") else None
+    if p == "broadcast" and rank == s.root:
+        recv[:] = send[:n]
+    elif p == "scatter" and rank == s.root:
+        recv[:] = send[rank * n:(rank + 1) * n]
+    elif p == "gather" and rank == s.root:
+        recv[rank * n:(rank + 1) * n] = send[:n]
+    elif p == "reduce" and rank == s.root:
+        recv[:] = send[:n]
+    elif p == "all_gather":
+        recv[rank * n:(rank + 1) * n] = send[:n]
+    elif p == "all_reduce":
+        recv[:] = send[:n]
+    elif p == "reduce_scatter":
+        recv[:] = send[rank * seg:(rank + 1) * seg]
+    elif p == "all_to_all":
+        recv[rank * seg:(rank + 1) * seg] = send[rank * seg:(rank + 1) * seg]
+
+
+def execute(s: sched.Schedule, send_buffers: np.ndarray,
+            dtype: np.dtype = np.dtype(np.float32),
+            audit: bool = True) -> np.ndarray:
+    """Run the schedule.  ``send_buffers`` is ``(nranks, send_bytes)`` uint8;
+    returns ``(nranks, recv_bytes)`` uint8 (ragged sizes zero-padded is not
+    needed - all recvs of a primitive share one size)."""
+    if send_buffers.dtype != np.uint8:
+        raise TypeError("send_buffers must be a uint8 byte view")
+    if send_buffers.shape[0] != s.nranks:
+        raise ValueError("need one send buffer per rank")
+
+    emu = PoolEmulator(s.layout, s.num_doorbells)
+    recv_bytes = _recv_nbytes(s, 0)
+    recv = np.zeros((s.nranks, recv_bytes), dtype=np.uint8)
+    for r in range(s.nranks):
+        _init_recv(s, r, send_buffers[r], recv[r])
+
+    # Index cursors instead of list.pop(0): the emulator used to be
+    # quadratic in op count, which dominated large-schedule test time.
+    wq = {r: tuple(s.writes[r]) for r in range(s.nranks)}
+    rq = {r: tuple(s.reads[r]) for r in range(s.nranks)}
+    wi = [0] * s.nranks
+    ri = [0] * s.nranks
+    # Round-robin one op per stream per iteration: models the write/read
+    # stream concurrency of Sec. 4.4.
+    stall_rounds = 0
+    while any(wi[r] < len(wq[r]) for r in range(s.nranks)) or \
+            any(ri[r] < len(rq[r]) for r in range(s.nranks)):
+        progressed = False
+        for r in range(s.nranks):
+            if wi[r] < len(wq[r]):
+                emu.write(wq[r][wi[r]], send_buffers[r])
+                wi[r] += 1
+                progressed = True
+        for r in range(s.nranks):
+            if ri[r] < len(rq[r]) and \
+                    emu.try_read(rq[r][ri[r]], recv[r], dtype):
+                ri[r] += 1
+                progressed = True
+        if not progressed:
+            stall_rounds += 1
+            if stall_rounds > 2:
+                pending = {r: rq[r][ri[r]].data_key
+                           for r in range(s.nranks) if ri[r] < len(rq[r])}
+                raise RuntimeError(f"doorbell deadlock; waiting on {pending}")
+        else:
+            stall_rounds = 0
+    if audit:
+        emu.audit_writes()
+    return recv
+
+
+def run_collective(primitive: str, inputs: np.ndarray, *, root: int = 0,
+                   num_devices: int = 6,
+                   device_capacity: int = 4 * 1024**2,
+                   slicing_factor: int = 4) -> np.ndarray:
+    """Convenience wrapper: ``inputs`` is ``(nranks, elems)`` of any numeric
+    dtype (for scatter, the root row holds ``nranks*elems``; other rows are
+    ignored).  Returns the per-rank results as a 2-D array of the input
+    dtype."""
+    inputs = np.asarray(inputs)
+    nranks = inputs.shape[0]
+    itemsize = inputs.dtype.itemsize
+    if primitive == "scatter":
+        msg_bytes = (inputs.shape[1] // nranks) * itemsize
+        send_bytes = inputs.shape[1] * itemsize
+    else:
+        msg_bytes = inputs.shape[1] * itemsize
+        send_bytes = msg_bytes
+    s = sched.build(primitive, nranks, msg_bytes, num_devices=num_devices,
+                    device_capacity=device_capacity,
+                    slicing_factor=slicing_factor, root=root,
+                    granularity=itemsize)
+    send = np.ascontiguousarray(inputs).view(np.uint8).reshape(
+        nranks, send_bytes)
+    out = execute(s, send, dtype=inputs.dtype)
+    return out.view(inputs.dtype)
 
 
 # --------------------------------------------------------------------- #

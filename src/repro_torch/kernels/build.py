@@ -21,7 +21,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch"
 KERNELS = ("rmsnorm", "flash_attention", "chunked_reduce",
-           "all_gather_matmul", "ssm_scan")
+           "all_gather_matmul", "ssm_scan", "reduce_scatter_rmsnorm",
+           "reduce_scatter_adamw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -51,12 +51,14 @@ COLS = 1024                     # columns of a bench input (f32)
 
 
 def communicator(ctx: ranks.RankContext, backend: str, name: str,
-                 slicing_factor: int = 4) -> Communicator:
+                 slicing_factor: int = 4, plan=None) -> Communicator:
+    """This rank's Communicator for primitive ``name`` (its AllReduce
+    mode; under ``auto`` the ``plan`` decides the knobs)."""
     mode = PRIMITIVES[name][1] or "two_phase"
     mesh = make_host_mesh(ctx.nranks, ctx.rank,
-                          ctx.pool if backend == "cxl" else None)
+                          None if backend == "ring" else ctx.pool)
     return Communicator(backend=backend, slicing_factor=slicing_factor,
-                        allreduce_mode=mode, axes=mesh)
+                        allreduce_mode=mode, axes=mesh, plan=plan)
 
 
 def call(comm: Communicator, name: str, x: torch.Tensor,
@@ -114,13 +116,13 @@ def bench_input_numpy(rank: int, rows: int) -> np.ndarray:
 
 def rank_cases(ctx: ranks.RankContext, cases: Sequence[dict]) -> list:
     """Run each case once on this rank: ``cases`` are dicts with
-    ``name``, ``backend``, ``slicing_factor`` and ``x`` (every rank's
-    numpy input).  Returns [(this rank's output as numpy, the ledger's
-    wire bytes of the call)]."""
+    ``name``, ``backend``, ``slicing_factor``, ``x`` (every rank's numpy
+    input) and, under ``auto``, ``plan``.  Returns [(this rank's output
+    as numpy, the ledger's wire bytes of the call)]."""
     out = []
     for c in cases:
         comm = communicator(ctx, c["backend"], c["name"],
-                            c.get("slicing_factor", 4))
+                            c.get("slicing_factor", 4), c.get("plan"))
         x = torch.as_tensor(c["x"][ctx.rank]).to(ctx.device)
         ledger.reset()
         y = call(comm, c["name"], x)

@@ -13,10 +13,12 @@ Two modes:
   auto-enabled when reuse > 0).
 
 Runs on the CUDA card unless ``--device cpu`` is given.  Params are
-random, from a seeded ``torch.Generator``.  ``--plan``,
-``--online-retune``, ``--topology``, ``--placement``, ``--ckpt`` and
-``--metrics-out`` of the reference launcher are not ported yet
-(ROADMAP queue 1).
+random, from a seeded ``torch.Generator``.  ``--plan`` loads a tuned
+plan whose ``kv_block`` cells price eviction placement
+(``repro_torch.launch.tune --kv-block-bytes``); the engine is unsharded,
+so no collective resolves against it.  ``--online-retune``,
+``--topology``, ``--placement``, ``--ckpt`` and ``--metrics-out`` of
+the reference launcher are not ported yet (ROADMAP queue 1).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
@@ -180,6 +182,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="publish complete prompt blocks to the "
                          "pooled prefix store and restore them for "
                          "later matching prompts")
+    ap.add_argument("--plan", default=None,
+                    help="autotuning plan JSON (repro_torch.launch.tune)"
+                         "; its kv_block cells price eviction placement "
+                         "before the live oracle")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; "
                          "'cpu' runs on the CPU)")
@@ -202,7 +208,8 @@ def engine_from_args(args) -> tuple:
         pool_budget_bytes=args.pool_budget_mib << 20,
         scheduler=args.scheduler, kv_placement=args.kv_placement,
         prefix_sharing=(args.prefix_sharing
-                        or args.prompt_reuse > 0.0))
+                        or args.prompt_reuse > 0.0),
+        plan_path=args.plan)
     return cfg, ServeEngine(cfg, params, scfg, device=device)
 
 

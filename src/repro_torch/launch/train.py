@@ -7,20 +7,33 @@ Port of ``repro.launch.train`` for the flags of the FSDP path:
       [--fuse-kernels]
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --smoke --device cpu --mesh 4x1 --backend cxl --steps 3 --seq 64
+  PYTHONPATH=src python -m repro_torch.launch.tune --nranks 4 \\
+      --sizes-mib 1 4 16 64 256 --out plan.json
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --mesh 4x1 --backend auto --plan plan.json --steps 3 --batch 4 \\
+      --seq 1024
 
 The launcher spawns one process per rank (``spawn`` start method); rank
 r runs on ``cuda:(r % device_count)``, so the ranks of a one-card host
 share that card, and on the CPU with ``--device cpu``.  The ranks form a
 ``gloo`` process group (file rendezvous in a temporary directory); with
-``--backend cxl`` they also map one shared host pool (``memfd``, pinned
-on each rank with ``cudaHostRegister``) with a 256 MiB partition per
-rank (less for a model whose params are smaller): larger collectives
-stream through it in rounds.  Every kernel is built in this process
-before the ranks start, so they never run ``nvcc`` at once.
+``--backend cxl`` or ``auto`` they also map one shared host pool
+(``memfd``, pinned on each rank with ``cudaHostRegister``) with a 256
+MiB partition per rank (less for a model whose params are smaller):
+larger collectives stream through it in rounds.  Every kernel is built
+in this process before the ranks start, so they never run ``nvcc`` at
+once.
 
-Not ported yet: ``--backend auto``, plans and placements (ROADMAP queue 1,
-items 5-6), pipeline stages (item 9), checkpoints, metrics/trace export,
-faults and resilience (item 10), tensor parallelism (item 3).
+``--backend auto`` resolves every collective call from a plan
+(``--plan``, written by ``repro_torch.launch.tune``, loaded and
+fingerprint-checked in every rank; without it each rank loads or tunes
+the cached default plan, ``tuner.ensure_default_plan``); each step's
+record lists the distinct decisions taken (``choices``).
+
+Not ported yet: topologies, placements and online re-tuning (ROADMAP
+queue 1, items 5-6 and 10), pipeline stages (item 9), checkpoints,
+metrics/trace export, faults and resilience (item 10), tensor
+parallelism (item 3).
 """
 from __future__ import annotations
 
@@ -66,7 +79,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--mesh", default="4x1",
                     help="DPxTP; every rank is a process of this host")
-    ap.add_argument("--backend", choices=["ring", "cxl"], default="ring")
+    ap.add_argument("--backend", choices=["ring", "cxl", "auto"],
+                    default="ring")
+    ap.add_argument("--plan", default=None,
+                    help="autotuning plan JSON (repro_torch.launch.tune) "
+                         "for --backend auto")
     ap.add_argument("--slicing-factor", type=int, default=4)
     ap.add_argument("--allreduce-mode", default="two_phase",
                     choices=["two_phase", "faithful"])
@@ -88,7 +105,7 @@ def tcfg_from_args(args) -> TrainConfig:
                        allreduce_mode=args.allreduce_mode,
                        microbatches=args.microbatches, clip_norm=None,
                        bucket_mb=args.bucket_mb, prefetch=args.prefetch,
-                       fuse_kernels=args.fuse_kernels)
+                       fuse_kernels=args.fuse_kernels, plan_path=args.plan)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +170,18 @@ def _profile_step(run_step, dev) -> dict:
             "top": [{"kernel": k[:80], "us": t} for k, t in kern[:12]]}
 
 
+def distinct_choices(audit: list) -> list:
+    """The ledger's ``auto_choices`` audit of one step folded into its
+    distinct decisions, each with the number of calls that took it."""
+    keys = ("primitive", "msg_bytes", "nranks", "backend",
+            "slicing_factor", "allreduce_mode", "overlap", "fused")
+    calls: dict = {}
+    for c in audit:
+        k = tuple(c[f] for f in keys)
+        calls[k] = calls.get(k, 0) + 1
+    return [dict(zip(keys, k), calls=n) for k, n in sorted(calls.items())]
+
+
 def _rank_run(ctx: ranks.RankContext, spec: RunSpec) -> list:
     return [_run_variant(ctx, spec, tcfg) for tcfg in spec.variants]
 
@@ -164,7 +193,7 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig):
     rank, dev, pool = ctx.rank, ctx.device, ctx.pool
     cfg = get_config(spec.arch, smoke=spec.smoke)
     mesh = make_host_mesh(spec.dp, rank,
-                          pool if tcfg.backend == "cxl" else None)
+                          None if tcfg.backend == "ring" else pool)
     step, pspecs, _pc = make_sharded_train_step(cfg, tcfg, mesh)
     if spec.params_path is not None:
         full = load_params_npz(spec.params_path, dev)
@@ -204,6 +233,7 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig):
                "lr": metrics["lr"], "launches": _counters(),
                "wire_bytes": snap["wire_bytes"],
                "fused_bytes": snap["fused_bytes"],
+               "choices": distinct_choices(snap["auto_choices"]),
                "pool_bytes": (0 if pool is None else
                               pool.bytes_published + pool.bytes_retrieved
                               - pool_before)}
@@ -244,7 +274,7 @@ def run_ranks(spec: RunSpec) -> list:
         resolve_device("cuda")        # raises without a card
         build.build_all()             # once, before the ranks start
     cfg = get_config(spec.arch, smoke=spec.smoke)
-    need_pool = any(t.backend == "cxl" for t in spec.variants)
+    need_pool = any(t.backend != "ring" for t in spec.variants)
     per_rank = ranks.spawn(
         _rank_run, spec.dp, (spec,), device=spec.device,
         partition_bytes=pool_window(cfg) if need_pool else 0,
@@ -267,7 +297,8 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
             "launches": {k: sum(r["launches"][k] for r in recs)
                          for k in KERNEL_COUNTERS},
             "wire_bytes_rank0": rec0["wire_bytes"],
-            "fused_bytes_rank0": rec0["fused_bytes"]})
+            "fused_bytes_rank0": rec0["fused_bytes"],
+            "choices_rank0": rec0["choices"]})
     out = {"backend": tcfg.backend, "fuse_kernels": tcfg.fuse_kernels,
            "microbatches": tcfg.microbatches, "prefetch": tcfg.prefetch,
            "steps": steps}
@@ -298,14 +329,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     dp, device = spec.dp, spec.device
     cfg = get_config(args.arch, smoke=args.smoke)
     print(f"training {cfg.name} on mesh data={dp} model=1 ({device}) "
-          f"backend={args.backend} fuse_kernels={args.fuse_kernels}",
-          flush=True)
+          f"backend={args.backend} fuse_kernels={args.fuse_kernels}"
+          + (f" plan={args.plan}" if args.plan else ""), flush=True)
     t0 = time.time()
     run = run_ranks(spec)[0]
     for i, s in enumerate(run["steps"]):
         print(f"step {i:5d} loss {s['loss']:.4f} lr {s['lr']:.2e} "
               f"step {s['step_s']:.2f}s pool {s['pool_bytes'] / 2**20:.1f}"
               f" MiB launches {json.dumps(s['launches'])}", flush=True)
+    for c in run["steps"][0]["choices_rank0"] if run["steps"] else []:
+        print(f"auto {c['primitive']} {c['msg_bytes']} B x{c['nranks']}: "
+              f"{c['backend']} factor {c['slicing_factor']} "
+              f"{c['allreduce_mode']} fused={c['fused']} "
+              f"({c['calls']} calls in step 0)", flush=True)
     print(f"done in {time.time() - t0:.1f}s", flush=True)
     return run
 

@@ -1,0 +1,164 @@
+"""Offline autotuning CLI: sweep the cost model, persist a Plan.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.tune --out plan.json
+  PYTHONPATH=src python -m repro_torch.launch.tune --smoke   # coarse, fast
+  PYTHONPATH=src python -m repro_torch.launch.tune --nranks 4 \\
+      --sizes-mib 1 4 16 64 256 --out plan.json
+  PYTHONPATH=src python -m repro_torch.launch.tune \\
+      --topology "pod:ib,node:cxl,gpu:ici" --out plan.json
+
+Port of ``repro.launch.tune``.  The sweep prices the fused cells'
+epilogue with the H100 roofline, so a plan tuned here makes the
+reference's choices with other ``predicted_time`` on fused cells; the
+format and the fingerprint are the reference's, and plans cross between
+the two packages.  Without ``--out`` the plan lands in this package's
+plan cache (``repro_torch.tuner.default_plan_path``), where
+``backend='auto'`` finds it.  Feed the saved path to
+``repro_torch.launch.train --backend auto --plan ...`` or
+``repro_torch.launch.serve --plan ...``.
+
+Not ported yet: ``--overlap-from-dryrun`` (needs the dry-run, ROADMAP
+queue 1, item 11), ``--measurements`` (``tuner/online.py``, item 10)
+and ``--placement-report`` / ``--placement-axes``
+(``tuner/placement.py``, item 6); each raises naming the ROADMAP.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import time
+from typing import Optional, Sequence
+
+from repro_torch import tuner
+from repro_torch.core.hw import MiB
+from repro_torch.core.schedule import PRIMITIVES
+from repro_torch.core.topology import parse_topology
+
+UNPORTED = {"--overlap-from-dryrun": "the dry-run (ROADMAP queue 1, item "
+                                     "11)",
+            "--measurements": "tuner/online.py (ROADMAP queue 1, item 10)",
+            "--placement-report": "tuner/placement.py (ROADMAP queue 1, "
+                                  "item 6)",
+            "--placement-axes": "tuner/placement.py (ROADMAP queue 1, "
+                                "item 6)"}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None,
+                    help="plan JSON path (default: the plan cache)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="coarse grid (seconds instead of minutes)")
+    ap.add_argument("--primitives", nargs="+", choices=PRIMITIVES,
+                    default=None)
+    ap.add_argument("--sizes-mib", type=int, nargs="+", default=None)
+    ap.add_argument("--nranks", type=int, nargs="+", default=None)
+    ap.add_argument("--factors", type=int, nargs="+", default=None)
+    ap.add_argument("--topology", default=None,
+                    help="'axis:fabric,...' spec (outermost first; "
+                         "fabrics: cxl|ib|ici) or a topology JSON file; "
+                         "tunes each level against its own fabric")
+    ap.add_argument("--overlap-compute-us", type=float, default=0.0,
+                    help="overlappable compute window per collective "
+                         "(microseconds); > 0 tunes by exposed time "
+                         "max(0, comm - window) and marks cells "
+                         "overlap=True")
+    ap.add_argument("--kv-block-bytes", type=int, nargs="+",
+                    default=None, metavar="BYTES",
+                    help="also tune kv_block cache-placement cells "
+                         "(serving eviction: pool round-trip vs prefill "
+                         "recompute) at these KV-image sizes; requires "
+                         "--kv-arch")
+    ap.add_argument("--kv-arch", default=None, metavar="ARCH",
+                    help="architecture whose cache footprint and active "
+                         "parameter count price the kv_block recompute "
+                         "arm")
+    ap.add_argument("--quiet", action="store_true")
+    for flag, what in UNPORTED.items():
+        ap.add_argument(flag, default=None, help=f"not ported: needs {what}")
+    return ap
+
+
+def kv_block_cells(plan: tuner.Plan, arch: str, sizes: Sequence[int], *,
+                   smoke: bool) -> collections.Counter:
+    """Add ``kv_block`` cells to ``plan`` for the KV images of ``sizes``
+    bytes of ``arch``'s cache, priced by ``kvcache.price_kv_block``;
+    returns the count of each backend picked."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.pcontext import UNSHARDED
+    from repro_torch.serving import kvcache
+    kcfg = get_config(arch, smoke=smoke)
+    layout = kvcache.CacheLayout(kcfg, UNSHARDED, 1, 128, torch.float32)
+    per_tok = max(1, layout.bytes_for(64) // 64)
+    picks: collections.Counter = collections.Counter()
+    for nbytes in sizes:
+        ntok = max(1, nbytes // per_tok)
+        choice = kvcache.price_kv_block(
+            nbytes, 2.0 * kcfg.active_param_count() * ntok)
+        plan.add("kv_block", nbytes, 1, choice)
+        picks[choice.backend] += 1
+    return picks
+
+
+def main(argv: Optional[Sequence[str]] = None) -> tuner.Plan:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    for flag, what in UNPORTED.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            ap.error(f"{flag} is not ported yet: it needs {what}")
+    if args.kv_block_bytes and not args.kv_arch:
+        ap.error("--kv-block-bytes requires --kv-arch")
+
+    base = tuner.SMOKE_GRID if args.smoke else tuner.DEFAULT_GRID
+    grid = tuner.TuneGrid(
+        primitives=tuple(args.primitives) if args.primitives
+        else base.primitives,
+        sizes=tuple(m * MiB for m in args.sizes_mib) if args.sizes_mib
+        else base.sizes,
+        nranks=tuple(args.nranks) if args.nranks else base.nranks,
+        slicing_factors=tuple(args.factors) if args.factors
+        else base.slicing_factors)
+    topology = parse_topology(args.topology) if args.topology else None
+
+    progress = None if args.quiet else (lambda msg: print(f"  {msg}"))
+    t0 = time.time()
+    plan = tuner.generate_plan(grid, topology=topology,
+                               overlap_compute=args.overlap_compute_us
+                               * 1e-6, progress=progress)
+    if args.kv_block_bytes:
+        picks = kv_block_cells(plan, args.kv_arch, args.kv_block_bytes,
+                               smoke=args.smoke)
+        print(f"  kv_block ({args.kv_arch}): {dict(picks)} over "
+              f"{len(args.kv_block_bytes)} sizes")
+    dt = time.time() - t0
+
+    out = args.out or tuner.default_plan_path(topology=topology)
+    tuner.save_plan(plan, out)
+
+    by_backend = collections.Counter(
+        c.backend for c in plan.entries.values())
+    gains = [c.baseline_time / c.predicted_time
+             for c in plan.entries.values() if c.predicted_time > 0]
+    print(f"tuned {len(plan.entries)} cells in {dt:.1f}s -> {out}")
+    print(f"  fingerprint {plan.fingerprint}")
+    print(f"  choices: {dict(by_backend)}")
+    if topology is not None:
+        for lv in topology.levels:
+            lkey = topology.level_key(lv.axis)
+            mix = collections.Counter(
+                c.backend for k, c in plan.entries.items()
+                if len(k) == 4 and k[3] == lkey)
+            print(f"  level {lv.axis} ({lv.fabric}, "
+                  f"{lv.fingerprint()}): {dict(mix)}")
+    if gains:
+        print(f"  predicted gain vs best fixed knobs: "
+              f"mean {sum(gains) / len(gains):.3f}x, "
+              f"max {max(gains):.3f}x")
+    return plan
+
+
+if __name__ == "__main__":
+    main()

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.core import ledger
 from repro_torch.core.device import resolve_device
+from repro_torch.core.hw import CXL_POOL, INFINIBAND
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.pcontext import UNSHARDED, ParallelContext
@@ -51,6 +52,7 @@ from repro_torch.serving.scheduler import (FINISHED, RUNNING, Request,
                                            RequestState, SamplingParams,
                                            Scheduler)
 from repro_torch.tuner.costmodel import roofline_compute_time
+from repro_torch.tuner.plan import load_plan
 
 _ENGINE_IDS = itertools.count()
 
@@ -80,6 +82,11 @@ class ServeConfig:
     # forced through the decode path, whose float reduction order can
     # differ from prefill's.
     prefix_sharing: bool = False
+    # Autotuning plan whose ``kv_block`` cells price eviction placement
+    # ahead of the live oracle (``repro_torch.launch.tune
+    # --kv-block-bytes``).  The engine is unsharded: no collective of
+    # it resolves against the plan.
+    plan_path: Optional[str] = None
 
 
 def sample_seed(seed: int, index: int) -> int:
@@ -111,6 +118,10 @@ class ServeEngine:
         self.params = params
         self.scfg = scfg
         self.pc = pc
+        self._kv_plan = None
+        if scfg.plan_path is not None:
+            self._kv_plan = load_plan(scfg.plan_path, pool=CXL_POOL,
+                                      ib=INFINIBAND)
         self._uid = f"eng{next(_ENGINE_IDS)}"
         self._cd = getattr(torch, scfg.cache_dtype)
 
@@ -242,6 +253,7 @@ class ServeEngine:
         if self.scfg.kv_placement == "auto":
             backend = kvcache.resolve_kv_choice(
                 "kv_block", nbytes, self._replay_flops(st.pos),
+                plan=self._kv_plan,
                 block_bytes=self.pool.alloc.block_bytes).backend
         else:
             backend = self.scfg.kv_placement

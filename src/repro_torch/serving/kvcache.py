@@ -37,7 +37,7 @@ from repro_torch.core.doorbell import DoorbellRegion, RefcountRegion
 from repro_torch.core.hw import CXL_POOL, H100_SXM, CXLPoolConfig
 from repro_torch.core.pool import PoolBlockAllocator
 from repro_torch.tuner.costmodel import roofline_compute_time
-from repro_torch.tuner.plan import Choice
+from repro_torch.tuner.plan import Choice, Plan
 
 
 def cache_leaves(tree) -> list:
@@ -563,14 +563,18 @@ def price_kv_block(nbytes: int, recompute_flops: float, *,
 
 def resolve_kv_choice(primitive: str, nbytes: int,
                       recompute_flops: float, *,
+                      plan: Optional[Plan] = None,
                       pool_cfg: Optional[CXLPoolConfig] = None,
                       block_bytes: int = 1 << 16) -> Choice:
-    """Resolve a cache-placement cell with the live oracle and record
-    the decision in the ledger's auto-choice audit, like a collective's.
-    (Plan-file ``kv_block`` cells come with plan loading, ROADMAP queue
-    1, item 5.)"""
-    choice = price_kv_block(nbytes, recompute_flops, pool_cfg=pool_cfg,
-                            block_bytes=block_bytes)
+    """Resolve a cache-placement cell: a tuned plan cell wins (the
+    sweep in ``launch/tune --kv-block-bytes`` writes them), otherwise
+    the live oracle prices it.  Either way the decision lands in the
+    ledger's auto-choice audit exactly like a collective's."""
+    choice = plan.lookup(primitive, max(1, nbytes), 1) \
+        if plan is not None else None
+    if choice is None:
+        choice = price_kv_block(nbytes, recompute_flops,
+                                pool_cfg=pool_cfg, block_bytes=block_bytes)
     ledger.record_choice(primitive, max(1, nbytes), 1, choice.backend,
                          choice.slicing_factor, choice.allreduce_mode,
                          predicted_time=choice.predicted_time,

@@ -6,7 +6,8 @@ its FSDP shards and its slice of the batch and runs the same step body.
 Every collective - the FSDP param AllGather, the grad ReduceScatter (its
 autograd transpose), the replicated-grad AllReduce and the loss mean -
 goes through the ``Communicator``, so ``ring`` vs ``cxl`` swaps the whole
-communication layer.
+communication layer, and ``auto`` picks per call from a tuned plan
+(``TrainConfig.plan_path``, loaded by every rank that builds the step).
 
 Params are leaf tensors with ``requires_grad``; after a step each one's
 ``.grad`` holds its synced gradient (what the optimizer consumed), and
@@ -21,11 +22,13 @@ import torch
 
 from repro_torch.core import overlap, tree
 from repro_torch.core.api import Communicator
+from repro_torch.core.hw import CXL_POOL, INFINIBAND
 from repro_torch.models import model, sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.pcontext import ParallelContext, UNSHARDED
 from repro_torch.optim import (AdamWState, adamw_update,
                                clip_by_global_norm, linear_warmup_cosine)
+from repro_torch.tuner.plan import load_plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,9 +39,10 @@ class TrainConfig:
     clip_norm: Optional[float] = 1.0     # local shards' norm when sharded
     remat: bool = True
     microbatches: int = 1                # gradient accumulation splits
-    backend: str = "ring"                # 'ring' | 'cxl'
+    backend: str = "ring"                # 'ring' | 'cxl' | 'auto'
     slicing_factor: int = 4
     allreduce_mode: str = "two_phase"
+    plan_path: Optional[str] = None      # autotuning plan for 'auto'
     # communication/compute overlap (core.overlap): NCCL-style cap on
     # the fused grad-sync AllReduce buffers; > 0 also switches the FSDP
     # gathers to row-fused buckets, <= 0 restores the per-leaf baseline.
@@ -137,9 +141,14 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     if tp != 1:
         raise NotImplementedError("tensor parallelism (tp > 1) is not "
                                   "ported yet (ROADMAP queue 1, item 3)")
+    plan = None
+    if tcfg.plan_path is not None:
+        # fingerprint-checked: refuse a plan tuned for other hardware
+        plan = load_plan(tcfg.plan_path, pool=CXL_POOL, ib=INFINIBAND)
     comm = Communicator(backend=tcfg.backend,
                         slicing_factor=tcfg.slicing_factor,
-                        allreduce_mode=tcfg.allreduce_mode, axes=mesh)
+                        allreduce_mode=tcfg.allreduce_mode, axes=mesh,
+                        plan=plan)
     pc = ParallelContext(dp_axis=dp_axis, comm=comm)
     sharding.set_mesh_sizes({a: g.size for a, g in mesh.items()})
     pspecs = sharding.param_specs(model.abstract_params(cfg), cfg,

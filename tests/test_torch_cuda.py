@@ -376,3 +376,120 @@ def test_cxl_collectives_on_card_through_pinned_pool(cuda):
     for r in res:
         assert r.pop("retrieved") > 0
         assert all(r.values()), r
+
+
+@pytest.mark.parametrize("n,t,d", [
+    (2, 128, 64), (4, 256, 32), (3, 37, 48), (8, 1, 16),   # the JAX tests'
+    (4, 1024, 2048),           # one rank's rows at Llama-3.2-1B's width
+    (3, 1000, 2048),           # ragged T
+    (2, 5, 100),               # rows not 16-byte aligned: scalar path
+    (4, 64, 16384)])           # the widest aligned f32 row
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduce_scatter_rmsnorm_kernel_vs_plain(cuda, n, t, d, dtype):
+    """Tolerances: the reference test's (rtol 1e-6, atol 1e-7 f32; 2e-2,
+    1e-2 bf16), widened for f32 to rtol 1e-5, atol 1e-6: the kernel and
+    torch sum the D squares in other orders (a random walk of about
+    sqrt(D) roundings of 2^-24 relative, which reaches 1e-6 at D = 2048),
+    and the result is that sum's rsqrt times values up to about 5."""
+    from repro_torch.kernels import fused_collectives as fc
+    x = _randn((n, t, d), DTYPES[dtype], cuda)
+    s = _randn((d,), torch.float32, cuda)
+    before = fc.reduce_scatter_rmsnorm.launches
+    got = fc.reduce_scatter_rmsnorm(x, s)
+    again = fc.reduce_scatter_rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert fc.reduce_scatter_rmsnorm.launches == before + 2
+    assert torch.equal(got, again)        # bitwise repeatable
+    tol = (1e-5, 1e-6) if dtype == "float32" else (2e-2, 1e-2)
+    torch.testing.assert_close(
+        got.float(), fc.reduce_scatter_rmsnorm_plain(x, s).float(),
+        rtol=tol[0], atol=tol[1])
+
+
+@pytest.mark.parametrize("n,length,wd", [
+    (2, 2048, 0.0), (4, 3 * 2048, 0.1), (3, 1000, 0.0), (6, 7, 0.01),
+    (4, 15204352, 0.1),          # one rank's grad segment of a row
+    (4, 1000003, 0.0)])          # ragged: the scalar path
+@pytest.mark.parametrize("p_dtype", ["float32", "bfloat16"])
+def test_reduce_scatter_adamw_kernel_vs_plain(cuda, n, length, wd, p_dtype):
+    """The reference test's tolerances, rtol 1e-6 and atol 1e-7 (f32
+    moments and f32 params): every step is one IEEE-rounded operation on
+    both sides, only the shard sum may associate differently.  A bf16
+    param: rtol 2e-2, atol 1e-2 on p'."""
+    from repro_torch.kernels import fused_collectives as fc
+    g = _randn((n, length), torch.float32, cuda)
+    p = _randn((length,), DTYPES[p_dtype], cuda)
+    m = _randn((length,), torch.float32, cuda) * 0.1
+    v = torch.as_tensor(RNG.random(length).astype(np.float32), device=cuda) \
+        * 0.01
+    hyper = (3e-3, 1.0 - 0.9 ** 3, 1.0 - 0.95 ** 3)
+    before = fc.reduce_scatter_adamw.launches
+    got = fc.reduce_scatter_adamw(g, p, m, v, *hyper, weight_decay=wd)
+    again = fc.reduce_scatter_adamw(g, p, m, v, *hyper, weight_decay=wd)
+    torch.cuda.synchronize()
+    assert fc.reduce_scatter_adamw.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fc.reduce_scatter_adamw_plain(g, p, m, v, *hyper,
+                                         weight_decay=wd)
+    for name, a, b in zip("pmv", got, want):
+        tol = (2e-2, 1e-2) if name == "p" and p_dtype == "bfloat16" \
+            else (1e-6, 1e-7)
+        assert a.dtype == b.dtype, name
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol[0],
+                                   atol=tol[1], msg=name)
+
+
+def test_reduce_scatter_adamw_reads_hypers_on_the_card(cuda):
+    """0-d CUDA tensors for lr and the bias corrections give what the
+    same numbers give; bf16 partials are summed in f32."""
+    from repro_torch.kernels import fused_collectives as fc
+    g = _randn((4, 4096), torch.bfloat16, cuda)
+    p, m = (_randn((4096,), torch.float32, cuda) for _ in range(2))
+    v = _randn((4096,), torch.float32, cuda).abs()
+    nums = (1e-3, 0.1, 0.05)
+    tens = tuple(torch.tensor(h, device=cuda) for h in nums)
+    a = fc.reduce_scatter_adamw(g, p, m, v, *nums, weight_decay=0.1)
+    b = fc.reduce_scatter_adamw(g, p, m, v, *tens, weight_decay=0.1)
+    want = fc.reduce_scatter_adamw_plain(g, p, m, v, *nums,
+                                         weight_decay=0.1)
+    for x, y, w in zip(a, b, want):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x, w, rtol=1e-6, atol=1e-7)
+
+
+def _auto_collectives(ctx, plan_path):
+    from repro_torch.core import ledger
+    from repro_torch.launch import collectives as co
+    from repro_torch.tuner import load_plan
+    plan = load_plan(plan_path)
+    rows = 256                              # 1 MiB per rank
+    xs = [co.bench_input_numpy(r, rows) for r in range(ctx.nranks)]
+    out = {}
+    for name in co.PRIMITIVES:
+        comm = co.communicator(ctx, "auto", name, plan=plan)
+        ledger.reset()
+        y = co.call(comm, name, co.bench_input(ctx.rank, rows, ctx.device))
+        torch.cuda.synchronize()
+        choices = ledger.snapshot()["auto_choices"]
+        ok = len(choices) == 1 and choices[0]["backend"] in ("ring", "cxl")
+        out[name] = ok and bool(np.array_equal(
+            y.cpu().numpy(), co.oracle(name, xs, ctx.rank)))
+    out["retrieved"] = ctx.pool.bytes_retrieved
+    return out
+
+
+def test_auto_collectives_on_card_match_the_oracle(cuda, tmp_path):
+    """Four ranks share the card under backend='auto' with a plan tuned
+    for 4 ranks: every primitive, at 1 MiB per rank, resolves one plan
+    cell and returns the numpy oracle's result bitwise."""
+    from repro_torch import tuner
+    from repro_torch.core.hw import MiB
+    from repro_torch.launch import ranks
+    path = str(tmp_path / "plan.json")
+    tuner.save_plan(tuner.generate_plan(tuner.TuneGrid(
+        nranks=(4,), sizes=(1 * MiB, 16 * MiB))), path)
+    res = ranks.spawn(_auto_collectives, 4, (path,), device="cuda",
+                      partition_bytes=4 << 20, timeout_s=300)
+    for r in res:
+        assert r.pop("retrieved") > 0     # some cells chose the pool
+        assert all(r.values()), r

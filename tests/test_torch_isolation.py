@@ -86,8 +86,8 @@ def test_engine_without_device_refuses_cpu_fallback():
 def test_launcher_rejects_unported_flags():
     from repro_torch.launch import serve
     ap = serve.build_parser()
-    for flag in ("--plan", "--online-retune", "--topology", "--placement",
-                 "--ckpt", "--metrics-out"):
+    for flag in ("--online-retune", "--topology", "--placement", "--ckpt",
+                 "--metrics-out"):
         with pytest.raises(SystemExit):
             ap.parse_args(["--arch", "llama3.2-1b", flag, "x"])
     args = ap.parse_args(["--arch", "llama3.2-1b", "--smoke", "--device",
@@ -118,12 +118,13 @@ def test_train_entry_points_without_device_refuse_cpu_fallback():
 def test_train_launcher_rejects_unported_flags_and_tp():
     from repro_torch.launch import train
     ap = train.build_parser()
-    for flag in ("--plan", "--topology", "--placement", "--pp-stages",
-                 "--ckpt", "--metrics-out"):
+    for flag in ("--topology", "--placement", "--pp-stages", "--ckpt",
+                 "--metrics-out", "--online-retune"):
         with pytest.raises(SystemExit):
             ap.parse_args(["--arch", "llama3.2-1b", flag, "x"])
-    with pytest.raises(SystemExit):
-        ap.parse_args(["--arch", "llama3.2-1b", "--backend", "auto"])
+    args = ap.parse_args(["--arch", "llama3.2-1b", "--backend", "auto",
+                          "--plan", "plan.json"])
+    assert train.tcfg_from_args(args).plan_path == "plan.json"
     args = ap.parse_args(["--arch", "llama3.2-1b", "--mesh", "2x2",
                           "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -6,17 +6,22 @@ forced host devices, run in a subprocess so the device count never leaks
 into the test process).
 
 Compared per variant (ring / cxl, with and without fused kernels, plus
-microbatch accumulation and the per-leaf faithful-AllReduce path): the
-loss of each of 3 steps (rtol 1e-4: two f32 stacks summing in different
+microbatch accumulation, the per-leaf faithful-AllReduce path,
+``auto`` on a plan written by ``repro.launch.tune --smoke --nranks 4``,
+and ``auto`` without a plan, each rank tuning the default plan into the
+plan cache):
+the loss of each of 3 steps (rtol 1e-4: two f32 stacks summing in different
 orders, after two AdamW updates) and the synced grads of the first step
 (rtol 1e-4, atol 1e-5).  The reference's synced grads are read back from
 its first AdamW moment, mu = (1 - b1) * g from zero; comparing grads, not
 post-AdamW params, keeps AdamW's sign-like first step from amplifying f32
-ordering noise.
+ordering noise.  Under ``auto`` the decisions and the ledger's bytes are
+compared too (``test_auto_resolves_like_reference``,
+``test_ledger_bytes_follow_the_reference_trip_counts``).
 
 Also runnable as a script: ``python tests/test_torch_train.py
---reference OUT.npz PARAMS.npz`` writes the reference's numbers (what the
-fixture does in its subprocess).
+--reference OUT.npz PARAMS.npz PLAN.json`` writes the reference's numbers
+(what the fixture does in its subprocess).
 """
 import json
 import os
@@ -33,6 +38,7 @@ B1 = 0.9
 LOSS_RTOL = 1e-4
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 
+TUNED = "<the tuned plan>"     # stands for the fixture's plan path
 # name -> TrainConfig fields shared by both sides
 VARIANTS = {
     "ring": dict(backend="ring"),
@@ -43,20 +49,30 @@ VARIANTS = {
     "cxl-per-leaf-faithful": dict(backend="cxl", bucket_mb=0.0, prefetch=0,
                                   allreduce_mode="faithful",
                                   slicing_factor=2),
+    "auto": dict(backend="auto", plan_path=TUNED),
+    "auto-default-plan": dict(backend="auto"),
 }
+CHOICE_KEYS = ("primitive", "msg_bytes", "nranks", "backend",
+               "slicing_factor", "allreduce_mode", "overlap", "fused")
 
 
-def _tcfg_kwargs(fields: dict) -> dict:
+def _tcfg_kwargs(fields: dict, plan_path: str) -> dict:
     return dict(lr=3e-4, warmup=min(20, STEPS // 5), total_steps=STEPS,
-                clip_norm=None, **fields)
+                clip_norm=None, **{k: plan_path if v == TUNED else v
+                                   for k, v in fields.items()})
 
 
-def reference_main(out_path: str, params_path: str) -> None:
+def _distinct(audit: list) -> list:
+    return sorted({tuple(c[k] for k in CHOICE_KEYS) for c in audit})
+
+
+def reference_main(out_path: str, params_path: str, plan_path: str) -> None:
     """The reference side, in a process with 4 forced host devices."""
     import jax
     import jax.numpy as jnp
 
     from repro.configs import get_config
+    from repro.core import ledger
     from repro.data.pipeline import SyntheticTokens
     from repro.launch.mesh import dp_axes
     from repro.optim import adamw_init
@@ -76,7 +92,7 @@ def reference_main(out_path: str, params_path: str) -> None:
         node[parts[-1]] = jnp.asarray(v)
     out = {}
     for name, fields in VARIANTS.items():
-        tcfg = TrainConfig(**_tcfg_kwargs(fields))
+        tcfg = TrainConfig(**_tcfg_kwargs(fields, plan_path))
         step, _, _, _ = make_sharded_train_step(cfg, tcfg, mesh,
                                                 dp_axis=dp_axes(mesh))
         params, opt = params0, adamw_init(params0)
@@ -84,9 +100,15 @@ def reference_main(out_path: str, params_path: str) -> None:
         losses = []
         for i, b in zip(range(STEPS), data):
             b = {k: jnp.asarray(v) for k, v in b.items()}
+            ledger.reset()
             params, opt, m = step(params, opt, b)
             losses.append(float(m["loss"]))
-            if i == 0:
+            if i == 0:          # the first call traced: the step's ledger
+                snap = ledger.snapshot()
+                out[f"{name}|wire"] = np.float64(snap["total_wire_bytes"])
+                out[f"{name}|fused"] = np.float64(snap["total_fused_bytes"])
+                out[f"{name}|choices"] = np.asarray(json.dumps(
+                    _distinct(snap["auto_choices"])))
                 for path, mu in jax.tree_util.tree_leaves_with_path(opt.mu):
                     key = "/".join(p.key for p in path)
                     out[f"{name}|grad|{key}"] = np.asarray(mu) / np.float32(
@@ -101,6 +123,7 @@ def runs(tmp_path_factory):
     import jax.numpy as jnp
 
     from repro.configs import get_config as jax_get_config
+    from repro.launch import tune as jax_tune
     from repro.models import model as jax_model
     from repro_torch.launch import train
     from repro_torch.training.train_loop import TrainConfig
@@ -108,6 +131,15 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("torch_train")
     params_path = str(tmp / "params.npz")
     ref_path = str(tmp / "reference.npz")
+    plan_path = str(tmp / "plan.json")
+    cache = str(tmp / "plan_cache")     # both sides' default plans
+    argv = sys.argv
+    try:
+        sys.argv = ["tune", "--smoke", "--nranks", "4", "--quiet", "--out",
+                    plan_path]
+        jax_tune.main()
+    finally:
+        sys.argv = argv
     jparams = jax_model.init_params(jax.random.key(0),
                                     jax_get_config(ARCH, smoke=True), tp=1,
                                     dtype=jnp.float32)
@@ -116,29 +148,37 @@ def runs(tmp_path_factory):
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     env["JAX_PLATFORMS"] = "cpu"
+    env["REPRO_PLAN_CACHE"] = cache
     env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep + \
         env.get("PYTHONPATH", "")
     ref = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                            "--reference", ref_path, params_path], env=env,
+                            "--reference", ref_path, params_path,
+                            plan_path], env=env,
                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                            text=True)
+    saved_cache = os.environ.get("REPRO_PLAN_CACHE")
+    os.environ["REPRO_PLAN_CACHE"] = cache     # the spawned ranks read it
     try:
         spec = train.RunSpec(
             arch=ARCH, smoke=True,
-            variants=tuple(TrainConfig(**_tcfg_kwargs(f))
+            variants=tuple(TrainConfig(**_tcfg_kwargs(f, plan_path))
                            for f in VARIANTS.values()),
             steps=STEPS, batch=BATCH, seq=SEQ, dp=DP, device="cpu",
             params_path=params_path, capture_grads=True, timeout_s=120.0)
         mine = dict(zip(VARIANTS, train.run_ranks(spec)))
         log, _ = ref.communicate(timeout=400)
     finally:
+        if saved_cache is None:
+            os.environ.pop("REPRO_PLAN_CACHE")
+        else:
+            os.environ["REPRO_PLAN_CACHE"] = saved_cache
         if ref.poll() is None:
             ref.kill()
             ref.wait()
     assert ref.returncode == 0, log[-3000:]
     with np.load(ref_path) as f:
         reference = {k: f[k] for k in f.files}
-    return mine, reference
+    return mine, reference, {"plan": plan_path, "cache": cache}
 
 
 def _full_grads(run: dict) -> dict:
@@ -168,7 +208,7 @@ def _full_grads(run: dict) -> dict:
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_losses_match_reference(runs, variant):
-    mine, reference = runs
+    mine, reference, _paths = runs
     got = np.asarray([s["loss"] for s in mine[variant]["steps"]])
     want = reference[f"{variant}|loss"]
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
@@ -177,7 +217,7 @@ def test_losses_match_reference(runs, variant):
 
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_synced_grads_match_reference(runs, variant):
-    mine, reference = runs
+    mine, reference, _paths = runs
     got = _full_grads(mine[variant])
     prefix = f"{variant}|grad|"
     want = {k[len(prefix):]: v for k, v in reference.items()
@@ -190,10 +230,10 @@ def test_synced_grads_match_reference(runs, variant):
 
 
 def test_cxl_moves_bytes_through_the_pool_and_ring_does_not(runs):
-    mine, _ = runs
+    mine, _reference, _paths = runs
     for name, run in mine.items():
         pool = [s["pool_bytes"] for s in run["steps"]]
-        if VARIANTS[name]["backend"] == "cxl":
+        if VARIANTS[name]["backend"] != "ring":
             assert all(b > 0 for b in pool) and len(set(pool)) == 1, name
         else:
             assert pool == [0] * STEPS, name
@@ -203,7 +243,7 @@ def test_fused_variants_book_fused_gather_bytes(runs):
     """With fused kernels the matmul weights' gathers book into the
     ledger's fused split (as ``_mesh_runner.py`` checks for the
     reference); without, nothing does."""
-    mine, _ = runs
+    mine, _reference, _paths = runs
     for name, run in mine.items():
         step = run["steps"][0]
         wire, fused = step["wire_bytes_rank0"], step["fused_bytes_rank0"]
@@ -211,8 +251,85 @@ def test_fused_variants_book_fused_gather_bytes(runs):
             wire.get("reduce_scatter", 0) > 0, name
         if VARIANTS[name].get("fuse_kernels"):
             assert 0 < fused.get("all_gather", 0) < wire["all_gather"], name
-        else:
+        elif VARIANTS[name]["backend"] != "auto":    # auto: the plan's
             assert not fused, name
+
+
+@pytest.mark.parametrize("variant", [v for v, f in VARIANTS.items()
+                                     if f.get("bucket_mb", 25.0) > 0])
+def test_ledger_bytes_follow_the_reference_trip_counts(runs, variant):
+    """The reference books each collective of the loss once at trace
+    time and scales it by 3 (forward, remat replay, AD transpose) and by
+    the microbatch count; the grad sync once.  The port books each call
+    as it runs: the bucketed FSDP gathers once (they are prefetched
+    outside the rematerialised rows), their transposes as reduce-
+    scatters, the loss mean's all-reduce and its transpose, and the grad
+    sync.  So the reference's total is 3 x the port's gathers + the
+    port's all-reduces + one loss all-reduce per microbatch, and its
+    fused split is 3 x the port's fused gathers."""
+    mine, reference, _paths = runs
+    step = mine[variant]["steps"][0]
+    wire, fused = step["wire_bytes_rank0"], step["fused_bytes_rank0"]
+    mb = VARIANTS[variant].get("microbatches", 1)
+    loss_ar = 2 * 4 * (DP - 1) / DP          # one f32 scalar, two-phase
+    assert wire["reduce_scatter"] == wire["all_gather"]
+    assert 3 * wire["all_gather"] + wire["all_reduce"] + mb * loss_ar == \
+        float(reference[f"{variant}|wire"])
+    assert 3 * fused.get("all_gather", 0.0) == \
+        float(reference[f"{variant}|fused"])
+
+
+@pytest.mark.parametrize("variant", ["auto", "auto-default-plan"])
+def test_auto_resolves_like_reference(runs, variant):
+    """Under ``auto`` every decision the reference takes is the port's,
+    and the port's other decisions - the gathers' transposes, which the
+    reference never resolves (its AD transposes the ppermute program) -
+    are what the reference's plan lookup gives for their sizes.  Without
+    a plan both sides tune the smoke-grid default."""
+    from repro.tuner import load_plan
+    mine, reference, paths = runs
+    ref_plan = load_plan(paths["plan"]) if variant == "auto" else \
+        load_plan(_cached_plans(paths["cache"])[1][0])
+    got = {tuple(c[k] for k in CHOICE_KEYS)
+           for s in mine[variant]["steps"] for c in s["choices_rank0"]}
+    want = {tuple(c) for c in json.loads(str(reference[f"{variant}|"
+                                                       f"choices"]))}
+    assert want and want <= got
+    for prim, size, n, *knobs in got - want:
+        assert prim == "reduce_scatter"
+        c = ref_plan.lookup(prim, size, n)
+        assert knobs == [c.backend, c.slicing_factor, c.allreduce_mode,
+                         c.overlap, c.fused]
+    assert {k[3] for k in got} <= {"ring", "cxl"}
+
+
+def _cached_plans(cache: str) -> tuple:
+    """(the port's default plan files, the reference's)."""
+    port = os.path.join(cache, "repro_torch")
+    return ([os.path.join(port, f) for f in sorted(os.listdir(port))],
+            [os.path.join(cache, f) for f in sorted(os.listdir(cache))
+             if f.endswith(".json")])
+
+
+def test_default_plans_cached_apart_from_the_reference(runs):
+    """Without ``--plan`` the port's ranks and the reference each cache
+    the default plan under the same fingerprint-keyed name, the port in
+    a directory of its own: same cells and choices, the fused cells'
+    times priced on other rooflines."""
+    from repro.tuner import load_plan as jax_load_plan
+    from repro_torch.tuner import load_plan
+    _mine, _reference, paths = runs
+    port, ref = _cached_plans(paths["cache"])
+    assert [os.path.basename(f) for f in port] == \
+        [os.path.basename(f) for f in ref] and len(port) == 1
+    a, b = load_plan(port[0]), jax_load_plan(ref[0])
+    assert a.fingerprint == b.fingerprint and sorted(a.entries) == \
+        sorted(b.entries)
+    for k, c in b.entries.items():
+        mine = a.entries[k]
+        assert (mine.backend, mine.slicing_factor, mine.fused) == \
+            (c.backend, c.slicing_factor, c.fused), k
+        assert (mine.predicted_time == c.predicted_time) != c.fused, k
 
 
 def test_synthetic_batches_match_reference():
@@ -234,8 +351,9 @@ def test_synthetic_batches_match_reference():
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 4 and sys.argv[1] == "--reference":
-        reference_main(sys.argv[2], sys.argv[3])
+    if len(sys.argv) == 5 and sys.argv[1] == "--reference":
+        reference_main(sys.argv[2], sys.argv[3], sys.argv[4])
     else:
-        print(json.dumps({"usage": "--reference OUT.npz PARAMS.npz"}))
+        print(json.dumps({"usage": "--reference OUT.npz PARAMS.npz "
+                                   "PLAN.json"}))
         sys.exit(2)
