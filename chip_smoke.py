@@ -21,13 +21,19 @@ Phases (each fails the run if its check fails):
                  decode shapes, a ragged L from a random state, and bf16;
                  reduce_scatter_rmsnorm and reduce_scatter_adamw (f32 and
                  bf16, weight decay 0 and 0.1) at the JAX test shapes, the
-                 training path's shapes and a ragged T / L;
+                 training path's shapes and a ragged T / L; the two
+                 tensor-core kernels (all_gather_matmul, flash_attention)
+                 run twice on the same inputs and must repeat bitwise;
 3. timing      - each kernel, its plain version and one PyTorch library
                  call on the same inputs (device time from CUDA events, L2
                  flushed before every call; for the two reduce_scatter
                  kernels, which no single call computes, the two-call
                  composition), beside the kernel's roofline bound, at the
-                 main paths' shapes;
+                 main paths' shapes (all_gather_matmul at all four of the
+                 training path's); the two tensor-core kernels also beside
+                 ``bound_tc_ms``, their bound on the 3xTF32 instruction
+                 path (three tf32 products per f32 product at 495
+                 TFLOP/s);
 3b. kernel API - ``repro_torch.kernels.ops.reduce_scatter_rmsnorm`` and
                  ``reduce_scatter_adamw`` at the training path's shapes
                  (the path that carries them in the JAX package too);
@@ -61,7 +67,8 @@ Phases (each fails the run if its check fails):
                  params and batches): the four step-0 losses agree, every
                  run's loss falls, every collective call of the auto run
                  took its plan cell, and one extra step of the first run is
-                 profiled.
+                 profiled (the two tensor-core kernels' device time by
+                 name).
 
 The kernels' launch counters are zeroed before each serving run and
 before each training step (in the rank processes), and read after it:
@@ -91,6 +98,12 @@ import torch  # noqa: E402
 
 HBM_BW = 3.35e12                                   # H100 SXM, bytes/s
 PEAK = {torch.float32: 67e12, torch.bfloat16: 989e12}   # FLOP/s
+TF32_PEAK = 495e12     # tensor cores, FLOP/s; 3xTF32 issues 3 per product
+# the kernels that run f32 products on the tensor cores in 3xTF32: their
+# second bound counts that instruction path, and the names by which the
+# training step's profile reports them
+TC_KERNELS = {"all_gather_matmul": "agm_tf32x3_kernel",
+              "flash_attention": "flash_fwd_kernel"}
 EXP_RATE = 16 * 132 * 1.98e9    # SFU exps/s: 16 per clock per SM, 132 SMs
 # (rtol, atol).  chunked_reduce: the kernel and torch sum the sources in
 # other orders, n_src - 1 roundings of partial sums up to about 16
@@ -254,6 +267,29 @@ def device_profile(fn) -> dict:
             "top": [{"kernel": k[:80], "us": t} for k, t in kern[:8]]}
 
 
+def repeat_parity(randn, fa, fc) -> list:
+    """The two tensor-core kernels run twice on the same inputs at the
+    main paths' shapes: the results must be bitwise equal."""
+    out = []
+    for t, n, ks, nout in AGM_SHAPES:
+        x, w = randn(t, n * ks), randn(n, ks, nout)
+        a, b = fc.all_gather_matmul(x, w), fc.all_gather_matmul(x, w)
+        out.append({"kernel": "all_gather_matmul", "check": "repeat",
+                    "shape": [t, n, ks, nout], "dtype": str(torch.float32),
+                    "max_abs_err": float((a - b).abs().max()),
+                    "ok": bool(torch.equal(a, b))})
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (randn(1, PROMPT, 32, 64, dtype=dtype) for _ in range(3))
+        a = fa._launch(q, k, v, True, None, 0, PROMPT, True)
+        b = fa._launch(q, k, v, True, None, 0, PROMPT, True)
+        out.append({"kernel": "flash_attention", "check": "repeat",
+                    "shape": [1, PROMPT, 32, 64], "dtype": str(dtype),
+                    "max_abs_err": max(float((x - y).float().abs().max())
+                                       for x, y in zip(a, b)),
+                    "ok": all(torch.equal(x, y) for x, y in zip(a, b))})
+    return out
+
+
 def grad_parity(randn, rn, fa, fc) -> list:
     """Gradients through each differentiable kernel path (kernel
     forward, explicit backward) against autograd through the plain
@@ -312,9 +348,14 @@ def _summarise_profile(per_rank: list) -> dict:
     for p in per_rank:
         for k in p["top"]:
             top[k["kernel"]] = top.get(k["kernel"], 0.0) + k["us"]
+    # the tensor-core kernels by name, whether or not they make the top
+    named = {name: sum(us for p in per_rank
+                       for k, us in p["by_kernel"].items() if fn in k)
+             for name, fn in TC_KERNELS.items()}
     return {"wall_us": max(p["wall_us"] for p in per_rank),
             "kernel_us_sum": sum(p["kernel_us"] for p in per_rank),
             "copy_us_sum": sum(p["copy_us"] for p in per_rank),
+            "tc_kernels_us_sum": named,
             "top": [{"kernel": k, "us": v} for k, v in
                     sorted(top.items(), key=lambda kv: -kv[1])[:12]]}
 
@@ -911,6 +952,7 @@ def main() -> int:
                        "shape": [t, n, ks, nout], "dtype": str(torch.float32),
                        "max_abs_err": err, "tolerance": gemm_tol(n * ks),
                        "ok": ok})
+    parity += repeat_parity(randn, fa, fc)
     parity += grad_parity(randn, rn, fa, fc)
     parity += ssm_parity(randn, ss)
     parity += rs_parity(randn, rand, fc, rs_len)
@@ -996,6 +1038,10 @@ def main() -> int:
                     rec.get("exps", 0) / EXP_RATE) * 1e3
         rec["bound_ms"] = max(byte_ms, op_ms)
         rec["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
+    for rec in list(agm.values()) + [timing["all_gather_matmul"],
+                                     timing["flash_attention"]]:
+        rec["bound_tc_ms"] = max(rec["bytes"] / HBM_BW,
+                                 3 * rec["flops"] / TF32_PEAK) * 1e3
     record["all_gather_matmul_shapes"] = agm
     for key, rec in agm.items():
         log(f"[timing] all_gather_matmul {key} {json.dumps(rec)}")
@@ -1089,6 +1135,7 @@ def main() -> int:
             "max_abs_err": max(p["max_abs_err"] for p in main),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "bound_tc_ms": t.get("bound_tc_ms"),
             "library_ms": t["library_ms"], "shape": t["shape"],
             "dtype": "float32"})
     record["kernels"] = kernels

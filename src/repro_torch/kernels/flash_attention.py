@@ -7,8 +7,9 @@ interface of the JAX model's blocked attention (``repro/models/flash.py``):
 q (B, Lq, H, D) and k/v (B, Lk, H, D), GQA-expanded, with ``causal``, a
 sliding ``window``, ``q_offset`` (absolute position of query row 0) and
 a ragged kv length ``kv_len`` (keys at positions >= kv_len are masked).
-``flash_attention`` launches it for CUDA tensors and takes the plain
-PyTorch version for CPU tensors.
+Its products run on the tensor cores: 3xTF32 for float32, one bf16
+product for bfloat16.  ``flash_attention`` launches it for CUDA tensors
+and takes the plain PyTorch version for CPU tensors.
 
 ``flash_attention_train`` is the differentiable form the training path
 calls: its forward also keeps each row's running max and normaliser (the

@@ -8,9 +8,10 @@ Each kernel replaces the Pallas TPU kernel of the same name in
 * ``all_gather_matmul`` (``csrc/all_gather_matmul.cu``): ``x @
   concat(w_shards)`` over a rank-major stack of FSDP weight shards, read
   in place (the stack may be a strided view of the gathered bucket; the
-  concatenated weight is never built).  ``fused_dense`` wraps it for the
-  differentiated training path; its backward is the reference's plain
-  matmul transpose.
+  concatenated weight is never built), on the tensor cores in 3xTF32
+  with an output tile chosen per shape (:func:`agm_geometry`).
+  ``fused_dense`` wraps it for the differentiated training path; its
+  backward is the reference's plain matmul transpose.
 * ``reduce_scatter_rmsnorm`` (``csrc/reduce_scatter_rmsnorm.cu``): the
   f32 sum of a ReduceScatter's n_src partials, normalised per row before
   it is written.
@@ -35,10 +36,33 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# x, w, y, T, n, Ks, N, shard_stride, stream
+# x, w, y, T, n, Ks, N, shard_stride, tile, vec, stream
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_void_p]
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# the kernel's compiled output tiles (BM, BN), in the order tried
+AGM_TILES = ((128, 128), (64, 32))
+H100_SMS = 132
+AGM_FILL = 0.9     # the share of the SMs a tile's grid must give a block
+
+
+def agm_geometry(t: int, n: int, ks: int, nout: int,
+                 sms: int = H100_SMS) -> dict:
+    """The kernel's launch for x (t, n*ks) @ (n, ks, nout): the first
+    output tile of :data:`AGM_TILES` whose grid gives at least
+    :data:`AGM_FILL` of ``sms`` SMs a block (else the last tile), the
+    grid ``(M tiles, N tiles)``, and whether every staged copy can move
+    16 bytes (the contraction and N multiples of 4 floats; the wrapper
+    also checks the shard stride and both bases).  On the H100 the
+    128 x 128 tile's 128 blocks at N = 2048 ran faster than every tile
+    that gives all 132 SMs a block (PERF.md)."""
+    for tile, (bm, bn) in enumerate(AGM_TILES):
+        grid = (-(-t // bm), -(-nout // bn))
+        if grid[0] * grid[1] >= AGM_FILL * sms or \
+                tile == len(AGM_TILES) - 1:
+            break
+    return {"tile": tile, "block": (bm, bn), "grid": grid,
+            "vec": (n * ks) % 4 == 0 and nout % 4 == 0}
 
 
 def _check(x: torch.Tensor, w_shards: torch.Tensor) -> None:
@@ -83,12 +107,17 @@ def all_gather_matmul(x: torch.Tensor,
         raise ValueError("all_gather_matmul kernel needs a contiguous x "
                          "and shards with contiguous (Ks, N) rows")
     out = torch.empty((x.shape[0], nout), dtype=x.dtype, device=x.device)
+    geo = agm_geometry(x.shape[0], n, ks, nout, torch.cuda.
+                       get_device_properties(x.device).multi_processor_count)
+    vec = geo["vec"] and w_shards.stride(0) % 4 == 0 and \
+        x.data_ptr() % 16 == 0 and w_shards.data_ptr() % 16 == 0
     fn = build.entry("all_gather_matmul", "all_gather_matmul_launch",
                      _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), w_shards.data_ptr(), out.data_ptr(),
-                 x.shape[0], n, ks, nout, w_shards.stride(0), stream)
+                 x.shape[0], n, ks, nout, w_shards.stride(0), geo["tile"],
+                 int(vec), stream)
     build.check("all_gather_matmul", err)
     all_gather_matmul.launches += 1
     return out

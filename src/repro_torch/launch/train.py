@@ -167,7 +167,8 @@ def _profile_step(run_step, dev) -> dict:
     copies = sum(t for k, t in kern if k.startswith("Memcpy"))
     return {"wall_us": wall_us, "copy_us": copies,
             "kernel_us": sum(t for _, t in kern) - copies,
-            "top": [{"kernel": k[:80], "us": t} for k, t in kern[:12]]}
+            "top": [{"kernel": k[:80], "us": t} for k, t in kern[:12]],
+            "by_kernel": dict(kern)}
 
 
 def distinct_choices(audit: list) -> list:

@@ -59,7 +59,11 @@ def test_rms_norm_kernel_vs_plain(cuda, t, d, dtype):
     (1, 256, 256, 4, 128, True, 96, 0),        # window, D = 128
     (1, 64, 300, 4, 64, True, None, 236),      # q_offset, ragged kv
     (1, 130, 130, 8, 32, True, 50, 0),         # D = 32 (smoke model)
-    (1, 128, 128, 2, 64, False, None, 0)])
+    (1, 128, 128, 2, 64, False, None, 0),
+    # Lq not a multiple of the 64-row q tile, q_offset > 0, and a window
+    # whose lower edge crosses a kv tile
+    (1, 100, 300, 4, 64, True, 70, 200),
+    (2, 77, 141, 3, 128, True, 40, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_vs_plain(cuda, b, lq, lk, h, d, causal, window,
                                q_offset, dtype):
@@ -73,6 +77,36 @@ def test_flash_kernel_vs_plain(cuda, b, lq, lk, h, d, causal, window,
     tol = (1e-4, 2e-5) if dtype == "float32" else (2e-2, 2e-2)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol[0],
                                atol=tol[1])
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_stats_vs_plain(cuda, d, dtype):
+    """The (m, l) the training backward reads: each row's max score and
+    normaliser, f32 in both dtypes (bf16 products are exact in f32), at
+    the f32 tolerance; o at its dtype's."""
+    q = _randn((2, 200, 3, d), DTYPES[dtype], cuda)
+    k, v = (_randn((2, 264, 3, d), DTYPES[dtype], cuda) for _ in range(2))
+    got = fa._launch(q, k, v, True, 90, 64, 250, True)
+    want = fa.flash_attention_plain(q, k, v, True, 90, 64, 250,
+                                    return_stats=True)
+    tol = (1e-4, 2e-5) if dtype == "float32" else (2e-2, 2e-2)
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol[0],
+                               atol=tol[1])
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_repeats_bitwise(cuda, dtype):
+    """No atomics, a fixed order of every sum: a repeat is bitwise equal."""
+    q, k, v = (_randn((1, 1024, 32, 64), DTYPES[dtype], cuda)
+               for _ in range(3))
+    outs = [fa._launch(q, k, v, True, None, 0, 1024, True)
+            for _ in range(2)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_flash_kernel_kv_len(cuda):
@@ -258,12 +292,13 @@ def test_chunked_reduce_kernel_vs_plain(cuda, n_src, length, dtype):
     (1024, 4, 512, 2048), (1024, 4, 512, 512), (1024, 4, 512, 8192),
     (1024, 4, 2048, 2048), (100, 3, 37, 130)])   # the last one ragged
 def test_all_gather_matmul_kernel_vs_plain(cuda, t, n, ks, nout):
-    """f32 FMA in another order than cuBLAS's f32 GEMM (TF32 off).  The
-    kernel keeps one running sum per output over K unit-normal products;
-    the partial sums grow like sqrt(K), so the rounding's spread is
-    about K * 2^-24 and the largest of ~10^6 outputs several times that
-    (measured: 1.3e-4 at K = 2048, 2.3e-3 at K = 8192): atol
-    8 * K * 2^-24, rtol 1e-4."""
+    """3xTF32 on the tensor cores against cuBLAS's f32 GEMM (TF32 off).
+    The kernel keeps one running sum per output over K unit-normal
+    products, added slab by slab; the partial sums grow like sqrt(K), so
+    the rounding's spread is about K * 2^-24 and the largest of ~10^6
+    outputs several times that (the earlier CUDA-core kernel measured
+    1.3e-4 at K = 2048, 2.3e-3 at K = 8192): atol 8 * K * 2^-24, rtol
+    1e-4."""
     from repro_torch.kernels import fused_collectives as fc
     x = _randn((t, n * ks), torch.float32, cuda)
     w = _randn((n, ks, nout), torch.float32, cuda)
@@ -273,6 +308,36 @@ def test_all_gather_matmul_kernel_vs_plain(cuda, t, n, ks, nout):
     assert fc.all_gather_matmul.launches == before + 1
     torch.testing.assert_close(got, fc.all_gather_matmul_plain(x, w),
                                rtol=1e-4, atol=8 * n * ks * 2.0 ** -24)
+
+
+@pytest.mark.parametrize("t,n,ks,nout,vec", [
+    (64, 1, 256, 192, True),      # one shard
+    (128, 8, 64, 256, True),      # eight shards, each two K slabs
+    (96, 3, 40, 128, True),       # Ks not a multiple of the 32-deep slab
+    (70, 2, 37, 130, False),      # K, N not multiples of 4: 4-byte copies
+    (33, 4, 48, 102, False)])     # N not a multiple of 4 only
+def test_all_gather_matmul_kernel_edges(cuda, t, n, ks, nout, vec):
+    """Shard counts, slabs that straddle shards, and rows that are not
+    16-byte aligned (the 4-byte copy path), at the same tolerance."""
+    from repro_torch.kernels import fused_collectives as fc
+    assert fc.agm_geometry(t, n, ks, nout)["vec"] == vec
+    x = _randn((t, n * ks), torch.float32, cuda)
+    w = _randn((n, ks, nout), torch.float32, cuda)
+    torch.testing.assert_close(fc.all_gather_matmul(x, w),
+                               fc.all_gather_matmul_plain(x, w),
+                               rtol=1e-4, atol=8 * n * ks * 2.0 ** -24)
+
+
+@pytest.mark.parametrize("t,n,ks,nout", [
+    (1024, 4, 512, 2048), (1024, 4, 512, 512), (100, 3, 37, 130)])
+def test_all_gather_matmul_kernel_repeats_bitwise(cuda, t, n, ks, nout):
+    """No atomics and no split of a sum across blocks: a repeat is
+    bitwise equal, whichever tile the shape takes."""
+    from repro_torch.kernels import fused_collectives as fc
+    x = _randn((t, n * ks), torch.float32, cuda)
+    w = _randn((n, ks, nout), torch.float32, cuda)
+    assert torch.equal(fc.all_gather_matmul(x, w),
+                       fc.all_gather_matmul(x, w))
 
 
 def test_all_gather_matmul_reads_a_strided_stack(cuda):

@@ -9,6 +9,8 @@ this holds the arithmetic that the CUDA kernels are held to on the card
 order (rtol 1e-6, atol 1e-7), bf16 in half-precision rounding (rtol
 2e-2, atol 1e-2).  ``kernels.ref`` names the same plain versions.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ import torch
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 from repro.kernels.fused_collectives import ROW_TILE, SEG_TILE
+from repro.models.flash import flash_attention as jax_flash
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import fused_collectives as fc
 from repro_torch.kernels import ops, ref
 
@@ -249,3 +253,149 @@ def test_wrappers_count_only_kernel_launches():
     ops.reduce_scatter_adamw(torch.ones(2, 5), z, z, z, 1e-3, 0.1, 0.1)
     assert (fc.reduce_scatter_rmsnorm.launches,
             fc.reduce_scatter_adamw.launches) == before
+
+
+# -- the tensor-core kernels' 3xTF32 arithmetic and launch geometry -------- #
+#
+# The card runs all_gather_matmul and float32 flash_attention as 3xTF32 on
+# the tensor cores.  These emulate that arithmetic on the CPU, so that the
+# precision scheme is held to the card tests' unchanged tolerances here.
+
+AGM_SLAB = 32        # all_gather_matmul.cu's K slab (BK)
+FLASH_TILE = 64      # flash_attention.cu's kv tile (BKV)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> tf32 (10 explicit mantissa bits) to nearest, ties away
+    from zero, on the bit pattern, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor) -> tuple:
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in 3xTF32: small*big + big*small + big*big, every
+    product of two tf32 values exact in f32, the sums in f32."""
+    ab, as_ = _split(a)
+    bb, bs = _split(b)
+    return as_ @ bb + ab @ bs + ab @ bb
+
+
+def _agm_3xtf32(x: torch.Tensor, w_shards: torch.Tensor) -> torch.Tensor:
+    """The kernel's sum: each 32-deep K slab in 3xTF32 from zero, added
+    to the running f32 sum in K order."""
+    n, ks, nout = w_shards.shape
+    w = w_shards.reshape(n * ks, nout)
+    acc = torch.zeros((x.shape[0], nout), dtype=torch.float32)
+    for k0 in range(0, n * ks, AGM_SLAB):
+        acc += _mm3(x[:, k0:k0 + AGM_SLAB], w[k0:k0 + AGM_SLAB])
+    return acc
+
+
+def _flash_3xtf32(q, k, v, causal, window, q_offset):
+    """The kernel's online softmax over 64-key tiles, with Q K^T and
+    P V in 3xTF32 (P unnormalised, rescaled per tile)."""
+    qh, kh, vh = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    lq, lk = qh.shape[2], kh.shape[2]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
+    m = torch.full(qh.shape[:3] + (1,), fa.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qh)
+    for k0 in range(0, lk, FLASH_TILE):
+        kt, vt = kh[:, :, k0:k0 + FLASH_TILE], vh[:, :, k0:k0 + FLASH_TILE]
+        s = _mm3(qh, kt.transpose(-1, -2)) * scale
+        mask = fa.attention_mask(lq, kt.shape[2], causal, window,
+                                 q_offset - k0, lk - k0)
+        s = s.masked_fill(~mask, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _mm3(p, vt)
+        m = m_new
+    return (acc / l.clamp(min=1e-20)).permute(0, 2, 1, 3)
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12, 3.0],
+                     dtype=torch.float32)
+    want = [1.0 + 2.0 ** -10, 1.0 + 2 * 2.0 ** -10, -(1.0 + 2.0 ** -10),
+            1.0, 3.0]
+    assert _tf32(x).tolist() == want
+    big, small = _split(torch.tensor([math.pi], dtype=torch.float32))
+    assert abs(float(big + small) - math.pi) < 2.0 ** -21 * math.pi
+
+
+@pytest.mark.parametrize("n,ks", [(4, 512), (4, 2048)])   # K 2048, 8192
+def test_3xtf32_matmul_meets_the_card_tolerance(n, ks):
+    """The kernel's 3xTF32 sum against the JAX kernel (interpret mode)
+    within the card test's unchanged f32 tolerance (rtol 1e-4, atol
+    8 * K * 2^-24); one plain TF32 product misses it, which is why the
+    kernel splits each operand."""
+    t, nout = 128, 256
+    x = RNG.standard_normal((t, n * ks)).astype(np.float32)
+    w = RNG.standard_normal((n, ks, nout)).astype(np.float32)
+    want = np.asarray(rops.all_gather_matmul(jnp.asarray(x), jnp.asarray(w)))
+    rtol, atol = 1e-4, 8 * n * ks * 2.0 ** -24
+    got = _agm_3xtf32(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=atol)
+    one = _tf32(torch.from_numpy(x)) @ _tf32(torch.from_numpy(w)
+                                              .reshape(n * ks, nout))
+    assert not np.allclose(one.numpy(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d,causal,window,q_offset", [
+    (1, 256, 256, 2, 64, True, None, 0),
+    (1, 100, 300, 2, 64, True, 70, 200),
+    (2, 128, 128, 2, 32, False, None, 0),
+    (1, 192, 192, 2, 128, True, 96, 0)])
+def test_3xtf32_flash_meets_the_card_tolerance(b, lq, lk, h, d, causal,
+                                               window, q_offset):
+    """The flash kernel's f32 arithmetic (3xTF32 scores and P V, the
+    online softmax over 64-key tiles) against repro.models.flash within
+    the card test's rtol 1e-4, atol 2e-5."""
+    q = RNG.standard_normal((b, lq, h, d)).astype(np.float32)
+    k, v = (RNG.standard_normal((b, lk, h, d)).astype(np.float32)
+            for _ in range(2))
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal, window, q_offset))
+    got = _flash_3xtf32(*(torch.from_numpy(a) for a in (q, k, v)), causal,
+                        window, q_offset)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("t,n,ks,nout,tile,blocks", [
+    (1024, 4, 512, 8192, 0, 512),    # wg, wu
+    (1024, 4, 512, 2048, 0, 128),    # wq
+    (1024, 4, 512, 512, 1, 256)])    # wk, wv
+def test_agm_geometry_fills_the_card_on_the_training_path(t, n, ks, nout,
+                                                          tile, blocks):
+    """Every training-path shape gives at least 90% of the H100's 132
+    SMs a block (wq's 128 blocks of 128 x 128 ran faster on the card
+    than any tile that gives all 132 a block)."""
+    geo = fc.agm_geometry(t, n, ks, nout)
+    assert geo["tile"] == tile and geo["vec"]
+    assert geo["grid"][0] * geo["grid"][1] == blocks
+    assert blocks >= fc.AGM_FILL * fc.H100_SMS
+
+
+@pytest.mark.parametrize("t,n,ks,nout", [
+    (1024, 4, 512, 8192), (1024, 4, 512, 2048), (1024, 4, 512, 512),
+    (1024, 4, 2048, 2048), (100, 3, 37, 130), (1, 1, 1, 1),
+    (4000, 2, 64, 96)])
+def test_agm_geometry_covers_the_output_once(t, n, ks, nout):
+    geo = fc.agm_geometry(t, n, ks, nout)
+    (bm, bn), (gm, gn) = geo["block"], geo["grid"]
+    assert geo["block"] == fc.AGM_TILES[geo["tile"]]
+    cover = np.zeros((gm * bm, gn * bn), np.int64)
+    for i in range(gm):
+        for j in range(gn):
+            cover[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn] += 1
+    assert (cover == 1).all()
+    assert (gm - 1) * bm < t <= gm * bm and (gn - 1) * bn < nout <= gn * bn
+    assert geo["vec"] == ((n * ks) % 4 == 0 and nout % 4 == 0)
