@@ -18,7 +18,8 @@ Phases (each fails the run if its check fails):
                  path's segment length and a ragged one); all_gather_matmul
                  at the training path's shapes (f32); ssm_scan (y and the
                  final state) at the JAX test shapes, Falcon's prefill and
-                 decode shapes, a ragged L from a random state, and bf16;
+                 decode shapes, a ragged L from a random state, L
+                 across ring-stage boundaries, L = 4096, and bf16;
                  reduce_scatter_rmsnorm and reduce_scatter_adamw (f32 and
                  bf16, weight decay 0 and 0.1) at the JAX test shapes, the
                  training path's shapes and a ragged T / L; the two
@@ -33,7 +34,8 @@ Phases (each fails the run if its check fails):
                  training path's); the two tensor-core kernels also beside
                  ``bound_tc_ms``, their bound on the 3xTF32 instruction
                  path (three tf32 products per f32 product at 495
-                 TFLOP/s);
+                 TFLOP/s); ssm_scan at prefill and decode with the
+                 launch ``ssm_geometry`` chose;
 3b. kernel API - ``repro_torch.kernels.ops.reduce_scatter_rmsnorm`` and
                  ``reduce_scatter_adamw`` at the training path's shapes
                  (the path that carries them in the JAX package too);
@@ -154,10 +156,13 @@ AGM_MAIN = (1024, 4, 512, 8192)
 RAGGED = 1000003
 SSM_ARCH = "falcon-mamba-7b"
 # (B, L, D, N, from a random state): the JAX test shapes, Falcon's prefill
-# (1 x 1024) and decode (4 slots) shapes, a ragged L from a random state
+# (1 x 1024) and decode (4 slots) shapes, a ragged L from a random state;
+# L one under and over a 64-step ring stage and two stages + 1; L = 4096
 SSM_SHAPES = ((2, 256, 256, 16, False), (1, 128, 512, 8, False),
               (2, 64, 128, 4, False), (1, PROMPT, 8192, 16, False),
-              (2, 300, 8192, 16, True), (SLOTS, 1, 8192, 16, True))
+              (2, 300, 8192, 16, True), (SLOTS, 1, 8192, 16, True),
+              (1, 63, 8192, 16, True), (1, 65, 8192, 16, False),
+              (1, 129, 8192, 16, True), (1, 4096, 8192, 16, False))
 SSM_BF16 = (2, 300, 8192, 16, True)
 # the kernels each serving path must launch
 SERVE_KERNELS = {"serve": ("rms_norm", "flash_attention"),
@@ -1018,6 +1023,7 @@ def main() -> int:
     # from zero) and a decode step (SLOTS x 1, from the cached state),
     # both writing the final state; no single PyTorch call computes it
     scan = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for key, (b, l, with_h0) in (("prefill", (1, PROMPT, False)),
                                  ("decode", (SLOTS, 1, True))):
         args, h0 = ssm_inputs(randn, b, l, 8192, 16, with_h0)
@@ -1027,7 +1033,8 @@ def main() -> int:
             "plain_ms": timer(lambda: ss.ssm_scan_plain(
                 *args, h0=h0, return_state=True), iters=5),
             "library_ms": None, **ssm_cost(b, l, 8192, 16, with_h0),
-            "shape": [b, l, 8192, 16]}
+            "shape": [b, l, 8192, 16],
+            "geometry": ss.ssm_geometry(b, l, 8192, 16, sms)}
     del args, h0
     timing["ssm_scan"] = dict(scan["prefill"], decode=scan["decode"])
     timing.update(rs_timing(timer, randn, rand, fc, rs_len))

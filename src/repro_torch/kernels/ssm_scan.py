@@ -1,5 +1,5 @@
-"""Selective scan (Mamba-1): the CUDA kernel's wrapper, its plain
-version, its launch count.
+"""Selective scan (Mamba-1): the CUDA kernel's wrapper, its launch
+geometry, its plain version, its launch count.
 
 The kernel (``csrc/ssm_scan.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/ssm_scan.py::ssm_scan``, with an optional starting state
@@ -10,6 +10,12 @@ version for CPU tensors.  The kernel has no backward yet (ROADMAP
 queue 2, item 7b): on the card the wrapper refuses inputs that need a
 gradient rather than return an output without autograd history; the
 plain version on the CPU stays differentiable.
+
+On the card a thread keeps ``k`` lanes of one channel's state in
+registers and walks all of L inside its block, in one pass;
+:func:`ssm_geometry` gives ``k`` (N, at most 4) and the warps per SM
+that the launch leaves the card.  It depends on the shape and the
+card's SM count only, so CPU tests pin it.
 
 x, dt: (B, L, D); A: (D, N); B, C: (B, L, N); D: (D,); h0: (B, D, N)
 -> y (B, L, D) in x's dtype [, h_last (B, D, N)].  x, dt, B and C are
@@ -26,8 +32,24 @@ from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_SIZES = (1, 2, 4, 8, 16, 32)     # N: a power of two <= 32
-# x, dt, A, B, C, D, h0, y, h_last, then batch, L, D, N, dtype, stream
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# x, dt, A, B, C, D, h0, y, h_last, then batch, L, D, N, dtype, k, vec,
+# stream
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+H100_SMS = 132
+CHANNELS = 32        # channels a block owns (the kernel's kChannels)
+SCAN_LANES = 4       # state lanes a thread holds (N itself when N < 4)
+
+
+def ssm_geometry(b: int, l: int, d: int, n: int,
+                 sms: int = H100_SMS) -> dict:
+    """The launch :func:`ssm_scan` takes for x (b, l, d) and a state of
+    n lanes on a card of ``sms`` SMs: ``k``, the lanes a thread holds
+    (:data:`SCAN_LANES`, N when N is smaller), and ``warps_per_sm``, the
+    warps its grid of ceil(d / 32) x b blocks gives each SM (L runs
+    inside each block, so ``l`` does not change it)."""
+    k = min(n, SCAN_LANES)
+    warps = b * -(-d // CHANNELS) * (CHANNELS * n // k) / 32
+    return {"k": k, "warps_per_sm": warps / sms}
 
 
 def ssm_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -82,6 +104,29 @@ def _check(x, dt, A, B, C, D, h0) -> None:
         raise ValueError("ssm_scan's inputs must be on one device")
 
 
+def _launch(x, dt, A, B, C, D, h0, return_state: bool, geo: dict):
+    """One launch of the kernel with the launch ``geo`` (an
+    :func:`ssm_geometry`), for :func:`ssm_scan` and the card tests.
+    Counts nothing."""
+    bsz, length, d = x.shape
+    n = A.shape[1]
+    y = torch.empty_like(x)
+    h_last = (torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
+              if return_state else None)
+    item = x.element_size()
+    vec = (d * item) % 16 == 0 and (length * n * item) % 16 == 0 and \
+        all(t.data_ptr() % 16 == 0 for t in (x, dt, B, C))
+    fn = build.entry("ssm_scan", "ssm_scan_launch", _ARGTYPES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(None if t is None else t.data_ptr() for t in
+                   (x, dt, A, B, C, D, h0, y, h_last)),
+                 bsz, length, d, n, _DTYPES[x.dtype], geo["k"], int(vec),
+                 stream)
+    build.check("ssm_scan", err)
+    return (y, h_last) if return_state else y
+
+
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
              h0: Optional[torch.Tensor] = None,
@@ -103,21 +148,11 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if not all(t.is_contiguous() for t in inputs):
         raise ValueError("ssm_scan kernel needs contiguous inputs")
     bsz, length, d = x.shape
-    n = A.shape[1]
-    y = torch.empty_like(x)
-    h_last = (torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
-              if return_state else None)
-    fn = build.entry("ssm_scan", "ssm_scan_launch", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                 C.data_ptr(), D.data_ptr(),
-                 h0.data_ptr() if h0 is not None else None, y.data_ptr(),
-                 h_last.data_ptr() if return_state else None,
-                 bsz, length, d, n, _DTYPES[x.dtype], stream)
-    build.check("ssm_scan", err)
+    geo = ssm_geometry(bsz, length, d, A.shape[1], torch.cuda.
+                       get_device_properties(x.device).multi_processor_count)
+    out = _launch(x, dt, A, B, C, D, h0, return_state, geo)
     ssm_scan.launches += 1
-    return (y, h_last) if return_state else y
+    return out
 
 
 ssm_scan.launches = 0    # kernel launches since the last reset

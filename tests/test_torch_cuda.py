@@ -183,7 +183,11 @@ def _scan_inputs(b, l, d, n, dtype, device, with_h0):
     (2, 300, 8192, 16, True),                    # ragged L, from a state
     (4, 1, 8192, 16, True),                      # Falcon decode step
     (3, 77, 100, 32, True),                      # ragged D, N = 32
-    (1, 40, 130, 2, False), (1, 33, 70, 1, True)])   # N = 2, 1
+    (1, 40, 130, 2, False), (1, 33, 70, 1, True),    # N = 2, 1
+    # L one under and over a 64-step ring stage, and two stages + 1
+    (1, 63, 8192, 16, True), (1, 65, 8192, 16, False),
+    (1, 129, 8192, 16, True),
+    (1, 4096, 8192, 16, False)])                 # error grows with L
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssm_scan_kernel_vs_plain(cuda, b, l, d, n, with_h0, dtype):
     """y and h_last against the plain version (rtol/atol 1e-4 in f32, as
@@ -201,6 +205,33 @@ def test_ssm_scan_kernel_vs_plain(cuda, b, l, d, n, with_h0, dtype):
                                atol=tol[1])
     torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
     assert y.dtype == DTYPES[dtype] and torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("b,l,d,n,with_h0", [
+    (2, 300, 8192, 16, True), (1, 1024, 256, 16, False),
+    (3, 161, 100, 32, True), (1, 257, 70, 1, True), (2, 96, 130, 2, False),
+    (1, 200, 64, 8, True), (2, 130, 96, 4, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_every_variant_vs_plain_and_bitwise(cuda, b, l, d, n,
+                                                      with_h0, dtype):
+    """The launch ssm_geometry chooses (one pass with k lanes a thread:
+    one kernel instantiation per N, each N here), through the private
+    launch that takes it: y and h_last against the plain version at the
+    same tolerances, a repeat bitwise equal, and no count."""
+    args, h0 = _scan_inputs(b, l, d, n, DTYPES[dtype], cuda, with_h0)
+    want_y, want_h = ss.ssm_scan_plain(*args, h0=h0, return_state=True)
+    tol = (1e-4, 1e-4) if dtype == "float32" else (1e-2, 1e-2)
+    geo = ss.ssm_geometry(b, l, d, n, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    before = ss.ssm_scan.launches
+    y, h = ss._launch(*args, h0, True, geo)
+    y2, h2 = ss._launch(*args, h0, True, geo)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol[0],
+                               atol=tol[1])
+    torch.testing.assert_close(h, want_h, rtol=1e-4, atol=1e-4)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    assert ss.ssm_scan.launches == before        # only ssm_scan counts
 
 
 def test_ssm_scan_kernel_refuses_grad(cuda):

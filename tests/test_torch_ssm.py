@@ -110,6 +110,97 @@ def test_ssm_scan_h0_and_h_last_split_run():
     assert h.shape == (2, 64, 16) and h.dtype == torch.float32
 
 
+def _emulate_kernel(x, dt, a, bs, cs, dres, h0, k):
+    """csrc/ssm_scan.cu's order of operations in torch f32 with ``k``
+    lanes a thread: one pass over L, a thread's k lanes summed in order
+    into y, the N / k threads of a channel reduce-scattered (lane
+    t % (N / k) keeps step t).  Returns (y, h_last)."""
+    b, l, d = x.shape
+    n = a.shape[1]
+    g = n // k
+    lanes = torch.arange(g)
+    h = torch.zeros(b, d, n) if h0 is None else h0
+    ys = []
+    for t in range(l):
+        dv = dt[:, t]
+        h = torch.exp(dv[..., None] * a) * h + \
+            (dv * x[:, t])[..., None] * bs[:, t, None, :]
+        part = (h * cs[:, t, None, :]).reshape(b, d, g, k)
+        acc = part[..., 0]
+        for j in range(1, k):
+            acc = acc + part[..., j]
+        # reduce-scatter over the g lanes of a channel: lane t % g keeps
+        # step t's sum, own half plus partner's
+        off = g // 2
+        while off:
+            acc = acc + acc[..., lanes ^ off]
+            off //= 2
+        ys.append(acc[..., t % g] + dres * x[:, t])
+    return torch.stack(ys, dim=1), h
+
+
+@jax.jit
+def _jax_scan_with_state(x, dt, a, bs, cs, dres, h0):
+    """ref.ssm_scan_ref's decay and drive through the reference model's
+    ``linear_scan``, which takes a starting state: (y, h_last)."""
+    decay = jnp.exp(dt[..., None] * a[None, None])
+    drive = (dt * x)[..., None] * bs[:, :, None, :]
+    hs, h_last = jax_ssm.linear_scan(decay, drive, h0)
+    return jnp.sum(hs * cs[:, :, None, :], axis=-1) + dres * x, h_last
+
+
+@pytest.mark.parametrize("b,l,d,n,with_h0", [
+    (2, 256, 256, 16, False), (1, 128, 512, 8, False),
+    (2, 64, 128, 4, False),                      # the JAX test shapes
+    (1, 2048, 128, 16, False),                   # long L
+    (1, 4096, 32, 16, True),                     # L = 4096, from a state
+    (2, 300, 64, 16, True),                      # ragged L from a state
+    (1, 63, 64, 16, False), (1, 129, 64, 16, True),  # across ring stages
+    (1, 97, 32, 32, True), (1, 40, 16, 2, False),    # N = 32, N = 2
+    (1, 33, 70, 1, True)])                       # N = 1, ragged D
+def test_kernel_order_vs_pallas_and_ref(b, l, d, n, with_h0):
+    """The kernel's arithmetic (emulated) with the lanes a thread that
+    ssm_geometry picks, against the Pallas kernel (interpret mode) and
+    ref.ssm_scan_ref at rtol/atol 1e-4, as tests/test_kernels.py holds
+    the Pallas kernel; from a random h0 against the reference's
+    linear_scan; h_last against linear_scan's final state."""
+    rng = np.random.default_rng(b * 7919 + l * 31 + d + n)
+    inputs = _scan_inputs(rng, b, l, d, n)
+    h0 = rng.standard_normal((b, d, n)).astype(np.float32) \
+        if with_h0 else None
+    y, h = _emulate_kernel(*_t(*inputs), None if h0 is None
+                           else torch.as_tensor(h0),
+                           ss.ssm_geometry(b, l, d, n)["k"])
+    j = [jnp.asarray(v) for v in inputs]
+    want_y, want_h = _jax_scan_with_state(
+        *j, jnp.zeros((b, d, n)) if h0 is None else jnp.asarray(h0))
+    _close(y, want_y, 1e-4, 1e-4)
+    _close(h, want_h, 1e-4, 1e-4)
+    if h0 is None:
+        _close(y, ref.ssm_scan_ref(*j), 1e-4, 1e-4)
+        if l % 64 == 0 and d % 128 == 0:
+            _close(y, ops.ssm_scan(*j, block_d=128, block_l=64), 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((1, 1024, 8192, 16), (4, 1024 / 132)),      # Falcon prefill
+    ((4, 1, 8192, 16), (4, 4096 / 132)),         # Falcon decode step
+    ((2, 300, 8192, 16), (4, 2048 / 132)),       # ragged L
+    ((1, 4096, 8192, 16), (4, 1024 / 132)),
+    ((1, 1024, 1024, 16), (4, 128 / 132)),       # narrow D
+    ((2, 300, 512, 16), (4, 128 / 132)),         # Falcon SMOKE widths
+    ((3, 77, 100, 32), (4, 96 / 132)),           # ragged D, N = 32
+    ((2, 64, 128, 4), (4, 8 / 132)),
+    ((1, 40, 130, 2), (2, 5 / 132)),
+    ((1, 33, 70, 1), (1, 3 / 132))])
+def test_ssm_geometry_pins(shape, want):
+    """ssm_geometry's (lanes a thread, warps per SM) per shape on the
+    H100's 132 SMs: 4 lanes (N below 4), and L never changes it."""
+    geo = ss.ssm_geometry(*shape)
+    assert (geo["k"], geo["warps_per_sm"]) == pytest.approx(want)
+    assert geo == ss.ssm_geometry(shape[0], 1, *shape[2:])
+
+
 def test_ssm_scan_wrapper_refusals():
     x, dt, a, bs, cs, dres = _t(*_scan_inputs(RNG, 1, 8, 16, 4))
     with pytest.raises(ValueError, match="state size"):       # N = 3
