@@ -11,9 +11,11 @@ Phases (each fails the run if its check fails):
 1. build       - build the seven CUDA kernels from ``src/repro_torch/
                  kernels/csrc`` (one nvcc per source, all started together);
 2. parity      - each kernel against its plain PyTorch version on the
-                 card: rms_norm and flash_attention at the serving path's
-                 shapes (f32, bf16) and their gradients (the kernel path's
-                 autograd against autograd through the plain version);
+                 card: rms_norm (at both models' widths, D = 2048 and
+                 4096) and flash_attention at the serving path's shapes
+                 (f32, bf16) and their gradients (the kernel path's
+                 autograd, for rms_norm its backward kernel, against
+                 autograd through the plain version);
                  chunked_reduce (f32, bf16; n_src 2, 4, 16; the training
                  path's segment length and a ragged one); all_gather_matmul
                  at the training path's shapes (f32); ssm_scan (y and the
@@ -35,7 +37,14 @@ Phases (each fails the run if its check fails):
                  ``bound_tc_ms``, their bound on the 3xTF32 instruction
                  path (three tf32 products per f32 product at 495
                  TFLOP/s); ssm_scan at prefill and decode with the
-                 launch ``ssm_geometry`` chose;
+                 launch ``ssm_geometry`` chose; rms_norm's forward at
+                 both models' prefill and decode shapes and its backward
+                 at the training path's, each with the launch
+                 ``rms_geometry`` chose and ``copy_ms``, a copy of the
+                 same bytes under the same timer (the backward's: read
+                 x and dy, write dx), the backward's library call the
+                 autograd backward of ``F.rms_norm``; chunked_reduce and
+                 ``torch.sum`` in turns, five times each;
 3b. kernel API - ``repro_torch.kernels.ops.reduce_scatter_rmsnorm`` and
                  ``reduce_scatter_adamw`` at the training path's shapes
                  (the path that carries them in the JAX package too);
@@ -68,13 +77,15 @@ Phases (each fails the run if its check fails):
                  --batch 4 --seq 1024``, 3 steps each, the same seeded
                  params and batches): the four step-0 losses agree, every
                  run's loss falls, every collective call of the auto run
-                 took its plan cell, and one extra step of the first run is
-                 profiled (the two tensor-core kernels' device time by
-                 name).
+                 took its plan cell, every rank launched the rms_norm
+                 backward kernel in every step, and one extra step of the
+                 first run is profiled (the two tensor-core kernels' and
+                 rms_norm's device time by kernel name).
 
 The kernels' launch counters are zeroed before each serving run and
 before each training step (in the rank processes), and read after it:
-the training path's four kernels must have run on it, rms_norm and
+the training path's four kernels and rms_norm's backward kernel must
+have run on it, rms_norm and
 flash_attention on the serving path too, rms_norm and ssm_scan on the
 SSM serving path, and the two reduce_scatter kernels on the kernel API
 path (their counters are zeroed before it and read after).  The last three lines of
@@ -106,11 +117,15 @@ TF32_PEAK = 495e12     # tensor cores, FLOP/s; 3xTF32 issues 3 per product
 # training step's profile reports them
 TC_KERNELS = {"all_gather_matmul": "agm_tf32x3_kernel",
               "flash_attention": "flash_fwd_kernel"}
+# rms_norm's kernels by the names the training step's profile gives them
+RMS_KERNELS = {"rms_norm": "rmsnorm_fwd_kernel",
+               "rms_norm_vjp": "rmsnorm_bwd_kernel",
+               "rms_norm_vjp_colsum": "rmsnorm_colsum_kernel"}
 EXP_RATE = 16 * 132 * 1.98e9    # SFU exps/s: 16 per clock per SM, 132 SMs
 # (rtol, atol).  chunked_reduce: the kernel and torch sum the sources in
 # other orders, n_src - 1 roundings of partial sums up to about 16
-# (f32), one ulp of the output (bf16).  Gradients: the same backward
-# code on both paths, in other summation orders.
+# (f32), one ulp of the output (bf16).  Gradients: the kernels' backward
+# against autograd through the plain version, in other summation orders.
 TOL = {"rms_norm": {torch.float32: (1e-5, 1e-5),
                     torch.bfloat16: (1e-2, 1e-2)},
        "flash_attention": {torch.float32: (1e-4, 2e-5),
@@ -164,6 +179,10 @@ SSM_SHAPES = ((2, 256, 256, 16, False), (1, 128, 512, 8, False),
               (1, 63, 8192, 16, True), (1, 65, 8192, 16, False),
               (1, 129, 8192, 16, True), (1, 4096, 8192, 16, False))
 SSM_BF16 = (2, 300, 8192, 16, True)
+# rms_norm (T, D): Llama's prefill and decode, Falcon-Mamba's; the
+# training path's backward (one rank's 1024 tokens at d_model 2048)
+RMS_SHAPES = ((PROMPT, 2048), (SLOTS, 2048), (PROMPT, 4096), (SLOTS, 4096))
+RMS_BWD = (PROMPT, 2048)
 # the kernels each serving path must launch
 SERVE_KERNELS = {"serve": ("rms_norm", "flash_attention"),
                  "serve_ssm": ("rms_norm", "ssm_scan")}
@@ -250,8 +269,9 @@ class Timer:
 
 def device_profile(fn) -> dict:
     """Device kernel time by name for one call of ``fn`` under
-    ``torch.profiler``, and the device's busy share of the wall time
-    (the profiler's own host overhead is inside that wall time)."""
+    ``torch.profiler``, the device kernels it launched, and the device's
+    busy share of the wall time (the profiler's own host overhead is
+    inside that wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -267,7 +287,10 @@ def device_profile(fn) -> dict:
                    and e.self_device_time_total > 0),
                   key=lambda kv: -kv[1])
     busy = sum(t for _, t in kern)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
     return {"wall_us": wall_us, "device_busy_us": busy,
+            "kernel_launches": launches,
             "busy_share": busy / wall_us if wall_us else None,
             "top": [{"kernel": k[:80], "us": t} for k, t in kern[:8]]}
 
@@ -296,9 +319,11 @@ def repeat_parity(randn, fa, fc) -> list:
 
 
 def grad_parity(randn, rn, fa, fc) -> list:
-    """Gradients through each differentiable kernel path (kernel
-    forward, explicit backward) against autograd through the plain
-    version, on the same inputs and the same upstream gradient."""
+    """Gradients through each differentiable kernel path against
+    autograd through the plain version, on the same inputs and the same
+    upstream gradient: rms_norm's forward and backward kernels,
+    flash_attention's forward kernel and recompute VJP, fused_dense's
+    kernel and plain matmul transposes."""
     out = []
 
     def compare(name, shape, fns, inputs, g,
@@ -314,8 +339,11 @@ def grad_parity(randn, rn, fa, fc) -> list:
                     "max_abs_err": max(e for e, _ in errs),
                     "ok": all(ok for _, ok in errs)})
 
+    before = rn.rms_norm_vjp.launches
     compare("rms_norm", [PROMPT, 2048], (rn.rms_norm, rn.rms_norm_plain),
             [randn(PROMPT, 2048), randn(2048)], randn(PROMPT, 2048))
+    if rn.rms_norm_vjp.launches != before + 1:
+        fail("rms_norm's gradient did not come from its backward kernel")
     qkv = [randn(1, PROMPT, 32, 64) for _ in range(3)]
     compare("flash_attention", [1, PROMPT, 32, 64],
             (lambda q, k, v: fa.flash_attention_train(q, k, v, True),
@@ -353,14 +381,15 @@ def _summarise_profile(per_rank: list) -> dict:
     for p in per_rank:
         for k in p["top"]:
             top[k["kernel"]] = top.get(k["kernel"], 0.0) + k["us"]
-    # the tensor-core kernels by name, whether or not they make the top
+    # the tensor-core kernels and rms_norm's by name, whether or not they
+    # make the top
     named = {name: sum(us for p in per_rank
                        for k, us in p["by_kernel"].items() if fn in k)
-             for name, fn in TC_KERNELS.items()}
+             for name, fn in {**TC_KERNELS, **RMS_KERNELS}.items()}
     return {"wall_us": max(p["wall_us"] for p in per_rank),
             "kernel_us_sum": sum(p["kernel_us"] for p in per_rank),
             "copy_us_sum": sum(p["copy_us"] for p in per_rank),
-            "tc_kernels_us_sum": named,
+            "named_kernels_us_sum": named,
             "top": [{"kernel": k, "us": v} for k, v in
                     sorted(top.items(), key=lambda kv: -kv[1])[:12]]}
 
@@ -552,6 +581,78 @@ def rs_timing(timer, randn, rand, fc, rs_len: int) -> dict:
             g, pb, m, v, *ADAMW_HYPER, weight_decay=0.1)),
         **rs_cost("reduce_scatter_adamw", (DP, rs_len), p_bytes=2)}
     return out
+
+
+def rms_timing(timer, randn, rn, sms: int) -> dict:
+    """rms_norm (f32) at :data:`RMS_SHAPES` and its backward at
+    :data:`RMS_BWD`: the kernels, the plain versions, the library call
+    and ``copy_ms``, the same bytes moved under the same timer
+    (``y.copy_(x)``; for the backward ``torch.add(x, dy, out=dx)``: read
+    x and dy, write dx), which no bytes-bound kernel beats.  The two
+    autograd backwards (the port's, whose kernels ``rms_norm_vjp``
+    launches, and ``F.rms_norm``'s) run on a graph built once, through
+    ``torch.autograd.grad`` with ``retain_graph=True``, so only the
+    backward is timed; the profiler counts each one's device kernels."""
+    out: dict = {"forward": {}}
+    for t, d in RMS_SHAPES:
+        x, s = randn(t, d), randn(d)
+        y = torch.empty_like(x)
+        out["forward"][f"{t}x{d}"] = {
+            "ms": timer(lambda: rn.rms_norm(x, s)),
+            "plain_ms": timer(lambda: rn.rms_norm_plain(x, s)),
+            "library_ms": timer(lambda: torch.nn.functional.rms_norm(
+                x, (d,), weight=s, eps=1e-5)),
+            "copy_ms": timer(lambda: y.copy_(x)),
+            "bytes": 2 * t * d * 4 + 4 * d, "flops": 4 * t * d,
+            "shape": [t, d], "geometry": rn.rms_geometry(t, d, 4, sms)}
+    t, d = RMS_BWD
+    x, s = randn(t, d).requires_grad_(), randn(d).requires_grad_()
+    xd, sd, dy = x.detach(), s.detach(), randn(t, d)
+    dx = torch.empty_like(dy)
+    ys = (rn.rms_norm(x, s),
+          torch.nn.functional.rms_norm(x, (d,), weight=s, eps=1e-5))
+    port, library = (
+        lambda y=y: torch.autograd.grad(y, (x, s), dy, retain_graph=True)
+        for y in ys)
+    out["backward"] = {
+        "ms": timer(port),
+        "plain_ms": timer(lambda: rn.rms_norm_backward(xd, sd, 1e-5, dy)),
+        "library_ms": timer(library),
+        "library": "autograd backward of F.rms_norm",
+        "copy_ms": timer(lambda: torch.add(xd, dy, out=dx)),
+        "kernels": device_profile(port)["kernel_launches"],
+        "library_kernels": device_profile(library)["kernel_launches"],
+        "plain_kernels": device_profile(
+            lambda: rn.rms_norm_backward(xd, sd, 1e-5, dy))[
+                "kernel_launches"],
+        # read x and dy, write dx; scale read, dscale written.  Flops per
+        # element: g*s, x*x, g*s*x, x*c, the difference, r*, g*x, *r and
+        # the dscale sum
+        "bytes": 3 * t * d * 4 + 8 * d, "flops": 9 * t * d,
+        "shape": [t, d],
+        "geometry": rn.rms_geometry(t, d, 4, sms, backward=True)}
+    return out
+
+
+def reduce_timing(timer, randn, cr, rs_len: int) -> dict:
+    """chunked_reduce on one rank's segment of a row's FSDP grad bucket,
+    and ``torch.sum(x, 0)`` on the same input, timed in turns (kernel,
+    sum, sum, kernel, ...), five times each: ``ms`` and ``library_ms``
+    are the medians, ``spread_ms`` each side's max - min."""
+    xr = randn(DP, rs_len)
+    turns: dict = {"kernel": [], "sum": []}
+    fns = {"kernel": lambda: cr.chunked_reduce(xr),
+           "sum": lambda: torch.sum(xr, 0)}
+    for i in range(5):
+        for side in ("kernel", "sum") if i % 2 == 0 else ("sum", "kernel"):
+            turns[side].append(timer(fns[side]))
+    return {"ms": float(np.median(turns["kernel"])),
+            "plain_ms": timer(lambda: cr.chunked_reduce_plain(xr)),
+            "library_ms": float(np.median(turns["sum"])),
+            "turns_ms": turns,
+            "spread_ms": {k: max(v) - min(v) for k, v in turns.items()},
+            "bytes": (DP + 1) * rs_len * 4, "flops": DP * rs_len,
+            "shape": [DP, rs_len]}
 
 
 def kernel_api_phase(randn, rand, rs_len: int) -> dict:
@@ -849,6 +950,9 @@ def train_phase() -> dict:
             log(f"[train] {label} step {i} loss {s['loss']:.6f} "
                 f"{s['step_s']:.3f}s pool {s['pool_bytes']} B launches "
                 f"{json.dumps(s['launches'])}")
+            if s["launches_min_rank"]["rms_norm_vjp"] <= 0:
+                fail(f"{label} step {i}: a rank took no rms_norm backward "
+                     f"kernel: {s['launches_min_rank']}")
         log(f"[train] {label}: {run['wall_s']:.1f}s with spawn and set-up,"
             f" peak memory per rank {run.get('peak_memory_gib')} GiB")
         runs[label] = run
@@ -910,11 +1014,11 @@ def main() -> int:
 
     parity = []
     for dtype in (torch.float32, torch.bfloat16):
-        for t in (PROMPT, SLOTS):
-            x, s = randn(t, 2048, dtype=dtype), randn(2048)
+        for t, d in RMS_SHAPES:
+            x, s = randn(t, d, dtype=dtype), randn(d)
             err, ok = close(rn.rms_norm(x, s), rn.rms_norm_plain(x, s),
                             *TOL["rms_norm"][dtype])
-            parity.append({"kernel": "rms_norm", "shape": [t, 2048],
+            parity.append({"kernel": "rms_norm", "shape": [t, d],
                            "dtype": str(dtype), "max_abs_err": err,
                            "ok": ok})
         for lq, lk, window, q_off in ((1024, 1024, None, 0),
@@ -971,23 +1075,18 @@ def main() -> int:
 
     # 3. timing (main path shapes, f32) ---------------------------------
     timer = Timer()
-    x, s = randn(PROMPT, 2048), randn(2048)
-    rms_bytes = 2 * x.numel() * 4 + 4 * 2048
-    rms_flops = 4 * x.numel()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rms = rms_timing(timer, randn, rn, sms)
     q, k, v = (randn(1, PROMPT, 32, 64) for _ in range(3))
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     pairs = int(fa.attention_mask(PROMPT, PROMPT, True, None, 0, PROMPT)
                 .sum()) * 32
     fa_flops = 4 * 64 * pairs
     fa_bytes = 4 * q.numel() * 4
+    main = f"{PROMPT}x2048"
     timing = {
-        "rms_norm": {
-            "ms": timer(lambda: rn.rms_norm(x, s)),
-            "plain_ms": timer(lambda: rn.rms_norm_plain(x, s)),
-            "library_ms": timer(lambda: torch.nn.functional.rms_norm(
-                x, (2048,), weight=s, eps=1e-5)),
-            "bytes": rms_bytes, "flops": rms_flops,
-            "shape": [PROMPT, 2048]},
+        "rms_norm": dict(rms["forward"][main], shapes=rms["forward"],
+                         backward=rms["backward"]),
         "flash_attention": {
             "ms": timer(lambda: fa.flash_attention(q, k, v, True)),
             "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v,
@@ -998,15 +1097,7 @@ def main() -> int:
             "bytes": fa_bytes, "flops": fa_flops,
             "shape": [1, PROMPT, 32, 64]},
     }
-    xd = randn(SLOTS, 2048)
-    timing["rms_norm"]["decode_ms"] = timer(lambda: rn.rms_norm(xd, s))
-    xr = randn(DP, rs_len)
-    timing["chunked_reduce"] = {
-        "ms": timer(lambda: cr.chunked_reduce(xr)),
-        "plain_ms": timer(lambda: cr.chunked_reduce_plain(xr)),
-        "library_ms": timer(lambda: torch.sum(xr, 0)),
-        "bytes": (DP + 1) * rs_len * 4, "flops": DP * rs_len,
-        "shape": [DP, rs_len]}
+    timing["chunked_reduce"] = reduce_timing(timer, randn, cr, rs_len)
     agm = {}
     for t, n, ks, nout in AGM_SHAPES:
         xa, wa = randn(t, n * ks), randn(n, ks, nout)
@@ -1023,7 +1114,6 @@ def main() -> int:
     # from zero) and a decode step (SLOTS x 1, from the cached state),
     # both writing the final state; no single PyTorch call computes it
     scan = {}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for key, (b, l, with_h0) in (("prefill", (1, PROMPT, False)),
                                  ("decode", (SLOTS, 1, True))):
         args, h0 = ssm_inputs(randn, b, l, 8192, 16, with_h0)
@@ -1039,7 +1129,8 @@ def main() -> int:
     timing["ssm_scan"] = dict(scan["prefill"], decode=scan["decode"])
     timing.update(rs_timing(timer, randn, rand, fc, rs_len))
     for rec in list(agm.values()) + list(timing.values()) + [
-            scan["decode"], timing["reduce_scatter_adamw"]["bf16_param"]]:
+            scan["decode"], timing["reduce_scatter_adamw"]["bf16_param"],
+            *rms["forward"].values(), rms["backward"]]:
         byte_ms = rec["bytes"] / HBM_BW * 1e3
         op_ms = max(rec["flops"] / PEAK[torch.float32],
                     rec.get("exps", 0) / EXP_RATE) * 1e3
@@ -1052,11 +1143,11 @@ def main() -> int:
     record["all_gather_matmul_shapes"] = agm
     for key, rec in agm.items():
         log(f"[timing] all_gather_matmul {key} {json.dumps(rec)}")
-    del xr, xa, wa
+    del xa, wa
     for name, t in timing.items():
         log(f"[timing] {name} {json.dumps(t)}")
     record["timing"] = timing
-    del x, s, q, k, v, qh, kh, vh, xd
+    del q, k, v, qh, kh, vh
 
     # 3b. the kernel API: the path of the two reduce_scatter kernels -----
     record["kernel_api"] = kernel_api_phase(randn, rand, rs_len)
@@ -1133,6 +1224,9 @@ def main() -> int:
                    if name in counts}
         if name in train_launches:
             by_path["train"] = train_launches[name]
+        extra = {"backward_launches_by_path": {
+            "train": train_launches["rms_norm_vjp"]}} \
+            if name == "rms_norm" else {}
         if name in api_launches:
             by_path["kernel_api"] = api_launches[name]
         kernels.append({
@@ -1144,7 +1238,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "bound_tc_ms": t.get("bound_tc_ms"),
             "library_ms": t["library_ms"], "shape": t["shape"],
-            "dtype": "float32"})
+            "dtype": "float32", **extra})
     record["kernels"] = kernels
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

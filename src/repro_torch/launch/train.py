@@ -56,7 +56,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.chunked_reduce import chunked_reduce
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_collectives import all_gather_matmul
-from repro_torch.kernels.rmsnorm import rms_norm
+from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_vjp
 from repro_torch.launch import ranks
 from repro_torch.launch.mesh import make_host_mesh, parse_mesh
 from repro_torch.models import model, sharding
@@ -64,7 +64,8 @@ from repro_torch.optim import adamw_init
 from repro_torch.training.train_loop import (TrainConfig, leaf_params,
                                              make_sharded_train_step)
 
-KERNEL_COUNTERS = {"rms_norm": rms_norm, "flash_attention": flash_attention,
+KERNEL_COUNTERS = {"rms_norm": rms_norm, "rms_norm_vjp": rms_norm_vjp,
+                   "flash_attention": flash_attention,
                    "chunked_reduce": chunked_reduce,
                    "all_gather_matmul": all_gather_matmul}
 
@@ -269,8 +270,9 @@ def run_ranks(spec: RunSpec) -> list:
     """Spawn ``spec.dp`` ranks, run every variant, and merge the ranks'
     records: one dict per variant with the per-step loss (rank 0's; the
     loss is the dp mean, the same on every rank), the slowest rank's
-    step time, the pool bytes and kernel launches summed over ranks,
-    and (``capture_grads``) every rank's step-0 synced grad shards."""
+    step time, the pool bytes and kernel launches summed over ranks
+    (and the fewest launches of any rank), and (``capture_grads``)
+    every rank's step-0 synced grad shards."""
     if spec.device == "cuda":
         resolve_device("cuda")        # raises without a card
         build.build_all()             # once, before the ranks start
@@ -297,6 +299,8 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
             "pool_bytes": sum(r["pool_bytes"] for r in recs),
             "launches": {k: sum(r["launches"][k] for r in recs)
                          for k in KERNEL_COUNTERS},
+            "launches_min_rank": {k: min(r["launches"][k] for r in recs)
+                                  for k in KERNEL_COUNTERS},
             "wire_bytes_rank0": rec0["wire_bytes"],
             "fused_bytes_rank0": rec0["fused_bytes"],
             "choices_rank0": rec0["choices"]})

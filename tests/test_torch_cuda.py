@@ -37,10 +37,14 @@ def _randn(shape, dtype, device):
 
 
 @pytest.mark.parametrize("t,d", [(4, 2048), (1024, 2048), (300, 384),
-                                 (5, 100)])
+                                 (5, 100), (1024, 4096), (4, 4096),
+                                 (1, 2048), (1000, 2048)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rms_norm_kernel_vs_plain(cuda, t, d, dtype):
-    """(5, 100): rows not 16-byte aligned take the scalar path."""
+    """Each launch ``rms_geometry`` chooses: the paths' widths at prefill
+    and decode; (5, 100): bf16 rows not 16-byte aligned take one element
+    at a time; (300, 384): columns past D predicated off; (1000, 2048): a
+    row count that no rows-per-block choice divides."""
     x = _randn((t, d), DTYPES[dtype], cuda)
     s = _randn((d,), torch.float32, cuda)
     before = rn.rms_norm.launches
@@ -403,25 +407,61 @@ def test_fused_dense_grads_kernel_vs_plain(cuda):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("t,d,upstream", [(1024, 2048, "random"),
+                                          (4, 4096, "random"),
+                                          (5, 100, "random"),
+                                          (1024, 2048, "sum")])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rms_norm_grads_kernel_vs_plain(cuda, dtype):
-    """The kernel's output carries a gradient: x.grad and scale.grad
-    through the kernel path equal autograd through the plain version
-    (the same backward code runs on both; the forward differs by the
-    kernel's rounding)."""
-    x0 = _randn((1024, 2048), DTYPES[dtype], cuda)
-    s0 = _randn((2048,), torch.float32, cuda)
-    g = _randn((1024, 2048), DTYPES[dtype], cuda)
+def test_rms_norm_grads_kernel_vs_plain(cuda, t, d, upstream, dtype):
+    """x.grad and scale.grad through the kernels (the forward kernel, then
+    one launch of the backward kernel) equal autograd through the plain
+    version.  ``sum``: the upstream gradient of ``.sum()`` arrives
+    expanded (stride 0) in f32."""
+    x0 = _randn((t, d), DTYPES[dtype], cuda)
+    s0 = _randn((d,), torch.float32, cuda)
+    g = _randn((t, d), DTYPES[dtype], cuda)
     res = []
     for fn in (rn.rms_norm, rn.rms_norm_plain):
         x, s = x0.clone().requires_grad_(), s0.clone().requires_grad_()
-        (fn(x, s).float() * g.float()).sum().backward()
+        y = fn(x, s)
+        before = rn.rms_norm_vjp.launches
+        if upstream == "sum":
+            y.sum().backward()
+        else:
+            (y.float() * g.float()).sum().backward()
+        torch.cuda.synchronize()
+        assert rn.rms_norm_vjp.launches == before + (fn is rn.rms_norm)
         res.append((x.grad, s.grad))
     tol = (1e-4, 1e-4) if dtype == "float32" else (1e-2, 1e-2)
     for a, b in zip(*res):
         assert a is not None and b is not None
         torch.testing.assert_close(a.float(), b.float(), rtol=tol[0],
                                    atol=tol[1])
+
+
+@pytest.mark.parametrize("t,d", [(1024, 2048), (1024, 4096)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_kernels_repeat_bitwise(cuda, t, d, dtype):
+    """The forward, dx and dscale repeat bitwise (fixed-order sums, no
+    atomics), and each backward is one count of the backward kernel."""
+    x = _randn((t, d), DTYPES[dtype], cuda)
+    s = _randn((d,), torch.float32, cuda)
+    g = _randn((t, d), DTYPES[dtype], cuda)
+    out = []
+    for _ in range(2):
+        xr, sr = x.clone().requires_grad_(), s.clone().requires_grad_()
+        y = rn.rms_norm(xr, sr)
+        before = rn.rms_norm_vjp.launches
+        y.backward(g)
+        torch.cuda.synchronize()
+        assert rn.rms_norm_vjp.launches == before + 1
+        out.append((y.detach(), xr.grad, sr.grad))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    dx, ds = rn.rms_norm_vjp(x, s, 1e-5, g, need_dx=False)
+    assert dx is None and torch.equal(ds, out[0][2])
+    dx, ds = rn.rms_norm_vjp(x, s, 1e-5, g, need_dscale=False)
+    assert ds is None and torch.equal(dx, out[0][1])
 
 
 @pytest.mark.parametrize("lq,window", [(1024, None), (1000, None),

@@ -67,6 +67,37 @@ def test_rms_norm_wrapper_checks():
         rn.rms_norm(torch.zeros(4, 8, dtype=torch.float16), torch.zeros(8))
 
 
+# the paths' shapes (Llama serve prefill and training forward, decode;
+# Falcon-Mamba prefill, decode; the training backward) and (5, 100):
+# (tpr, v, rows_per_block, grid) on the H100's 132 SMs
+@pytest.mark.parametrize("rows,d,itemsize,backward,want", [
+    (1024, 2048, 4, False, (128, 4, 2, 512)),
+    (4, 2048, 4, False, (512, 1, 1, 4)),         # spread: one vector each
+    (1024, 4096, 4, False, (256, 4, 1, 1024)),
+    (4, 4096, 4, False, (512, 2, 1, 4)),
+    (1024, 2048, 2, False, (128, 2, 2, 512)),    # bf16
+    (1024, 2048, 4, True, (256, 2, 4, 264)),     # two blocks an SM
+    (5, 100, 4, False, (32, 1, 8, 1)),
+    (5, 100, 2, False, (128, 1, 2, 3)),          # unaligned bf16: N = 1
+    (5, 100, 4, True, (32, 1, 1, 5))])
+def test_rms_geometry_pins(rows, d, itemsize, backward, want):
+    """rms_geometry's launch per shape: a forward thread holds at most 16
+    elements (a backward 8), a block 256 threads, a short grid spreads its
+    rows; the threads a block never pass the kernel's launch bound."""
+    geo = rn.rms_geometry(rows, d, itemsize, backward=backward)
+    assert (geo["tpr"], geo["v"], geo["rows_per_block"],
+            geo["grid"]) == want
+    assert geo["threads"] <= (512 if geo["v"] * geo["vec"] <= 16 else 256)
+    assert geo["v"] * geo["tpr"] * geo["vec"] >= d
+
+
+def test_rms_geometry_refuses_rows_wider_than_it_holds():
+    assert rn.rms_geometry(1024, 8192, 4, backward=True)["tpr"] == 512
+    for backward in (False, True):
+        with pytest.raises(ValueError, match="cannot hold"):
+            rn.rms_geometry(1024, 16384, 4, backward=backward)
+
+
 # -- flash attention ----------------------------------------------------- #
 
 def _bhld_to_model(x: np.ndarray) -> torch.Tensor:

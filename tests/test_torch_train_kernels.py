@@ -11,11 +11,13 @@ the port against the JAX package on the same numpy inputs (CPU).
   ``tests/test_fused_kernels.py``'s shapes (f32, another summation
   order: rtol 1e-5 / atol 1e-5 forward, rtol 1e-4 / atol 1e-5 grads,
   the reference test's own tolerances).
-* The ``rms_norm`` and ``flash_attention`` autograd Functions (the
-  backward the card runs too) vs ``jax.grad`` of ``layers.rms_norm`` and
-  of ``models/flash.py``'s recompute VJP (f32; rtol 1e-5 / atol 1e-5 for
-  the norm, rtol 1e-4 / atol 1e-5 for attention, whose blocked backward
-  sums over kv blocks in another order).
+* The ``rms_norm`` and ``flash_attention`` autograd Functions vs
+  ``jax.grad`` of ``layers.rms_norm`` and of ``models/flash.py``'s
+  recompute VJP (f32; rtol 1e-5 / atol 1e-5 for the norm, rtol 1e-4 /
+  atol 1e-5 for attention, whose blocked backward sums over kv blocks in
+  another order; the backward the card runs for attention too).  The
+  norm's backward kernel runs only on the card; its order of sums is
+  emulated here and held against ``jax.grad`` at the same tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -135,8 +137,68 @@ def test_fused_dense_grad_flows_through_a_strided_stack():
 
 # -- rms_norm and flash_attention autograd ---------------------------------- #
 
-@pytest.mark.parametrize("t,d", [(7, 64), (128, 384)])
+def _butterfly(v: torch.Tensor) -> torch.Tensor:
+    """The kernel's ``warp_sum`` over the last axis (32 lanes): xor
+    shuffles 16, 8, 4, 2, 1; every lane ends with the same f32 sum."""
+    lanes = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ off]
+    return v
+
+
+def _emulate_rms_backward(x, s, g, eps, geo):
+    """The backward kernel's order of f32 operations (``csrc/rmsnorm.cu``)
+    at the launch ``geo``: per row, each thread's sequential sums of x^2
+    and g*s*x over its vectors, a warp butterfly, the row's warp partials
+    by a second butterfly; dx; each block's dscale partial summed over
+    its grid-stride rows in order; then the second launch's fixed order
+    (32 contiguous ranges of partials, a butterfly over them)."""
+    rows, d = x.shape
+    tpr, v, vec, grid = geo["tpr"], geo["v"], geo["vec"], geo["grid"]
+    width = v * tpr * vec
+
+    def slices(a):       # (rows, tpr, v * vec): thread t's elements in order
+        a = torch.nn.functional.pad(a, (0, width - d))
+        return a.reshape(-1, v, tpr, vec).transpose(1, 2).reshape(
+            -1, tpr, v * vec)
+
+    xs, gs, ss = slices(x), slices(g), slices(s[None])
+    a = torch.zeros(rows, tpr)
+    b = torch.zeros(rows, tpr)
+    for e in range(v * vec):
+        a = a + xs[..., e] * xs[..., e]
+        b = b + (gs[..., e] * ss[..., e]) * xs[..., e]
+    wpr = tpr // 32
+    sums = []
+    for acc in (a, b):
+        acc = _butterfly(acc.reshape(rows, wpr, 32))[..., 0]
+        if wpr > 1:
+            acc = _butterfly(torch.nn.functional.pad(acc, (0, 32 - wpr)))[
+                ..., 0]
+        sums.append(acc.reshape(rows, 1))
+    inv_d = torch.tensor(1.0 / d, dtype=torch.float32)
+    r = torch.rsqrt(sums[0] * inv_d + eps)
+    c = (r * r) * (sums[1] * inv_d)
+    dx = r * (g * s - x * c)
+    term = (g * x) * r
+    part = torch.zeros(grid, d)
+    for row in range(rows):             # block row % grid, rows in order
+        part[row % grid] = part[row % grid] + term[row]
+    per = -(-grid // 32)
+    ranges = torch.zeros(32, d)
+    for w in range(32):
+        for p in range(w * per, min(grid, (w + 1) * per)):
+            ranges[w] = ranges[w] + part[p]
+    return dx, _butterfly(ranges.T)[:, 0]
+
+
+@pytest.mark.parametrize("t,d", [(7, 64), (128, 384), (37, 96)])
 def test_rms_norm_grads_vs_jax(t, d):
+    """The autograd Function on the CPU (the plain backward) and an
+    emulation of the backward kernel's order of sums, at the H100's
+    launch and at one SM's (16 rows a block at (128, 384); at (37, 96) 37
+    rows over 16 blocks, a ragged walk), against jax.grad of
+    layers.rms_norm."""
     x, s, g = _normal(t, d), _normal(d), _normal(t, d)
 
     def f(x, s):
@@ -146,10 +208,15 @@ def test_rms_norm_grads_vs_jax(t, d):
                                                    jnp.asarray(s))
     xt, st = _t(x, True), _t(s, True)
     (rn.rms_norm(xt, st) * _t(g)).sum().backward()
-    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx_want),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(st.grad.numpy(), np.asarray(gs_want),
-                               rtol=1e-5, atol=1e-5)
+    got = [(xt.grad, st.grad)]
+    for sms in (rn.H100_SMS, 1):
+        geo = rn.rms_geometry(t, d, 4, sms, backward=True)
+        got.append(_emulate_rms_backward(_t(x), _t(s), _t(g), 1e-5, geo))
+    for gx, gs in got:
+        np.testing.assert_allclose(gx.numpy(), np.asarray(gx_want),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(gs.numpy(), np.asarray(gs_want),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_rms_norm_backward_is_the_autograd_of_the_plain_version():
