@@ -65,7 +65,14 @@ Phases (each fails the run if its check fails):
 6. collectives - every flat collective on 4 ranks sharing the card, ring
                  (gloo) and cxl (the pinned shared host pool), at 1, 16 and
                  256 MB per rank: each rank's result against a numpy oracle
-                 (bitwise), and the median time;
+                 (bitwise), and the median time; then every primitive that
+                 takes a tuple axis over ("pod", "data") = (2, 2) with the
+                 topology ``pod:cxl,data:ici`` (every level group with its
+                 own gloo group and pool), beside the same primitive over
+                 the flat axis of all 4 ranks, under cxl and auto (plans
+                 tuned in the run) and, to 16 MB, ring: each result
+                 bitwise against the oracle and the tuple's against the
+                 flat one's, the median time and the wire bytes by level;
 7. train       - FSDP training on 4 ranks sharing the card: the smoke
                  model on the card against the same run on the CPU (losses
                  over 3 steps), then Llama-3.2-1B at full width and depth
@@ -80,7 +87,18 @@ Phases (each fails the run if its check fails):
                  took its plan cell, every rank launched the rms_norm
                  backward kernel in every step, and one extra step of the
                  first run is profiled (the two tensor-core kernels' and
-                 rms_norm's device time by kernel name).
+                 rms_norm's device time by kernel name); then the same
+                 model with ``--multi-pod --topology pod:cxl,data:ici``
+                 (the data axis ("pod", "data") = (2, 2)) under cxl
+                 +fused, cxl and auto on a plan that ``launch.tune
+                 --topology pod:cxl,data:ici --nranks 2`` writes: step-0
+                 losses within 1e-4 of the flat cxl+fused run's, every
+                 loss falls, every rank launches chunked_reduce, rms_norm,
+                 its backward and flash_attention (and all_gather_matmul
+                 under --fuse-kernels) every step, cxl moves pool bytes
+                 on both levels and auto none on the ici level, and every
+                 auto call took the cell of its own level (ring on ici);
+                 one extra step of the cxl+fused run is profiled too.
 
 The kernels' launch counters are zeroed before each serving run and
 before each training step (in the rank processes), and read after it:
@@ -150,6 +168,11 @@ TOL = {"rms_norm": {torch.float32: (1e-5, 1e-5),
                                 torch.bfloat16: (2e-2, 1e-2)}}
 PROMPT, NEW, SLOTS, BT = 1024, 16, 4, 16
 DP, TRAIN_BATCH, TRAIN_STEPS = 4, 4, 3
+# the (pod, data) path: the pool spans the pods, GPU links sit inside one
+HIER_TOPOLOGY = "pod:cxl,data:ici"
+# the kernels every rank must launch every step of a (pod, data) run
+HIER_KERNELS = ("chunked_reduce", "rms_norm", "rms_norm_vjp",
+                "flash_attention")
 TUNE_SIZES_MIB = ("1", "4", "16", "64", "256")
 # reduce_scatter_rmsnorm (n_src, T, D): the JAX test shapes, one rank's
 # 1024 tokens at d_model 2048, a ragged T
@@ -169,6 +192,13 @@ AGM_SHAPES = ((1024, 4, 512, 2048), (1024, 4, 512, 512),
               (1024, 4, 512, 8192), (1024, 4, 2048, 2048))
 AGM_MAIN = (1024, 4, 512, 8192)
 RAGGED = 1000003
+
+
+def hier_reduce_shapes(rs_len: int) -> tuple:
+    """chunked_reduce on the (pod, data) = (2, DP/2) path: the pod level
+    reduce-scatters a row's grads over 2 (2 rs_len a rank), the data
+    level the pod's half over 2 (rs_len)."""
+    return ((2, 2 * rs_len), (2, rs_len))
 SSM_ARCH = "falcon-mamba-7b"
 # (B, L, D, N, from a random state): the JAX test shapes, Falcon's prefill
 # (1 x 1024) and decode (4 slots) shapes, a ragged L from a random state;
@@ -634,12 +664,14 @@ def rms_timing(timer, randn, rn, sms: int) -> dict:
     return out
 
 
-def reduce_timing(timer, randn, cr, rs_len: int) -> dict:
-    """chunked_reduce on one rank's segment of a row's FSDP grad bucket,
-    and ``torch.sum(x, 0)`` on the same input, timed in turns (kernel,
-    sum, sum, kernel, ...), five times each: ``ms`` and ``library_ms``
-    are the medians, ``spread_ms`` each side's max - min."""
-    xr = randn(DP, rs_len)
+def reduce_timing(timer, randn, cr, n_src: int, length: int) -> dict:
+    """chunked_reduce on (n_src, length) - one rank's segment of a row's
+    FSDP grad bucket on the flat path (DP, rs_len), or a level's on the
+    (pod, data) path (``hier_reduce_shapes``) - and ``torch.sum(x, 0)``
+    on the same input, timed in turns (kernel, sum, sum, kernel, ...),
+    five times each: ``ms`` and ``library_ms`` are the medians,
+    ``spread_ms`` each side's max - min."""
+    xr = randn(n_src, length)
     turns: dict = {"kernel": [], "sum": []}
     fns = {"kernel": lambda: cr.chunked_reduce(xr),
            "sum": lambda: torch.sum(xr, 0)}
@@ -651,8 +683,8 @@ def reduce_timing(timer, randn, cr, rs_len: int) -> dict:
             "library_ms": float(np.median(turns["sum"])),
             "turns_ms": turns,
             "spread_ms": {k: max(v) - min(v) for k, v in turns.items()},
-            "bytes": (DP + 1) * rs_len * 4, "flops": DP * rs_len,
-            "shape": [DP, rs_len]}
+            "bytes": (n_src + 1) * length * 4, "flops": n_src * length,
+            "shape": [n_src, length]}
 
 
 def kernel_api_phase(randn, rand, rs_len: int) -> dict:
@@ -858,27 +890,91 @@ def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
     return rec
 
 
-def check_auto_choices(run: dict, plan) -> dict:
+def check_auto_choices(run: dict, plan, topology=None) -> dict:
     """Every collective call of the auto run (rank 0's audit, each step)
     took the knobs of its plan cell: no call fell back to the ring
-    baseline for want of a cell.  Returns and prints the per-primitive
-    decisions of step 0."""
+    baseline for want of a cell.  With a ``topology`` every call
+    resolved at its own level, against that level's cells, and a level
+    without a pool (``ici``) took ring.  Returns and prints the
+    per-primitive decisions of step 0."""
     knobs = ("backend", "slicing_factor", "allreduce_mode", "overlap",
              "fused")
     for i, step in enumerate(run["steps"]):
         if not step["choices_rank0"]:
             fail(f"auto run step {i} resolved no collective")
         for c in step["choices_rank0"]:
-            cell = plan.lookup(c["primitive"], c["msg_bytes"], c["nranks"])
-            if cell is None or any(c[k] != getattr(cell, k) for k in knobs):
+            level = None
+            if topology is not None:
+                lv = topology.level_for(c["level"] or "")
+                if lv is None or c["fabric"] != lv.fabric:
+                    fail(f"auto run step {i}: {c} resolved at no level")
+                level = topology.level_key(lv.axis)
+            cell = plan.lookup(c["primitive"], c["msg_bytes"], c["nranks"],
+                               level=level)
+            want = {k: getattr(cell, k) for k in knobs} if cell else None
+            if want and topology is not None and \
+                    want["backend"] not in lv.backends():
+                want["backend"] = "ring"     # no pool schedule off the pool
+            if want is None or any(c[k] != want[k] for k in knobs):
                 fail(f"auto run step {i}: {c} is not its plan cell {cell}")
     by_prim: dict = {}
     for c in run["steps"][0]["choices_rank0"]:
         by_prim.setdefault(c["primitive"], []).append(
-            {k: c[k] for k in ("msg_bytes", *knobs, "calls")})
+            {k: c[k] for k in ("msg_bytes", *knobs, "level", "calls")})
     for prim, cells in sorted(by_prim.items()):
         log(f"[train] auto {prim}: {json.dumps(cells)}")
     return by_prim
+
+
+def full_width_run(label: str, extra: list, profile: bool = False) -> dict:
+    """Llama-3.2-1B at full width and depth through the launcher's
+    flags, with ``nvidia-smi`` sampled over it."""
+    import dataclasses
+
+    from repro_torch.launch import train
+    spec = train.spec_from_args(train.build_parser().parse_args(
+        _train_args(extra + ["--lr", "3e-5"])))
+    spec = dataclasses.replace(spec, profile=profile)
+    t0 = time.perf_counter()
+    with SmiSampler() as smi:
+        run = train.run_ranks(spec)[0]
+    run["wall_s"] = time.perf_counter() - t0
+    steady = run["steps"][1:]      # step 0 carries the warm-up
+    run["smi_steady"] = smi.between(steady[0]["t_start"],
+                                    steady[-1]["t_end"])
+    log(f"[train] {label} nvidia-smi over steps 1-{len(steady)}: "
+        f"{json.dumps(run['smi_steady'])}")
+    if run.get("profile"):
+        run["profile"] = _summarise_profile(run["profile"])
+        log(f"[train] {label} profile {json.dumps(run['profile'])}")
+    for i, s in enumerate(run["steps"]):
+        log(f"[train] {label} step {i} loss {s['loss']:.6f} "
+            f"{s['step_s']:.3f}s pool {s['pool_bytes']} B launches "
+            f"{json.dumps(s['launches'])}")
+        if len(s["pool_by_level"]) > 1 or s["level_wire_bytes_rank0"]:
+            log(f"[train] {label} step {i} pool by level "
+                f"{json.dumps(s['pool_by_level'])} ledger by level (rank "
+                f"0) {json.dumps(s['level_wire_bytes_rank0'])}")
+        if s["launches_min_rank"]["rms_norm_vjp"] <= 0:
+            fail(f"{label} step {i}: a rank took no rms_norm backward "
+                 f"kernel: {s['launches_min_rank']}")
+    log(f"[train] {label}: {run['wall_s']:.1f}s with spawn and set-up,"
+        f" peak memory per rank {run.get('peak_memory_gib')} GiB")
+    return run
+
+
+def check_losses(runs: dict, first: float) -> None:
+    """Every run's step-0 loss within 1e-4 of ``first`` (the flat
+    cxl_fused run's), every loss finite, and every run's loss falls."""
+    for label, run in runs.items():
+        ls = [s["loss"] for s in run["steps"]]
+        if not all(np.isfinite(ls)):
+            fail(f"{label}: a loss is not finite: {ls}")
+        if abs(ls[0] - first) > 1e-4 * abs(first):
+            fail(f"step-0 losses disagree: {label} {ls[0]} vs "
+                 f"cxl_fused {first}")
+        if not ls[-1] < ls[0]:
+            fail(f"{label}: the loss did not fall: {ls}")
 
 
 def train_phase() -> dict:
@@ -888,6 +984,7 @@ def train_phase() -> dict:
     import tempfile
 
     from repro_torch.configs import get_config
+    from repro_torch.core.topology import parse_topology
     from repro_torch.launch import train
     from repro_torch.models import model
 
@@ -914,7 +1011,8 @@ def train_phase() -> dict:
     if not err <= 2e-4:
         fail(f"smoke training on the card differs from the CPU: {losses}")
 
-    # the plan the auto run resolves against, tuned for its 4 ranks
+    # the plans the auto runs resolve against: the flat one for its 4
+    # ranks, the hierarchical one per level of its topology (2 ranks each)
     from repro_torch import tuner
     from repro_torch.launch import tune
     OUT_DIR.mkdir(exist_ok=True)
@@ -922,6 +1020,11 @@ def train_phase() -> dict:
     tune.main(["--nranks", str(DP), "--sizes-mib", *TUNE_SIZES_MIB,
                "--quiet", "--out", plan_path])
     plan = tuner.load_plan(plan_path)
+    hier_plan_path = str(OUT_DIR / "plan_auto_hier.json")
+    tune.main(["--topology", HIER_TOPOLOGY, "--nranks", "2",
+               "--sizes-mib", *TUNE_SIZES_MIB, "--quiet", "--out",
+               hier_plan_path])
+    hier_plan = tuner.load_plan(hier_plan_path)
 
     # full width and depth, through the launcher's flags
     runs = {}
@@ -931,46 +1034,50 @@ def train_phase() -> dict:
                          ("ring", ["--backend", "ring"]),
                          ("auto", ["--backend", "auto", "--plan",
                                    plan_path])):
-        spec = train.spec_from_args(train.build_parser().parse_args(
-            _train_args(extra + ["--lr", "3e-5"])))
-        spec = dataclasses.replace(spec, profile=label == "cxl_fused")
-        t0 = time.perf_counter()
-        with SmiSampler() as smi:
-            run = train.run_ranks(spec)[0]
-        run["wall_s"] = time.perf_counter() - t0
-        steady = run["steps"][1:]      # step 0 carries the warm-up
-        run["smi_steady"] = smi.between(steady[0]["t_start"],
-                                        steady[-1]["t_end"])
-        log(f"[train] {label} nvidia-smi over steps 1-{len(steady)}: "
-            f"{json.dumps(run['smi_steady'])}")
-        if run.get("profile"):
-            run["profile"] = _summarise_profile(run["profile"])
-            log(f"[train] {label} profile {json.dumps(run['profile'])}")
-        for i, s in enumerate(run["steps"]):
-            log(f"[train] {label} step {i} loss {s['loss']:.6f} "
-                f"{s['step_s']:.3f}s pool {s['pool_bytes']} B launches "
-                f"{json.dumps(s['launches'])}")
-            if s["launches_min_rank"]["rms_norm_vjp"] <= 0:
-                fail(f"{label} step {i}: a rank took no rms_norm backward "
-                     f"kernel: {s['launches_min_rank']}")
-        log(f"[train] {label}: {run['wall_s']:.1f}s with spawn and set-up,"
-            f" peak memory per rank {run.get('peak_memory_gib')} GiB")
-        runs[label] = run
+        runs[label] = full_width_run(label, extra,
+                                     profile=label == "cxl_fused")
     out["full_width"] = runs
     out["auto_choices"] = check_auto_choices(runs["auto"], plan)
+    first = runs["cxl_fused"]["steps"][0]["loss"]
+    check_losses(runs, first)
+
+    # the same model over the data axis (pod, data) = (2, DP/2), the
+    # pool spanning pods and GPU links inside one
+    hier_flags = ["--multi-pod", "--topology", HIER_TOPOLOGY]
+    hier = {}
+    for label, extra in (("hier_cxl_fused", ["--backend", "cxl",
+                                             "--fuse-kernels"]),
+                         ("hier_cxl", ["--backend", "cxl"]),
+                         ("hier_auto", ["--backend", "auto", "--plan",
+                                        hier_plan_path])):
+        hier[label] = run = full_width_run(
+            label, hier_flags + extra, profile=label == "hier_cxl_fused")
+        need = HIER_KERNELS + (("all_gather_matmul",)
+                               if "--fuse-kernels" in extra else ())
+        for i, s in enumerate(run["steps"]):
+            # cxl moves bytes through both levels' pools; auto never
+            # through the ici level's
+            moved = {a for a, c in s["pool_by_level"].items()
+                     if c["retrieved"] > 0}
+            if "data" in moved if "auto" in label else \
+                    moved != {"pod", "data"}:
+                fail(f"{label} step {i}: pool bytes by level "
+                     f"{s['pool_by_level']}")
+            idle = [k for k in need if s["launches_min_rank"][k] <= 0]
+            if idle:
+                fail(f"{label} step {i}: a rank launched no {idle}: "
+                     f"{s['launches_min_rank']}")
+    out["hier"] = hier
+    out["hier_auto_choices"] = check_auto_choices(
+        hier["hier_auto"], hier_plan, parse_topology(HIER_TOPOLOGY))
+    data_backends = {c["backend"] for s in hier["hier_auto"]["steps"]
+                     for c in s["choices_rank0"] if c["level"] == "data"}
+    if data_backends != {"ring"}:
+        fail(f"hier_auto: the data (ici) level resolved {data_backends}")
+    check_losses(hier, first)
     log("[train] step times (s): " + json.dumps(
         {k: [round(s["step_s"], 3) for s in r["steps"]]
-         for k, r in runs.items()}))
-    losses = {k: [s["loss"] for s in r["steps"]] for k, r in runs.items()}
-    first = losses["cxl_fused"][0]
-    for label, ls in losses.items():
-        if not all(np.isfinite(ls)):
-            fail(f"{label}: a loss is not finite: {ls}")
-        if abs(ls[0] - first) > 1e-4 * abs(first):
-            fail(f"step-0 losses disagree: {label} {ls[0]} vs "
-                 f"cxl_fused {first}")
-        if not ls[-1] < ls[0]:
-            fail(f"{label}: the loss did not fall: {ls}")
+         for k, r in {**runs, **hier}.items()}))
     return out
 
 
@@ -1042,17 +1149,18 @@ def main() -> int:
         model.abstract_params(cfg)["g0"])
         if x[0].numel() >= sharding.FSDP_MIN_SIZE) // DP
     for dtype in (torch.float32, torch.bfloat16):
-        for n_src in (2, 4, 16):
-            for length in (rs_len, RAGGED):
-                x = randn(n_src, length, dtype=dtype)
-                err, ok = close(cr.chunked_reduce(x),
-                                cr.chunked_reduce_plain(x),
-                                *TOL["chunked_reduce"][dtype])
-                parity.append({"kernel": "chunked_reduce",
-                               "shape": [n_src, length],
-                               "dtype": str(dtype), "max_abs_err": err,
-                               "tolerance": TOL["chunked_reduce"][dtype],
-                               "ok": ok})
+        shapes = [(n, ln) for n in (2, 4, 16) for ln in (rs_len, RAGGED)]
+        shapes += [s for s in hier_reduce_shapes(rs_len) if s not in shapes]
+        for n_src, length in shapes:
+            x = randn(n_src, length, dtype=dtype)
+            err, ok = close(cr.chunked_reduce(x),
+                            cr.chunked_reduce_plain(x),
+                            *TOL["chunked_reduce"][dtype])
+            parity.append({"kernel": "chunked_reduce",
+                           "shape": [n_src, length],
+                           "dtype": str(dtype), "max_abs_err": err,
+                           "tolerance": TOL["chunked_reduce"][dtype],
+                           "ok": ok})
     for t, n, ks, nout in AGM_SHAPES:
         x, w = randn(t, n * ks), randn(n, ks, nout)
         err, ok = close(fc.all_gather_matmul(x, w),
@@ -1097,7 +1205,12 @@ def main() -> int:
             "bytes": fa_bytes, "flops": fa_flops,
             "shape": [1, PROMPT, 32, 64]},
     }
-    timing["chunked_reduce"] = reduce_timing(timer, randn, cr, rs_len)
+    timing["chunked_reduce"] = reduce_timing(timer, randn, cr, DP, rs_len)
+    # the (pod, data) path's shapes: each level reduces 2 sources
+    reduce_hier = {f"{n}x{length}": reduce_timing(timer, randn, cr, n,
+                                                    length)
+                   for n, length in hier_reduce_shapes(rs_len)}
+    timing["chunked_reduce"]["hier"] = reduce_hier
     agm = {}
     for t, n, ks, nout in AGM_SHAPES:
         xa, wa = randn(t, n * ks), randn(n, ks, nout)
@@ -1130,7 +1243,8 @@ def main() -> int:
     timing.update(rs_timing(timer, randn, rand, fc, rs_len))
     for rec in list(agm.values()) + list(timing.values()) + [
             scan["decode"], timing["reduce_scatter_adamw"]["bf16_param"],
-            *rms["forward"].values(), rms["backward"]]:
+            *rms["forward"].values(), rms["backward"],
+            *reduce_hier.values()]:
         byte_ms = rec["bytes"] / HBM_BW * 1e3
         op_ms = max(rec["flops"] / PEAK[torch.float32],
                     rec.get("exps", 0) / EXP_RATE) * 1e3
@@ -1188,14 +1302,31 @@ def main() -> int:
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"collectives disagree with the numpy oracle: {bad}")
+    # the tuple primitives over (pod, data) = (2, DP/2), beside the flat
+    # axis of all DP ranks
+    from repro_torch.core.topology import parse_topology
+    t0 = time.perf_counter()
+    rows = collectives.bench_tuple(DP, (1, 16, 256), reps=3, device="cuda",
+                                   topology=parse_topology(HIER_TOPOLOGY))
+    for r in rows:
+        log(f"[collectives tuple] {json.dumps(r)}")
+    record["collectives_tuple"] = rows
+    log(f"[collectives tuple] {len(rows)} cells in "
+        f"{time.perf_counter() - t0:.1f}s")
+    bad = [r for r in rows if not (r["ok"] and r.get("equal_flat", True))]
+    if bad:
+        fail(f"tuple collectives disagree with the oracle or the flat "
+             f"axis: {bad}")
 
     # 7. training ---------------------------------------------------------
     record["train"] = train_phase()
-    train_launches = {n: sum(s["launches"][n] for run in
-                             record["train"]["full_width"].values()
-                             for s in run["steps"])
-                      for n in train.KERNEL_COUNTERS}
+    train_launches, hier_launches = (
+        {n: sum(s["launches"][n] for run in record["train"][key].values()
+                for s in run["steps"])
+         for n in train.KERNEL_COUNTERS}
+        for key in ("full_width", "hier"))
     record["train"]["launches"] = train_launches
+    record["train"]["hier_launches"] = hier_launches
 
     # 8. launch check ----------------------------------------------------
     serve_launches = {path: {n: sum(run[n] for run in launches[path]
@@ -1208,6 +1339,10 @@ def main() -> int:
     for name, n in train_launches.items():
         if n <= 0:
             fail(f"the training path never launched the {name} kernel")
+    for name, n in hier_launches.items():
+        if n <= 0:
+            fail(f"the (pod, data) training path never launched the "
+                 f"{name} kernel")
     api_launches = record["kernel_api"]["launches"]
     for name in API_KERNELS:
         if api_launches[name] <= 0:
@@ -1224,8 +1359,10 @@ def main() -> int:
                    if name in counts}
         if name in train_launches:
             by_path["train"] = train_launches[name]
+            by_path["train_hier"] = hier_launches[name]
         extra = {"backward_launches_by_path": {
-            "train": train_launches["rms_norm_vjp"]}} \
+            "train": train_launches["rms_norm_vjp"],
+            "train_hier": hier_launches["rms_norm_vjp"]}} \
             if name == "rms_norm" else {}
         if name in api_launches:
             by_path["kernel_api"] = api_launches[name]

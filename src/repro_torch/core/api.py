@@ -1,6 +1,6 @@
 """Communicator: the framework-facing API of the port's collectives.
 
-Port of ``repro.core.api.Communicator`` for flat axes.  Every collective
+Port of ``repro.core.api.Communicator``.  Every collective
 of the training stack goes through it, so the backend is a launch flag:
 
 * ``ring`` - the process group's built-in collectives (the baseline);
@@ -16,10 +16,31 @@ of the training stack goes through it, so the backend is a launch flag:
 
 An axis is named as in the reference (``"data"``); the communicator maps
 the name to this rank's :class:`~repro_torch.core.mesh_collectives.
-AxisGroup`.  Every call books its wire bytes in ``core.ledger`` with the
-reference's convention.  PyTorch runs eagerly, so the ledger books each
-call as it runs - backward collectives and remat replays included - where
-the reference books at trace time and scales by trip counts.
+AxisGroup`.  An axis may also be a tuple of names (``("pod", "data")``),
+outer level first (rank-major), which decomposes against the topology
+(the ``topology`` field, else the process-wide active one, else the one
+an ``auto`` plan embeds), as in the reference:
+
+* AllReduce is a ReduceScatter down the inner levels, an AllReduce
+  across the outer level on the 1/prod(inner) shard and an AllGather
+  back out (``mesh_collectives.hierarchical_all_reduce``), under every
+  backend when the topology covers the tuple, and under ``cxl`` /
+  ``auto`` without one (untagged).  Under ``ring`` with no covering
+  topology it is one ring AllReduce over all the tuple's ranks (the
+  reference's fused ``psum``), booked once per level;
+* AllGather runs the inner level first, ReduceScatter the outer first;
+* Broadcast scatters in the root's inner group, broadcasts the pieces
+  across the outer level and all-gathers them back (a per-level root
+  chain when the payload does not divide); Reduce, Gather and Scatter
+  recurse with per-level roots split from the flat rank-major root;
+* every level resolves its own plan cell under ``auto`` and books its
+  wire bytes against its own level and fabric;
+* ``all_to_all`` and ``send`` stay single-axis.
+
+Every call books its wire bytes in ``core.ledger`` with the reference's
+convention.  PyTorch runs eagerly, so the ledger books each call as it
+runs - backward collectives and remat replays included - where the
+reference books at trace time and scales by trip counts.
 
 The collectives that training differentiates are autograd functions
 whose backward is the transposed collective: all_gather <->
@@ -40,8 +61,8 @@ axis covered by a topology level (the active topology, else the plan's)
 resolves against that level's cells, and the pool schedule never drives
 an ``ib``/``ici`` level.
 
-Not ported yet: tuple (hierarchical) axes and ragged (grouped) levels
-(ROADMAP queue 1, items 5-6).
+Not ported yet: ragged (grouped) topology levels (ROADMAP queue 1,
+item 6); an axis on one raises.
 """
 from __future__ import annotations
 
@@ -49,6 +70,7 @@ import dataclasses
 from typing import Mapping, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import ledger
 from repro_torch.core import mesh_collectives as mc
@@ -65,6 +87,10 @@ def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
+def _axes(axis: AxisSpec) -> tuple:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
 @dataclasses.dataclass(frozen=True)
 class Communicator:
     backend: str = "ring"
@@ -76,6 +102,11 @@ class Communicator:
     # active plan (tuner.runtime) when None.
     plan: Optional[Plan] = dataclasses.field(
         default=None, compare=False, repr=False)
+    # Cluster topology that tuple axes decompose against; falls back to
+    # the process-wide active topology, then to the plan's embedded one.
+    # Part of eq/hash, as in the reference: it changes which collectives
+    # run, not only which plan cell resolves.
+    topology: Optional[topo_mod.Topology] = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -92,12 +123,10 @@ class Communicator:
     # -- axes --------------------------------------------------------------
 
     def axis(self, axis: AxisSpec) -> mc.AxisGroup:
-        """The flat axis ``axis`` names (a name or a 1-tuple)."""
-        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        """The flat level ``axis`` names (a name or a 1-tuple)."""
+        names = _axes(axis)
         if len(names) != 1:
-            raise NotImplementedError(
-                f"tuple axis {names}: hierarchical collectives are not "
-                f"ported yet (ROADMAP queue 1, items 5-6)")
+            raise ValueError(f"axis {names} is a tuple: name one level")
         try:
             return self.axes[names[0]]
         except KeyError:
@@ -105,14 +134,51 @@ class Communicator:
                              f"communicator's mesh {sorted(self.axes)}"
                              ) from None
 
+    def levels(self, axis: AxisSpec) -> tuple:
+        """The levels of ``axis``, outer first."""
+        return tuple(self.axis(a) for a in _axes(axis))
+
     def axis_size(self, axis: AxisSpec) -> int:
-        return self.axis(axis).size
+        """Ranks along ``axis``: the product of a tuple's level sizes."""
+        n = 1
+        for ax in self.levels(axis):
+            n *= ax.size
+        return n
+
+    def axis_index(self, axis: AxisSpec) -> int:
+        """This rank's rank-major index along ``axis`` (outer level most
+        significant)."""
+        i = 0
+        for ax in self.levels(axis):
+            i = i * ax.size + ax.rank
+        return i
+
+    def _joint(self, levels: tuple) -> mc.AxisGroup:
+        """One flat group of all the ranks of a tuple axis, for the fused
+        ring AllReduce.  The mesh holds the group under the tuple of
+        names; a tuple that spans every rank is the default group."""
+        names = tuple(ax.name for ax in levels)
+        got = self.axes.get(names)
+        if got is not None:
+            return got
+        size = 1
+        for ax in levels:
+            size *= ax.size
+        if size != dist.get_world_size():
+            raise ValueError(
+                f"tuple axis {names} spans {size} of "
+                f"{dist.get_world_size()} ranks and the mesh holds no "
+                f"process group for it")
+        return mc.AxisGroup("+".join(names), self.axis_index(names), size)
 
     # -- topology / plan resolution ---------------------------------------
 
     def _topo(self) -> Optional[topo_mod.Topology]:
-        """The topology whose levels key the plan's cells: the
-        process-wide active one, else the plan's embedded one."""
+        """The topology whose levels key the plan's cells and decompose
+        tuple axes: the ``topology`` field, else the process-wide active
+        one, else the plan's embedded one."""
+        if self.topology is not None:
+            return self.topology
         active = topo_mod.get_active_topology()
         if active is not None:
             return active
@@ -134,11 +200,11 @@ class Communicator:
     def _choice(self, primitive: str, msg_bytes: int,
                 ax: mc.AxisGroup) -> tuple:
         """Resolve (backend, slicing_factor, allreduce_mode, overlap,
-        fused) for one collective call over ``ax``, as the reference's
-        ``_choice`` does for a flat axis.  ``overlap``: the plan tuned
-        the cell against the compute it hides behind (the ledger books
-        its bytes as hidden); ``fused``: the plan priced the cell with
-        its epilogue in a fused kernel (the ledger's fused split)."""
+        fused) for one collective call at one level ``ax``, as the
+        reference's ``_choice`` does.  ``overlap``: the plan tuned the
+        cell against the compute it hides behind (the ledger books its
+        bytes as hidden); ``fused``: the plan priced the cell with its
+        epilogue in a fused kernel (the ledger's fused split)."""
         if self.backend != "auto":
             return (self.backend, self.slicing_factor,
                     self.allreduce_mode, False, False)
@@ -181,23 +247,9 @@ class Communicator:
                       level=ax.name if level is not None else None,
                       fabric=level.fabric if level is not None else None)
 
-    # -- N->N primitives (the FSDP hot path), differentiable ---------------
+    # -- per-level single-axis collectives --------------------------------
 
-    def all_reduce(self, x: torch.Tensor, axis: AxisSpec) -> torch.Tensor:
-        return _AllReduce.apply(x, self, self.axis(axis))
-
-    def all_gather(self, x: torch.Tensor, axis: AxisSpec) -> torch.Tensor:
-        """Tiled gather along axis 0, rank-major."""
-        return _AllGather.apply(x, self, self.axis(axis))
-
-    def reduce_scatter(self, x: torch.Tensor,
-                       axis: AxisSpec) -> torch.Tensor:
-        """Reduce-scatter along axis 0, the inverse layout of
-        all_gather."""
-        return _ReduceScatter.apply(x, self, self.axis(axis))
-
-    def _all_reduce(self, x: torch.Tensor,
-                    ax: mc.AxisGroup) -> torch.Tensor:
+    def _ar_level(self, x: torch.Tensor, ax: mc.AxisGroup) -> torch.Tensor:
         n, s = ax.size, _nbytes(x)
         backend, factor, mode, ov, _ = self._choice("all_reduce", s, ax)
         wire = s * (n - 1) if mode == "faithful" and backend == "cxl" \
@@ -207,8 +259,7 @@ class Communicator:
             return mc.ring_all_reduce(x, ax)
         return mc.all_reduce(x, ax, mode=mode, n_chunks=factor)
 
-    def _all_gather(self, x: torch.Tensor,
-                    ax: mc.AxisGroup) -> torch.Tensor:
+    def _ag_level(self, x: torch.Tensor, ax: mc.AxisGroup) -> torch.Tensor:
         n, s = ax.size, _nbytes(x)
         backend, factor, _, ov, fz = self._choice("all_gather", s, ax)
         self._rec("all_gather", s * (n - 1), ax, ov, fz)
@@ -216,8 +267,7 @@ class Communicator:
             return mc.ring_all_gather(x, ax)
         return mc.all_gather(x, ax, n_chunks=factor)
 
-    def _reduce_scatter(self, x: torch.Tensor,
-                        ax: mc.AxisGroup) -> torch.Tensor:
+    def _rs_level(self, x: torch.Tensor, ax: mc.AxisGroup) -> torch.Tensor:
         n, s = ax.size, _nbytes(x)
         backend, factor, _, ov, fz = self._choice("reduce_scatter", s, ax)
         self._rec("reduce_scatter", s * (n - 1) / n, ax, ov, fz)
@@ -225,9 +275,111 @@ class Communicator:
             return mc.ring_reduce_scatter(x, ax)
         return mc.reduce_scatter(x, ax, n_chunks=factor)
 
-    # -- the other flat primitives -----------------------------------------
+    def _broadcast_level(self, x: torch.Tensor, ax: mc.AxisGroup,
+                         root: int) -> torch.Tensor:
+        if ax.size == 1:
+            return x
+        s = _nbytes(x)
+        backend, factor, _, ov, _ = self._choice("broadcast", s, ax)
+        self._rec("broadcast", float(s), ax, ov)
+        if backend == "ring":
+            return mc.ring_broadcast(x, ax, root)
+        return mc.broadcast(x, ax, root=root, n_chunks=factor)
+
+    def _reduce_level(self, x: torch.Tensor, ax: mc.AxisGroup,
+                      root: int) -> torch.Tensor:
+        n = ax.size
+        if n == 1:
+            return x
+        s = _nbytes(x)
+        backend, factor, _, ov, _ = self._choice("reduce", s, ax)
+        self._rec("reduce", 2 * s * (n - 1) / n, ax, ov)
+        if backend == "ring":
+            return mc.ring_reduce(x, ax, root)
+        return mc.reduce(x, ax, root=root, n_chunks=factor)
+
+    def _gather_level(self, x: torch.Tensor, ax: mc.AxisGroup,
+                      root: int) -> torch.Tensor:
+        n = ax.size
+        if n == 1:
+            return x
+        s = _nbytes(x)
+        backend, factor, _, ov, _ = self._choice("gather", s, ax)
+        self._rec("gather", s * (n - 1), ax, ov)
+        if backend == "ring":
+            return mc.ring_gather(x, ax, root)
+        return mc.gather(x, ax, root=root, n_chunks=factor)
+
+    def _scatter_level(self, x: torch.Tensor, ax: mc.AxisGroup,
+                       root: int) -> torch.Tensor:
+        n = ax.size
+        if n == 1:
+            return x
+        s = _nbytes(x)
+        backend, factor, _, ov, _ = self._choice("scatter", s, ax)
+        # root pushes every segment but its own: s*(n-1)/n wire bytes
+        self._rec("scatter", s * (n - 1) / n, ax, ov)
+        if backend == "ring":
+            return mc.ring_scatter(x, ax, root)
+        return mc.scatter(x, ax, root=root, n_chunks=factor)
+
+    # -- N->N primitives (the FSDP hot path), differentiable ---------------
+
+    def all_reduce(self, x: torch.Tensor, axis: AxisSpec) -> torch.Tensor:
+        return _AllReduce.apply(x, self, self.levels(axis))
+
+    def all_gather(self, x: torch.Tensor, axis: AxisSpec) -> torch.Tensor:
+        """Tiled gather along axis 0, rank-major over the (possibly
+        tuple) axis: the outer level's index is most significant."""
+        return _AllGather.apply(x, self, self.levels(axis))
+
+    def reduce_scatter(self, x: torch.Tensor,
+                       axis: AxisSpec) -> torch.Tensor:
+        """Reduce-scatter along axis 0, the inverse layout of
+        all_gather."""
+        return _ReduceScatter.apply(x, self, self.levels(axis))
+
+    def _all_reduce(self, x: torch.Tensor, levels: tuple) -> torch.Tensor:
+        if len(levels) == 1:
+            return self._ar_level(x, levels[0])
+        topo = self._topo()
+        hier = topo is not None and topo.covers(
+            [ax.name for ax in levels])
+        if self.backend == "ring" and not hier:
+            # one ring AllReduce over all the tuple's ranks (the
+            # reference's single fused psum), booked per level
+            s = _nbytes(x)
+            for ax in levels:
+                self._rec("all_reduce", 2 * s * (ax.size - 1) / ax.size,
+                          ax, False)
+            return mc.ring_all_reduce(x, self._joint(levels))
+        # RS down the inner levels, AR across the outer level on the
+        # shard, AG back out
+        return mc.hierarchical_all_reduce(
+            x, levels, rs_fn=self._rs_level, ar_fn=self._ar_level,
+            ag_fn=self._ag_level)
+
+    def _all_gather(self, x: torch.Tensor, levels: tuple) -> torch.Tensor:
+        # inner level first: the outer gather then stacks whole blocks of
+        # the inner groups (rank-major), and the outer fabric carries
+        # each byte once
+        for ax in reversed(levels):
+            x = self._ag_level(x, ax)
+        return x
+
+    def _reduce_scatter(self, x: torch.Tensor,
+                        levels: tuple) -> torch.Tensor:
+        # outer level first, the inverse of the gather: the payload
+        # shrinks by each level's size before the next fabric sees it
+        for ax in levels:
+            x = self._rs_level(x, ax)
+        return x
+
+    # -- the other primitives ----------------------------------------------
 
     def all_to_all(self, x: torch.Tensor, axis: AxisSpec) -> torch.Tensor:
+        if len(_axes(axis)) != 1:
+            raise NotImplementedError("all_to_all is single-axis")
         ax = self.axis(axis)
         n, s = ax.size, _nbytes(x)
         backend, factor, _, ov, _ = self._choice("all_to_all", s, ax)
@@ -241,6 +393,8 @@ class Communicator:
         """Ring point-to-point handoff: every rank sends ``x`` to the
         rank ``shift`` ahead and returns the payload from the rank
         ``shift`` behind (cyclic); S wire bytes per rank."""
+        if len(_axes(axis)) != 1:
+            raise NotImplementedError("send/recv are single-axis")
         ax = self.axis(axis)
         if ax.size == 1 or shift % ax.size == 0:
             return x
@@ -251,57 +405,84 @@ class Communicator:
             return mc.ring_p2p(x, ax, shift=shift)
         return mc.p2p_shift(x, ax, shift=shift, n_chunks=factor)
 
+    # -- rooted primitives ------------------------------------------------
+    # A tuple axis recurses with per-level roots split from the flat
+    # rank-major ``root``, so only one level carries each byte across
+    # the outer fabric.
+
+    @staticmethod
+    def _split_root(levels: tuple, root: int) -> tuple:
+        """Split a flat rank-major root at the outer level: (inner
+        levels, prod(inner sizes), outer root, inner root)."""
+        rest = levels[1:]
+        prod_rest = 1
+        for ax in rest:
+            prod_rest *= ax.size
+        r_out, r_rest = divmod(root, prod_rest)
+        return rest, prod_rest, r_out, r_rest
+
     def broadcast(self, x: torch.Tensor, axis: AxisSpec,
                   root: int = 0) -> torch.Tensor:
-        ax = self.axis(axis)
-        if ax.size == 1:
-            return x
-        s = _nbytes(x)
-        backend, factor, _, ov, _ = self._choice("broadcast", s, ax)
-        self._rec("broadcast", float(s), ax, ov)
-        if backend == "ring":
-            return mc.ring_broadcast(x, ax, root)
-        return mc.broadcast(x, ax, root=root, n_chunks=factor)
+        return self._broadcast(x, self.levels(axis), root)
+
+    def _broadcast(self, x: torch.Tensor, levels: tuple,
+                   root: int) -> torch.Tensor:
+        if len(levels) == 1:
+            return self._broadcast_level(x, levels[0], root)
+        rest, prod_rest, r_out, r_rest = self._split_root(levels, root)
+        if x.dim() >= 1 and prod_rest > 1 and x.shape[0] % prod_rest == 0:
+            # scatter in the root's inner group, broadcast the
+            # 1/prod(inner) pieces across the outer level, all-gather in
+            # every inner group: the outer level carries s/prod(inner)
+            piece = self._scatter(x, rest, r_rest)
+            piece = self._broadcast_level(piece, levels[0], r_out)
+            return self._all_gather(piece, rest)
+        # a payload that does not divide: per-level root chain, outer
+        # level first
+        out = self._broadcast_level(x, levels[0], r_out)
+        return self._broadcast(out, rest, r_rest)
 
     def reduce(self, x: torch.Tensor, axis: AxisSpec,
                root: int = 0) -> torch.Tensor:
-        ax = self.axis(axis)
-        n = ax.size
-        if n == 1:
-            return x
-        s = _nbytes(x)
-        backend, factor, _, ov, _ = self._choice("reduce", s, ax)
-        self._rec("reduce", 2 * s * (n - 1) / n, ax, ov)
-        if backend == "ring":
-            return mc.ring_reduce(x, ax, root)
-        return mc.reduce(x, ax, root=root, n_chunks=factor)
+        return self._reduce(x, self.levels(axis), root)
+
+    def _reduce(self, x: torch.Tensor, levels: tuple,
+                root: int) -> torch.Tensor:
+        if len(levels) == 1:
+            return self._reduce_level(x, levels[0], root)
+        rest, _, r_out, r_rest = self._split_root(levels, root)
+        # reduce in each inner group first: only reduced partials cross
+        # the outer level
+        part = self._reduce(x, rest, r_rest)
+        return self._reduce_level(part, levels[0], r_out)
 
     def gather(self, x: torch.Tensor, axis: AxisSpec,
                root: int = 0) -> torch.Tensor:
-        ax = self.axis(axis)
-        n = ax.size
-        if n == 1:
-            return x
-        s = _nbytes(x)
-        backend, factor, _, ov, _ = self._choice("gather", s, ax)
-        self._rec("gather", s * (n - 1), ax, ov)
-        if backend == "ring":
-            return mc.ring_gather(x, ax, root)
-        return mc.gather(x, ax, root=root, n_chunks=factor)
+        return self._gather(x, self.levels(axis), root)
+
+    def _gather(self, x: torch.Tensor, levels: tuple,
+                root: int) -> torch.Tensor:
+        if len(levels) == 1:
+            return self._gather_level(x, levels[0], root)
+        rest, _, r_out, r_rest = self._split_root(levels, root)
+        # each inner group's block at its local root, then whole blocks
+        # across the outer level (rank-major)
+        blk = self._gather(x, rest, r_rest)
+        return self._gather_level(blk, levels[0], r_out)
 
     def scatter(self, x: torch.Tensor, axis: AxisSpec,
                 root: int = 0) -> torch.Tensor:
-        ax = self.axis(axis)
-        n = ax.size
-        if n == 1:
-            return x
-        s = _nbytes(x)
-        backend, factor, _, ov, _ = self._choice("scatter", s, ax)
-        # root pushes every segment but its own: s*(n-1)/n wire bytes
-        self._rec("scatter", s * (n - 1) / n, ax, ov)
-        if backend == "ring":
-            return mc.ring_scatter(x, ax, root)
-        return mc.scatter(x, ax, root=root, n_chunks=factor)
+        return self._scatter(x, self.levels(axis), root)
+
+    def _scatter(self, x: torch.Tensor, levels: tuple,
+                 root: int) -> torch.Tensor:
+        if len(levels) == 1:
+            return self._scatter_level(x, levels[0], root)
+        rest, _, r_out, r_rest = self._split_root(levels, root)
+        # the outer level moves whole inner-group blocks once; the inner
+        # levels fan each block out
+        blk = self._scatter_level(x, levels[0], r_out)
+        return self._scatter(blk, rest, r_rest)
 
 
 # ------------------------------------------------------------------------ #
@@ -310,32 +491,34 @@ class Communicator:
 
 class _AllReduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, comm, ax):
-        ctx.comm, ctx.ax = comm, ax
-        return comm._all_reduce(x, ax)
+    def forward(ctx, x, comm, levels):
+        ctx.comm, ctx.levels = comm, levels
+        return comm._all_reduce(x, levels)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.comm._all_reduce(g.contiguous(), ctx.ax), None, None
+        return ctx.comm._all_reduce(g.contiguous(), ctx.levels), None, None
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, comm, ax):
-        ctx.comm, ctx.ax = comm, ax
-        return comm._all_gather(x, ax)
+    def forward(ctx, x, comm, levels):
+        ctx.comm, ctx.levels = comm, levels
+        return comm._all_gather(x, levels)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.comm._reduce_scatter(g.contiguous(), ctx.ax), None, None
+        return (ctx.comm._reduce_scatter(g.contiguous(), ctx.levels), None,
+                None)
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, comm, ax):
-        ctx.comm, ctx.ax = comm, ax
-        return comm._reduce_scatter(x, ax)
+    def forward(ctx, x, comm, levels):
+        ctx.comm, ctx.levels = comm, levels
+        return comm._reduce_scatter(x, levels)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.comm._all_gather(g.contiguous(), ctx.ax), None, None
+        return (ctx.comm._all_gather(g.contiguous(), ctx.levels), None,
+                None)

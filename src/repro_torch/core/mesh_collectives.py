@@ -23,13 +23,18 @@ Two realizations:
   (``core.pool.split_window``).  On the TPU the reference realized these
   schedules as ppermute rings; here they are what the paper built.
 
-Hierarchical (tuple) axes and the ragged/grouped schedules are not ported
-yet (ROADMAP queue 1, items 5-6).
+An ``AxisGroup`` is one flat level.  A hierarchical (tuple) axis is a
+sequence of them, outer level first, and :func:`hierarchical_all_reduce`
+composes per-level collectives that the caller injects (the
+``Communicator`` picks each level's backend).  Every level group has its
+own process group and its own pool, since a pool's epochs agree only
+among ranks that issue the same collectives.  The ragged/grouped
+schedules are not ported yet (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -60,6 +65,40 @@ class AxisGroup:
             raise ValueError(f"axis {self.name!r} has no shared pool: the "
                              f"cxl backend needs one")
         return self.pool
+
+
+def hierarchical_all_reduce(x: torch.Tensor, levels: Sequence[AxisGroup],
+                            *, rs_fn: Callable, ar_fn: Callable,
+                            ag_fn: Callable) -> torch.Tensor:
+    """Level-decomposed AllReduce over ``levels`` (outer level first):
+
+        ReduceScatter innermost..levels[1]  ->  AllReduce over levels[0]
+        on the 1/prod(inner) shard          ->  AllGather back out.
+
+    Each byte crosses the outer (pool-spanning) fabric once, at
+    1/prod(inner) of the payload.  ``rs_fn`` / ``ar_fn`` / ``ag_fn`` are
+    ``(tensor, AxisGroup) -> tensor`` single-level collectives.  The
+    flat payload is zero-padded to a multiple of prod(inner), as in the
+    reference.
+    """
+    levels = tuple(levels)
+    inner = levels[1:]
+    prod_inner = 1
+    for ax in inner:
+        prod_inner *= ax.size
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % max(1, prod_inner)
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    seg = flat
+    for ax in reversed(inner):      # innermost level first
+        seg = rs_fn(seg, ax)
+    seg = ar_fn(seg, levels[0])     # the only traffic across the outer
+    for ax in inner:                # inverse order back out
+        seg = ag_fn(seg, ax)
+    if pad:
+        seg = seg[:-pad]
+    return seg.reshape(x.shape)
 
 
 def _lead(x: torch.Tensor) -> int:

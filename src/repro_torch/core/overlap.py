@@ -1,6 +1,7 @@
 """Communication/compute overlap: gradient bucketing and fused FSDP gathers.
 
-Port of ``repro.core.overlap`` for flat axes:
+Port of ``repro.core.overlap``; the dp axis may be a tuple of levels,
+outer first:
 
 * **Bucketing** (``assign_buckets`` + ``pack``/``unpack``): same-dtype
   leaves that want the same collective are coalesced, in deterministic
@@ -25,6 +26,7 @@ from typing import Any, Optional, Sequence
 import torch
 
 from repro_torch.core import ledger, tree
+from repro_torch.models.sharding import missing_axes
 
 MiB = 1024 ** 2
 
@@ -118,32 +120,36 @@ def unpack(bucket: Bucket, flat: torch.Tensor) -> list:
             for s in bucket.slots]
 
 
-def _axis_dim(spec: tuple, axis: str) -> Optional[int]:
+def _axis_dim(spec: tuple, axis) -> Optional[int]:
     for i, s in enumerate(spec):
         if s == axis:
             return i
     return None
 
 
-def bucketed_sync_grads(grads: Any, specs: Any, pc, dp_axis: str,
+def bucketed_sync_grads(grads: Any, specs: Any, pc, dp_axis,
                         bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Any:
     """Fused ``models.sharding.sync_grads``: grads of leaves replicated
-    over the dp axis, coalesced into size-capped flat buffers, one
-    AllReduce (sum) each."""
+    over the dp levels, coalesced by (missing levels, dtype) into
+    size-capped flat buffers, one AllReduce (sum) each over the tuple of
+    missing levels - the per-leaf path's collective."""
     items = tree.leaves_with_paths(grads)
     entries = []
     for i, (path, g) in enumerate(items):
-        if dp_axis is not None and dp_axis not in tree.get(specs, path):
-            entries.append((i, g.shape, g.dtype, (dp_axis,)))
+        missing = missing_axes(tree.get(specs, path), dp_axis)
+        if missing:
+            entries.append((i, g.shape, g.dtype, missing))
     out = [g for _, g in items]
     for bucket in assign_buckets(entries, bucket_bytes):
-        flat = pc.comm.all_reduce(pack(bucket, out), bucket.key[0][0])
+        missing = bucket.key[0]
+        flat = pc.comm.all_reduce(
+            pack(bucket, out), missing[0] if len(missing) == 1 else missing)
         for index, leaf in unpack(bucket, flat):
             out[index] = leaf
     return tree.from_paths([(p, g) for (p, _), g in zip(items, out)])
 
 
-def make_gather_fn(all_row_specs: dict, pc, dp_axis: str,
+def make_gather_fn(all_row_specs: dict, pc, dp_axis,
                    bucket_bytes: Optional[int] = None,
                    fuse: bool = False):
     """Returns ``gather(group_key, row_params) -> gathered params``.
@@ -155,7 +161,9 @@ def make_gather_fn(all_row_specs: dict, pc, dp_axis: str,
     autograd transpose is the matching fused ReduceScatter.
     ``fuse=True`` routes the 2-D matmul weights (``FUSABLE_PARAMS``)
     through their own bucket, gathered inside ``ledger.fused()`` and
-    returned as :class:`StackedShards`."""
+    returned as :class:`StackedShards`.  Over a tuple axis the gather is
+    rank-major over all its levels, so the stack holds the product of
+    their sizes in shards."""
     def gather(group_key: str, row_params):
         specs = all_row_specs[group_key]
         items = tree.leaves_with_paths(row_params)

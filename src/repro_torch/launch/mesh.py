@@ -3,16 +3,27 @@
 Port of ``repro.launch.mesh`` for the one-host meshes the port runs:
 ``--mesh DPxTP`` with every rank a process of this host.  The ranks of a
 one-card mesh share that card; the process group is ``gloo`` (NCCL
-refuses two ranks on one card).  Tensor parallelism (TP > 1), the
-production meshes and placements are not ported yet (ROADMAP queue 1,
-items 3 and 6).
+refuses two ranks on one card).
+
+A mesh is a rank-major shape, ``((axis, size), ...)`` outer axis first:
+rank r sits at the mixed-radix digits of r.  ``--multi-pod`` is the
+one-host form of the reference's ``make_production_mesh(multi_pod=True)``:
+the same axis names, ``("pod", "data", "model")``, at the host's rank
+count, (2, DP/2, TP).  Rank r is then at pod ``r // (DP/2)`` and data
+``r % (DP/2)``, the flat layout, so parameter shards are those of the
+flat DPx1 run.  Each level of an axis with more than one rank is a group
+of ranks (:func:`level_groups`) with a process group and a pool of its
+own (``launch.ranks.spawn(groups=...)``); an axis that spans every rank
+uses the default group and the pool of all the ranks.
+
+Tensor parallelism (TP > 1) and placements are not ported yet (ROADMAP
+queue 1, items 3 and 6).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Sequence
 
 from repro_torch.core.mesh_collectives import AxisGroup
-from repro_torch.core.pool import SharedPool
 
 
 def parse_mesh(spec: str) -> tuple:
@@ -31,9 +42,83 @@ def parse_mesh(spec: str) -> tuple:
     return dp, tp
 
 
-def make_host_mesh(dp: int, rank: int,
-                   pool: Optional[SharedPool] = None) -> dict:
-    """This rank's mesh of ``dp`` data-parallel ranks (the default
-    process group) and a size-1 model axis."""
-    return {"data": AxisGroup("data", rank, dp, None, pool),
-            "model": AxisGroup("model", 0, 1)}
+def mesh_shape(dp: int, tp: int = 1, multi_pod: bool = False) -> tuple:
+    """The rank-major shape of a host mesh: ``(("data", dp), ("model",
+    tp))``, or with ``multi_pod`` ``(("pod", 2), ("data", dp // 2),
+    ("model", tp))``."""
+    if not multi_pod:
+        return (("data", dp), ("model", tp))
+    if dp % 2:
+        raise ValueError(f"--multi-pod splits the data ranks over 2 pods: "
+                         f"DP must be even, got {dp}")
+    return (("pod", 2), ("data", dp // 2), ("model", tp))
+
+
+def _coords(shape: Sequence[tuple], rank: int) -> list:
+    out = []
+    for _, n in reversed(shape):
+        rank, c = divmod(rank, n)
+        out.append(c)
+    return out[::-1]
+
+
+def _members(shape: Sequence[tuple], rank: int, axis: int) -> tuple:
+    """The ranks that differ from ``rank`` only along axis ``axis``, in
+    order of that axis's index."""
+    stride = 1
+    for _, n in shape[axis + 1:]:
+        stride *= n
+    base = rank - _coords(shape, rank)[axis] * stride
+    return tuple(base + i * stride for i in range(shape[axis][1]))
+
+
+def _nranks(shape: Sequence[tuple]) -> int:
+    n = 1
+    for _, size in shape:
+        n *= size
+    return n
+
+
+def level_groups(shape: Sequence[tuple]) -> list:
+    """Every level group of the mesh: for each axis with more than one
+    rank but fewer than all, the ranks of each of its groups (what
+    ``ranks.spawn(groups=...)`` creates), in a fixed order."""
+    n = _nranks(shape)
+    out: list = []
+    for i, (_, size) in enumerate(shape):
+        if size in (1, n):
+            continue
+        for r in range(n):
+            g = _members(shape, r, i)
+            if g not in out:
+                out.append(g)
+    return out
+
+
+def make_host_mesh(shape: Sequence[tuple], ctx, pools: bool = True) -> dict:
+    """This rank's mesh: axis name -> ``AxisGroup`` for ``ctx`` (a
+    ``ranks.RankContext``, spawned with ``groups=level_groups(shape)``).
+    ``pools=False`` leaves every level without a pool (ring only)."""
+    n = _nranks(shape)
+    if n != ctx.nranks:
+        raise ValueError(f"mesh {shape} has {n} ranks, the host "
+                         f"{ctx.nranks}")
+    coords = _coords(shape, ctx.rank)
+    mesh = {}
+    for i, (name, size) in enumerate(shape):
+        if size == 1:
+            mesh[name] = AxisGroup(name, 0, 1)
+        elif size == n:
+            mesh[name] = AxisGroup(name, coords[i], size, None,
+                                   ctx.pool if pools else None)
+        else:
+            pg, pool = ctx.groups[_members(shape, ctx.rank, i)]
+            mesh[name] = AxisGroup(name, coords[i], size, pg,
+                                   pool if pools else None)
+    return mesh
+
+
+def dp_axes(mesh: dict) -> tuple:
+    """The data-parallel axis spec of a mesh: hierarchical ``("pod",
+    "data")`` when the pod axis exists, else ``("data",)``."""
+    return ("pod", "data") if "pod" in mesh else ("data",)

@@ -4,10 +4,15 @@
 method), joins them into a ``gloo`` process group (file rendezvous in a
 temporary directory), maps the shared host pool of the ``cxl`` backend
 when asked, and calls ``fn(ctx, *args)`` on each with a
-:class:`RankContext`.  Rank r runs on ``cuda:(r % device_count)`` - the
-ranks of a one-card host share that card - or on the CPU.  Results come
-back in rank order; a rank that raises, dies or outlives the deadline
-fails the call, and every process is stopped before it returns.
+:class:`RankContext`.  ``groups`` adds level groups (the ranks of one
+level of a hierarchical mesh, ``launch.mesh.level_groups``): every rank
+creates each one's process group, in the same order, and with a pool
+each group maps a pool of its own with one partition per member, since
+a pool's epochs agree only among ranks that issue the same collectives.
+Rank r runs on ``cuda:(r % device_count)`` - the ranks of a one-card
+host share that card - or on the CPU.  Results come back in rank order;
+a rank that raises, dies or outlives the deadline fails the call, and
+every process is stopped before it returns.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -31,14 +36,19 @@ class RankContext:
     rank: int
     nranks: int
     device: torch.device
-    pool: Optional[SharedPool]
+    pool: Optional[SharedPool]          # the pool of all the ranks
+    # level group (a tuple of ranks) -> (its process group, its pool or
+    # None), for each group of ``spawn(groups=...)`` this rank is in
+    groups: dict = dataclasses.field(default_factory=dict)
 
 
 def _rank_main(rank: int, nranks: int, fn: Callable, args: tuple,
                device: str, init_file: str, pool_path: Optional[str],
-               partition_bytes: int, timeout_s: float, results) -> None:
+               groups: tuple, group_paths: tuple, partition_bytes: int,
+               timeout_s: float, results) -> None:
     import torch.distributed as dist
     pool = None
+    pools: list = []
     try:
         dist.init_process_group(
             "gloo", init_method=f"file://{init_file}", world_size=nranks,
@@ -55,24 +65,41 @@ def _rank_main(rank: int, nranks: int, fn: Callable, args: tuple,
         if pool_path is not None:
             pool = SharedPool(pool_path, nranks, rank, partition_bytes, dev,
                               timeout_s=timeout_s)
-        out = fn(RankContext(rank, nranks, dev, pool), *args)
+            pools.append(pool)
+        mine: dict = {}
+        for members, path in zip(groups, group_paths):
+            # every rank creates every group, in the same order
+            pg = dist.new_group(list(members),
+                                timeout=datetime.timedelta(seconds=timeout_s))
+            if rank not in members:
+                continue
+            gpool = None
+            if path is not None:
+                gpool = SharedPool(path, len(members), members.index(rank),
+                                   partition_bytes, dev, timeout_s=timeout_s)
+                pools.append(gpool)
+            mine[members] = (pg, gpool)
+        out = fn(RankContext(rank, nranks, dev, pool, mine), *args)
         results.put((rank, out, None))
     except Exception:   # the boundary of a rank: report, then exit
         results.put((rank, None, traceback.format_exc()))
     finally:
-        if pool is not None:
-            pool.close()
+        for p in pools:
+            p.close()
         if dist.is_initialized():
             dist.destroy_process_group()
 
 
 def spawn(fn: Callable, nranks: int, args: tuple = (), *,
           device: str = "cpu", partition_bytes: int = 0,
+          groups: Sequence[tuple] = (), world_pool: bool = True,
           timeout_s: float = 600.0,
           wait_s: Optional[float] = None) -> list:
     """``fn(ctx, *args)`` on ``nranks`` ranks; returns the results in
     rank order.  ``partition_bytes > 0`` maps a shared pool with that
-    partition per rank.  ``fn`` and ``args`` must pickle (``fn`` a
+    partition per rank (``ctx.pool``; not with ``world_pool=False``)
+    and one per level group of ``groups`` (tuples of ranks; see
+    :class:`RankContext`).  ``fn`` and ``args`` must pickle (``fn`` a
     module-level function).  ``timeout_s`` bounds every wait of a rank
     (process group, pool); ``wait_s`` (default ``timeout_s``) is how
     long this process waits for the next rank to finish."""
@@ -82,19 +109,27 @@ def spawn(fn: Callable, nranks: int, args: tuple = (), *,
     wait_s = timeout_s if wait_s is None else wait_s
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    fd = None
+    groups = tuple(tuple(int(r) for r in g) for g in groups)
+    fds: list = []
     procs = []
+
+    def backing(n: int) -> Optional[str]:
+        if partition_bytes <= 0:
+            return None
+        path, fd = create_backing(SharedPool.total_bytes(n,
+                                                         partition_bytes))
+        fds.append(fd)
+        return path
+
     with tempfile.TemporaryDirectory(prefix="repro-ranks-") as tmp:
-        pool_path = None
-        if partition_bytes > 0:
-            pool_path, fd = create_backing(
-                SharedPool.total_bytes(nranks, partition_bytes))
         try:
+            pool_path = backing(nranks) if world_pool else None
+            group_paths = tuple(backing(len(g)) for g in groups)
             procs = [ctx.Process(
                 target=_rank_main,
                 args=(r, nranks, fn, args, device,
-                      os.path.join(tmp, "rdzv"), pool_path,
-                      partition_bytes, timeout_s, results))
+                      os.path.join(tmp, "rdzv"), pool_path, groups,
+                      group_paths, partition_bytes, timeout_s, results))
                 for r in range(nranks)]
             for p in procs:
                 p.start()
@@ -121,6 +156,6 @@ def spawn(fn: Callable, nranks: int, args: tuple = (), *,
                 if p.is_alive():
                     p.terminate()
                     p.join(timeout=30)
-            if fd is not None:
+            for fd in fds:
                 os.close(fd)
     return [got[r] for r in range(nranks)]

@@ -16,9 +16,10 @@ Runs on the CUDA card unless ``--device cpu`` is given.  Params are
 random, from a seeded ``torch.Generator``.  ``--plan`` loads a tuned
 plan whose ``kv_block`` cells price eviction placement
 (``repro_torch.launch.tune --kv-block-bytes``); the engine is unsharded,
-so no collective resolves against it.  ``--online-retune``,
-``--topology``, ``--placement``, ``--ckpt`` and ``--metrics-out`` of
-the reference launcher are not ported yet (ROADMAP queue 1).
+so no collective resolves against it.  ``--topology`` activates a
+topology process-wide, as the reference launcher does.
+``--online-retune``, ``--placement``, ``--ckpt`` and ``--metrics-out``
+of the reference launcher are not ported yet (ROADMAP queue 1).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
@@ -42,6 +43,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.device import resolve_device
+from repro_torch.core.topology import parse_topology, set_active_topology
 from repro_torch.models import model
 from repro_torch.serving import (Request, SamplingParams, ServeConfig,
                                  ServeEngine)
@@ -186,6 +188,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="autotuning plan JSON (repro_torch.launch.tune)"
                          "; its kv_block cells price eviction placement "
                          "before the live oracle")
+    ap.add_argument("--topology", default=None,
+                    help="'axis:fabric[:shape],...' spec or topology "
+                         "JSON file, activated process-wide")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; "
                          "'cpu' runs on the CPU)")
@@ -215,6 +220,8 @@ def engine_from_args(args) -> tuple:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    if args.topology:
+        set_active_topology(parse_topology(args.topology))
     cfg, eng = engine_from_args(args)
     if args.trace:
         run_trace(eng, cfg, args)

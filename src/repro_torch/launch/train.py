@@ -12,6 +12,9 @@ Port of ``repro.launch.train`` for the flags of the FSDP path:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --mesh 4x1 --backend auto --plan plan.json --steps 3 --batch 4 \\
       --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --mesh 4x1 --multi-pod --topology pod:cxl,data:ici --backend cxl \\
+      --steps 3 --batch 4 --seq 1024
 
 The launcher spawns one process per rank (``spawn`` start method); rank
 r runs on ``cuda:(r % device_count)``, so the ranks of a one-card host
@@ -30,8 +33,17 @@ fingerprint-checked in every rank; without it each rank loads or tunes
 the cached default plan, ``tuner.ensure_default_plan``); each step's
 record lists the distinct decisions taken (``choices``).
 
-Not ported yet: topologies, placements and online re-tuning (ROADMAP
-queue 1, items 5-6 and 10), pipeline stages (item 9), checkpoints,
+``--multi-pod`` trains over the hierarchical data axis ``("pod",
+"data")`` = (2, DP/2) (``launch.mesh``): every level group has its own
+process group and, under ``cxl`` or ``auto``, its own pool, and every
+collective over the tuple decomposes against the topology.
+``--topology`` (an ``axis:fabric,...`` spec or a JSON file, as in
+``launch.tune``) is activated in every rank, and this process warns
+about mesh axes it does not cover.  Each step's record holds the pool
+bytes of each level and the ledger's wire bytes by level.
+
+Not ported yet: placements and online re-tuning (ROADMAP queue 1,
+items 6 and 10), pipeline stages (item 9), checkpoints,
 metrics/trace export, faults and resilience (item 10), tensor
 parallelism (item 3).
 """
@@ -51,6 +63,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import ledger, tree
 from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.core.pool import DEFAULT_PARTITION_BYTES
+from repro_torch.core.topology import (Topology, parse_topology,
+                                       set_active_topology, warn_uncovered)
 from repro_torch.data.pipeline import SyntheticTokens, local_batch
 from repro_torch.kernels import build
 from repro_torch.kernels.chunked_reduce import chunked_reduce
@@ -58,7 +72,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_collectives import all_gather_matmul
 from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_vjp
 from repro_torch.launch import ranks
-from repro_torch.launch.mesh import make_host_mesh, parse_mesh
+from repro_torch.launch.mesh import (dp_axes, level_groups, make_host_mesh,
+                                     mesh_shape, parse_mesh)
 from repro_torch.models import model, sharding
 from repro_torch.optim import adamw_init
 from repro_torch.training.train_loop import (TrainConfig, leaf_params,
@@ -80,6 +95,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--mesh", default="4x1",
                     help="DPxTP; every rank is a process of this host")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="split the data ranks over 2 pods: the data "
+                         "axis becomes the tuple (pod, data) = (2, DP/2)")
+    ap.add_argument("--topology", default=None,
+                    help="'axis:fabric,...' spec (outermost first; "
+                         "fabrics: cxl|ib|ici) or a topology JSON file, "
+                         "activated in every rank")
     ap.add_argument("--backend", choices=["ring", "cxl", "auto"],
                     default="ring")
     ap.add_argument("--plan", default=None,
@@ -123,6 +145,8 @@ class RunSpec:
     seq: int
     dp: int
     device: str                       # "cuda" or "cpu"
+    multi_pod: bool = False           # data axis (pod, data) = (2, dp/2)
+    topology: Optional[Topology] = None   # activated in every rank
     params_path: Optional[str] = None  # .npz of full params; else seed 0
     capture_grads: bool = False       # return step 0's synced grads
     profile: bool = False             # one extra step under the profiler
@@ -146,6 +170,19 @@ def save_params_npz(params, path: str) -> None:
 
 def _counters() -> dict:
     return {k: f.launches for k, f in KERNEL_COUNTERS.items()}
+
+
+def _pool_counts(mesh: dict) -> dict:
+    """Bytes this rank published into and retrieved from the pool of
+    each level of ``mesh`` that has one."""
+    return {name: {"published": ax.pool.bytes_published,
+                   "retrieved": ax.pool.bytes_retrieved}
+            for name, ax in mesh.items() if ax.pool is not None}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {name: {k: v - before[name][k] for k, v in c.items()}
+            for name, c in after.items()}
 
 
 def _profile_step(run_step, dev) -> dict:
@@ -174,17 +211,22 @@ def _profile_step(run_step, dev) -> dict:
 
 def distinct_choices(audit: list) -> list:
     """The ledger's ``auto_choices`` audit of one step folded into its
-    distinct decisions, each with the number of calls that took it."""
+    distinct decisions (at a topology level: its axis and fabric), each
+    with the number of calls that took it."""
     keys = ("primitive", "msg_bytes", "nranks", "backend",
-            "slicing_factor", "allreduce_mode", "overlap", "fused")
+            "slicing_factor", "allreduce_mode", "overlap", "fused",
+            "level", "fabric")
     calls: dict = {}
     for c in audit:
         k = tuple(c[f] for f in keys)
         calls[k] = calls.get(k, 0) + 1
-    return [dict(zip(keys, k), calls=n) for k, n in sorted(calls.items())]
+    return [dict(zip(keys, k), calls=n) for k, n in sorted(
+        calls.items(), key=lambda kv: tuple("" if v is None else v
+                                            for v in kv[0]))]
 
 
 def _rank_run(ctx: ranks.RankContext, spec: RunSpec) -> list:
+    set_active_topology(spec.topology)
     return [_run_variant(ctx, spec, tcfg) for tcfg in spec.variants]
 
 
@@ -192,18 +234,20 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig):
     """One training run on this rank: the params (seed 0 or the .npz)
     sharded for FSDP, AdamW from zero, ``spec.steps`` steps on this
     rank's slice of the synthetic batches."""
-    rank, dev, pool = ctx.rank, ctx.device, ctx.pool
+    rank, dev = ctx.rank, ctx.device
     cfg = get_config(spec.arch, smoke=spec.smoke)
-    mesh = make_host_mesh(spec.dp, rank,
-                          None if tcfg.backend == "ring" else pool)
-    step, pspecs, _pc = make_sharded_train_step(cfg, tcfg, mesh)
+    mesh = make_host_mesh(mesh_shape(spec.dp, 1, spec.multi_pod), ctx,
+                          pools=tcfg.backend != "ring")
+    step, pspecs, pc = make_sharded_train_step(cfg, tcfg, mesh,
+                                               dp_axis=dp_axes(mesh))
     if spec.params_path is not None:
         full = load_params_npz(spec.params_path, dev)
     else:
         full = model.init_params(
             cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    params = leaf_params(sharding.shard_params(full, pspecs, "data", rank,
-                                               spec.dp))
+    params = leaf_params(sharding.shard_params(
+        full, pspecs, pc.dp_axis, pc.comm.axis_index(pc.dp_axis),
+        pc.comm.axis_size(pc.dp_axis)))
     del full
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -222,23 +266,24 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig):
         for f in KERNEL_COUNTERS.values():
             f.launches = 0
         ledger.reset()
-        pool_before = 0 if pool is None else \
-            pool.bytes_published + pool.bytes_retrieved
+        pool_before = _pool_counts(mesh)
         synchronize(dev)
         t_start, t0 = time.time(), time.perf_counter()
         params, opt, metrics = step(params, opt, batch)
         loss = float(metrics["loss"])
         synchronize(dev)
         snap = ledger.snapshot()
+        by_level = _delta(_pool_counts(mesh), pool_before)
         rec = {"loss": loss, "step_s": time.perf_counter() - t0,
                "t_start": t_start, "t_end": time.time(),
                "lr": metrics["lr"], "launches": _counters(),
                "wire_bytes": snap["wire_bytes"],
                "fused_bytes": snap["fused_bytes"],
+               "level_wire_bytes": snap["level_wire_bytes"],
                "choices": distinct_choices(snap["auto_choices"]),
-               "pool_bytes": (0 if pool is None else
-                              pool.bytes_published + pool.bytes_retrieved
-                              - pool_before)}
+               "pool_by_level": by_level,
+               "pool_bytes": sum(v for c in by_level.values()
+                                 for v in c.values())}
         out["steps"].append(rec)
         if spec.capture_grads and i == 0:
             out["grads"] = {"/".join(p): x.grad.detach().cpu().numpy()
@@ -278,9 +323,12 @@ def run_ranks(spec: RunSpec) -> list:
         build.build_all()             # once, before the ranks start
     cfg = get_config(spec.arch, smoke=spec.smoke)
     need_pool = any(t.backend != "ring" for t in spec.variants)
+    shape = mesh_shape(spec.dp, 1, spec.multi_pod)
     per_rank = ranks.spawn(
         _rank_run, spec.dp, (spec,), device=spec.device,
         partition_bytes=pool_window(cfg) if need_pool else 0,
+        groups=level_groups(shape),
+        world_pool=any(n == spec.dp for _, n in shape),
         timeout_s=spec.timeout_s,
         wait_s=spec.timeout_s * (1 + len(spec.variants) * (spec.steps + 1)))
     return [_merge([r[v] for r in per_rank], tcfg)
@@ -297,12 +345,17 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
             "t_start": min(r["t_start"] for r in recs),
             "t_end": max(r["t_end"] for r in recs),
             "pool_bytes": sum(r["pool_bytes"] for r in recs),
+            "pool_by_level": {
+                name: {k: sum(r["pool_by_level"][name][k] for r in recs)
+                       for k in c}
+                for name, c in rec0["pool_by_level"].items()},
             "launches": {k: sum(r["launches"][k] for r in recs)
                          for k in KERNEL_COUNTERS},
             "launches_min_rank": {k: min(r["launches"][k] for r in recs)
                                   for k in KERNEL_COUNTERS},
             "wire_bytes_rank0": rec0["wire_bytes"],
             "fused_bytes_rank0": rec0["fused_bytes"],
+            "level_wire_bytes_rank0": rec0["level_wire_bytes"],
             "choices_rank0": rec0["choices"]})
     out = {"backend": tcfg.backend, "fuse_kernels": tcfg.fuse_kernels,
            "microbatches": tcfg.microbatches, "prefetch": tcfg.prefetch,
@@ -322,10 +375,14 @@ def spec_from_args(args) -> RunSpec:
     if args.batch % (dp * args.microbatches):
         raise SystemExit(f"--batch {args.batch} must split over {dp} "
                          f"data ranks x {args.microbatches} microbatches")
+    mesh_shape(dp, 1, args.multi_pod)          # odd DP with --multi-pod
     return RunSpec(arch=args.arch, smoke=args.smoke,
                    variants=(tcfg_from_args(args),), steps=args.steps,
                    batch=args.batch, seq=args.seq, dp=dp,
-                   device=resolve_device(args.device).type)
+                   device=resolve_device(args.device).type,
+                   multi_pod=args.multi_pod,
+                   topology=parse_topology(args.topology)
+                   if args.topology else None)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -333,17 +390,28 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     spec = spec_from_args(args)
     dp, device = spec.dp, spec.device
     cfg = get_config(args.arch, smoke=args.smoke)
-    print(f"training {cfg.name} on mesh data={dp} model=1 ({device}) "
+    shape = mesh_shape(dp, 1, spec.multi_pod)
+    if spec.topology is not None:
+        warn_uncovered(spec.topology, dict(shape))
+    print(f"training {cfg.name} on mesh "
+          + " ".join(f"{a}={n}" for a, n in shape) + f" ({device}) "
           f"backend={args.backend} fuse_kernels={args.fuse_kernels}"
-          + (f" plan={args.plan}" if args.plan else ""), flush=True)
+          + (f" plan={args.plan}" if args.plan else "")
+          + (f" topology={args.topology}" if args.topology else ""),
+          flush=True)
     t0 = time.time()
     run = run_ranks(spec)[0]
     for i, s in enumerate(run["steps"]):
         print(f"step {i:5d} loss {s['loss']:.4f} lr {s['lr']:.2e} "
               f"step {s['step_s']:.2f}s pool {s['pool_bytes'] / 2**20:.1f}"
               f" MiB launches {json.dumps(s['launches'])}", flush=True)
+        if len(s["pool_by_level"]) > 1:
+            print("  pool MiB by level " + json.dumps(
+                {a: {k: round(v / 2**20, 1) for k, v in c.items()}
+                 for a, c in s["pool_by_level"].items()}), flush=True)
     for c in run["steps"][0]["choices_rank0"] if run["steps"] else []:
-        print(f"auto {c['primitive']} {c['msg_bytes']} B x{c['nranks']}: "
+        print(f"auto {c['primitive']} {c['msg_bytes']} B x{c['nranks']}"
+              + (f" at {c['level']}" if c.get("level") else "") + ": "
               f"{c['backend']} factor {c['slicing_factor']} "
               f"{c['allreduce_mode']} fused={c['fused']} "
               f"({c['calls']} calls in step 0)", flush=True)

@@ -10,7 +10,7 @@ below are the identity.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -20,7 +20,8 @@ from repro_torch.core.api import Communicator
 @dataclasses.dataclass(frozen=True)
 class ParallelContext:
     tp_axis: Optional[str] = None                 # model/tensor parallel
-    dp_axis: Optional[str] = None                 # data/FSDP axis (flat)
+    # data/FSDP axis: a name, or a tuple of names outer level first
+    dp_axis: Optional[Union[str, tuple]] = None
     tp: int = 1                                   # static tp size
     comm: Communicator = dataclasses.field(default_factory=Communicator)
 

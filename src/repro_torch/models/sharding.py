@@ -2,23 +2,25 @@
 case study: FSDP AllGather before use, ReduceScatter on grads - both
 through the ``Communicator``).
 
-Port of ``repro.models.sharding`` for flat axes.  A spec is a plain tuple
-with one entry per dim: an axis name or None.  ``param_specs`` assigns:
+Port of ``repro.models.sharding``.  A spec is a plain tuple with one
+entry per dim: an axis name, a tuple of names (a hierarchical dp axis,
+outer level first) or None.  ``param_specs`` assigns:
 
 * the tensor-parallel dim (over ``model``): Megatron column/row rules
   per leaf name, as the reference writes them (with tp = 1 the axis has
   size 1, so it shards nothing);
 * the FSDP dim (over the dp axis): the first remaining dim (after a
-  stacked group's layer dim) that divides dp, for leaves of at least
+  stacked group's layer dim) that divides dp (a tuple axis: the product
+  of its levels' sizes), for leaves of at least
   ``FSDP_MIN_SIZE`` elements.  Smaller leaves (norms) stay replicated
   and get their grads summed by ``sync_grads``.
 
-The placement alias registry and tuple (hierarchical) dp axes are not
-ported yet (ROADMAP queue 1, item 6).
+The placement alias registry is not ported yet (ROADMAP queue 1, item
+6).
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Union
 
 from repro_torch.core import tree
 from repro_torch.models.pcontext import ParallelContext
@@ -43,6 +45,21 @@ def set_mesh_sizes(sizes: dict) -> None:
     _MESH_SIZES.update(sizes)
 
 
+def _axes_of(axis) -> tuple:
+    """The names of an axis spec: () for None, a name's 1-tuple, or the
+    tuple itself."""
+    if axis is None:
+        return ()
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _size(axis) -> int:
+    n = 1
+    for a in _axes_of(axis):
+        n *= _MESH_SIZES.get(a, 1)
+    return n
+
+
 def _is_stacked(names: tuple) -> bool:
     """Group entries 'g<i>' hold layer-stacked params."""
     return any(n == "encoder" or (n.startswith("g") and n[1:].isdigit())
@@ -63,10 +80,11 @@ def _tp_dim(names: tuple, rank: int, stacked: bool) -> Optional[int]:
 
 
 def param_specs(params: Any, cfg, *, model_axis: str = "model",
-                dp_axis: Optional[str] = None, fsdp: bool = True) -> Any:
+                dp_axis: Union[str, tuple, None] = None,
+                fsdp: bool = True) -> Any:
     """Spec tree matching ``params`` (tensors, meta tensors included)."""
     tp = _MESH_SIZES.get(model_axis, 1)
-    dp = _MESH_SIZES.get(dp_axis, 1) if dp_axis is not None else 1
+    dp = _size(dp_axis)
 
     def spec_for(names, leaf) -> tuple:
         shape = tuple(leaf.shape)
@@ -108,11 +126,13 @@ def _dim_of(spec: tuple, axis) -> Optional[int]:
     return None
 
 
-def shard_params(full: Any, specs: Any, dp_axis: str, rank: int,
+def shard_params(full: Any, specs: Any, dp_axis, rank: int,
                  n: int) -> Any:
     """This rank's FSDP shards of the full params: the ``rank``-th of
     ``n`` equal slices of each leaf along its dp dim (contiguous copies);
-    replicated leaves are copied whole."""
+    replicated leaves are copied whole.  For a tuple ``dp_axis``,
+    ``rank`` is the rank-major index over its levels and ``n`` their
+    product."""
     def shard(path, x):
         dim = _dim_of(tree.get(specs, path), dp_axis)
         if dim is None:
@@ -121,21 +141,35 @@ def shard_params(full: Any, specs: Any, dp_axis: str, rank: int,
     return tree.map_with_path(shard, full)
 
 
+def missing_axes(spec: tuple, dp_axis) -> tuple:
+    """The levels a leaf's grad must still be summed over: all the dp
+    levels, outer first, when the spec shards the leaf over none of
+    them, else none (tp = 1: no model level)."""
+    dp = _axes_of(dp_axis)
+    have = set()
+    for s in spec:
+        have.update(_axes_of(s))
+    return dp if dp and not any(a in have for a in dp) else ()
+
+
 def sync_grads(grads: Any, specs: Any, pc: ParallelContext,
-               dp_axis: Optional[str]) -> Any:
-    """Sum the grads of replicated params over the dp axis (FSDP leaves
-    already got their sum through the gather's transpose).  Per-leaf
-    reference path; the trainer uses ``core.overlap.bucketed_sync_grads``
-    (same result, fused size-capped buffers)."""
+               dp_axis) -> Any:
+    """Sum the grads of replicated params over the dp levels (FSDP
+    leaves already got their sum through the gather's transpose), as
+    one AllReduce over the tuple of missing levels, so the Communicator
+    can decompose it against the topology.  Per-leaf reference path;
+    the trainer uses ``core.overlap.bucketed_sync_grads`` (same result,
+    fused size-capped buffers)."""
     def fix(path, g):
-        spec = tree.get(specs, path)
-        if dp_axis is not None and dp_axis not in spec:
-            g = pc.comm.all_reduce(g, dp_axis)
+        missing = missing_axes(tree.get(specs, path), dp_axis)
+        if missing:
+            g = pc.comm.all_reduce(
+                g, missing[0] if len(missing) == 1 else missing)
         return g
     return tree.map_with_path(fix, grads)
 
 
-def fsdp_gather_fn(all_row_specs: dict, pc: ParallelContext, dp_axis: str):
+def fsdp_gather_fn(all_row_specs: dict, pc: ParallelContext, dp_axis):
     """Returns gather(group_key, row_params) -> gathered params: one
     AllGather per dp-sharded leaf, whose autograd transpose is the
     matching ReduceScatter (per-leaf reference path; the trainer uses

@@ -132,15 +132,22 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
 def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                             mesh: dict, tp_axis: str = "model",
-                            dp_axis: str = "data") -> tuple:
+                            dp_axis=("data",)) -> tuple:
     """The train step of this rank of ``mesh`` (``launch.mesh``: axis
-    name -> ``AxisGroup``).  Returns (step_fn, param_specs, pc);
-    ``step_fn`` takes this rank's shards (``sharding.shard_params`` per
-    ``param_specs``), their AdamW state and this rank's batch slice."""
+    name -> ``AxisGroup``).  ``dp_axis`` is a name or a tuple of names,
+    outer level first (``launch.mesh.dp_axes``: ``("pod", "data")`` on
+    a multi-pod mesh); levels of one rank drop out, as in the
+    reference.  Returns (step_fn, param_specs, pc); ``step_fn`` takes
+    this rank's shards (``sharding.shard_params`` per ``param_specs``,
+    at ``pc.comm.axis_index(pc.dp_axis)``), their AdamW state and this
+    rank's batch slice."""
     tp = mesh[tp_axis].size if tp_axis in mesh else 1
     if tp != 1:
         raise NotImplementedError("tensor parallelism (tp > 1) is not "
                                   "ported yet (ROADMAP queue 1, item 3)")
+    dp = (dp_axis,) if isinstance(dp_axis, str) else tuple(dp_axis)
+    dp = tuple(a for a in dp if mesh[a].size > 1) or (dp[0],)
+    dp_spec = dp if len(dp) > 1 else dp[0]
     plan = None
     if tcfg.plan_path is not None:
         # fingerprint-checked: refuse a plan tuned for other hardware
@@ -149,15 +156,15 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                         slicing_factor=tcfg.slicing_factor,
                         allreduce_mode=tcfg.allreduce_mode, axes=mesh,
                         plan=plan)
-    pc = ParallelContext(dp_axis=dp_axis, comm=comm)
+    pc = ParallelContext(dp_axis=dp_spec, comm=comm)
     sharding.set_mesh_sizes({a: g.size for a, g in mesh.items()})
     pspecs = sharding.param_specs(model.abstract_params(cfg), cfg,
-                                  model_axis=tp_axis, dp_axis=dp_axis,
+                                  model_axis=tp_axis, dp_axis=dp_spec,
                                   fsdp=True)
     rspecs = sharding.row_specs(pspecs)
-    gather = make_gather_fn(tcfg, rspecs, pc, dp_axis)
+    gather = make_gather_fn(tcfg, rspecs, pc, dp_spec)
     step = make_train_step(cfg, tcfg, pc, gather_fn=gather,
-                           param_spec_tree=pspecs, dp_axis=dp_axis)
+                           param_spec_tree=pspecs, dp_axis=dp_spec)
     return step, pspecs, pc
 
 

@@ -514,6 +514,42 @@ def test_cxl_collectives_on_card_through_pinned_pool(cuda):
         assert all(r.values()), r
 
 
+def _tuple_collectives(ctx):
+    from repro_torch.core.topology import parse_topology
+    from repro_torch.launch import collectives as co
+    from repro_torch.launch.mesh import mesh_shape
+    x = co.bench_input(ctx.rank, 64, ctx.device)
+    topo = parse_topology("pod:cxl,data:ici")
+    out = {}
+    for name in ("all_reduce_two_phase", "all_reduce_faithful",
+                 "reduce_scatter"):
+        flat = co.call(co.communicator(ctx, "cxl", name), name, x)
+        hier = co.call(co.communicator(
+            ctx, "cxl", name, shape=mesh_shape(ctx.nranks, 1, True),
+            topology=topo), name, x, axis=("pod", "data"))
+        torch.cuda.synchronize()
+        out[name] = hier.device.type == "cuda" and torch.equal(hier, flat)
+    out["retrieved"] = {g: pool.bytes_retrieved
+                        for g, (_, pool) in ctx.groups.items()}
+    return out
+
+
+def test_tuple_collectives_on_card_equal_the_flat_axis(cuda):
+    """Four ranks share the card as (pod, data) = (2, 2), each level
+    group with its own pinned pool: the tuple all-reduce (both modes)
+    and reduce-scatter under cxl equal the flat 4-rank results bitwise
+    (integer-valued inputs), and both levels' pools moved bytes."""
+    from repro_torch.launch import ranks
+    from repro_torch.launch.mesh import level_groups, mesh_shape
+    res = ranks.spawn(_tuple_collectives, 4, device="cuda",
+                      partition_bytes=1 << 20, timeout_s=300,
+                      groups=level_groups(mesh_shape(4, 1, True)))
+    for r in res:
+        moved = r.pop("retrieved")
+        assert len(moved) == 2 and all(b > 0 for b in moved.values())
+        assert all(r.values()), r
+
+
 @pytest.mark.parametrize("n,t,d", [
     (2, 128, 64), (4, 256, 32), (3, 37, 48), (8, 1, 16),   # the JAX tests'
     (4, 1024, 2048),           # one rank's rows at Llama-3.2-1B's width

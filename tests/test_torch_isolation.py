@@ -86,7 +86,7 @@ def test_engine_without_device_refuses_cpu_fallback():
 def test_launcher_rejects_unported_flags():
     from repro_torch.launch import serve
     ap = serve.build_parser()
-    for flag in ("--online-retune", "--topology", "--placement", "--ckpt",
+    for flag in ("--online-retune", "--placement", "--ckpt",
                  "--metrics-out"):
         with pytest.raises(SystemExit):
             ap.parse_args(["--arch", "llama3.2-1b", flag, "x"])
@@ -95,6 +95,21 @@ def test_launcher_rejects_unported_flags():
                           "--new-tokens", "3"])
     cfg, eng = serve.engine_from_args(args)
     assert eng.device.type == "cpu" and cfg.name == "llama3.2-smoke"
+
+
+def test_serve_launcher_activates_the_topology(capsys):
+    from repro_torch.core import topology
+    from repro_torch.launch import serve
+    try:
+        serve.main(["--arch", "llama3.2-1b", "--smoke", "--device", "cpu",
+                    "--batch", "1", "--prompt-len", "4", "--new-tokens",
+                    "1", "--topology", "pod:cxl,data:ici"])
+        active = topology.get_active_topology()
+        assert [(lv.axis, lv.fabric) for lv in active.levels] == \
+            [("pod", "cxl"), ("data", "ici")]
+    finally:
+        topology.clear_active_topology()
+    assert "llama3.2-smoke" in capsys.readouterr().out
 
 
 def test_unported_arch_names_the_roadmap():
@@ -118,7 +133,7 @@ def test_train_entry_points_without_device_refuse_cpu_fallback():
 def test_train_launcher_rejects_unported_flags_and_tp():
     from repro_torch.launch import train
     ap = train.build_parser()
-    for flag in ("--topology", "--placement", "--pp-stages", "--ckpt",
+    for flag in ("--placement", "--pp-stages", "--ckpt",
                  "--metrics-out", "--online-retune"):
         with pytest.raises(SystemExit):
             ap.parse_args(["--arch", "llama3.2-1b", flag, "x"])
@@ -129,3 +144,21 @@ def test_train_launcher_rejects_unported_flags_and_tp():
                           "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.spec_from_args(args)
+
+
+def test_train_launcher_topology_and_multi_pod_reach_the_spec():
+    from repro_torch.launch import train
+    ap = train.build_parser()
+    spec = train.spec_from_args(ap.parse_args(
+        ["--arch", "llama3.2-1b", "--mesh", "4x1", "--device", "cpu",
+         "--multi-pod", "--topology", "pod:cxl,data:ici"]))
+    assert spec.multi_pod and spec.dp == 4
+    assert [(lv.axis, lv.fabric) for lv in spec.topology.levels] == \
+        [("pod", "cxl"), ("data", "ici")]
+    spec = train.spec_from_args(ap.parse_args(
+        ["--arch", "llama3.2-1b", "--device", "cpu"]))
+    assert not spec.multi_pod and spec.topology is None
+    with pytest.raises(ValueError, match="even"):
+        train.spec_from_args(ap.parse_args(
+            ["--arch", "llama3.2-1b", "--mesh", "3x1", "--batch", "6",
+             "--device", "cpu", "--multi-pod"]))

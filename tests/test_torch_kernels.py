@@ -184,3 +184,40 @@ def test_flash_wrapper_checks():
         fa.flash_attention(x, x, x, kv_len=9)
     with pytest.raises(ValueError):
         fa.flash_attention(x, x[:, :, :1], x)
+
+
+# -- the CPU plain versions' first math call ----------------------------- #
+
+_FIRST_EXP = """
+import numpy as np
+import jax.numpy as jnp
+import torch
+from repro.kernels import ops, ref
+import repro_torch.kernels.ssm_scan
+rng = np.random.default_rng(0)
+rng.standard_normal((2, 256, 256))                      # x
+dt = (np.abs(rng.standard_normal((2, 256, 256))) * 0.1).astype(np.float32)
+a = -np.abs(rng.standard_normal((256, 16))).astype(np.float32)
+p = torch.as_tensor(dt)[..., None] * torch.as_tensor(a)[None, None]
+want = np.exp(p.numpy().astype(np.float64)).astype(np.float32)
+err = float(np.abs(torch.exp(p).numpy() - want).max())
+assert err <= 2.0 ** -24, err
+"""
+
+
+def test_first_exp_of_a_process_is_accurate():
+    """In a fresh process that imported JAX and the port's kernels, as
+    ``tests/test_torch_ssm.py`` does, the first large f32 ``exp`` -
+    ``ssm_scan_plain``'s decay on that file's inputs - is within an ulp
+    of numpy's, in each of 4 processes run one after another (before
+    ``repro_torch.kernels`` settled torch's CPU math on import, 7
+    processes in 10 were up to 1.1e-4 off)."""
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+    for _ in range(4):     # one at a time: the race needs idle cores
+        res = subprocess.run([sys.executable, "-c", _FIRST_EXP], env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode == 0, res.stderr[-2000:]

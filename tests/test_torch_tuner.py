@@ -513,6 +513,7 @@ def test_auto_choice_on_topology_levels_matches_reference(
 
 
 def test_auto_refuses_grouped_levels_and_tuple_axes():
+    """A grouped (ragged) level still raises, naming the ROADMAP item."""
     from repro_torch.core.api import Communicator
     topo = ptopo.parse_topology("pod:ib,node:cxl:4+2")
     comm = Communicator(backend="auto", plan=ptuner.Plan(
@@ -520,8 +521,31 @@ def test_auto_refuses_grouped_levels_and_tuple_axes():
         axes={"node": _axis("node", 6)})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         comm._choice("all_gather", MiB, _axis("node", 6))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        comm.axis(("pod", "node"))
+
+
+def test_auto_resolves_a_cell_per_level_of_a_tuple_axis(
+        port_ici_as_reference):
+    """``("pod", "node")`` under ``auto``: each level resolves its own
+    plan cell, as the reference's per-level ``_choice`` does."""
+    from repro.core.api import Communicator as RComm
+    from repro_torch.core import ledger
+    from repro_torch.core.api import Communicator as PComm
+    rt, pt = (rtopo.parse_topology(TOPO_SPEC),
+              ptopo.parse_topology(TOPO_SPEC))
+    rc = RComm(backend="auto", plan=rtuner.generate_plan(
+        rtuner.SMOKE_GRID, topology=rt))
+    pc = PComm(backend="auto", plan=ptuner.generate_plan(
+        ptuner.SMOKE_GRID, topology=pt, **TPU),
+        axes={"pod": _axis("pod", 2), "node": _axis("node", 3)})
+    assert pc.axis_size(("pod", "node")) == 6
+    for s in (1000, 8 * MiB, 300 * MiB):
+        ledger.reset()
+        for ax in pc.levels(("pod", "node")):
+            assert pc._choice("all_reduce", s, ax) == \
+                rc._choice("all_reduce", s, ax.size, rt, ax.name)
+        audit = ledger.snapshot()["auto_choices"]
+        assert [(a["level"], a["fabric"], a["nranks"]) for a in audit] == \
+            [("pod", "ib", 2), ("node", "cxl", 3)]
 
 
 def test_auto_books_fused_and_hidden_like_reference():
