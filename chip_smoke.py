@@ -13,12 +13,17 @@ Phases (each fails the run if its check fails):
 2. parity      - each kernel against its plain PyTorch version on the
                  card: rms_norm (at both models' widths, D = 2048 and
                  4096) and flash_attention at the serving path's shapes
-                 (f32, bf16) and their gradients (the kernel path's
+                 (f32, bf16; flash_attention also at the (data, model)
+                 path's (2, 1024, 16, 64)) and their gradients (the
+                 kernel path's
                  autograd, for rms_norm its backward kernel, against
                  autograd through the plain version);
                  chunked_reduce (f32, bf16; n_src 2, 4, 16; the training
-                 path's segment length and a ragged one); all_gather_matmul
-                 at the training path's shapes (f32); ssm_scan (y and the
+                 path's segment length and a ragged one, the (pod, data)
+                 and (data, model) paths' shapes); all_gather_matmul at
+                 the training paths' shapes (f32; at (data, model) x
+                 (2048, 2 x 1024) @ N = 256, 1024, 4096); ssm_scan (y and
+                 the
                  final state) at the JAX test shapes, Falcon's prefill and
                  decode shapes, a ragged L from a random state, L
                  across ring-stage boundaries, L = 4096, and bf16;
@@ -33,7 +38,9 @@ Phases (each fails the run if its check fails):
                  kernels, which no single call computes, the two-call
                  composition), beside the kernel's roofline bound, at the
                  main paths' shapes (all_gather_matmul at all four of the
-                 training path's); the two tensor-core kernels also beside
+                 flat training path's and the three of the (data, model)
+                 path's, flash_attention and chunked_reduce at that
+                 path's too); the two tensor-core kernels also beside
                  ``bound_tc_ms``, their bound on the 3xTF32 instruction
                  path (three tf32 products per f32 product at 495
                  TFLOP/s); ssm_scan at prefill and decode with the
@@ -98,10 +105,22 @@ Phases (each fails the run if its check fails):
                  under --fuse-kernels) every step, cxl moves pool bytes
                  on both levels and auto none on the ici level, and every
                  auto call took the cell of its own level (ring on ici);
-                 one extra step of the cxl+fused run is profiled too.
+                 one extra step of the cxl+fused run is profiled too;
+7c. train (data, model) - tensor parallelism over ``--mesh 2x2`` with
+                 ``--topology data:cxl,model:cxl``: the smoke model on
+                 the card against the CPU (losses of 3 steps, rtol 2e-4),
+                 then Llama-3.2-1B at full width and depth under cxl
+                 +fused (profiled), cxl and auto on a plan that
+                 ``launch.tune --topology data:cxl,model:cxl --nranks 2``
+                 writes: step-0 losses within 1e-4 of the flat cxl+fused
+                 run's, every loss falls, cxl moves pool bytes at both
+                 levels, every rank launches the kernels of 7b every
+                 step, and every auto call took its level's plan cell.
 
 The kernels' launch counters are zeroed before each serving run and
-before each training step (in the rank processes), and read after it:
+before each training step (in the rank processes), and read after it
+(the kernels line's ``launches_by_path`` counts the flat training runs
+as ``train``, 7b's as ``train_hier`` and 7c's as ``train_tp``):
 the training path's four kernels and rms_norm's backward kernel must
 have run on it, rms_norm and
 flash_attention on the serving path too, rms_norm and ssm_scan on the
@@ -170,9 +189,23 @@ PROMPT, NEW, SLOTS, BT = 1024, 16, 4, 16
 DP, TRAIN_BATCH, TRAIN_STEPS = 4, 4, 3
 # the (pod, data) path: the pool spans the pods, GPU links sit inside one
 HIER_TOPOLOGY = "pod:cxl,data:ici"
-# the kernels every rank must launch every step of a (pod, data) run
+# the kernels every rank must launch every step of a (pod, data) or a
+# (data, model) run
 HIER_KERNELS = ("chunked_reduce", "rms_norm", "rms_norm_vjp",
                 "flash_attention")
+# the tensor-parallel path: (data, model) = (2, 2), both levels on the
+# pool (the reference's default puts model on ici, which on one host is
+# gloo's stand-in)
+TP_MESH, TP_TOPOLOGY = "2x2", "data:cxl,model:cxl"
+TP_DP = TP_TP = 2
+TP_TOKENS = TRAIN_BATCH // TP_DP * PROMPT      # one rank's tokens, T
+# all_gather_matmul on the (data, model) path (--fuse-kernels): x (T,
+# n*Ks) @ (n, Ks, N), n = 2 data shards of Ks = 1024 rows, N this model
+# rank's columns of wq, wk/wv and wg/wu
+AGM_TP_SHAPES = ((TP_TOKENS, 2, 1024, 1024), (TP_TOKENS, 2, 1024, 256),
+                 (TP_TOKENS, 2, 1024, 4096))
+# flash_attention there: 2 sequences of one rank, its 16 of the 32 heads
+FA_TP_SHAPE = (TRAIN_BATCH // TP_DP, PROMPT, 32 // TP_TP, 64)
 TUNE_SIZES_MIB = ("1", "4", "16", "64", "256")
 # reduce_scatter_rmsnorm (n_src, T, D): the JAX test shapes, one rank's
 # 1024 tokens at d_model 2048, a ragged T
@@ -199,6 +232,15 @@ def hier_reduce_shapes(rs_len: int) -> tuple:
     reduce-scatters a row's grads over 2 (2 rs_len a rank), the data
     level the pod's half over 2 (rs_len)."""
     return ((2, 2 * rs_len), (2, rs_len))
+
+
+def tp_reduce_shapes(rs_len: int) -> tuple:
+    """chunked_reduce on the (data, model) = (2, 2) path: a model-level
+    activation AllReduce of (T, 2048) f32 (two-phase: each rank reduces
+    2 sources of half of it), and the data level's reduce-scatter of a
+    row's grads (this model rank's half of the row over 2 data ranks:
+    rs_len a rank, as at DP 4)."""
+    return ((2, TP_TOKENS * 2048 // 2), (2, rs_len))
 SSM_ARCH = "falcon-mamba-7b"
 # (B, L, D, N, from a random state): the JAX test shapes, Falcon's prefill
 # (1 x 1024) and decode (4 slots) shapes, a ragged L from a random state;
@@ -389,24 +431,25 @@ def grad_parity(randn, rn, fa, fc) -> list:
     return out
 
 
-def _train_args(extra: list) -> list:
+def _train_args(extra: list, mesh: str = f"{DP}x1") -> list:
     """The drive command's flags.  The full-width runs take --lr 3e-5:
     3 steps give the launcher's schedule no warm-up, and AdamW's first
     steps move every weight by about lr; on these random weights the
     loss along that path bottoms out before 1e-4 of travel, so at lr
     3e-4 and 1e-4 the second update overshoots (losses 12.12, 11.40,
     14.21 and 12.12, 10.57, 13.14 under all three backends alike)."""
-    return ["--arch", "llama3.2-1b", "--mesh", f"{DP}x1", "--steps",
+    return ["--arch", "llama3.2-1b", "--mesh", mesh, "--steps",
             str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
             str(PROMPT)] + extra
 
 
 def _summarise_profile(per_rank: list) -> dict:
-    """Device time by kernel summed over the ranks.  The ranks' contexts
-    time-slice the card, so a kernel's recorded span can include time
-    the card spent on another rank: these sums say where each rank's
-    device time goes, not how busy the card was (``SmiSampler`` says
-    that)."""
+    """Device time by kernel summed over the ranks, with the copies
+    split host-to-device and device-to-host and the cuBLAS GEMMs (by
+    name) apart.  The ranks' contexts time-slice the card, so a kernel's
+    recorded span can include time the card spent on another rank:
+    these sums say where each rank's device time goes, not how busy the
+    card was (``SmiSampler`` says that)."""
     top: dict = {}
     for p in per_rank:
         for k in p["top"]:
@@ -416,9 +459,23 @@ def _summarise_profile(per_rank: list) -> dict:
     named = {name: sum(us for p in per_rank
                        for k, us in p["by_kernel"].items() if fn in k)
              for name, fn in {**TC_KERNELS, **RMS_KERNELS}.items()}
+    def by_name(pick) -> float:
+        return sum(us for p in per_rank for k, us in p["by_kernel"].items()
+                   if pick(k))
+
+    gemms: dict = {}
+    for p in per_rank:
+        for k, us in p["by_kernel"].items():
+            if "gemm" in k.lower():
+                gemms[k[:80]] = gemms.get(k[:80], 0.0) + us
     return {"wall_us": max(p["wall_us"] for p in per_rank),
             "kernel_us_sum": sum(p["kernel_us"] for p in per_rank),
             "copy_us_sum": sum(p["copy_us"] for p in per_rank),
+            "htod_us_sum": by_name(lambda k: "HtoD" in k),
+            "dtoh_us_sum": by_name(lambda k: "DtoH" in k),
+            "gemm_us_sum": sum(gemms.values()),
+            "top_gemms": [{"kernel": k, "us": v} for k, v in sorted(
+                gemms.items(), key=lambda kv: -kv[1])[:4]],
             "named_kernels_us_sum": named,
             "top": [{"kernel": k, "us": v} for k, v in
                     sorted(top.items(), key=lambda kv: -kv[1])[:12]]}
@@ -926,14 +983,15 @@ def check_auto_choices(run: dict, plan, topology=None) -> dict:
     return by_prim
 
 
-def full_width_run(label: str, extra: list, profile: bool = False) -> dict:
+def full_width_run(label: str, extra: list, profile: bool = False,
+                   mesh: str = f"{DP}x1") -> dict:
     """Llama-3.2-1B at full width and depth through the launcher's
     flags, with ``nvidia-smi`` sampled over it."""
     import dataclasses
 
     from repro_torch.launch import train
     spec = train.spec_from_args(train.build_parser().parse_args(
-        _train_args(extra + ["--lr", "3e-5"])))
+        _train_args(extra + ["--lr", "3e-5"], mesh)))
     spec = dataclasses.replace(spec, profile=profile)
     t0 = time.perf_counter()
     with SmiSampler() as smi:
@@ -977,27 +1035,26 @@ def check_losses(runs: dict, first: float) -> None:
             fail(f"{label}: the loss did not fall: {ls}")
 
 
-def train_phase() -> dict:
-    """Phase 7: FSDP training on DP ranks sharing the card."""
+def smoke_card_vs_cpu(mesh: str, tp: int = 1, extra: tuple = ()) -> dict:
+    """The smoke model's training path on the card against the same run
+    on the CPU (cxl with fused kernels, the same numpy params at ``tp``):
+    the losses of 3 steps within rtol 2e-4."""
     import dataclasses
     import os
     import tempfile
 
     from repro_torch.configs import get_config
-    from repro_torch.core.topology import parse_topology
     from repro_torch.launch import train
     from repro_torch.models import model
 
-    out: dict = {}
-    # the smoke model: the card's training path against the CPU's
     scfg = get_config("llama3.2-1b", smoke=True)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         path = os.path.join(tmp, "params.npz")
         train.save_params_npz(model.init_params(
-            scfg, torch.Generator().manual_seed(0), "cpu"), path)
+            scfg, torch.Generator().manual_seed(0), "cpu", tp=tp), path)
         spec = train.spec_from_args(train.build_parser().parse_args(
-            _train_args(["--smoke", "--backend", "cxl",
-                         "--fuse-kernels"])))
+            _train_args(["--smoke", "--backend", "cxl", "--fuse-kernels",
+                         *extra], mesh)))
         losses = {}
         for device in ("cuda", "cpu"):
             run = train.run_ranks(dataclasses.replace(
@@ -1005,11 +1062,47 @@ def train_phase() -> dict:
             losses[device] = [s["loss"] for s in run["steps"]]
     err = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"]))
                        / np.abs(losses["cpu"])))
-    out["smoke_card_vs_cpu"] = {"losses": losses, "max_rel_err": err}
-    log(f"[train] smoke model, 3 steps, card vs CPU losses {losses} "
-        f"(max rel err {err:.2e}, rtol 2e-4)")
+    log(f"[train] smoke model on {mesh}, 3 steps, card vs CPU losses "
+        f"{losses} (max rel err {err:.2e}, rtol 2e-4)")
     if not err <= 2e-4:
-        fail(f"smoke training on the card differs from the CPU: {losses}")
+        fail(f"smoke training on {mesh} on the card differs from the CPU: "
+             f"{losses}")
+    return {"losses": losses, "max_rel_err": err}
+
+
+def check_path_runs(runs: dict, need_levels: set, label_auto: str,
+                    auto_skip: str = None) -> None:
+    """Every step of every run: the kernels of ``HIER_KERNELS`` (and
+    all_gather_matmul under --fuse-kernels) on every rank, and pool bytes
+    retrieved at each level of ``need_levels`` (under auto: none at
+    ``auto_skip``, a level without a pool)."""
+    for label, run in runs.items():
+        fused = run["fuse_kernels"]
+        need = HIER_KERNELS + (("all_gather_matmul",) if fused else ())
+        for i, s in enumerate(run["steps"]):
+            moved = {a for a, c in s["pool_by_level"].items()
+                     if c["retrieved"] > 0}
+            if label == label_auto:
+                bad = auto_skip is not None and auto_skip in moved
+            else:
+                bad = moved != need_levels
+            if bad:
+                fail(f"{label} step {i}: pool bytes by level "
+                     f"{s['pool_by_level']}")
+            idle = [k for k in need if s["launches_min_rank"][k] <= 0]
+            if idle:
+                fail(f"{label} step {i}: a rank launched no {idle}: "
+                     f"{s['launches_min_rank']}")
+
+
+def train_phase() -> dict:
+    """Phase 7: FSDP training on DP ranks sharing the card; 7b over
+    (pod, data), 7c over (data, model)."""
+    from repro_torch.core.topology import parse_topology
+
+    out: dict = {}
+    # the smoke model: the card's training path against the CPU's
+    out["smoke_card_vs_cpu"] = smoke_card_vs_cpu(f"{DP}x1")
 
     # the plans the auto runs resolve against: the flat one for its 4
     # ranks, the hierarchical one per level of its topology (2 ranks each)
@@ -1050,23 +1143,11 @@ def train_phase() -> dict:
                          ("hier_cxl", ["--backend", "cxl"]),
                          ("hier_auto", ["--backend", "auto", "--plan",
                                         hier_plan_path])):
-        hier[label] = run = full_width_run(
+        hier[label] = full_width_run(
             label, hier_flags + extra, profile=label == "hier_cxl_fused")
-        need = HIER_KERNELS + (("all_gather_matmul",)
-                               if "--fuse-kernels" in extra else ())
-        for i, s in enumerate(run["steps"]):
-            # cxl moves bytes through both levels' pools; auto never
-            # through the ici level's
-            moved = {a for a, c in s["pool_by_level"].items()
-                     if c["retrieved"] > 0}
-            if "data" in moved if "auto" in label else \
-                    moved != {"pod", "data"}:
-                fail(f"{label} step {i}: pool bytes by level "
-                     f"{s['pool_by_level']}")
-            idle = [k for k in need if s["launches_min_rank"][k] <= 0]
-            if idle:
-                fail(f"{label} step {i}: a rank launched no {idle}: "
-                     f"{s['launches_min_rank']}")
+    # cxl moves bytes through both levels' pools; auto never through the
+    # ici level's
+    check_path_runs(hier, {"pod", "data"}, "hier_auto", auto_skip="data")
     out["hier"] = hier
     out["hier_auto_choices"] = check_auto_choices(
         hier["hier_auto"], hier_plan, parse_topology(HIER_TOPOLOGY))
@@ -1075,9 +1156,34 @@ def train_phase() -> dict:
     if data_backends != {"ring"}:
         fail(f"hier_auto: the data (ici) level resolved {data_backends}")
     check_losses(hier, first)
+
+    # 7c. tensor parallelism: (data, model) = (2, 2), both levels on the
+    # pool; the smoke model card vs CPU, then full width and depth
+    out["tp_smoke_card_vs_cpu"] = smoke_card_vs_cpu(
+        TP_MESH, TP_TP, ("--topology", TP_TOPOLOGY))
+    tp_plan_path = str(OUT_DIR / "plan_auto_tp.json")
+    tune.main(["--topology", TP_TOPOLOGY, "--nranks", str(TP_TP),
+               "--sizes-mib", *TUNE_SIZES_MIB, "--quiet", "--out",
+               tp_plan_path])
+    tp_plan = tuner.load_plan(tp_plan_path)
+    tp_flags = ["--topology", TP_TOPOLOGY]
+    tp = {}
+    for label, extra in (("tp_cxl_fused", ["--backend", "cxl",
+                                           "--fuse-kernels"]),
+                         ("tp_cxl", ["--backend", "cxl"]),
+                         ("tp_auto", ["--backend", "auto", "--plan",
+                                      tp_plan_path])):
+        tp[label] = full_width_run(label, tp_flags + extra,
+                                   profile=label == "tp_cxl_fused",
+                                   mesh=TP_MESH)
+    check_path_runs(tp, {"data", "model"}, "tp_auto")
+    out["tp"] = tp
+    out["tp_auto_choices"] = check_auto_choices(
+        tp["tp_auto"], tp_plan, parse_topology(TP_TOPOLOGY))
+    check_losses(tp, first)
     log("[train] step times (s): " + json.dumps(
         {k: [round(s["step_s"], 3) for s in r["steps"]]
-         for k, r in {**runs, **hier}.items()}))
+         for k, r in {**runs, **hier, **tp}.items()}))
     return out
 
 
@@ -1128,19 +1234,20 @@ def main() -> int:
             parity.append({"kernel": "rms_norm", "shape": [t, d],
                            "dtype": str(dtype), "max_abs_err": err,
                            "ok": ok})
-        for lq, lk, window, q_off in ((1024, 1024, None, 0),
-                                      (1000, 1000, None, 0),
-                                      (1024, 1024, 256, 0),
-                                      (512, 1024, None, 512)):
-            q = randn(1, lq, 32, 64, dtype=dtype)
-            k, v = (randn(1, lk, 32, 64, dtype=dtype) for _ in range(2))
+        for b, lq, lk, h, window, q_off in (
+                (1, 1024, 1024, 32, None, 0), (1, 1000, 1000, 32, None, 0),
+                (1, 1024, 1024, 32, 256, 0), (1, 512, 1024, 32, None, 512),
+                (FA_TP_SHAPE[0], PROMPT, PROMPT, FA_TP_SHAPE[2], None,
+                 0)):
+            q = randn(b, lq, h, 64, dtype=dtype)
+            k, v = (randn(b, lk, h, 64, dtype=dtype) for _ in range(2))
             err, ok = close(fa.flash_attention(q, k, v, True, window,
                                                q_off),
                             fa.flash_attention_plain(q, k, v, True, window,
                                                      q_off),
                             *TOL["flash_attention"][dtype])
             parity.append({"kernel": "flash_attention",
-                           "shape": [1, lq, lk, 32, 64], "window": window,
+                           "shape": [b, lq, lk, h, 64], "window": window,
                            "q_offset": q_off, "dtype": str(dtype),
                            "max_abs_err": err, "ok": ok})
     # the training slice: one rank's segment of a row's FSDP grad bucket
@@ -1150,7 +1257,8 @@ def main() -> int:
         if x[0].numel() >= sharding.FSDP_MIN_SIZE) // DP
     for dtype in (torch.float32, torch.bfloat16):
         shapes = [(n, ln) for n in (2, 4, 16) for ln in (rs_len, RAGGED)]
-        shapes += [s for s in hier_reduce_shapes(rs_len) if s not in shapes]
+        shapes += [s for s in hier_reduce_shapes(rs_len) + tp_reduce_shapes(
+            rs_len) if s not in shapes]
         for n_src, length in shapes:
             x = randn(n_src, length, dtype=dtype)
             err, ok = close(cr.chunked_reduce(x),
@@ -1161,7 +1269,7 @@ def main() -> int:
                            "dtype": str(dtype), "max_abs_err": err,
                            "tolerance": TOL["chunked_reduce"][dtype],
                            "ok": ok})
-    for t, n, ks, nout in AGM_SHAPES:
+    for t, n, ks, nout in AGM_SHAPES + AGM_TP_SHAPES:
         x, w = randn(t, n * ks), randn(n, ks, nout)
         err, ok = close(fc.all_gather_matmul(x, w),
                         fc.all_gather_matmul_plain(x, w), *gemm_tol(n * ks))
@@ -1211,8 +1319,30 @@ def main() -> int:
                                                     length)
                    for n, length in hier_reduce_shapes(rs_len)}
     timing["chunked_reduce"]["hier"] = reduce_hier
+    # the (data, model) path's: the model level's activation AllReduce
+    reduce_tp = {f"{n}x{length}": reduce_timing(timer, randn, cr, n, length)
+                 for n, length in tp_reduce_shapes(rs_len)
+                 if f"{n}x{length}" not in reduce_hier}
+    timing["chunked_reduce"]["tp"] = reduce_tp
+    # flash_attention at the (data, model) path's shape: a rank's 2
+    # sequences, 16 heads
+    b, lq, h, hd = FA_TP_SHAPE
+    qt, kt, vt = (randn(b, lq, h, hd) for _ in range(3))
+    qth, kth, vth = (t.transpose(1, 2).contiguous() for t in (qt, kt, vt))
+    tp_pairs = int(fa.attention_mask(lq, lq, True, None, 0, lq).sum()) \
+        * b * h
+    timing["flash_attention"]["tp"] = {
+        "ms": timer(lambda: fa.flash_attention(qt, kt, vt, True)),
+        "plain_ms": timer(lambda: fa.flash_attention_plain(qt, kt, vt,
+                                                           True)),
+        "library_ms": timer(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qth, kth, vth, is_causal=True)),
+        "bytes": 4 * qt.numel() * 4, "flops": 4 * hd * tp_pairs,
+        "shape": list(FA_TP_SHAPE)}
+    del qt, kt, vt, qth, kth, vth
     agm = {}
-    for t, n, ks, nout in AGM_SHAPES:
+    for t, n, ks, nout in AGM_SHAPES + AGM_TP_SHAPES:
         xa, wa = randn(t, n * ks), randn(n, ks, nout)
         agm[f"{t}x{n * ks}@{n}x{ks}x{nout}"] = {
             "ms": timer(lambda: fc.all_gather_matmul(xa, wa)),
@@ -1244,14 +1374,16 @@ def main() -> int:
     for rec in list(agm.values()) + list(timing.values()) + [
             scan["decode"], timing["reduce_scatter_adamw"]["bf16_param"],
             *rms["forward"].values(), rms["backward"],
-            *reduce_hier.values()]:
+            *reduce_hier.values(), *reduce_tp.values(),
+            timing["flash_attention"]["tp"]]:
         byte_ms = rec["bytes"] / HBM_BW * 1e3
         op_ms = max(rec["flops"] / PEAK[torch.float32],
                     rec.get("exps", 0) / EXP_RATE) * 1e3
         rec["bound_ms"] = max(byte_ms, op_ms)
         rec["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
     for rec in list(agm.values()) + [timing["all_gather_matmul"],
-                                     timing["flash_attention"]]:
+                                     timing["flash_attention"],
+                                     timing["flash_attention"]["tp"]]:
         rec["bound_tc_ms"] = max(rec["bytes"] / HBM_BW,
                                  3 * rec["flops"] / TF32_PEAK) * 1e3
     record["all_gather_matmul_shapes"] = agm
@@ -1320,13 +1452,14 @@ def main() -> int:
 
     # 7. training ---------------------------------------------------------
     record["train"] = train_phase()
-    train_launches, hier_launches = (
+    train_launches, hier_launches, tp_launches = (
         {n: sum(s["launches"][n] for run in record["train"][key].values()
                 for s in run["steps"])
          for n in train.KERNEL_COUNTERS}
-        for key in ("full_width", "hier"))
+        for key in ("full_width", "hier", "tp"))
     record["train"]["launches"] = train_launches
     record["train"]["hier_launches"] = hier_launches
+    record["train"]["tp_launches"] = tp_launches
 
     # 8. launch check ----------------------------------------------------
     serve_launches = {path: {n: sum(run[n] for run in launches[path]
@@ -1342,6 +1475,10 @@ def main() -> int:
     for name, n in hier_launches.items():
         if n <= 0:
             fail(f"the (pod, data) training path never launched the "
+                 f"{name} kernel")
+    for name, n in tp_launches.items():
+        if n <= 0:
+            fail(f"the (data, model) training path never launched the "
                  f"{name} kernel")
     api_launches = record["kernel_api"]["launches"]
     for name in API_KERNELS:
@@ -1360,9 +1497,11 @@ def main() -> int:
         if name in train_launches:
             by_path["train"] = train_launches[name]
             by_path["train_hier"] = hier_launches[name]
+            by_path["train_tp"] = tp_launches[name]
         extra = {"backward_launches_by_path": {
             "train": train_launches["rms_norm_vjp"],
-            "train_hier": hier_launches["rms_norm_vjp"]}} \
+            "train_hier": hier_launches["rms_norm_vjp"],
+            "train_tp": tp_launches["rms_norm_vjp"]}} \
             if name == "rms_norm" else {}
         if name in api_launches:
             by_path["kernel_api"] = api_launches[name]

@@ -3,8 +3,9 @@
 Each ``src/repro_torch/configs/<id>.py`` module exports ``CONFIG`` (the
 exact published dimensions, cited) and ``SMOKE`` (a reduced same-family
 variant for the CPU tests).  Ported: the dense decoder (Llama) and the
-Mamba-1 SSM (Falcon-Mamba); the rest of the zoo is ROADMAP queue 1,
-item 8.
+Mamba-1 SSM (Falcon-Mamba), with the reference's dense configs (Yi-6B,
+Phi-3-medium-14B, DeepSeek-Coder-33B and the paper's Sec. 5.5 model,
+Llama-3-8B); the rest of the zoo is ROADMAP queue 1, item 8.
 """
 from __future__ import annotations
 
@@ -15,6 +16,11 @@ from repro_torch.models.config import ModelConfig
 _MODULES = {
     "llama3.2-1b": "llama3p2_1b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "yi-6b": "yi_6b",
+    "phi3-medium-14b": "phi3_medium_14b",
+    # paper Sec. 5.5 case-study model
+    "llama3-8b": "llama3_8b",
 }
 
 ARCH_IDS = list(_MODULES)

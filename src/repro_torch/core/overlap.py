@@ -130,13 +130,14 @@ def _axis_dim(spec: tuple, axis) -> Optional[int]:
 def bucketed_sync_grads(grads: Any, specs: Any, pc, dp_axis,
                         bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> Any:
     """Fused ``models.sharding.sync_grads``: grads of leaves replicated
-    over the dp levels, coalesced by (missing levels, dtype) into
-    size-capped flat buffers, one AllReduce (sum) each over the tuple of
-    missing levels - the per-leaf path's collective."""
+    over dp levels or the model axis, coalesced by (missing axes, dtype)
+    into size-capped flat buffers, one AllReduce (sum) each over the
+    tuple of missing axes (``("data", "model")`` for a norm at tp > 1) -
+    the per-leaf path's collective."""
     items = tree.leaves_with_paths(grads)
     entries = []
     for i, (path, g) in enumerate(items):
-        missing = missing_axes(tree.get(specs, path), dp_axis)
+        missing = missing_axes(tree.get(specs, path), dp_axis, pc.tp_axis)
         if missing:
             entries.append((i, g.shape, g.dtype, missing))
     out = [g for _, g in items]
@@ -163,7 +164,10 @@ def make_gather_fn(all_row_specs: dict, pc, dp_axis,
     through their own bucket, gathered inside ``ledger.fused()`` and
     returned as :class:`StackedShards`.  Over a tuple axis the gather is
     rank-major over all its levels, so the stack holds the product of
-    their sizes in shards."""
+    their sizes in shards.  The gather runs over the dp axis only: a
+    leaf's model-axis shard stays local (at tp > 1, ``wq``/``wk``/
+    ``wv``/``wg``/``wu`` stack their dp shards of this rank's columns;
+    ``wo``/``wd``, dp-sharded on dim 1, gather concatenated)."""
     def gather(group_key: str, row_params):
         specs = all_row_specs[group_key]
         items = tree.leaves_with_paths(row_params)

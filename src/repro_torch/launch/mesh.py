@@ -16,8 +16,14 @@ of ranks (:func:`level_groups`) with a process group and a pool of its
 own (``launch.ranks.spawn(groups=...)``); an axis that spans every rank
 uses the default group and the pool of all the ranks.
 
-Tensor parallelism (TP > 1) and placements are not ported yet (ROADMAP
-queue 1, items 3 and 6).
+``--mesh DPxTP`` with TP > 1 is ``(("data", DP), ("model", TP))``:
+rank r sits at data ``r // TP`` and model ``r % TP``, so the ranks of
+one data index (one model group) are adjacent and take the same batch
+rows.  With ``--multi-pod`` and TP > 1 the data levels also form one
+joint group per model index (``(("pod", "data"))`` in the mesh), the
+process group of the fused ring AllReduce over the tuple.
+
+Placements are not ported yet (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from repro_torch.core.mesh_collectives import AxisGroup
 
 
 def parse_mesh(spec: str) -> tuple:
-    """``"DPxTP"`` -> (dp, tp); TP > 1 raises."""
+    """``"DPxTP"`` -> (dp, tp)."""
     try:
         dp, tp = (int(v) for v in spec.lower().split("x"))
     except ValueError:
@@ -35,10 +41,6 @@ def parse_mesh(spec: str) -> tuple:
                          ) from None
     if dp < 1 or tp < 1:
         raise ValueError(f"mesh sizes must be >= 1, got {spec!r}")
-    if tp > 1:
-        raise NotImplementedError(
-            f"--mesh {spec}: tensor parallelism (TP > 1) is not ported "
-            f"yet (ROADMAP queue 1, item 3)")
     return dp, tp
 
 
@@ -79,10 +81,30 @@ def _nranks(shape: Sequence[tuple]) -> int:
     return n
 
 
+def _dp_joint(shape: Sequence[tuple]) -> tuple:
+    """The data levels (every axis but ``model``) that need a joint
+    group: two or more of them with more than one rank, on a mesh whose
+    model axis splits the ranks, else ()."""
+    dp = tuple(i for i, (name, size) in enumerate(shape)
+               if name != "model" and size > 1)
+    model = dict(shape).get("model", 1)
+    return dp if len(dp) > 1 and model > 1 else ()
+
+
+def _joint_members(shape: Sequence[tuple], rank: int) -> tuple:
+    """The ranks with ``rank``'s model coordinate, in rank order."""
+    names = [name for name, _ in shape]
+    m = names.index("model")
+    c = _coords(shape, rank)[m]
+    return tuple(r for r in range(_nranks(shape))
+                 if _coords(shape, r)[m] == c)
+
+
 def level_groups(shape: Sequence[tuple]) -> list:
     """Every level group of the mesh: for each axis with more than one
     rank but fewer than all, the ranks of each of its groups (what
-    ``ranks.spawn(groups=...)`` creates), in a fixed order."""
+    ``ranks.spawn(groups=...)`` creates), in a fixed order; then the
+    joint data groups (:func:`joint_groups`)."""
     n = _nranks(shape)
     out: list = []
     for i, (_, size) in enumerate(shape):
@@ -92,13 +114,31 @@ def level_groups(shape: Sequence[tuple]) -> list:
             g = _members(shape, r, i)
             if g not in out:
                 out.append(g)
+    return out + [g for g in joint_groups(shape) if g not in out]
+
+
+def joint_groups(shape: Sequence[tuple]) -> list:
+    """The joint data groups of a multi-level data axis beside a model
+    axis of TP > 1: one per model index, holding every rank of it.  They
+    carry the ring AllReduce over the data tuple; no pool is needed
+    (the cxl schedules decompose per level)."""
+    if not _dp_joint(shape):
+        return []
+    out: list = []
+    for r in range(_nranks(shape)):
+        g = _joint_members(shape, r)
+        if g not in out:
+            out.append(g)
     return out
 
 
 def make_host_mesh(shape: Sequence[tuple], ctx, pools: bool = True) -> dict:
     """This rank's mesh: axis name -> ``AxisGroup`` for ``ctx`` (a
-    ``ranks.RankContext``, spawned with ``groups=level_groups(shape)``).
-    ``pools=False`` leaves every level without a pool (ring only)."""
+    ``ranks.RankContext``, spawned with ``groups=level_groups(shape)``),
+    and the tuple of data-level names -> the joint group where
+    :func:`joint_groups` makes one (``Communicator._joint`` looks it
+    up).  ``pools=False`` leaves every level without a pool (ring
+    only)."""
     n = _nranks(shape)
     if n != ctx.nranks:
         raise ValueError(f"mesh {shape} has {n} ranks, the host "
@@ -115,6 +155,13 @@ def make_host_mesh(shape: Sequence[tuple], ctx, pools: bool = True) -> dict:
             pg, pool = ctx.groups[_members(shape, ctx.rank, i)]
             mesh[name] = AxisGroup(name, coords[i], size, pg,
                                    pool if pools else None)
+    joint = _dp_joint(shape)
+    if joint:
+        names = tuple(shape[i][0] for i in joint)
+        members = _joint_members(shape, ctx.rank)
+        pg, _ = ctx.groups[members]
+        mesh[names] = AxisGroup("+".join(names), members.index(ctx.rank),
+                                len(members), pg, None)
     return mesh
 
 

@@ -93,13 +93,14 @@ def _rank_main(rank: int, nranks: int, fn: Callable, args: tuple,
 def spawn(fn: Callable, nranks: int, args: tuple = (), *,
           device: str = "cpu", partition_bytes: int = 0,
           groups: Sequence[tuple] = (), world_pool: bool = True,
-          timeout_s: float = 600.0,
+          poolless: Sequence[tuple] = (), timeout_s: float = 600.0,
           wait_s: Optional[float] = None) -> list:
     """``fn(ctx, *args)`` on ``nranks`` ranks; returns the results in
     rank order.  ``partition_bytes > 0`` maps a shared pool with that
     partition per rank (``ctx.pool``; not with ``world_pool=False``)
     and one per level group of ``groups`` (tuples of ranks; see
-    :class:`RankContext`).  ``fn`` and ``args`` must pickle (``fn`` a
+    :class:`RankContext`) but those in ``poolless``, which get a
+    process group only.  ``fn`` and ``args`` must pickle (``fn`` a
     module-level function).  ``timeout_s`` bounds every wait of a rank
     (process group, pool); ``wait_s`` (default ``timeout_s``) is how
     long this process waits for the next rank to finish."""
@@ -124,7 +125,9 @@ def spawn(fn: Callable, nranks: int, args: tuple = (), *,
     with tempfile.TemporaryDirectory(prefix="repro-ranks-") as tmp:
         try:
             pool_path = backing(nranks) if world_pool else None
-            group_paths = tuple(backing(len(g)) for g in groups)
+            bare = {tuple(int(r) for r in g) for g in poolless}
+            group_paths = tuple(None if g in bare else backing(len(g))
+                                for g in groups)
             procs = [ctx.Process(
                 target=_rank_main,
                 args=(r, nranks, fn, args, device,

@@ -1,6 +1,8 @@
-"""Training launcher: FSDP training of a dense decoder on one host.
+"""Training launcher: FSDP (+ tensor-parallel) training of a dense
+decoder on one host.
 
-Port of ``repro.launch.train`` for the flags of the FSDP path:
+Port of ``repro.launch.train`` for the flags of the FSDP and
+tensor-parallel paths:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --mesh 4x1 --backend cxl --steps 3 --batch 4 --seq 1024 \\
@@ -15,6 +17,9 @@ Port of ``repro.launch.train`` for the flags of the FSDP path:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --mesh 4x1 --multi-pod --topology pod:cxl,data:ici --backend cxl \\
       --steps 3 --batch 4 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --mesh 2x2 --backend cxl --steps 3 --batch 4 --seq 1024 \\
+      [--fuse-kernels]
 
 The launcher spawns one process per rank (``spawn`` start method); rank
 r runs on ``cuda:(r % device_count)``, so the ranks of a one-card host
@@ -42,10 +47,16 @@ collective over the tuple decomposes against the topology.
 about mesh axes it does not cover.  Each step's record holds the pool
 bytes of each level and the ledger's wire bytes by level.
 
+``--mesh DPxTP`` with TP > 1 adds the model axis (``launch.mesh``: rank
+r at data r // TP, model r % TP): the weights are Megatron-sharded over
+it and FSDP-sharded over the data axis, the ranks of one data index take
+the same batch rows, and every tensor-parallel AllReduce of the
+activations goes through the ``Communicator`` on the model groups' own
+process groups and pools.
+
 Not ported yet: placements and online re-tuning (ROADMAP queue 1,
 items 6 and 10), pipeline stages (item 9), checkpoints,
-metrics/trace export, faults and resilience (item 10), tensor
-parallelism (item 3).
+metrics/trace export, faults and resilience (item 10).
 """
 from __future__ import annotations
 
@@ -72,8 +83,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_collectives import all_gather_matmul
 from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_vjp
 from repro_torch.launch import ranks
-from repro_torch.launch.mesh import (dp_axes, level_groups, make_host_mesh,
-                                     mesh_shape, parse_mesh)
+from repro_torch.launch.mesh import (dp_axes, joint_groups, level_groups,
+                                     make_host_mesh, mesh_shape, parse_mesh)
 from repro_torch.models import model, sharding
 from repro_torch.optim import adamw_init
 from repro_torch.training.train_loop import (TrainConfig, leaf_params,
@@ -145,20 +156,24 @@ class RunSpec:
     seq: int
     dp: int
     device: str                       # "cuda" or "cpu"
+    tp: int = 1                       # model axis (tensor parallel)
     multi_pod: bool = False           # data axis (pod, data) = (2, dp/2)
     topology: Optional[Topology] = None   # activated in every rank
-    params_path: Optional[str] = None  # .npz of full params; else seed 0
+    params_path: Optional[str] = None  # .npz of GLOBAL params at tp
     capture_grads: bool = False       # return step 0's synced grads
+    capture_params: bool = False      # return the params after the run
     profile: bool = False             # one extra step under the profiler
     timeout_s: float = 600.0
 
 
-def load_params_npz(path: str, device) -> dict:
-    """Full params from the .npz ``save_params_npz`` writes (the
-    reference's params as numpy) -> this package's params on ``device``."""
+def load_params_npz(path: str, device, cfg=None, tp: int = 1) -> dict:
+    """GLOBAL params from the .npz ``save_params_npz`` writes (the
+    reference's params as numpy, made at ``tp``) -> this package's
+    params on ``device``; with ``cfg`` their shapes are checked against
+    the model's at ``tp`` (``model.params_from_numpy``)."""
     with np.load(path) as f:
         return model.params_from_numpy(tree.from_paths([
-            (tuple(k.split("/")), f[k]) for k in f.files]), device)
+            (tuple(k.split("/")), f[k]) for k in f.files]), device, cfg, tp)
 
 
 def save_params_npz(params, path: str) -> None:
@@ -232,32 +247,35 @@ def _rank_run(ctx: ranks.RankContext, spec: RunSpec) -> list:
 
 def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig):
     """One training run on this rank: the params (seed 0 or the .npz)
-    sharded for FSDP, AdamW from zero, ``spec.steps`` steps on this
-    rank's slice of the synthetic batches."""
-    rank, dev = ctx.rank, ctx.device
+    sharded over the model axis and for FSDP, AdamW from zero,
+    ``spec.steps`` steps on this rank's data index's slice of the
+    synthetic batches."""
+    dev = ctx.device
     cfg = get_config(spec.arch, smoke=spec.smoke)
-    mesh = make_host_mesh(mesh_shape(spec.dp, 1, spec.multi_pod), ctx,
+    mesh = make_host_mesh(mesh_shape(spec.dp, spec.tp, spec.multi_pod), ctx,
                           pools=tcfg.backend != "ring")
     step, pspecs, pc = make_sharded_train_step(cfg, tcfg, mesh,
                                                dp_axis=dp_axes(mesh))
     if spec.params_path is not None:
-        full = load_params_npz(spec.params_path, dev)
+        full = load_params_npz(spec.params_path, dev, cfg, spec.tp)
     else:
         full = model.init_params(
-            cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            cfg, torch.Generator(device=dev).manual_seed(0), dev,
+            tp=spec.tp)
+    dp_index = pc.comm.axis_index(pc.dp_axis)
     params = leaf_params(sharding.shard_params(
-        full, pspecs, pc.dp_axis, pc.comm.axis_index(pc.dp_axis),
-        pc.comm.axis_size(pc.dp_axis)))
+        full, pspecs, pc.dp_axis, dp_index, pc.comm.axis_size(pc.dp_axis),
+        tp_axis="model", tp_rank=pc.tp_index(), tp=spec.tp))
     del full
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     opt = adamw_init(params)
     data = iter(SyntheticTokens(cfg, batch=spec.batch, seq=spec.seq))
-    out = {"steps": [], "grads": None, "profile": None}
+    out = {"steps": [], "grads": None, "params": None, "profile": None}
 
     def to_dev(b):
-        lb = local_batch(b, rank, spec.dp)
+        lb = local_batch(b, dp_index, spec.dp)
         return {k: torch.as_tensor(v, dtype=torch.long, device=dev)
                 for k, v in lb.items()}
 
@@ -288,6 +306,9 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig):
         if spec.capture_grads and i == 0:
             out["grads"] = {"/".join(p): x.grad.detach().cpu().numpy()
                             for p, x in tree.leaves_with_paths(params)}
+    if spec.capture_params:
+        out["params"] = {"/".join(p): x.detach().cpu().numpy()
+                         for p, x in tree.leaves_with_paths(params)}
     if spec.profile and dev.type == "cuda":
         batch = to_dev(next(data))
         out["profile"] = _profile_step(
@@ -312,23 +333,25 @@ def pool_window(cfg) -> int:
 
 
 def run_ranks(spec: RunSpec) -> list:
-    """Spawn ``spec.dp`` ranks, run every variant, and merge the ranks'
-    records: one dict per variant with the per-step loss (rank 0's; the
-    loss is the dp mean, the same on every rank), the slowest rank's
-    step time, the pool bytes and kernel launches summed over ranks
-    (and the fewest launches of any rank), and (``capture_grads``)
-    every rank's step-0 synced grad shards."""
+    """Spawn ``spec.dp * spec.tp`` ranks, run every variant, and merge
+    the ranks' records: one dict per variant with the per-step loss (rank
+    0's; the loss is the dp mean, the same on every rank), the slowest
+    rank's step time, the pool bytes and kernel launches summed over
+    ranks (and the fewest launches of any rank), and (``capture_grads``,
+    ``capture_params``) every rank's step-0 synced grad shards and its
+    final param shards."""
     if spec.device == "cuda":
         resolve_device("cuda")        # raises without a card
         build.build_all()             # once, before the ranks start
     cfg = get_config(spec.arch, smoke=spec.smoke)
     need_pool = any(t.backend != "ring" for t in spec.variants)
-    shape = mesh_shape(spec.dp, 1, spec.multi_pod)
+    shape = mesh_shape(spec.dp, spec.tp, spec.multi_pod)
+    nranks = spec.dp * spec.tp
     per_rank = ranks.spawn(
-        _rank_run, spec.dp, (spec,), device=spec.device,
+        _rank_run, nranks, (spec,), device=spec.device,
         partition_bytes=pool_window(cfg) if need_pool else 0,
-        groups=level_groups(shape),
-        world_pool=any(n == spec.dp for _, n in shape),
+        groups=level_groups(shape), poolless=joint_groups(shape),
+        world_pool=any(n == nranks for _, n in shape),
         timeout_s=spec.timeout_s,
         wait_s=spec.timeout_s * (1 + len(spec.variants) * (spec.steps + 1)))
     return [_merge([r[v] for r in per_rank], tcfg)
@@ -360,8 +383,9 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
     out = {"backend": tcfg.backend, "fuse_kernels": tcfg.fuse_kernels,
            "microbatches": tcfg.microbatches, "prefetch": tcfg.prefetch,
            "steps": steps}
-    if per_rank[0]["grads"] is not None:
-        out["grads"] = [r["grads"] for r in per_rank]
+    for key in ("grads", "params"):
+        if per_rank[0][key] is not None:
+            out[key] = [r[key] for r in per_rank]
     if per_rank[0].get("peak_memory_gib") is not None:
         out["peak_memory_gib"] = [r["peak_memory_gib"] for r in per_rank]
     if per_rank[0]["profile"] is not None:
@@ -371,14 +395,14 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
 
 def spec_from_args(args) -> RunSpec:
     """The run the launcher's flags describe (one variant)."""
-    dp, _tp = parse_mesh(args.mesh)
+    dp, tp = parse_mesh(args.mesh)
     if args.batch % (dp * args.microbatches):
         raise SystemExit(f"--batch {args.batch} must split over {dp} "
                          f"data ranks x {args.microbatches} microbatches")
-    mesh_shape(dp, 1, args.multi_pod)          # odd DP with --multi-pod
+    mesh_shape(dp, tp, args.multi_pod)         # odd DP with --multi-pod
     return RunSpec(arch=args.arch, smoke=args.smoke,
                    variants=(tcfg_from_args(args),), steps=args.steps,
-                   batch=args.batch, seq=args.seq, dp=dp,
+                   batch=args.batch, seq=args.seq, dp=dp, tp=tp,
                    device=resolve_device(args.device).type,
                    multi_pod=args.multi_pod,
                    topology=parse_topology(args.topology)
@@ -388,9 +412,9 @@ def spec_from_args(args) -> RunSpec:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_parser().parse_args(argv)
     spec = spec_from_args(args)
-    dp, device = spec.dp, spec.device
+    device = spec.device
     cfg = get_config(args.arch, smoke=args.smoke)
-    shape = mesh_shape(dp, 1, spec.multi_pod)
+    shape = mesh_shape(spec.dp, spec.tp, spec.multi_pod)
     if spec.topology is not None:
         warn_uncovered(spec.topology, dict(shape))
     print(f"training {cfg.name} on mesh "

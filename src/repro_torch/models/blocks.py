@@ -5,7 +5,10 @@ attention + pre-norm SwiGLU FFN) and ``1`` (pre-norm Mamba-1 block).
 Consecutive rows of one kind form a group whose params are stacked
 along a leading layer axis (the reference's ``g<i>`` layout); the model
 loops over a group's layers in Python where the reference runs
-``lax.scan``.  The other kinds (MoE, Mamba-2, shared attention,
+``lax.scan``.  Attention rows train at any tp; prefill, decode and the
+decode cache at tp > 1 (the reference's sequence-sharded cache) are not
+ported yet (ROADMAP queue 1, item 11) and raise, as Mamba-1 rows at
+tp > 1 do (item 8).  The other kinds (MoE, Mamba-2, shared attention,
 cross-attention) come with the rest of the zoo.
 """
 from __future__ import annotations
@@ -42,12 +45,16 @@ def scan_groups(cfg: ModelConfig) -> list[Group]:
     return groups
 
 
-def _ported(kind: str, cfg: ModelConfig) -> None:
+def _ported(kind: str, cfg: ModelConfig, pc=None) -> None:
     if kind not in ("a", "1") or cfg.shared_attention \
             or cfg.encoder is not None:
         raise NotImplementedError(
             f"{cfg.name}: row kind {kind!r} (or shared/cross attention) "
             f"is not ported yet (ROADMAP queue 1, item 8)")
+    if kind == "1" and pc is not None and pc.tp_active:
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba-1 rows at tp > 1 are not ported yet "
+            f"(ROADMAP queue 1, item 8)")
 
 
 # ----------------------------------------------------------------------- #
@@ -56,7 +63,9 @@ def _ported(kind: str, cfg: ModelConfig) -> None:
 
 def init_row(gen: torch.Generator, kind: str, cfg: ModelConfig, tp: int,
              dtype, device, layers_: int = 1) -> Params:
-    """Params of ``layers_`` stacked rows (leading layer axis)."""
+    """GLOBAL params of ``layers_`` stacked rows (leading layer axis),
+    q heads and the FFN laid out for ``tp`` (``sharding.shard_params``
+    slices them per rank)."""
     _ported(kind, cfg)
     ones = torch.ones((layers_, cfg.d_model), dtype=torch.float32,
                       device=device)
@@ -77,7 +86,7 @@ def row_forward(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
                 causal: bool = True, window: Optional[int] = None):
     """Full-sequence forward for one row (training).  Returns
     (h, aux_loss); dense rows have no auxiliary loss."""
-    _ported(kind, cfg)
+    _ported(kind, cfg, pc)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind == "1":
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
@@ -98,7 +107,8 @@ def row_prefill(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
     ``cache`` (attention {'k','v'}: (B, max_seq, n_kv, hd); Mamba-1
     {'conv','ssm'}), written in place where the reference returns a new
     one.  Returns h."""
-    _ported(kind, cfg)
+    _ported(kind, cfg, pc)
+    layers.require_unsharded_decode(pc)
     if kind == "1":
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
         out, (conv, st) = ssm.mamba1_forward(p["mamba"], m_in, cfg, pc,
@@ -136,7 +146,8 @@ def row_decode(p: Params, h: torch.Tensor, kind: str, cache: dict,
     ``{'conv','ssm'}``.  With ``active`` ((B,) bool) only those slots'
     state is written; an inactive slot's stays bitwise as it was.
     Returns (h, cache)."""
-    _ported(kind, cfg)
+    _ported(kind, cfg, pc)
+    layers.require_unsharded_decode(pc)
     if kind == "1":
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
         out, (conv, st) = ssm.mamba1_decode(
@@ -166,7 +177,8 @@ def row_cache_init(kind: str, cfg: ModelConfig, pc: ParallelContext,
     {'k','v'}: (layers_, batch, max_seq, n_kv, hd); Mamba-1 {'conv':
     (layers_, batch, d_conv - 1, d_inner) in ``dtype``, 'ssm': (layers_,
     batch, d_inner, d_state) f32} (no token axis)."""
-    _ported(kind, cfg)
+    _ported(kind, cfg, pc)
+    layers.require_unsharded_decode(pc)
     if kind == "1":
         conv_s, ssm_s = ssm.mamba_state_shapes(cfg, pc.tp, batch, 1)
         return {"conv": torch.zeros((layers_,) + conv_s, dtype=dtype,

@@ -1,8 +1,16 @@
 """Core layers: RMSNorm, RoPE, GQA attention (train/prefill/decode),
-SwiGLU FFN, embeddings, cross-entropy.
+SwiGLU FFN, embeddings, sharded-vocab cross-entropy.
 
-Port of ``repro/models/layers.py`` at tp = 1: the tensor-parallel
-collectives of the reference are the identity here (``pcontext``).
+Port of ``repro/models/layers.py``.  Tensor parallelism follows the
+reference (Megatron-style, each rank holding its shards): column-parallel
+weights hold their local out-features slice and need no collective;
+row-parallel weights hold their local in-features slice and the partial
+product is summed with ``pc.tp_all_reduce``; q heads are padded to a
+multiple of tp (zero weights, inert); kv heads are sharded when tp
+divides them, else replicated; the vocabulary is sharded over tp for the
+embedding and the head.  The sequence-sharded decode path (tp > 1)
+is not ported yet (ROADMAP queue 1, item 11) and raises.
+
 Names, layouts and the float32 math follow the reference; ``rms_norm``,
 the long-sequence branch of ``attention_scores`` and ``dense`` on a
 gathered FSDP shard stack go through the hand-written CUDA kernels, all
@@ -213,6 +221,15 @@ def attention_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
 # -- decode path --------------------------------------------------------- #
 
+def require_unsharded_decode(pc: ParallelContext) -> None:
+    """The reference's tp > 1 decode shards the KV cache over the
+    sequence (flash-decoding); that path is not ported yet."""
+    if pc.tp_active:
+        raise NotImplementedError(
+            "decode and its cache at tp > 1 (the sequence-sharded KV "
+            "cache) are not ported yet (ROADMAP queue 1, item 11)")
+
+
 def decode_attention(params: Params, x: torch.Tensor, cache_k, cache_v,
                      pos: torch.Tensor, cfg: ModelConfig,
                      pc: ParallelContext,
@@ -234,6 +251,7 @@ def decode_attention(params: Params, x: torch.Tensor, cache_k, cache_v,
 
     Returns (attn_out (B,1,d_model), cache_k, cache_v).
     """
+    require_unsharded_decode(pc)
     d = attn_dims(cfg, pc.tp)
     b = x.shape[0]
     s_len = cache_k.shape[1]
@@ -329,13 +347,24 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype,
 
 def embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                  pc: ParallelContext) -> torch.Tensor:
-    return params["tok"][tokens]
+    """Vocab-sharded lookup: each rank contributes the rows of its
+    vocabulary slice (zeros elsewhere), summed over tp (one
+    AllReduce)."""
+    if not pc.tp_active:
+        return params["tok"][tokens]
+    v_local = params["tok"].shape[0]
+    local_ids = tokens.long() - pc.tp_index() * v_local
+    in_range = (local_ids >= 0) & (local_ids < v_local)
+    emb = params["tok"][local_ids.clamp(0, v_local - 1)]
+    emb = torch.where(in_range[..., None], emb, 0.0)
+    return pc.tp_all_reduce(emb)
 
 
 def lm_logits(params: Params, h: torch.Tensor, cfg: ModelConfig,
               pc: ParallelContext) -> torch.Tensor:
-    """(B, L, V) logits.  A tied head multiplies by a transposed *view*
-    of the embedding table: the (V, d_model) table is never copied."""
+    """*Local* vocab-slice logits (B, L, V / tp).  A tied head
+    multiplies by a transposed *view* of the embedding table: the
+    (V, d_model) table is never copied."""
     w = params.get("head")
     if w is None:
         w = params["tok"].t()
@@ -345,20 +374,25 @@ def lm_logits(params: Params, h: torch.Tensor, cfg: ModelConfig,
 def sharded_xent(logits_local: torch.Tensor, labels: torch.Tensor,
                  pc: ParallelContext, mask: Optional[torch.Tensor] = None,
                  vocab_size: Optional[int] = None) -> torch.Tensor:
-    """Cross-entropy of the reference's ``sharded_xent`` at tp = 1 (the
-    vocab is whole on every rank; the tp collectives are the identity).
-    logits_local: (B, L, V); labels: (B, L) ids.  ``vocab_size``
+    """Cross-entropy over vocab-sharded logits, as the reference's.
+
+    logits_local: (B, L, V_local); labels: (B, L) global ids.  Three tp
+    collectives: the max (``tp_max``, an all-gather), the sum of
+    exponentials and the label's logit (AllReduces).  ``vocab_size``
     excludes padded vocabulary ids from the softmax; the max is a
     constant offset of the log-sum-exp, so it is detached."""
     v_local = logits_local.shape[-1]
     logits = logits_local.float()
-    if vocab_size is not None and vocab_size < v_local:
-        gid = pc.tp_index() * v_local + torch.arange(v_local,
-                                                     device=logits.device)
+    start = pc.tp_index() * v_local
+    if vocab_size is not None and vocab_size < start + v_local:
+        gid = start + torch.arange(v_local, device=logits.device)
         logits = logits.masked_fill(gid >= vocab_size, float("-inf"))
-    m = pc.tp_psum_max(logits.amax(dim=-1)).detach()
+    m = pc.tp_max(logits.amax(dim=-1)).detach()
     z = pc.tp_all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1))
-    lab = logits.gather(-1, labels.long()[..., None])[..., 0]
+    local_ids = labels.long() - start
+    in_range = (local_ids >= 0) & (local_ids < v_local)
+    lab = logits.gather(-1, local_ids.clamp(0, v_local - 1)[..., None])
+    lab = torch.where(in_range, lab[..., 0], 0.0)
     nll = torch.log(z) + m - pc.tp_all_reduce(lab)
     if mask is not None:
         nll = nll * mask

@@ -18,7 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import ledger
-
+from repro_torch.core import tree as tree_mod
 from repro_torch.core.device import resolve_device
 from repro_torch.models import blocks, layers
 from repro_torch.models.config import ModelConfig
@@ -32,11 +32,12 @@ Params = dict
 # ----------------------------------------------------------------------- #
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None, dtype=torch.float32) -> Params:
-    """Random unsharded (tp = 1) params from ``generator``, which must
-    live on ``device`` (``None``: the CUDA card; raises when there is
-    none)."""
-    tp = 1
+                device=None, dtype=torch.float32, tp: int = 1) -> Params:
+    """Random params from ``generator``, which must live on ``device``
+    (``None``: the CUDA card; raises when there is none), in the GLOBAL
+    shapes of a ``tp``-way model axis, as the reference's: q heads and
+    the vocabulary padded to a multiple of ``tp`` (padded q heads
+    zeroed)."""
     device = resolve_device(device)
     if cfg.frontend != "text" or cfg.encoder is not None:
         raise NotImplementedError(f"{cfg.name}: non-text frontends are "
@@ -54,20 +55,36 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def abstract_params(cfg: ModelConfig, tp: int = 1,
                     dtype=torch.float32) -> Params:
-    """The params' tree of shapes and dtypes as meta tensors (nothing is
-    allocated): what spec construction walks."""
-    if tp != 1:
-        raise NotImplementedError("tp > 1 is not ported yet (ROADMAP "
-                                  "queue 1, item 3)")
-    return init_params(cfg, torch.Generator(), "meta", dtype)
+    """The params' tree of GLOBAL shapes and dtypes at ``tp`` as meta
+    tensors (nothing is allocated): what spec construction walks."""
+    return init_params(cfg, torch.Generator(), "meta", dtype, tp=tp)
 
 
-def params_from_numpy(tree, device) -> Params:
+def params_from_numpy(tree, device, cfg: Optional[ModelConfig] = None,
+                      tp: int = 1) -> Params:
     """The reference's params as numpy (``jax.tree.map(np.asarray,
-    params)``) -> this package's params on ``device``."""
+    params)``, made with ``init_params(key, cfg, tp)``) -> this
+    package's params on ``device``.  With ``cfg`` every leaf's shape is
+    checked against ``abstract_params(cfg, tp)``: params padded for
+    another tp (heads, vocabulary) raise instead of loading."""
+    out = _from_numpy(tree, resolve_device(device))
+    if cfg is not None:
+        want = {p: tuple(x.shape) for p, x in
+                tree_mod.leaves_with_paths(abstract_params(cfg, tp))}
+        got = {p: tuple(x.shape) for p, x in
+               tree_mod.leaves_with_paths(out)}
+        if got != want:
+            bad = sorted("/".join(p) for p in set(got) | set(want)
+                         if got.get(p) != want.get(p))
+            raise ValueError(f"params do not have {cfg.name}'s shapes at "
+                             f"tp = {tp}: {bad[:4]}")
+    return out
+
+
+def _from_numpy(tree, device) -> Params:
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(resolve_device(device))
+        return {k: _from_numpy(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(device)
 
 
 def params_to_numpy(params: Params) -> dict:

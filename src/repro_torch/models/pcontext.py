@@ -2,10 +2,13 @@
 
 All model code takes a ``ParallelContext``.  Every collective goes
 through its ``Communicator`` (``core.api``), so ``ring`` vs ``cxl`` is a
-launch flag, never a model change.  The data-parallel (FSDP) operations
-are ported; a context with ``tp > 1`` raises until tensor parallelism is
-ported (ROADMAP queue 1, item 3), so the tensor-parallel collectives
-below are the identity.
+launch flag, never a model change.  With ``tp_axis=None`` or ``tp = 1``
+the tensor-parallel collectives are the identity; otherwise they run
+over ``tp_axis`` (Megatron-style: column-parallel weights need no
+collective, row-parallel partial products are summed with
+``tp_all_reduce``).  Their autograd backward is the transposed
+collective (``core.api``), as under the reference's
+``shard_map(check_vma=False)``.
 """
 from __future__ import annotations
 
@@ -25,20 +28,45 @@ class ParallelContext:
     tp: int = 1                                   # static tp size
     comm: Communicator = dataclasses.field(default_factory=Communicator)
 
-    def __post_init__(self):
-        if self.tp != 1 or self.tp_axis is not None:
-            raise NotImplementedError(
-                "tensor parallelism (tp > 1) is not ported yet (ROADMAP "
-                "queue 1, item 3)")
+    @property
+    def tp_active(self) -> bool:
+        return self.tp_axis is not None and self.tp > 1
 
     def tp_all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        if not self.tp_active:
+            return x
+        return self.comm.all_reduce(x, self.tp_axis)
+
+    def tp_all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.tp_active:
+            return x
+        return self.comm.all_gather(x, self.tp_axis)
+
+    def tp_all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.tp_active:
+            return x
+        return self.comm.all_to_all(x, self.tp_axis)
 
     def tp_psum_max(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        """The reference's ``pmax`` over tp, used only by decode."""
+        if not self.tp_active:
+            return x
+        raise NotImplementedError(
+            "tp_psum_max at tp > 1 serves the sequence-sharded decode "
+            "path, which is not ported yet (ROADMAP queue 1, item 11)")
+
+    def tp_max(self, x: torch.Tensor) -> torch.Tensor:
+        """Cross-shard max that stays differentiable, as the reference's:
+        an all-gather of ``x`` stacked on a new leading dim, then a local
+        max.  Payloads are tiny (per-token scalars)."""
+        if not self.tp_active:
+            return x
+        return self.comm.all_gather(x[None], self.tp_axis).amax(dim=0)
 
     def tp_index(self) -> int:
-        return 0
+        if not self.tp_active:
+            return 0
+        return self.comm.axis_index(self.tp_axis)
 
     def dp_all_reduce_mean(self, x: torch.Tensor) -> torch.Tensor:
         if self.dp_axis is None:

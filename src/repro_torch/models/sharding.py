@@ -7,13 +7,15 @@ entry per dim: an axis name, a tuple of names (a hierarchical dp axis,
 outer level first) or None.  ``param_specs`` assigns:
 
 * the tensor-parallel dim (over ``model``): Megatron column/row rules
-  per leaf name, as the reference writes them (with tp = 1 the axis has
-  size 1, so it shards nothing);
+  per leaf name, as the reference writes them; ``wk``/``wv`` stay
+  replicated over ``model`` when tp does not divide the kv heads (with
+  tp = 1 the axis has size 1, so it shards nothing);
 * the FSDP dim (over the dp axis): the first remaining dim (after a
   stacked group's layer dim) that divides dp (a tuple axis: the product
   of its levels' sizes), for leaves of at least
   ``FSDP_MIN_SIZE`` elements.  Smaller leaves (norms) stay replicated
-  and get their grads summed by ``sync_grads``.
+  and get their grads summed by ``sync_grads``, over every dp level and
+  the model axis that does not shard them.
 
 The placement alias registry is not ported yet (ROADMAP queue 1, item
 6).
@@ -126,42 +128,58 @@ def _dim_of(spec: tuple, axis) -> Optional[int]:
     return None
 
 
-def shard_params(full: Any, specs: Any, dp_axis, rank: int,
-                 n: int) -> Any:
-    """This rank's FSDP shards of the full params: the ``rank``-th of
-    ``n`` equal slices of each leaf along its dp dim (contiguous copies);
+def shard_params(full: Any, specs: Any, dp_axis, rank: int, n: int,
+                 tp_axis: Optional[str] = None, tp_rank: int = 0,
+                 tp: int = 1) -> Any:
+    """This rank's shards of the GLOBAL params: each leaf's ``tp_rank``-th
+    of ``tp`` equal slices along its ``tp_axis`` dim, then the
+    ``rank``-th of ``n`` along its dp dim (contiguous copies);
     replicated leaves are copied whole.  For a tuple ``dp_axis``,
     ``rank`` is the rank-major index over its levels and ``n`` their
     product."""
     def shard(path, x):
-        dim = _dim_of(tree.get(specs, path), dp_axis)
-        if dim is None:
-            return x.clone()
-        return x.chunk(n, dim=dim)[rank].contiguous()
+        spec = tree.get(specs, path)
+        tdim = _dim_of(spec, tp_axis) if tp > 1 else None
+        if tdim is not None:
+            x = x.chunk(tp, dim=tdim)[tp_rank]
+        dim = _dim_of(spec, dp_axis)
+        if dim is not None:
+            x = x.chunk(n, dim=dim)[rank]
+        return x.contiguous() if dim is not None or tdim is not None \
+            else x.clone()
     return tree.map_with_path(shard, full)
 
 
-def missing_axes(spec: tuple, dp_axis) -> tuple:
-    """The levels a leaf's grad must still be summed over: all the dp
-    levels, outer first, when the spec shards the leaf over none of
-    them, else none (tp = 1: no model level)."""
+def missing_axes(spec: tuple, dp_axis, tp_axis: Optional[str] = None
+                 ) -> tuple:
+    """The axes a leaf's grad must still be summed over, outer first:
+    every dp level when the spec shards the leaf over none of them, then
+    ``tp_axis`` (innermost) when it does not shard the leaf, as the
+    reference's ``sync_grads`` orders them (``tp_axis`` None at tp =
+    1)."""
     dp = _axes_of(dp_axis)
     have = set()
     for s in spec:
         have.update(_axes_of(s))
-    return dp if dp and not any(a in have for a in dp) else ()
+    out = dp if dp and not any(a in have for a in dp) else ()
+    if tp_axis is not None and tp_axis not in have:
+        out = out + (tp_axis,)
+    return out
 
 
 def sync_grads(grads: Any, specs: Any, pc: ParallelContext,
                dp_axis) -> Any:
-    """Sum the grads of replicated params over the dp levels (FSDP
-    leaves already got their sum through the gather's transpose), as
-    one AllReduce over the tuple of missing levels, so the Communicator
-    can decompose it against the topology.  Per-leaf reference path;
+    """Sum the grads of replicated params over the axes that do not
+    shard them (FSDP leaves already got their dp sum through the
+    gather's transpose; tp-sharded leaves are complete locally), as one
+    AllReduce over the tuple of missing axes, dp levels first and the
+    model axis innermost, so the Communicator can decompose it against
+    the topology.  Per-leaf reference path;
     the trainer uses ``core.overlap.bucketed_sync_grads`` (same result,
     fused size-capped buffers)."""
     def fix(path, g):
-        missing = missing_axes(tree.get(specs, path), dp_axis)
+        missing = missing_axes(tree.get(specs, path), dp_axis,
+                               pc.tp_axis)
         if missing:
             g = pc.comm.all_reduce(
                 g, missing[0] if len(missing) == 1 else missing)

@@ -1,11 +1,12 @@
-"""Training step: the FSDP train step of one rank.
+"""Training step: the FSDP (+ tensor-parallel) train step of one rank.
 
 Port of ``repro.training.train_loop``.  The reference's sharded step is
 one ``shard_map`` over the mesh; here each rank is a process that holds
 its FSDP shards and its slice of the batch and runs the same step body.
 Every collective - the FSDP param AllGather, the grad ReduceScatter (its
-autograd transpose), the replicated-grad AllReduce and the loss mean -
-goes through the ``Communicator``, so ``ring`` vs ``cxl`` swaps the whole
+autograd transpose), the tensor-parallel AllReduces of the activations,
+the replicated-grad AllReduce and the loss mean - goes through the
+``Communicator``, so ``ring`` vs ``cxl`` swaps the whole
 communication layer, and ``auto`` picks per call from a tuned plan
 (``TrainConfig.plan_path``, loaded by every rank that builds the step).
 
@@ -137,14 +138,15 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     name -> ``AxisGroup``).  ``dp_axis`` is a name or a tuple of names,
     outer level first (``launch.mesh.dp_axes``: ``("pod", "data")`` on
     a multi-pod mesh); levels of one rank drop out, as in the
-    reference.  Returns (step_fn, param_specs, pc); ``step_fn`` takes
-    this rank's shards (``sharding.shard_params`` per ``param_specs``,
-    at ``pc.comm.axis_index(pc.dp_axis)``), their AdamW state and this
-    rank's batch slice."""
+    reference.  With ``mesh[tp_axis]`` of size tp > 1 the step is
+    tensor-parallel over it (the reference's Megatron sharding; the
+    params' GLOBAL shapes are those of ``model.abstract_params(cfg,
+    tp)``).  Returns (step_fn, param_specs, pc); ``step_fn`` takes this
+    rank's shards (``sharding.shard_params`` per ``param_specs``, at
+    ``pc.comm.axis_index(pc.dp_axis)`` and, over the model axis, at
+    ``pc.tp_index()``), their AdamW state and this rank's batch slice
+    (the ranks of one dp index take the same rows)."""
     tp = mesh[tp_axis].size if tp_axis in mesh else 1
-    if tp != 1:
-        raise NotImplementedError("tensor parallelism (tp > 1) is not "
-                                  "ported yet (ROADMAP queue 1, item 3)")
     dp = (dp_axis,) if isinstance(dp_axis, str) else tuple(dp_axis)
     dp = tuple(a for a in dp if mesh[a].size > 1) or (dp[0],)
     dp_spec = dp if len(dp) > 1 else dp[0]
@@ -156,9 +158,10 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                         slicing_factor=tcfg.slicing_factor,
                         allreduce_mode=tcfg.allreduce_mode, axes=mesh,
                         plan=plan)
-    pc = ParallelContext(dp_axis=dp_spec, comm=comm)
+    pc = ParallelContext(tp_axis=tp_axis if tp > 1 else None,
+                         dp_axis=dp_spec, tp=tp, comm=comm)
     sharding.set_mesh_sizes({a: g.size for a, g in mesh.items()})
-    pspecs = sharding.param_specs(model.abstract_params(cfg), cfg,
+    pspecs = sharding.param_specs(model.abstract_params(cfg, tp=tp), cfg,
                                   model_axis=tp_axis, dp_axis=dp_spec,
                                   fsdp=True)
     rspecs = sharding.row_specs(pspecs)

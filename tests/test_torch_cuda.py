@@ -665,3 +665,47 @@ def test_auto_collectives_on_card_match_the_oracle(cuda, tmp_path):
     for r in res:
         assert r.pop("retrieved") > 0     # some cells chose the pool
         assert all(r.values()), r
+
+
+# ---------------------------------------------------------------------- #
+# the tensor-parallel slice: the kernels at the (data, model) = (2, 2)
+# path's shapes (Llama-3.2-1B, 2 sequences of 1024 tokens a rank)
+# ---------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("nout,tile", [(256, 1), (1024, 0), (4096, 0)])
+def test_all_gather_matmul_kernel_at_the_tp_shapes(cuda, nout, tile):
+    """x (2048, 2 x 1024) @ the (2, 1024, N) stack of this model rank's
+    columns of wk/wv (N = 256), wq (1024) and wg/wu (4096), at the tile
+    ``agm_geometry`` chooses, against the plain version at the
+    tolerance of ``test_all_gather_matmul_kernel_vs_plain``, and
+    bitwise on repeat."""
+    from repro_torch.kernels import fused_collectives as fc
+    t, n, ks = 2048, 2, 1024
+    assert fc.agm_geometry(t, n, ks, nout)["tile"] == tile
+    x = _randn((t, n * ks), torch.float32, cuda)
+    w = _randn((n, ks, nout), torch.float32, cuda)
+    before = fc.all_gather_matmul.launches
+    got = fc.all_gather_matmul(x, w)
+    torch.cuda.synchronize()
+    assert fc.all_gather_matmul.launches == before + 1
+    torch.testing.assert_close(got, fc.all_gather_matmul_plain(x, w),
+                               rtol=1e-4, atol=8 * n * ks * 2.0 ** -24)
+    assert torch.equal(got, fc.all_gather_matmul(x, w))
+
+
+def test_flash_kernel_at_the_tp_shape(cuda):
+    """(2, 1024, 16, 64) causal, f32: a rank's 2 sequences and its 16
+    of the 32 heads, forward and the recompute VJP against the plain
+    version's autograd."""
+    q, k, v = (_randn((2, 1024, 16, 64), torch.float32, cuda)
+               .requires_grad_(True) for _ in range(3))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention_train(q, k, v, True)
+    assert fa.flash_attention.launches > before
+    want = fa.flash_attention_plain(q, k, v, True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-5)
+    dy = _randn((2, 1024, 16, 64), torch.float32, cuda)
+    g_got = torch.autograd.grad(got, (q, k, v), dy)
+    g_want = torch.autograd.grad(want, (q, k, v), dy)
+    for a, b in zip(g_got, g_want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

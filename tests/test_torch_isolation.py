@@ -140,10 +140,16 @@ def test_train_launcher_rejects_unported_flags_and_tp():
     args = ap.parse_args(["--arch", "llama3.2-1b", "--backend", "auto",
                           "--plan", "plan.json"])
     assert train.tcfg_from_args(args).plan_path == "plan.json"
-    args = ap.parse_args(["--arch", "llama3.2-1b", "--mesh", "2x2",
-                          "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.spec_from_args(args)
+    # TP > 1 reaches the spec (``--mesh DPxTP``); the batch splits over
+    # the data ranks only, so 2 rows fit DP 2 whatever TP
+    spec = train.spec_from_args(ap.parse_args(
+        ["--arch", "llama3.2-1b", "--mesh", "2x2", "--batch", "2",
+         "--device", "cpu"]))
+    assert (spec.dp, spec.tp) == (2, 2)
+    with pytest.raises(SystemExit):
+        train.spec_from_args(ap.parse_args(
+            ["--arch", "llama3.2-1b", "--mesh", "4x2", "--batch", "2",
+             "--device", "cpu"]))
 
 
 def test_train_launcher_topology_and_multi_pod_reach_the_spec():
