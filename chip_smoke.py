@@ -19,8 +19,9 @@ Phases (each fails the run if its check fails):
                  autograd, for rms_norm its backward kernel, against
                  autograd through the plain version);
                  chunked_reduce (f32, bf16; n_src 2, 4, 16; the training
-                 path's segment length and a ragged one, the (pod, data)
-                 and (data, model) paths' shapes); all_gather_matmul at
+                 path's segment length and a ragged one, the (pod, data),
+                 (data, model) and grouped paths' shapes);
+                 all_gather_matmul at
                  the training paths' shapes (f32; at (data, model) x
                  (2048, 2 x 1024) @ N = 256, 1024, 4096); ssm_scan (y and
                  the
@@ -51,7 +52,8 @@ Phases (each fails the run if its check fails):
                  same bytes under the same timer (the backward's: read
                  x and dy, write dx), the backward's library call the
                  autograd backward of ``F.rms_norm``; chunked_reduce and
-                 ``torch.sum`` in turns, five times each;
+                 ``torch.sum`` in turns, five times each, each beside
+                 ``copy_ms``, a copy of the same bytes;
 3b. kernel API - ``repro_torch.kernels.ops.reduce_scatter_rmsnorm`` and
                  ``reduce_scatter_adamw`` at the training path's shapes
                  (the path that carries them in the JAX package too);
@@ -70,9 +72,10 @@ Phases (each fails the run if its check fails):
                  state), and a Poisson trace of 8 requests (prefix sharing
                  turns itself off: the state has no token axis);
 6. collectives - every flat collective on 4 ranks sharing the card, ring
-                 (gloo) and cxl (the pinned shared host pool), at 1, 16 and
-                 256 MB per rank: each rank's result against a numpy oracle
-                 (bitwise), and the median time; then every primitive that
+                 (gloo; to 16 MB) and cxl (the pinned shared host pool),
+                 at 1, 16 and 256 MB per rank: each rank's result against
+                 a numpy oracle (bitwise), and the median time; then
+                 every primitive that
                  takes a tuple axis over ("pod", "data") = (2, 2) with the
                  topology ``pod:cxl,data:ici`` (every level group with its
                  own gloo group and pool), beside the same primitive over
@@ -88,8 +91,10 @@ Phases (each fails the run if its check fails):
                  ``--backend auto --plan`` on a plan that
                  ``repro_torch.launch.tune --nranks 4 --sizes-mib 1 4 16 64
                  256`` writes into ``OUT_DIR`` (``--mesh 4x1
-                 --batch 4 --seq 1024``, 3 steps each, the same seeded
-                 params and batches): the four step-0 losses agree, every
+                 --batch 4 --seq 1024``, 3 steps each, ring 2, the same
+                 seeded params and batches; the runs of one path are the
+                 variants of one spawn of the ranks, in turn): the four
+                 step-0 losses agree, every
                  run's loss falls, every collective call of the auto run
                  took its plan cell, every rank launched the rms_norm
                  backward kernel in every step, and one extra step of the
@@ -97,8 +102,9 @@ Phases (each fails the run if its check fails):
                  rms_norm's device time by kernel name); then the same
                  model with ``--multi-pod --topology pod:cxl,data:ici``
                  (the data axis ("pod", "data") = (2, 2)) under cxl
-                 +fused, cxl and auto on a plan that ``launch.tune
-                 --topology pod:cxl,data:ici --nranks 2`` writes: step-0
+                 +fused, cxl and auto (2 steps) on a plan that
+                 ``launch.tune --topology pod:cxl,data:ici --nranks 2``
+                 writes: step-0
                  losses within 1e-4 of the flat cxl+fused run's, every
                  loss falls, every rank launches chunked_reduce, rms_norm,
                  its backward and flash_attention (and all_gather_matmul
@@ -115,20 +121,38 @@ Phases (each fails the run if its check fails):
                  writes: step-0 losses within 1e-4 of the flat cxl+fused
                  run's, every loss falls, cxl moves pool bytes at both
                  levels, every rank launches the kernels of 7b every
-                 step, and every auto call took its level's plan cell.
+                 step, and every auto call took its level's plan cell;
+7d. train grouped - a grouped (ragged) data axis, ``--topology
+                 pod:cxl,data:cxl:3+1`` (the 4 ranks as a node of three
+                 beside a lone node on one flat data axis): the smoke
+                 model on the card against the CPU (rtol 2e-4), then
+                 Llama-3.2-1B at full width and depth under cxl+fused
+                 (profiled), cxl and auto on a plan that ``launch.tune
+                 --topology pod:cxl,data:cxl:3+1 --nranks 4`` writes, and
+                 ``--topology pod:cxl,node:cxl:3+1 --placement auto`` under
+                 cxl: step-0 losses within 1e-4 of the flat cxl+fused
+                 run's, every loss falls, pool bytes move in the groups'
+                 pools (``data``) and the sub-roots' (``pod``), no
+                 flat-on-ragged fallback event, every rank launches the
+                 kernels of 7b every step and under cxl chunked_reduce at
+                 N = its group's size (3) and, on a sub-root, at N = the
+                 group count (2), every auto call took its level's cell,
+                 and the placement run moves the plain run's bytes.
 
 The kernels' launch counters are zeroed before each serving run and
 before each training step (in the rank processes), and read after it
 (the kernels line's ``launches_by_path`` counts the flat training runs
-as ``train``, 7b's as ``train_hier`` and 7c's as ``train_tp``):
+as ``train``, 7b's as ``train_hier``, 7c's as ``train_tp`` and 7d's as
+``train_ragged``):
 the training path's four kernels and rms_norm's backward kernel must
 have run on it, rms_norm and
 flash_attention on the serving path too, rms_norm and ssm_scan on the
 SSM serving path, and the two reduce_scatter kernels on the kernel API
 path (their counters are zeroed before it and read after).  The last three lines of
 standard output are the kernels' JSON line, the card's name and power
-limit, and the result line.  The full record goes to
-``chip_smoke.json`` in ``OUT_DIR``.
+limit, and the result line.  The full record, with the wall seconds
+of every phase (``phase_walls_s``), goes to ``chip_smoke.json`` in
+``OUT_DIR``.
 """
 from __future__ import annotations
 
@@ -206,6 +230,16 @@ AGM_TP_SHAPES = ((TP_TOKENS, 2, 1024, 1024), (TP_TOKENS, 2, 1024, 256),
                  (TP_TOKENS, 2, 1024, 4096))
 # flash_attention there: 2 sequences of one rank, its 16 of the 32 heads
 FA_TP_SHAPE = (TRAIN_BATCH // TP_DP, PROMPT, 32 // TP_TP, 64)
+# the grouped (ragged) path: the 4 data ranks as a node of three beside a
+# lone node, one flat data axis; and the physical topology whose
+# placement (--placement auto) gives it
+RAGGED_TOPOLOGY = "pod:cxl,data:cxl:3+1"
+RAGGED_PLACEMENT_TOPOLOGY = "pod:cxl,node:cxl:3+1"
+RAGGED_GROUPS = (3, 1)
+# the gloo-bound runs take 2 steps (step 0 and one to show the loss fall)
+SHORT_STEPS = 2
+# the flat collectives table runs ring (gloo) up to this size a rank
+RING_MAX_MB = 16
 TUNE_SIZES_MIB = ("1", "4", "16", "64", "256")
 # reduce_scatter_rmsnorm (n_src, T, D): the JAX test shapes, one rank's
 # 1024 tokens at d_model 2048, a ragged T
@@ -232,6 +266,15 @@ def hier_reduce_shapes(rs_len: int) -> tuple:
     reduce-scatters a row's grads over 2 (2 rs_len a rank), the data
     level the pod's half over 2 (rs_len)."""
     return ((2, 2 * rs_len), (2, rs_len))
+
+
+def ragged_reduce_shapes(rs_len: int) -> tuple:
+    """chunked_reduce on the grouped (3, 1) path: a row's grad bucket
+    (DP rs_len, the whole row a rank) summed within the group of three
+    and then across the two group sub-roots; a gathered row sums across
+    the sub-roots at the same length."""
+    return ((RAGGED_GROUPS[0], DP * rs_len), (len(RAGGED_GROUPS),
+                                              DP * rs_len))
 
 
 def tp_reduce_shapes(rs_len: int) -> tuple:
@@ -431,7 +474,8 @@ def grad_parity(randn, rn, fa, fc) -> list:
     return out
 
 
-def _train_args(extra: list, mesh: str = f"{DP}x1") -> list:
+def _train_args(extra: list, mesh: str = f"{DP}x1",
+                steps: int = TRAIN_STEPS) -> list:
     """The drive command's flags.  The full-width runs take --lr 3e-5:
     3 steps give the launcher's schedule no warm-up, and AdamW's first
     steps move every weight by about lr; on these random weights the
@@ -439,7 +483,7 @@ def _train_args(extra: list, mesh: str = f"{DP}x1") -> list:
     3e-4 and 1e-4 the second update overshoots (losses 12.12, 11.40,
     14.21 and 12.12, 10.57, 13.14 under all three backends alike)."""
     return ["--arch", "llama3.2-1b", "--mesh", mesh, "--steps",
-            str(TRAIN_STEPS), "--batch", str(TRAIN_BATCH), "--seq",
+            str(steps), "--batch", str(TRAIN_BATCH), "--seq",
             str(PROMPT)] + extra
 
 
@@ -727,8 +771,13 @@ def reduce_timing(timer, randn, cr, n_src: int, length: int) -> dict:
     (pod, data) path (``hier_reduce_shapes``) - and ``torch.sum(x, 0)``
     on the same input, timed in turns (kernel, sum, sum, kernel, ...),
     five times each: ``ms`` and ``library_ms`` are the medians,
-    ``spread_ms`` each side's max - min."""
+    ``spread_ms`` each side's max - min; ``copy_ms`` is ``y.copy_(x)``
+    moving the same bytes (read (n_src + 1) L / 2 floats, write as many)
+    under the same timer."""
     xr = randn(n_src, length)
+    half = (n_src + 1) * length // 2
+    xc, yc = torch.empty(half, device="cuda"), torch.empty(half,
+                                                           device="cuda")
     turns: dict = {"kernel": [], "sum": []}
     fns = {"kernel": lambda: cr.chunked_reduce(xr),
            "sum": lambda: torch.sum(xr, 0)}
@@ -740,6 +789,7 @@ def reduce_timing(timer, randn, cr, n_src: int, length: int) -> dict:
             "library_ms": float(np.median(turns["sum"])),
             "turns_ms": turns,
             "spread_ms": {k: max(v) - min(v) for k, v in turns.items()},
+            "copy_ms": timer(lambda: yc.copy_(xc)),
             "bytes": (n_src + 1) * length * 4, "flops": n_src * length,
             "shape": [n_src, length]}
 
@@ -983,20 +1033,50 @@ def check_auto_choices(run: dict, plan, topology=None) -> dict:
     return by_prim
 
 
-def full_width_run(label: str, extra: list, profile: bool = False,
-                   mesh: str = f"{DP}x1") -> dict:
-    """Llama-3.2-1B at full width and depth through the launcher's
-    flags, with ``nvidia-smi`` sampled over it."""
+def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
+                    profile: bool = True, short: tuple = ()) -> dict:
+    """Llama-3.2-1B at full width and depth through the launcher's flags:
+    each of ``runs`` (label -> its flags, after ``common``) is one
+    variant of a single spawn of the ranks, so the ranks start once; the
+    labels in ``short`` take ``SHORT_STEPS`` steps.  The first variant is
+    profiled for one more step; ``nvidia-smi`` is sampled over all."""
     import dataclasses
 
     from repro_torch.launch import train
-    spec = train.spec_from_args(train.build_parser().parse_args(
-        _train_args(extra + ["--lr", "3e-5"], mesh)))
-    spec = dataclasses.replace(spec, profile=profile)
+    specs = {label: train.spec_from_args(train.build_parser().parse_args(
+        _train_args(common + extra + ["--lr", "3e-5"], mesh,
+                    SHORT_STEPS if label in short else TRAIN_STEPS)))
+        for label, extra in runs.items()}
+    first = next(iter(specs.values()))
+    for label, sp in specs.items():
+        if dataclasses.replace(sp, variants=first.variants,
+                               steps=first.steps) != first:
+            fail(f"{label} runs on another mesh than {next(iter(runs))}")
+    spec = dataclasses.replace(
+        first, variants=tuple(sp.variants[0] for sp in specs.values()),
+        steps=max(sp.steps for sp in specs.values()), profile=profile)
     t0 = time.perf_counter()
     with SmiSampler() as smi:
-        run = train.run_ranks(spec)[0]
-    run["wall_s"] = time.perf_counter() - t0
+        merged = train.run_ranks(spec)
+    wall = time.perf_counter() - t0
+    log(f"[train] {' + '.join(runs)}: {wall:.1f}s in one spawn of the "
+        f"ranks")
+    out = {}
+    for label, run in zip(runs, merged):
+        run["group_wall_s"] = wall
+        out[label] = _report_run(label, run, smi)
+    return out
+
+
+def full_width_run(label: str, extra: list, mesh: str = f"{DP}x1") -> dict:
+    """One run of Llama-3.2-1B at full width through the launcher's
+    flags, in a spawn of its own."""
+    return full_width_runs({label: extra}, [], mesh, profile=False)[label]
+
+
+def _report_run(label: str, run: dict, smi) -> dict:
+    """Log a full-width run's steps and check that every rank took the
+    rms_norm backward kernel every step."""
     steady = run["steps"][1:]      # step 0 carries the warm-up
     run["smi_steady"] = smi.between(steady[0]["t_start"],
                                     steady[-1]["t_end"])
@@ -1016,8 +1096,8 @@ def full_width_run(label: str, extra: list, profile: bool = False,
         if s["launches_min_rank"]["rms_norm_vjp"] <= 0:
             fail(f"{label} step {i}: a rank took no rms_norm backward "
                  f"kernel: {s['launches_min_rank']}")
-    log(f"[train] {label}: {run['wall_s']:.1f}s with spawn and set-up,"
-        f" peak memory per rank {run.get('peak_memory_gib')} GiB")
+    log(f"[train] {label}: peak memory per rank "
+        f"{run.get('peak_memory_gib')} GiB")
     return run
 
 
@@ -1095,9 +1175,43 @@ def check_path_runs(runs: dict, need_levels: set, label_auto: str,
                      f"{s['launches_min_rank']}")
 
 
+def check_ragged_runs(runs: dict) -> None:
+    """The grouped path's own gates, every step of every run: no
+    flat-on-ragged fallback event; under cxl every rank launched
+    chunked_reduce at N = its group's size (a group of more than one)
+    and every sub-root at N = the group count (the sub-root exchange);
+    the --placement run moved the pool bytes of the plain cxl run."""
+    n_g = len(RAGGED_GROUPS)
+    roots, sizes, start = [], [], 0
+    for g in RAGGED_GROUPS:
+        roots.append(start)
+        sizes += [g] * g
+        start += g
+    for label, run in runs.items():
+        for i, s in enumerate(run["steps"]):
+            if s["fallbacks"]:
+                fail(f"{label} step {i}: {s['fallbacks']} fallback events")
+            if label == "ragged_auto":
+                continue
+            for r, by_n in enumerate(s["chunked_reduce_by_n_per_rank"]):
+                want = ({sizes[r]} if sizes[r] > 1 else set()) | \
+                    ({n_g} if r in roots else set())
+                got = {int(n) for n, k in by_n.items() if k > 0}
+                if not want <= got:
+                    fail(f"{label} step {i}: rank {r} launched "
+                         f"chunked_reduce at N {by_n}, wants {sorted(want)}")
+    plain, placed = runs["ragged_cxl"], runs["ragged_placed"]
+    for a, b in zip(plain["steps"], placed["steps"]):
+        if a["pool_by_level"] != b["pool_by_level"] or \
+                a["level_wire_bytes_rank0"] != b["level_wire_bytes_rank0"]:
+            fail(f"--placement auto moved other bytes than the plain "
+                 f"grouped run: {b['pool_by_level']} vs "
+                 f"{a['pool_by_level']}")
+
+
 def train_phase() -> dict:
     """Phase 7: FSDP training on DP ranks sharing the card; 7b over
-    (pod, data), 7c over (data, model)."""
+    (pod, data), 7c over (data, model), 7d over a grouped data axis."""
     from repro_torch.core.topology import parse_topology
 
     out: dict = {}
@@ -1119,32 +1233,27 @@ def train_phase() -> dict:
                hier_plan_path])
     hier_plan = tuner.load_plan(hier_plan_path)
 
-    # full width and depth, through the launcher's flags
-    runs = {}
-    for label, extra in (("cxl_fused", ["--backend", "cxl",
-                                        "--fuse-kernels"]),
-                         ("cxl", ["--backend", "cxl"]),
-                         ("ring", ["--backend", "ring"]),
-                         ("auto", ["--backend", "auto", "--plan",
-                                   plan_path])):
-        runs[label] = full_width_run(label, extra,
-                                     profile=label == "cxl_fused")
+    # full width and depth, through the launcher's flags; the gloo-bound
+    # ring run takes SHORT_STEPS
+    runs = full_width_runs({
+        "cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
+        "cxl": ["--backend", "cxl"],
+        "ring": ["--backend", "ring"],
+        "auto": ["--backend", "auto", "--plan", plan_path]}, [],
+        short=("ring",))
     out["full_width"] = runs
     out["auto_choices"] = check_auto_choices(runs["auto"], plan)
     first = runs["cxl_fused"]["steps"][0]["loss"]
     check_losses(runs, first)
 
     # the same model over the data axis (pod, data) = (2, DP/2), the
-    # pool spanning pods and GPU links inside one
-    hier_flags = ["--multi-pod", "--topology", HIER_TOPOLOGY]
-    hier = {}
-    for label, extra in (("hier_cxl_fused", ["--backend", "cxl",
-                                             "--fuse-kernels"]),
-                         ("hier_cxl", ["--backend", "cxl"]),
-                         ("hier_auto", ["--backend", "auto", "--plan",
-                                        hier_plan_path])):
-        hier[label] = full_width_run(
-            label, hier_flags + extra, profile=label == "hier_cxl_fused")
+    # pool spanning pods and GPU links inside one; auto, whose ici level
+    # rides gloo, takes SHORT_STEPS
+    hier = full_width_runs({
+        "hier_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
+        "hier_cxl": ["--backend", "cxl"],
+        "hier_auto": ["--backend", "auto", "--plan", hier_plan_path]},
+        ["--multi-pod", "--topology", HIER_TOPOLOGY], short=("hier_auto",))
     # cxl moves bytes through both levels' pools; auto never through the
     # ici level's
     check_path_runs(hier, {"pod", "data"}, "hier_auto", auto_skip="data")
@@ -1166,24 +1275,44 @@ def train_phase() -> dict:
                "--sizes-mib", *TUNE_SIZES_MIB, "--quiet", "--out",
                tp_plan_path])
     tp_plan = tuner.load_plan(tp_plan_path)
-    tp_flags = ["--topology", TP_TOPOLOGY]
-    tp = {}
-    for label, extra in (("tp_cxl_fused", ["--backend", "cxl",
-                                           "--fuse-kernels"]),
-                         ("tp_cxl", ["--backend", "cxl"]),
-                         ("tp_auto", ["--backend", "auto", "--plan",
-                                      tp_plan_path])):
-        tp[label] = full_width_run(label, tp_flags + extra,
-                                   profile=label == "tp_cxl_fused",
-                                   mesh=TP_MESH)
+    tp = full_width_runs({
+        "tp_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
+        "tp_cxl": ["--backend", "cxl"],
+        "tp_auto": ["--backend", "auto", "--plan", tp_plan_path]},
+        ["--topology", TP_TOPOLOGY], mesh=TP_MESH)
     check_path_runs(tp, {"data", "model"}, "tp_auto")
     out["tp"] = tp
     out["tp_auto_choices"] = check_auto_choices(
         tp["tp_auto"], tp_plan, parse_topology(TP_TOPOLOGY))
     check_losses(tp, first)
+
+    # 7d. a grouped (ragged) data axis: the 4 ranks as a node of three
+    # beside a lone node; the smoke model card vs CPU, then full width
+    # and depth, and the same run chosen by --placement auto
+    out["ragged_smoke_card_vs_cpu"] = smoke_card_vs_cpu(
+        f"{DP}x1", extra=("--topology", RAGGED_TOPOLOGY))
+    ragged_plan_path = str(OUT_DIR / "plan_auto_ragged.json")
+    tune.main(["--topology", RAGGED_TOPOLOGY, "--nranks", str(DP),
+               "--sizes-mib", *TUNE_SIZES_MIB, "--quiet", "--out",
+               ragged_plan_path])
+    ragged_plan = tuner.load_plan(ragged_plan_path)
+    ragged = full_width_runs({
+        "ragged_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
+        "ragged_cxl": ["--backend", "cxl"],
+        "ragged_auto": ["--backend", "auto", "--plan", ragged_plan_path]},
+        ["--topology", RAGGED_TOPOLOGY])
+    ragged["ragged_placed"] = full_width_run(
+        "ragged_placed", ["--backend", "cxl", "--topology",
+                          RAGGED_PLACEMENT_TOPOLOGY, "--placement", "auto"])
+    check_path_runs(ragged, {"pod", "data"}, "ragged_auto")
+    check_ragged_runs(ragged)
+    out["ragged"] = ragged
+    out["ragged_auto_choices"] = check_auto_choices(
+        ragged["ragged_auto"], ragged_plan, parse_topology(RAGGED_TOPOLOGY))
+    check_losses(ragged, first)
     log("[train] step times (s): " + json.dumps(
         {k: [round(s["step_s"], 3) for s in r["steps"]]
-         for k, r in {**runs, **hier, **tp}.items()}))
+         for k, r in {**runs, **hier, **tp, **ragged}.items()}))
     return out
 
 
@@ -1212,9 +1341,20 @@ def main() -> int:
         f"cuda {torch.version.cuda}  matmul.allow_tf32="
         f"{torch.backends.cuda.matmul.allow_tf32}")
 
+    walls: dict = {}
+    t_mark = [time.perf_counter()]
+
+    def mark(phase: str) -> None:
+        """Record the wall seconds of ``phase`` (since the last mark)."""
+        now = time.perf_counter()
+        walls[phase] = now - t_mark[0]
+        t_mark[0] = now
+        log(f"[wall] {phase} {walls[phase]:.1f}s")
+
     # 1. build ---------------------------------------------------------
     record["build_s"] = build.build_all()
     log(f"[build] {build.KERNELS} in {record['build_s']:.1f}s")
+    mark("build")
 
     # 2. parity --------------------------------------------------------
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -1258,7 +1398,7 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         shapes = [(n, ln) for n in (2, 4, 16) for ln in (rs_len, RAGGED)]
         shapes += [s for s in hier_reduce_shapes(rs_len) + tp_reduce_shapes(
-            rs_len) if s not in shapes]
+            rs_len) + ragged_reduce_shapes(rs_len) if s not in shapes]
         for n_src, length in shapes:
             x = randn(n_src, length, dtype=dtype)
             err, ok = close(cr.chunked_reduce(x),
@@ -1288,6 +1428,7 @@ def main() -> int:
         log(f"[parity] {json.dumps(p)}")
     if not all(p["ok"] for p in parity):
         fail("a kernel disagrees with its plain version")
+    mark("parity")
 
     # 3. timing (main path shapes, f32) ---------------------------------
     timer = Timer()
@@ -1324,6 +1465,11 @@ def main() -> int:
                  for n, length in tp_reduce_shapes(rs_len)
                  if f"{n}x{length}" not in reduce_hier}
     timing["chunked_reduce"]["tp"] = reduce_tp
+    # the grouped path's: the group of three and the two sub-roots
+    reduce_ragged = {f"{n}x{length}": reduce_timing(timer, randn, cr, n,
+                                                      length)
+                     for n, length in ragged_reduce_shapes(rs_len)}
+    timing["chunked_reduce"]["ragged"] = reduce_ragged
     # flash_attention at the (data, model) path's shape: a rank's 2
     # sequences, 16 heads
     b, lq, h, hd = FA_TP_SHAPE
@@ -1375,6 +1521,7 @@ def main() -> int:
             scan["decode"], timing["reduce_scatter_adamw"]["bf16_param"],
             *rms["forward"].values(), rms["backward"],
             *reduce_hier.values(), *reduce_tp.values(),
+            *reduce_ragged.values(),
             timing["flash_attention"]["tp"]]:
         byte_ms = rec["bytes"] / HBM_BW * 1e3
         op_ms = max(rec["flops"] / PEAK[torch.float32],
@@ -1394,6 +1541,7 @@ def main() -> int:
         log(f"[timing] {name} {json.dumps(t)}")
     record["timing"] = timing
     del q, k, v, qh, kh, vh
+    mark("timing")
 
     # 3b. the kernel API: the path of the two reduce_scatter kernels -----
     record["kernel_api"] = kernel_api_phase(randn, rand, rs_len)
@@ -1402,6 +1550,7 @@ def main() -> int:
         fail("the kernel API's reduce_scatter kernels disagree with their "
              "plain versions")
     torch.cuda.empty_cache()
+    mark("kernel_api")
 
     # 4. reference: smoke models on the card vs on the CPU ---------------
     record["reference"] = {}
@@ -1415,17 +1564,20 @@ def main() -> int:
         if not ok:
             fail(f"{arch} smoke model on the card differs from the CPU: "
                  f"max abs error {err}")
+    mark("reference")
 
     # 5. full-width serve: Llama-3.2-1B, then Falcon-Mamba-7B -------------
     launches: dict = {}
     record["serve"] = serve_phase("llama3.2-1b", "serve", dev, launches)
     record["serve_ssm"] = serve_phase(SSM_ARCH, "serve_ssm", dev, launches)
     record["launches"] = launches
+    mark("serve")
 
     # 6. collectives on one card ------------------------------------------
     from repro_torch.launch import collectives
     t0 = time.perf_counter()
-    rows = collectives.bench(DP, (1, 16, 256), reps=3, device="cuda")
+    rows = collectives.bench(DP, (1, 16, 256), reps=3, device="cuda",
+                             ring_max_mb=RING_MAX_MB)
     for r in rows:
         log(f"[collectives] {json.dumps(r)}")
     record["collectives"] = rows
@@ -1449,17 +1601,20 @@ def main() -> int:
     if bad:
         fail(f"tuple collectives disagree with the oracle or the flat "
              f"axis: {bad}")
+    mark("collectives")
 
     # 7. training ---------------------------------------------------------
     record["train"] = train_phase()
-    train_launches, hier_launches, tp_launches = (
+    train_launches, hier_launches, tp_launches, ragged_launches = (
         {n: sum(s["launches"][n] for run in record["train"][key].values()
                 for s in run["steps"])
          for n in train.KERNEL_COUNTERS}
-        for key in ("full_width", "hier", "tp"))
+        for key in ("full_width", "hier", "tp", "ragged"))
     record["train"]["launches"] = train_launches
     record["train"]["hier_launches"] = hier_launches
     record["train"]["tp_launches"] = tp_launches
+    record["train"]["ragged_launches"] = ragged_launches
+    mark("train")
 
     # 8. launch check ----------------------------------------------------
     serve_launches = {path: {n: sum(run[n] for run in launches[path]
@@ -1480,6 +1635,10 @@ def main() -> int:
         if n <= 0:
             fail(f"the (data, model) training path never launched the "
                  f"{name} kernel")
+    for name, n in ragged_launches.items():
+        if n <= 0:
+            fail(f"the grouped training path never launched the {name} "
+                 f"kernel")
     api_launches = record["kernel_api"]["launches"]
     for name in API_KERNELS:
         if api_launches[name] <= 0:
@@ -1498,10 +1657,12 @@ def main() -> int:
             by_path["train"] = train_launches[name]
             by_path["train_hier"] = hier_launches[name]
             by_path["train_tp"] = tp_launches[name]
+            by_path["train_ragged"] = ragged_launches[name]
         extra = {"backward_launches_by_path": {
             "train": train_launches["rms_norm_vjp"],
             "train_hier": hier_launches["rms_norm_vjp"],
-            "train_tp": tp_launches["rms_norm_vjp"]}} \
+            "train_tp": tp_launches["rms_norm_vjp"],
+            "train_ragged": ragged_launches["rms_norm_vjp"]}} \
             if name == "rms_norm" else {}
         if name in api_launches:
             by_path["kernel_api"] = api_launches[name]
@@ -1520,6 +1681,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     record["nvidia_smi"] = smi
+    record["phase_walls_s"] = walls
+    log(f"[wall] phases {json.dumps(walls)}, total "
+        f"{sum(walls.values()):.1f}s")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -61,8 +61,19 @@ axis covered by a topology level (the active topology, else the plan's)
 resolves against that level's cells, and the pool schedule never drives
 an ``ib``/``ici`` level.
 
-Not ported yet: ragged (grouped) topology levels (ROADMAP queue 1,
-item 6); an axis on one raises.
+**Grouped (ragged) levels**: a topology level with a shape vector of
+more than one group (``Level(shape=(3, 1))``) lives on one flat axis of
+``sum(shape)`` ranks whose ``AxisGroup`` carries its groups
+(``launch.mesh.make_host_mesh(..., topology=)``).  AllReduce,
+ReduceScatter, AllGather and Gather over it run the grouped schedules of
+``core.mesh_collectives`` (within-group work on this level's fabric, the
+sub-root exchange on the parent level's, the fan-out back into each
+group), a grouped level inside a tuple axis too.  Each phase resolves
+its own cell under ``auto`` (``max(shape)`` ranks on the level,
+``len(shape)`` on the parent) and books the reference's wire bytes on
+its level.  The primitives the reference also runs flat on such an axis
+(broadcast, reduce, scatter, all_to_all) run the flat schedule over all
+its ranks and book one ``ledger.record_fallback`` event each.
 """
 from __future__ import annotations
 
@@ -186,37 +197,40 @@ class Communicator:
             return self.plan.topology()
         return None
 
-    def _level(self, ax: mc.AxisGroup):
-        """(topology, the Level of ``ax``) or (topology or None, None)."""
+    def _level(self, name: str):
+        """(topology, the Level of axis ``name``) or (topology or None,
+        None)."""
         topo = self._topo()
-        level = topo.level_for(ax.name) if topo is not None else None
-        if level is not None and level.grouped:
-            raise NotImplementedError(
-                f"axis {ax.name!r} is a grouped (ragged) topology level: "
-                f"the grouped schedules are not ported yet (ROADMAP queue "
-                f"1, item 6)")
+        level = topo.level_for(name) if topo is not None else None
         return topo, level
 
     def _choice(self, primitive: str, msg_bytes: int,
-                ax: mc.AxisGroup) -> tuple:
+                ax: Union[mc.AxisGroup, str],
+                n: Optional[int] = None) -> tuple:
         """Resolve (backend, slicing_factor, allreduce_mode, overlap,
-        fused) for one collective call at one level ``ax``, as the
-        reference's ``_choice`` does.  ``overlap``: the plan tuned the
-        cell against the compute it hides behind (the ledger books its
-        bytes as hidden); ``fused``: the plan priced the cell with its
-        epilogue in a fused kernel (the ledger's fused split)."""
+        fused) for one collective call at one level, as the reference's
+        ``_choice`` does: ``ax`` is the level's ``AxisGroup`` (its name
+        and size), or a level name and ``n`` its rank count (the parent
+        level that carries a grouped level's sub-root exchange is no
+        mesh axis; a grouped level's within-group phase runs at its
+        largest group).
+        ``overlap``: the plan tuned the cell against the compute it
+        hides behind (the ledger books its bytes as hidden); ``fused``:
+        the plan priced the cell with its epilogue in a fused kernel
+        (the ledger's fused split)."""
         if self.backend != "auto":
             return (self.backend, self.slicing_factor,
                     self.allreduce_mode, False, False)
-        topo, level = self._level(ax)
+        name, n = (ax, n) if isinstance(ax, str) else (ax.name, ax.size)
+        topo, level = self._level(name)
         plan, epoch = self.plan, None
         if plan is None:
             plan, epoch = tuner_runtime.get_active_plan_versioned()
             if plan is None:
                 plan = tuner_runtime.ensure_default_plan(topology=topo)
                 epoch = tuner_runtime.plan_epoch()
-        lkey = topo.level_key(ax.name) if level is not None else None
-        ch = plan.lookup(primitive, msg_bytes, ax.size, level=lkey)
+        lkey = topo.level_key(name) if level is not None else None
+        ch = plan.lookup(primitive, msg_bytes, n, level=lkey)
         if ch is None:     # primitive absent from the plan: ring baseline
             backend, factor, mode, overlap, fz = (
                 "ring", self.slicing_factor, self.allreduce_mode, False,
@@ -232,20 +246,122 @@ class Communicator:
         if level is not None and backend not in level.backends():
             backend = "ring"     # no pool schedule off the pool
         ledger.record_choice(
-            primitive, msg_bytes, ax.size, backend, factor, mode,
+            primitive, msg_bytes, n, backend, factor, mode,
             overlap=overlap, fused=fz,
-            level=ax.name if level is not None else None,
+            level=name if level is not None else None,
             fabric=level.fabric if level is not None else None,
             predicted_time=pred, baseline_time=base, plan_epoch=epoch)
         return backend, factor, mode, overlap, fz
 
-    def _rec(self, kind: str, wire: float, ax: mc.AxisGroup, ov: bool,
-             fz: bool = False) -> None:
-        _, level = self._level(ax)
+    def _rec(self, kind: str, wire: float, ax: Union[mc.AxisGroup, str],
+             ov: bool, fz: bool = False) -> None:
+        """Book ``wire`` bytes of ``kind`` at level ``ax`` (an
+        ``AxisGroup`` or a level name)."""
+        name = ax if isinstance(ax, str) else ax.name
+        _, level = self._level(name)
         ledger.record(kind, wire, hidden=True if ov else None,
                       fused=True if fz else None,
-                      level=ax.name if level is not None else None,
+                      level=name if level is not None else None,
                       fabric=level.fabric if level is not None else None)
+
+    # -- grouped (ragged) levels --------------------------------------------
+
+    def _grouped_level(self, ax: mc.AxisGroup):
+        """The Level of ``ax`` when it declares more than one rank group
+        (the irregular-topology case), else None."""
+        _, lv = self._level(ax.name)
+        return lv if lv is not None and lv.grouped else None
+
+    def _fallback(self, primitive: str, ax: mc.AxisGroup) -> None:
+        """Book the flat schedule of ``primitive`` on a grouped level."""
+        lv = self._grouped_level(ax)
+        if lv is not None:
+            ledger.record_fallback(primitive, level=ax.name,
+                                   fabric=lv.fabric)
+
+    def _cross_axis(self, name: str) -> str:
+        """The level whose fabric carries a grouped level's sub-root
+        traffic: the parent level, or the level itself when outermost."""
+        parent = self._topo().parent_of(name)
+        return parent.axis if parent is not None else name
+
+    def _ragged_choices(self, primitive: str, s: int, cross_bytes: int,
+                        ax: mc.AxisGroup, shape: tuple) -> tuple:
+        """The within-group cell (``max(shape)`` ranks on the level) and
+        the sub-root cell (``len(shape)`` ranks on the parent), in the
+        reference's order."""
+        inner = self._choice(primitive, s, ax.name, max(shape))
+        cross = self._choice(primitive, cross_bytes,
+                             self._cross_axis(ax.name), len(shape))
+        return inner, cross
+
+    def _ar_ragged(self, x: torch.Tensor, ax: mc.AxisGroup,
+                   level) -> torch.Tensor:
+        shape, s = level.shape, _nbytes(x)
+        max_g, n_g = max(shape), len(shape)
+        pax = self._cross_axis(ax.name)
+        (b_in, f_in, _, ov_in, _), (b_x, f_x, _, ov_x, _) = \
+            self._ragged_choices("all_reduce", s, s, ax, shape)
+        # the within-group sum reads every peer's buffer (s*(g-1) on this
+        # level), the sub-root exchange rides the parent, the fan-out the
+        # groups again
+        self._rec("all_reduce", s * (max_g - 1), ax, ov_in)
+        self._rec("all_reduce", s * (n_g - 1), pax, ov_x)
+        self._rec("broadcast", float(s), ax, ov_in)
+        return mc.ragged_all_reduce(x, ax, f_in, b_in, f_x, b_x)
+
+    def _ag_ragged(self, x: torch.Tensor, ax: mc.AxisGroup,
+                   level) -> torch.Tensor:
+        shape, s = level.shape, _nbytes(x)
+        max_g, n_g, n = max(shape), len(shape), sum(shape)
+        pax = self._cross_axis(ax.name)
+        (b_in, f_in, _, ov_in, fz), (b_x, f_x, _, ov_x, _) = \
+            self._ragged_choices("all_gather", s, s * max_g, ax, shape)
+        self._rec("all_gather", s * (max_g - 1), ax, ov_in, fz)
+        self._rec("all_gather", s * n * (n_g - 1), pax, ov_x, fz)
+        self._rec("broadcast", float(s * n), ax, ov_in)
+        return mc.ragged_all_gather(x, ax, f_in, b_in, f_x, b_x)
+
+    def _gather_ragged(self, x: torch.Tensor, ax: mc.AxisGroup, root: int,
+                       level) -> torch.Tensor:
+        shape, s = level.shape, _nbytes(x)
+        max_g, n_g, n = max(shape), len(shape), sum(shape)
+        pax = self._cross_axis(ax.name)
+        (b_in, f_in, _, ov_in, _), (b_x, f_x, _, ov_x, _) = \
+            self._ragged_choices("gather", s, s * max_g, ax, shape)
+        self._rec("gather", s * (max_g - 1), ax, ov_in)
+        self._rec("gather", s * n * (n_g - 1), pax, ov_x)
+        return mc.ragged_gather(x, ax, root, f_in, b_in, f_x, b_x)
+
+    def _rs_ragged(self, x: torch.Tensor, ax: mc.AxisGroup,
+                   level) -> torch.Tensor:
+        shape, s = level.shape, _nbytes(x)
+        max_g, n_g = max(shape), len(shape)
+        pax = self._cross_axis(ax.name)
+        (b_in, f_in, _, ov_in, fz), (b_x, f_x, _, ov_x, _) = \
+            self._ragged_choices("reduce_scatter", s, s, ax, shape)
+        # the within-group sum of the whole buffer on this level, the
+        # sub-root exchange completing every segment on the parent, the
+        # fan-out back into the groups
+        self._rec("reduce_scatter", s * (max_g - 1), ax, ov_in, fz)
+        self._rec("reduce_scatter", s * (n_g - 1), pax, ov_x, fz)
+        self._rec("broadcast", float(s), ax, ov_in)
+        return mc.ragged_reduce_scatter(x, ax, f_in, b_in, f_x, b_x)
+
+    def _ar_axis(self, x: torch.Tensor, ax: mc.AxisGroup) -> torch.Tensor:
+        lv = self._grouped_level(ax)
+        return self._ar_ragged(x, ax, lv) if lv is not None \
+            else self._ar_level(x, ax)
+
+    def _rs_axis(self, x: torch.Tensor, ax: mc.AxisGroup) -> torch.Tensor:
+        lv = self._grouped_level(ax)
+        return self._rs_ragged(x, ax, lv) if lv is not None \
+            else self._rs_level(x, ax)
+
+    def _ag_axis(self, x: torch.Tensor, ax: mc.AxisGroup) -> torch.Tensor:
+        lv = self._grouped_level(ax)
+        return self._ag_ragged(x, ax, lv) if lv is not None \
+            else self._ag_level(x, ax)
 
     # -- per-level single-axis collectives --------------------------------
 
@@ -279,6 +395,7 @@ class Communicator:
                          root: int) -> torch.Tensor:
         if ax.size == 1:
             return x
+        self._fallback("broadcast", ax)
         s = _nbytes(x)
         backend, factor, _, ov, _ = self._choice("broadcast", s, ax)
         self._rec("broadcast", float(s), ax, ov)
@@ -291,6 +408,7 @@ class Communicator:
         n = ax.size
         if n == 1:
             return x
+        self._fallback("reduce", ax)
         s = _nbytes(x)
         backend, factor, _, ov, _ = self._choice("reduce", s, ax)
         self._rec("reduce", 2 * s * (n - 1) / n, ax, ov)
@@ -303,6 +421,9 @@ class Communicator:
         n = ax.size
         if n == 1:
             return x
+        # only reached as the outer level of a tuple-axis gather on a
+        # grouped level: a single-axis gather takes _gather_ragged
+        self._fallback("gather", ax)
         s = _nbytes(x)
         backend, factor, _, ov, _ = self._choice("gather", s, ax)
         self._rec("gather", s * (n - 1), ax, ov)
@@ -315,6 +436,7 @@ class Communicator:
         n = ax.size
         if n == 1:
             return x
+        self._fallback("scatter", ax)
         s = _nbytes(x)
         backend, factor, _, ov, _ = self._choice("scatter", s, ax)
         # root pushes every segment but its own: s*(n-1)/n wire bytes
@@ -341,7 +463,7 @@ class Communicator:
 
     def _all_reduce(self, x: torch.Tensor, levels: tuple) -> torch.Tensor:
         if len(levels) == 1:
-            return self._ar_level(x, levels[0])
+            return self._ar_axis(x, levels[0])
         topo = self._topo()
         hier = topo is not None and topo.covers(
             [ax.name for ax in levels])
@@ -356,15 +478,15 @@ class Communicator:
         # RS down the inner levels, AR across the outer level on the
         # shard, AG back out
         return mc.hierarchical_all_reduce(
-            x, levels, rs_fn=self._rs_level, ar_fn=self._ar_level,
-            ag_fn=self._ag_level)
+            x, levels, rs_fn=self._rs_axis, ar_fn=self._ar_axis,
+            ag_fn=self._ag_axis)
 
     def _all_gather(self, x: torch.Tensor, levels: tuple) -> torch.Tensor:
         # inner level first: the outer gather then stacks whole blocks of
         # the inner groups (rank-major), and the outer fabric carries
         # each byte once
         for ax in reversed(levels):
-            x = self._ag_level(x, ax)
+            x = self._ag_axis(x, ax)
         return x
 
     def _reduce_scatter(self, x: torch.Tensor,
@@ -372,7 +494,7 @@ class Communicator:
         # outer level first, the inverse of the gather: the payload
         # shrinks by each level's size before the next fabric sees it
         for ax in levels:
-            x = self._rs_level(x, ax)
+            x = self._rs_axis(x, ax)
         return x
 
     # -- the other primitives ----------------------------------------------
@@ -381,6 +503,7 @@ class Communicator:
         if len(_axes(axis)) != 1:
             raise NotImplementedError("all_to_all is single-axis")
         ax = self.axis(axis)
+        self._fallback("all_to_all", ax)
         n, s = ax.size, _nbytes(x)
         backend, factor, _, ov, _ = self._choice("all_to_all", s, ax)
         self._rec("all_to_all", s * (n - 1) / n, ax, ov)
@@ -463,6 +586,9 @@ class Communicator:
     def _gather(self, x: torch.Tensor, levels: tuple,
                 root: int) -> torch.Tensor:
         if len(levels) == 1:
+            lv = self._grouped_level(levels[0])
+            if lv is not None:
+                return self._gather_ragged(x, levels[0], root, lv)
             return self._gather_level(x, levels[0], root)
         rest, _, r_out, r_rest = self._split_root(levels, root)
         # each inner group's block at its local root, then whole blocks

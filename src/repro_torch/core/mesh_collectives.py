@@ -28,8 +28,19 @@ sequence of them, outer level first, and :func:`hierarchical_all_reduce`
 composes per-level collectives that the caller injects (the
 ``Communicator`` picks each level's backend).  Every level group has its
 own process group and its own pool, since a pool's epochs agree only
-among ranks that issue the same collectives.  The ragged/grouped
-schedules are not ported yet (ROADMAP queue 1, item 6).
+among ranks that issue the same collectives.
+
+A grouped (ragged) level - a topology level with a shape vector such as
+``(3, 1)`` - lives on one flat axis of ``sum(shape)`` ranks split into
+contiguous rank groups (:class:`Grouping`).  Its schedules, ported from
+the reference's masked ppermute rings, run each phase on the ranks that
+take part: within-group work on this rank's group (its own process group
+and pool), the exchange between the group sub-roots (each group's first
+rank) on the sub-roots' group and pool, and the fan-out from this rank's
+group root.  Under ``cxl`` every sum of N sources lands in one (N, L)
+buffer that ``chunked_reduce`` sums (the faithful AllReduce on the
+group); under ``ring`` the groups' own collectives do the work.  A group
+of one rank has no group of its own.
 """
 from __future__ import annotations
 
@@ -48,13 +59,16 @@ DEFAULT_CHUNKS = 4
 @dataclasses.dataclass(frozen=True)
 class AxisGroup:
     """One flat mesh axis: this rank's place in a process group, and the
-    shared pool its ``cxl`` collectives run on (None: ring only)."""
+    shared pool its ``cxl`` collectives run on (None: ring only).  An
+    axis that a grouped topology level covers also carries its
+    :class:`Grouping`."""
 
     name: str
     rank: int
     size: int
     group: Optional[dist.ProcessGroup] = None    # None: the default group
     pool: Optional[SharedPool] = None
+    grouped: Optional["Grouping"] = None
 
     def global_rank(self, r: int) -> int:
         return r if self.group is None else dist.get_global_rank(
@@ -65,6 +79,19 @@ class AxisGroup:
             raise ValueError(f"axis {self.name!r} has no shared pool: the "
                              f"cxl backend needs one")
         return self.pool
+
+
+@dataclasses.dataclass(frozen=True)
+class Grouping:
+    """A grouped level's rank groups as this rank sees them: the shape
+    vector (contiguous groups, ``(3, 1)``: ranks 0-2 and rank 3), this
+    rank's group (``inner``; None for a group of one) and, on a sub-root
+    when there is more than one group, the group of the sub-roots
+    (``cross``; named after the level whose fabric carries it)."""
+
+    shape: tuple
+    inner: Optional[AxisGroup] = None
+    cross: Optional[AxisGroup] = None
 
 
 def hierarchical_all_reduce(x: torch.Tensor, levels: Sequence[AxisGroup],
@@ -436,3 +463,188 @@ def p2p_shift(x: torch.Tensor, ax: AxisGroup, shift: int = 1,
     ax.need_pool().exchange(_bytes(x), x.numel() * x.element_size(),
                             [((ax.rank - shift) % n, 0, _bytes(out))], k)
     return out
+
+
+# --------------------------------------------------------------------- #
+# grouped / ragged schedules (irregular topology levels)
+# --------------------------------------------------------------------- #
+
+def _group_tables(group_shape) -> tuple:
+    """Static per-rank tables for contiguous rank groups: returns
+    (n, roots, group size per rank, position-in-group per rank,
+    group root per rank)."""
+    shape = tuple(int(g) for g in group_shape)
+    if not shape or any(g < 1 for g in shape):
+        raise ValueError(f"bad group shape {group_shape!r}")
+    gsize, gpos, groot, roots = [], [], [], []
+    start = 0
+    for g in shape:
+        roots.append(start)
+        for p in range(g):
+            gsize.append(g)
+            gpos.append(p)
+            groot.append(start)
+        start += g
+    return start, tuple(roots), gsize, gpos, groot
+
+
+def _grouping(ax: AxisGroup) -> Grouping:
+    """``ax``'s groups, checked against its size (the reference's
+    ``_check_axis``)."""
+    if ax.grouped is None:
+        raise ValueError(f"axis {ax.name!r} carries no rank groups: build "
+                         f"the mesh with the topology that groups it "
+                         f"(launch.mesh.make_host_mesh(..., topology=))")
+    want = sum(ax.grouped.shape)
+    if want != ax.size:
+        raise ValueError(f"group shape {ax.grouped.shape} spans {want} "
+                         f"ranks but axis {ax.name!r} has {ax.size}")
+    return ax.grouped
+
+
+def _sum_on(x: torch.Tensor, sub: Optional[AxisGroup], backend: str,
+            n_chunks: int) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``sub`` (None or one rank: x):
+    under ``cxl`` every rank retrieves every peer's buffer and
+    ``chunked_reduce`` sums the (N, L) stack (the faithful AllReduce)."""
+    if sub is None or sub.size == 1:
+        return x
+    if backend == "ring":
+        return ring_all_reduce(x, sub)
+    return all_reduce(x, sub, mode="faithful", n_chunks=n_chunks)
+
+
+def _from_root(x: torch.Tensor, sub: Optional[AxisGroup], backend: str,
+               n_chunks: int) -> torch.Tensor:
+    """Every rank of ``sub`` receives the value of its first rank (the
+    group root); ``x`` off the root only gives the shape."""
+    if sub is None or sub.size == 1:
+        return x
+    if backend == "ring":
+        return ring_broadcast(x, sub, 0)
+    return broadcast(x, sub, root=0, n_chunks=n_chunks)
+
+
+def grouped_all_reduce(x: torch.Tensor, ax: AxisGroup,
+                       n_chunks: int = DEFAULT_CHUNKS,
+                       backend: str = "cxl") -> torch.Tensor:
+    """AllReduce *within* each rank group of the grouped axis ``ax``:
+    every rank returns its group's sum."""
+    return _sum_on(x, _grouping(ax).inner, backend, n_chunks)
+
+
+def subroot_all_reduce(x: torch.Tensor, ax: AxisGroup,
+                       n_chunks: int = DEFAULT_CHUNKS,
+                       backend: str = "cxl") -> torch.Tensor:
+    """AllReduce *across* the group sub-roots (the first rank of each
+    group); every other rank passes ``x`` through.  The only traffic
+    between groups, on the parent level's fabric."""
+    return _sum_on(x, _grouping(ax).cross, backend, n_chunks)
+
+
+def grouped_broadcast(x: torch.Tensor, ax: AxisGroup,
+                      n_chunks: int = DEFAULT_CHUNKS,
+                      backend: str = "cxl") -> torch.Tensor:
+    """Every rank receives its group sub-root's value."""
+    return _from_root(x, _grouping(ax).inner, backend, n_chunks)
+
+
+def ragged_all_reduce(x: torch.Tensor, ax: AxisGroup,
+                      n_chunks: int = DEFAULT_CHUNKS, backend: str = "cxl",
+                      cross_chunks: Optional[int] = None,
+                      cross_backend: Optional[str] = None) -> torch.Tensor:
+    """AllReduce over a grouped axis: within-group AllReduce, sub-root
+    exchange across groups, grouped broadcast back out.  A sum over the
+    whole axis (the flat AllReduce's result up to summation order).
+    ``cross_chunks`` / ``cross_backend`` steer the sub-root hop (default:
+    ``n_chunks`` / ``backend``)."""
+    y = grouped_all_reduce(x, ax, n_chunks, backend)
+    z = subroot_all_reduce(y, ax, cross_chunks or n_chunks,
+                           cross_backend or backend)
+    return grouped_broadcast(z, ax, n_chunks, backend)
+
+
+def ragged_all_gather(x: torch.Tensor, ax: AxisGroup,
+                      n_chunks: int = DEFAULT_CHUNKS, backend: str = "cxl",
+                      cross_chunks: Optional[int] = None,
+                      cross_backend: Optional[str] = None) -> torch.Tensor:
+    """Padding-free all-gather over a grouped axis, rank-major along
+    axis 0 (the flat ``all_gather``'s result exactly).
+
+    Phase 1 gathers the group's shards at its sub-root, which writes
+    them into a zeroed full-size buffer at the group's global offset;
+    phase 2 sums the sub-roots' buffers across groups - the blocks sit at
+    disjoint offsets, so the sum IS the concatenation; phase 3 fans the
+    assembled buffer out within each group."""
+    n = ax.size
+    if n == 1:
+        return x
+    if x.dim() == 0:
+        raise ValueError("ragged_all_gather needs at least 1-d input")
+    gr = _grouping(ax)
+    _, _, gsize, gpos, groot = _group_tables(gr.shape)
+    x = x.contiguous()
+    lead = x.shape[0]
+    inner, g, root = gr.inner, gsize[ax.rank], groot[ax.rank]
+    if inner is None:
+        blk = x
+    elif backend == "ring":
+        blk = ring_gather(x, inner, 0)
+    else:
+        blk = gather(x, inner, root=0, n_chunks=n_chunks)
+    if gpos[ax.rank] == 0:
+        buf = x.new_zeros(_gathered_shape(x, n))
+        buf[root * lead:(root + g) * lead] = blk
+        buf = subroot_all_reduce(buf, ax, cross_chunks or n_chunks,
+                                 cross_backend or backend)
+    else:
+        buf = x.new_empty(_gathered_shape(x, n))
+    return grouped_broadcast(buf, ax, n_chunks, backend)
+
+
+def ragged_reduce_scatter(x: torch.Tensor, ax: AxisGroup,
+                          n_chunks: int = DEFAULT_CHUNKS,
+                          backend: str = "cxl",
+                          cross_chunks: Optional[int] = None,
+                          cross_backend: Optional[str] = None
+                          ) -> torch.Tensor:
+    """Padding-free reduce-scatter over a grouped axis: rank r returns
+    ``sum_ranks(x)[r*seg:(r+1)*seg]`` with ``seg = lead / sum(shape)``,
+    the flat ``reduce_scatter``'s semantics.
+
+    Phase 1 sums within each group, phase 2 completes every segment at
+    once across the sub-roots (each carries its group's partial of every
+    segment), phase 3 fans the group's segments out from its sub-root:
+    each rank receives only its own rank-major segment."""
+    n = ax.size
+    if n == 1:
+        return x
+    _check_divides(x, n)
+    gr = _grouping(ax)
+    _, _, gsize, gpos, groot = _group_tables(gr.shape)
+    seg = x.shape[0] // n
+    g, root = gsize[ax.rank], groot[ax.rank]
+    part = grouped_all_reduce(x.contiguous(), ax, n_chunks, backend)
+    if gpos[ax.rank] == 0:
+        full = subroot_all_reduce(part, ax, cross_chunks or n_chunks,
+                                  cross_backend or backend)
+        blk = full[root * seg:(root + g) * seg]
+    else:
+        blk = part[root * seg:(root + g) * seg]   # the shape only
+    if gr.inner is None:
+        return blk
+    if backend == "ring":
+        return ring_scatter(blk, gr.inner, 0)
+    return scatter(blk.contiguous(), gr.inner, root=0, n_chunks=n_chunks)
+
+
+def ragged_gather(x: torch.Tensor, ax: AxisGroup, root: int = 0,
+                  n_chunks: int = DEFAULT_CHUNKS, backend: str = "cxl",
+                  cross_chunks: Optional[int] = None,
+                  cross_backend: Optional[str] = None) -> torch.Tensor:
+    """Gather-to-root over a grouped axis (rank-major concatenation,
+    zeros off the root), via the padding-free assembly of
+    :func:`ragged_all_gather`."""
+    full = ragged_all_gather(x, ax, n_chunks, backend, cross_chunks,
+                             cross_backend)
+    return full if ax.rank == root else torch.zeros_like(full)

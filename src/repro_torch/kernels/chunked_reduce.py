@@ -52,7 +52,10 @@ def chunked_reduce(x: torch.Tensor) -> torch.Tensor:
                  _DTYPES[x.dtype], stream)
     build.check("chunked_reduce", err)
     chunked_reduce.launches += 1
+    by_n = chunked_reduce.launches_by_n
+    by_n[x.shape[0]] = by_n.get(x.shape[0], 0) + 1
     return out
 
 
 chunked_reduce.launches = 0    # kernel launches since the last reset
+chunked_reduce.launches_by_n = {}   # the same, by n_src

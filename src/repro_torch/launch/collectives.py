@@ -77,10 +77,11 @@ def communicator(ctx: ranks.RankContext, backend: str, name: str,
     """This rank's Communicator for primitive ``name`` (its AllReduce
     mode; under ``auto`` the ``plan`` decides the knobs) on the mesh of
     ``shape`` (``launch.mesh``; default: the flat mesh of all the
-    ranks), with ``topology`` as its ``topology`` field."""
+    ranks), with ``topology`` as its ``topology`` field (a grouped level
+    of it also groups its mesh axis)."""
     mode = PRIMITIVES[name][1] or "two_phase"
     mesh = make_host_mesh(shape or mesh_shape(ctx.nranks), ctx,
-                          pools=backend != "ring")
+                          pools=backend != "ring", topology=topology)
     return Communicator(backend=backend, slicing_factor=slicing_factor,
                         allreduce_mode=mode, axes=mesh, plan=plan,
                         topology=topology)
@@ -170,10 +171,12 @@ def rank_cases(ctx: ranks.RankContext, cases: Sequence[dict]) -> list:
 
 
 def rank_bench(ctx: ranks.RankContext, sizes_mb: Sequence[int],
-               reps: int, names: Sequence[str]) -> list:
+               reps: int, names: Sequence[str],
+               ring_max_mb: Optional[int] = None) -> list:
     """Median wall time of each (primitive, size, backend) on this rank
     over ``reps`` timed calls after an untimed one, and whether the
-    untimed call's result matched the oracle."""
+    untimed call's result matched the oracle; ``ring`` only at sizes up
+    to ``ring_max_mb`` (default: every size)."""
     import torch.distributed as dist
     rows_of = {mb: mb * (1 << 20) // (4 * COLS) for mb in sizes_mb}
     out = []
@@ -181,8 +184,9 @@ def rank_bench(ctx: ranks.RankContext, sizes_mb: Sequence[int],
         rows = rows_of[mb]
         x = bench_input(ctx.rank, rows, ctx.device)
         xs = None
+        ring = ring_max_mb is None or mb <= ring_max_mb
         for name in names:
-            for backend in ("ring", "cxl"):
+            for backend in ("ring", "cxl") if ring else ("cxl",):
                 comm = communicator(ctx, backend, name)
                 times, ok = [], None
                 for i in range(reps + 1):     # call 0 warms up, untimed
@@ -209,11 +213,15 @@ def rank_bench(ctx: ranks.RankContext, sizes_mb: Sequence[int],
 def bench(nranks: int = 4, sizes_mb: Sequence[int] = (1, 16, 256),
           reps: int = 5, device: str = "cuda",
           names: Sequence[str] = tuple(PRIMITIVES),
-          timeout_s: float = 600.0) -> list:
+          timeout_s: float = 600.0,
+          ring_max_mb: Optional[int] = None) -> list:
     """Every rank's :func:`rank_bench`, merged: per (primitive, size,
-    backend) the slowest rank's median and whether all ranks matched."""
+    backend) the slowest rank's median and whether all ranks matched;
+    ``ring`` (gloo, staged through the host) only up to ``ring_max_mb``
+    MB a rank (default: every size)."""
     per_rank = ranks.spawn(rank_bench, nranks,
-                           (tuple(sizes_mb), reps, tuple(names)),
+                           (tuple(sizes_mb), reps, tuple(names),
+                            ring_max_mb),
                            device=device,
                            partition_bytes=max(sizes_mb) << 20,
                            timeout_s=timeout_s)

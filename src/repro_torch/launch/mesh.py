@@ -23,13 +23,25 @@ rows.  With ``--multi-pod`` and TP > 1 the data levels also form one
 joint group per model index (``(("pod", "data"))`` in the mesh), the
 process group of the fused ring AllReduce over the tuple.
 
-Placements are not ported yet (ROADMAP queue 1, item 6).
+An axis that a grouped topology level covers (``data:cxl:3+1``: one
+flat axis of 4 ranks in contiguous groups of 3 and 1) also gets, for
+each of its instances, a process group and a pool per group of more
+than one rank and one for the group sub-roots (the first rank of each
+group), created only with the topology (``level_groups(shape,
+topology)``), and its ``AxisGroup`` carries this rank's
+``mesh_collectives.Grouping``.
+
+``make_placed_mesh`` applies a placement (``tuner.placement``): it
+installs the axis aliases of a split axis and the placed topology, and
+returns the mesh shape the placement chose; ``dp_axes`` resolves the
+``data`` alias.
 """
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Optional, Sequence
 
-from repro_torch.core.mesh_collectives import AxisGroup
+from repro_torch.core.mesh_collectives import AxisGroup, Grouping
 
 
 def parse_mesh(spec: str) -> tuple:
@@ -100,11 +112,37 @@ def _joint_members(shape: Sequence[tuple], rank: int) -> tuple:
                  if _coords(shape, r)[m] == c)
 
 
-def level_groups(shape: Sequence[tuple]) -> list:
+def _grouped(topology, name: str, size: int) -> Optional[tuple]:
+    """The shape vector of a grouped topology level over axis ``name``
+    (None: the axis is not grouped), checked against the axis size."""
+    lv = topology.level_for(name) if topology is not None else None
+    if lv is None or not lv.grouped:
+        return None
+    if lv.size != size:
+        raise ValueError(f"level {name!r} groups {lv.shape} span "
+                         f"{lv.size} ranks but the mesh axis has {size}")
+    return lv.shape
+
+
+def _rank_groups(members: tuple, shape: tuple) -> tuple:
+    """(the groups of more than one rank, the sub-roots or None) of one
+    instance of a grouped axis whose ranks are ``members``."""
+    groups, roots, start = [], [], 0
+    for g in shape:
+        roots.append(members[start])
+        if g > 1:
+            groups.append(members[start:start + g])
+        start += g
+    return groups, tuple(roots) if len(roots) > 1 else None
+
+
+def level_groups(shape: Sequence[tuple], topology=None) -> list:
     """Every level group of the mesh: for each axis with more than one
     rank but fewer than all, the ranks of each of its groups (what
     ``ranks.spawn(groups=...)`` creates), in a fixed order; then the
-    joint data groups (:func:`joint_groups`)."""
+    joint data groups (:func:`joint_groups`); then, for each axis that a
+    grouped level of ``topology`` covers, each instance's rank groups of
+    more than one rank and its sub-roots."""
     n = _nranks(shape)
     out: list = []
     for i, (_, size) in enumerate(shape):
@@ -114,7 +152,17 @@ def level_groups(shape: Sequence[tuple]) -> list:
             g = _members(shape, r, i)
             if g not in out:
                 out.append(g)
-    return out + [g for g in joint_groups(shape) if g not in out]
+    out += [g for g in joint_groups(shape) if g not in out]
+    for i, (name, size) in enumerate(shape):
+        gshape = _grouped(topology, name, size)
+        if gshape is None:
+            continue
+        for r in range(n):
+            groups, roots = _rank_groups(_members(shape, r, i), gshape)
+            for g in groups + ([roots] if roots else []):
+                if g not in out:
+                    out.append(g)
+    return out
 
 
 def joint_groups(shape: Sequence[tuple]) -> list:
@@ -132,13 +180,36 @@ def joint_groups(shape: Sequence[tuple]) -> list:
     return out
 
 
-def make_host_mesh(shape: Sequence[tuple], ctx, pools: bool = True) -> dict:
+def _grouping(shape: Sequence[tuple], i: int, gshape: tuple, ctx,
+              pools: bool, topology) -> Grouping:
+    """This rank's groups on grouped axis ``i``: its own group (None for
+    a group of one) and, on a sub-root, the sub-roots' group, named after
+    the level whose fabric carries it (the parent level)."""
+    name = shape[i][0]
+    members = _members(shape, ctx.rank, i)
+    groups, roots = _rank_groups(members, gshape)
+
+    def sub(ranks: tuple, label: str) -> AxisGroup:
+        pg, pool = ctx.groups[ranks]
+        return AxisGroup(label, ranks.index(ctx.rank), len(ranks), pg,
+                         pool if pools else None)
+
+    inner = next((sub(g, name) for g in groups if ctx.rank in g), None)
+    parent = topology.parent_of(name)
+    cross = sub(roots, parent.axis if parent is not None else name) \
+        if roots and ctx.rank in roots else None
+    return Grouping(gshape, inner, cross)
+
+
+def make_host_mesh(shape: Sequence[tuple], ctx, pools: bool = True,
+                   topology=None) -> dict:
     """This rank's mesh: axis name -> ``AxisGroup`` for ``ctx`` (a
-    ``ranks.RankContext``, spawned with ``groups=level_groups(shape)``),
-    and the tuple of data-level names -> the joint group where
-    :func:`joint_groups` makes one (``Communicator._joint`` looks it
-    up).  ``pools=False`` leaves every level without a pool (ring
-    only)."""
+    ``ranks.RankContext``, spawned with ``groups=level_groups(shape,
+    topology)``), and the tuple of data-level names -> the joint group
+    where :func:`joint_groups` makes one (``Communicator._joint`` looks
+    it up).  An axis that a grouped level of ``topology`` covers carries
+    this rank's groups (``AxisGroup.grouped``).  ``pools=False`` leaves
+    every level without a pool (ring only)."""
     n = _nranks(shape)
     if n != ctx.nranks:
         raise ValueError(f"mesh {shape} has {n} ranks, the host "
@@ -155,6 +226,10 @@ def make_host_mesh(shape: Sequence[tuple], ctx, pools: bool = True) -> dict:
             pg, pool = ctx.groups[_members(shape, ctx.rank, i)]
             mesh[name] = AxisGroup(name, coords[i], size, pg,
                                    pool if pools else None)
+        gshape = _grouped(topology, name, size)
+        if gshape is not None:
+            mesh[name] = dataclasses.replace(mesh[name], grouped=_grouping(
+                shape, i, gshape, ctx, pools, topology))
     joint = _dp_joint(shape)
     if joint:
         names = tuple(shape[i][0] for i in joint)
@@ -165,7 +240,27 @@ def make_host_mesh(shape: Sequence[tuple], ctx, pools: bool = True) -> dict:
     return mesh
 
 
+def make_placed_mesh(placement, mix, topology) -> tuple:
+    """Apply a placement: install the axis aliases of its split axes
+    (``models.sharding.set_axis_aliases``) and the placed (relabeled)
+    topology as the process-wide active one, and return the mesh shape
+    it chose, ``((axis, size), ...)`` outermost first (rank-major, as
+    :func:`mesh_shape`)."""
+    from repro_torch.core.topology import set_active_topology
+    from repro_torch.models import sharding
+    from repro_torch.tuner.placement import mesh_spec, placed_topology
+    sizes, names, aliases = mesh_spec(placement, mix, topology)
+    sharding.set_axis_aliases(aliases)
+    set_active_topology(placed_topology(placement, topology))
+    return tuple(zip(names, sizes))
+
+
 def dp_axes(mesh: dict) -> tuple:
-    """The data-parallel axis spec of a mesh: hierarchical ``("pod",
+    """The data-parallel axis spec of a mesh: the placement alias of
+    ``data`` when one is installed, else hierarchical ``("pod",
     "data")`` when the pod axis exists, else ``("data",)``."""
-    return ("pod", "data") if "pod" in mesh else ("data",)
+    from repro_torch.models import sharding
+    data = sharding.resolve_axis("data")
+    if isinstance(data, tuple):
+        return data
+    return ("pod", "data") if "pod" in mesh else (data,)

@@ -17,8 +17,12 @@ random, from a seeded ``torch.Generator``.  ``--plan`` loads a tuned
 plan whose ``kv_block`` cells price eviction placement
 (``repro_torch.launch.tune --kv-block-bytes``); the engine is unsharded,
 so no collective resolves against it.  ``--topology`` activates a
-topology process-wide, as the reference launcher does.
-``--online-retune``, ``--placement``, ``--ckpt`` and ``--metrics-out``
+topology process-wide, as the reference launcher does.  ``--placement
+auto|PATH`` ranks the mesh-axis -> level assignments of that topology
+for the model's collective mix at ``--placement-axes`` (``tuner.
+placement``), prints the report and installs the placed topology and
+the axis aliases, as the reference launcher does (they take effect when
+serving sharded).  ``--online-retune``, ``--ckpt`` and ``--metrics-out``
 of the reference launcher are not ported yet (ROADMAP queue 1).
 
 Usage:
@@ -191,6 +195,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--topology", default=None,
                     help="'axis:fabric[:shape],...' spec or topology "
                          "JSON file, activated process-wide")
+    ap.add_argument("--placement", default=None,
+                    help="'auto' or a saved placement JSON: rank the "
+                         "mesh-axis -> fabric-level assignments for "
+                         "this arch (tuner.placement), print the "
+                         "report, and activate the placed topology + "
+                         "axis aliases; needs --topology")
+    ap.add_argument("--placement-axes", default="data=2,model=4",
+                    help="logical axis degrees for --placement, "
+                         "'name=size,...'")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; "
                          "'cpu' runs on the CPU)")
@@ -218,10 +231,35 @@ def engine_from_args(args) -> tuple:
     return cfg, ServeEngine(cfg, params, scfg, device=device)
 
 
+def apply_placement(ap, args) -> None:
+    """``--placement``: rank the active topology's placements for the
+    model's mix at ``--placement-axes``, print the report and install
+    the chosen placement's aliases and placed topology."""
+    from repro_torch import tuner
+    from repro_torch.core.topology import get_active_topology
+    from repro_torch.launch.mesh import make_placed_mesh
+    from repro_torch.launch.tune import parse_axes
+    topo = get_active_topology()
+    if topo is None:
+        ap.error("--placement requires --topology")
+    cfg = get_config(args.arch, smoke=args.smoke)
+    mix = tuner.CollectiveMix.for_model(
+        cfg, parse_axes(args.placement_axes),
+        seq=args.prompt_len + args.new_tokens)
+    pplan = tuner.plan_placement(mix, topo) if args.placement == "auto" \
+        else tuner.load_placement(args.placement)
+    chosen = pplan.best_with_unsplit(("model",))
+    print(tuner.format_report(pplan, chosen=chosen))
+    make_placed_mesh(chosen, mix, topo)
+
+
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     if args.topology:
         set_active_topology(parse_topology(args.topology))
+    if args.placement:
+        apply_placement(ap, args)
     cfg, eng = engine_from_args(args)
     if args.trace:
         run_trace(eng, cfg, args)

@@ -20,6 +20,12 @@ tensor-parallel paths:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --mesh 2x2 --backend cxl --steps 3 --batch 4 --seq 1024 \\
       [--fuse-kernels]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --mesh 4x1 --topology pod:cxl,data:cxl:3+1 --backend cxl \\
+      --steps 3 --batch 4 --seq 1024 [--fuse-kernels]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --mesh 4x1 --topology pod:cxl,node:cxl:3+1 --placement auto \\
+      --backend cxl --steps 3 --batch 4 --seq 1024
 
 The launcher spawns one process per rank (``spawn`` start method); rank
 r runs on ``cuda:(r % device_count)``, so the ranks of a one-card host
@@ -54,9 +60,24 @@ the same batch rows, and every tensor-parallel AllReduce of the
 activations goes through the ``Communicator`` on the model groups' own
 process groups and pools.
 
-Not ported yet: placements and online re-tuning (ROADMAP queue 1,
-items 6 and 10), pipeline stages (item 9), checkpoints,
-metrics/trace export, faults and resilience (item 10).
+A grouped topology level (``--topology pod:cxl,data:cxl:3+1``: the 4
+data ranks in a group of 3 and a lone rank) keeps the flat data axis and
+gives each of its groups of more than one rank, and its group sub-roots,
+a process group and a pool of their own (``launch.mesh``); every
+collective over it runs the ``Communicator``'s grouped schedules, the
+sub-root exchange booked on the parent level.
+
+``--placement auto|PATH`` chooses the mesh from the topology
+(``tuner.placement``): the analytic collective mix of the model at the
+``--mesh`` degrees is priced on every feasible axis -> level assignment,
+the best that keeps ``model`` on one level is applied (its report
+printed), and every rank runs on the placed mesh with the placed
+topology and the axis aliases of a split axis.  ``--placement-from-
+dryrun`` waits for the dry-run (ROADMAP queue 1, item 11).
+
+Not ported yet: online re-tuning (ROADMAP queue 1, item 10), pipeline
+stages (item 9), checkpoints, metrics/trace export, faults and
+resilience (item 10).
 """
 from __future__ import annotations
 
@@ -86,6 +107,7 @@ from repro_torch.launch import ranks
 from repro_torch.launch.mesh import (dp_axes, joint_groups, level_groups,
                                      make_host_mesh, mesh_shape, parse_mesh)
 from repro_torch.models import model, sharding
+from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw_init
 from repro_torch.training.train_loop import (TrainConfig, leaf_params,
                                              make_sharded_train_step)
@@ -113,6 +135,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="'axis:fabric,...' spec (outermost first; "
                          "fabrics: cxl|ib|ici) or a topology JSON file, "
                          "activated in every rank")
+    ap.add_argument("--placement", default=None,
+                    help="'auto' (rank mesh-axis -> fabric-level "
+                         "assignments for this model's collective mix, "
+                         "tuner.placement) or a saved placement JSON: the "
+                         "mesh the placement chose; needs --topology")
+    ap.add_argument("--placement-from-dryrun", default=None,
+                    help="not ported: needs the dry-run (ROADMAP queue 1, "
+                         "item 11)")
     ap.add_argument("--backend", choices=["ring", "cxl", "auto"],
                     default="ring")
     ap.add_argument("--plan", default=None,
@@ -159,11 +189,22 @@ class RunSpec:
     tp: int = 1                       # model axis (tensor parallel)
     multi_pod: bool = False           # data axis (pod, data) = (2, dp/2)
     topology: Optional[Topology] = None   # activated in every rank
+    shape: Optional[tuple] = None     # the mesh a placement chose
+    aliases: Optional[dict] = None    # a placement's axis aliases
+    config: Optional[ModelConfig] = None   # in place of the arch's
     params_path: Optional[str] = None  # .npz of GLOBAL params at tp
     capture_grads: bool = False       # return step 0's synced grads
     capture_params: bool = False      # return the params after the run
-    profile: bool = False             # one extra step under the profiler
+    profile: bool = False             # the first variant: one more step
+    #                                   under the profiler
     timeout_s: float = 600.0
+
+    def mesh(self) -> tuple:
+        """The rank-major mesh shape every rank builds."""
+        return self.shape or mesh_shape(self.dp, self.tp, self.multi_pod)
+
+    def model_config(self) -> ModelConfig:
+        return self.config or get_config(self.arch, smoke=self.smoke)
 
 
 def load_params_npz(path: str, device, cfg=None, tp: int = 1) -> dict:
@@ -188,11 +229,21 @@ def _counters() -> dict:
 
 
 def _pool_counts(mesh: dict) -> dict:
-    """Bytes this rank published into and retrieved from the pool of
-    each level of ``mesh`` that has one."""
-    return {name: {"published": ax.pool.bytes_published,
-                   "retrieved": ax.pool.bytes_retrieved}
-            for name, ax in mesh.items() if ax.pool is not None}
+    """Bytes this rank published into and retrieved from the pools of
+    each level of ``mesh``: an axis's own pool and, on a grouped level,
+    the pool of this rank's group (booked to the level) and of the
+    sub-roots (booked to the level that carries them, the parent)."""
+    out: dict = {}
+    for ax in mesh.values():
+        subs = [ax] + ([ax.grouped.inner, ax.grouped.cross]
+                       if ax.grouped is not None else [])
+        for sub in subs:
+            if sub is None or sub.pool is None:
+                continue
+            c = out.setdefault(sub.name, {"published": 0, "retrieved": 0})
+            c["published"] += sub.pool.bytes_published
+            c["retrieved"] += sub.pool.bytes_retrieved
+    return out
 
 
 def _delta(after: dict, before: dict) -> dict:
@@ -242,18 +293,22 @@ def distinct_choices(audit: list) -> list:
 
 def _rank_run(ctx: ranks.RankContext, spec: RunSpec) -> list:
     set_active_topology(spec.topology)
-    return [_run_variant(ctx, spec, tcfg) for tcfg in spec.variants]
+    sharding.set_axis_aliases(spec.aliases or {})
+    return [_run_variant(ctx, spec, tcfg, profile=spec.profile and k == 0)
+            for k, tcfg in enumerate(spec.variants)]
 
 
-def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig):
+def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
+                 profile: bool = False):
     """One training run on this rank: the params (seed 0 or the .npz)
     sharded over the model axis and for FSDP, AdamW from zero,
-    ``spec.steps`` steps on this rank's data index's slice of the
-    synthetic batches."""
+    ``spec.steps`` steps (at most the variant's ``total_steps``) on this
+    rank's data index's slice of the synthetic batches; with ``profile``
+    one more step under the profiler."""
     dev = ctx.device
-    cfg = get_config(spec.arch, smoke=spec.smoke)
-    mesh = make_host_mesh(mesh_shape(spec.dp, spec.tp, spec.multi_pod), ctx,
-                          pools=tcfg.backend != "ring")
+    cfg = spec.model_config()
+    mesh = make_host_mesh(spec.mesh(), ctx, pools=tcfg.backend != "ring",
+                          topology=spec.topology)
     step, pspecs, pc = make_sharded_train_step(cfg, tcfg, mesh,
                                                dp_axis=dp_axes(mesh))
     if spec.params_path is not None:
@@ -279,10 +334,11 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig):
         return {k: torch.as_tensor(v, dtype=torch.long, device=dev)
                 for k, v in lb.items()}
 
-    for i, gb in zip(range(spec.steps), data):
+    for i, gb in zip(range(min(spec.steps, tcfg.total_steps)), data):
         batch = to_dev(gb)
         for f in KERNEL_COUNTERS.values():
             f.launches = 0
+        chunked_reduce.launches_by_n = {}
         ledger.reset()
         pool_before = _pool_counts(mesh)
         synchronize(dev)
@@ -295,10 +351,12 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig):
         rec = {"loss": loss, "step_s": time.perf_counter() - t0,
                "t_start": t_start, "t_end": time.time(),
                "lr": metrics["lr"], "launches": _counters(),
+               "chunked_reduce_by_n": dict(chunked_reduce.launches_by_n),
                "wire_bytes": snap["wire_bytes"],
                "fused_bytes": snap["fused_bytes"],
                "level_wire_bytes": snap["level_wire_bytes"],
                "choices": distinct_choices(snap["auto_choices"]),
+               "fallbacks": len(snap["fallbacks"]),
                "pool_by_level": by_level,
                "pool_bytes": sum(v for c in by_level.values()
                                  for v in c.values())}
@@ -309,7 +367,7 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig):
     if spec.capture_params:
         out["params"] = {"/".join(p): x.detach().cpu().numpy()
                          for p, x in tree.leaves_with_paths(params)}
-    if spec.profile and dev.type == "cuda":
+    if profile and dev.type == "cuda":
         batch = to_dev(next(data))
         out["profile"] = _profile_step(
             lambda: step(params, opt, batch), dev)
@@ -343,14 +401,15 @@ def run_ranks(spec: RunSpec) -> list:
     if spec.device == "cuda":
         resolve_device("cuda")        # raises without a card
         build.build_all()             # once, before the ranks start
-    cfg = get_config(spec.arch, smoke=spec.smoke)
+    cfg = spec.model_config()
     need_pool = any(t.backend != "ring" for t in spec.variants)
-    shape = mesh_shape(spec.dp, spec.tp, spec.multi_pod)
+    shape = spec.mesh()
     nranks = spec.dp * spec.tp
     per_rank = ranks.spawn(
         _rank_run, nranks, (spec,), device=spec.device,
         partition_bytes=pool_window(cfg) if need_pool else 0,
-        groups=level_groups(shape), poolless=joint_groups(shape),
+        groups=level_groups(shape, spec.topology),
+        poolless=joint_groups(shape),
         world_pool=any(n == nranks for _, n in shape),
         timeout_s=spec.timeout_s,
         wait_s=spec.timeout_s * (1 + len(spec.variants) * (spec.steps + 1)))
@@ -362,6 +421,8 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
     steps = []
     for i, rec0 in enumerate(per_rank[0]["steps"]):
         recs = [r["steps"][i] for r in per_rank]
+        # a grouped level's sub-root pool lives on its sub-roots only
+        levels = sorted({name for r in recs for name in r["pool_by_level"]})
         steps.append({
             "loss": rec0["loss"], "lr": rec0["lr"],
             "step_s": max(r["step_s"] for r in recs),
@@ -369,13 +430,17 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
             "t_end": max(r["t_end"] for r in recs),
             "pool_bytes": sum(r["pool_bytes"] for r in recs),
             "pool_by_level": {
-                name: {k: sum(r["pool_by_level"][name][k] for r in recs)
-                       for k in c}
-                for name, c in rec0["pool_by_level"].items()},
+                name: {k: sum(r["pool_by_level"].get(name, {}).get(k, 0)
+                              for r in recs)
+                       for k in ("published", "retrieved")}
+                for name in levels},
             "launches": {k: sum(r["launches"][k] for r in recs)
                          for k in KERNEL_COUNTERS},
             "launches_min_rank": {k: min(r["launches"][k] for r in recs)
                                   for k in KERNEL_COUNTERS},
+            "fallbacks": sum(r["fallbacks"] for r in recs),
+            "chunked_reduce_by_n_per_rank": [r["chunked_reduce_by_n"]
+                                             for r in recs],
             "wire_bytes_rank0": rec0["wire_bytes"],
             "fused_bytes_rank0": rec0["fused_bytes"],
             "level_wire_bytes_rank0": rec0["level_wire_bytes"],
@@ -393,20 +458,52 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
     return out
 
 
+def choose_placement(args, topology: Topology, dp: int, tp: int) -> tuple:
+    """``--placement``'s choice, as the reference launcher makes it: the
+    model's analytic mix at the ``--mesh`` degrees, ranked on
+    ``topology`` (``auto``) or loaded from a saved placement, and the
+    best entry that keeps ``model`` on one level.  Returns (chosen
+    placement, mix, placement plan)."""
+    from repro_torch import tuner
+    cfg = get_config(args.arch, smoke=args.smoke)
+    mix = tuner.CollectiveMix.for_model(
+        cfg, {"data": dp, "model": tp}, seq=args.seq,
+        batch_per_rank=max(1, args.batch // max(1, dp)))
+    pplan = tuner.plan_placement(mix, topology) \
+        if args.placement == "auto" else tuner.load_placement(args.placement)
+    return pplan.best_with_unsplit(("model",)), mix, pplan
+
+
 def spec_from_args(args) -> RunSpec:
-    """The run the launcher's flags describe (one variant)."""
+    """The run the launcher's flags describe (one variant); with
+    ``--placement`` the placed mesh, topology and axis aliases."""
+    from repro_torch import tuner
     dp, tp = parse_mesh(args.mesh)
     if args.batch % (dp * args.microbatches):
         raise SystemExit(f"--batch {args.batch} must split over {dp} "
                          f"data ranks x {args.microbatches} microbatches")
     mesh_shape(dp, tp, args.multi_pod)         # odd DP with --multi-pod
+    if args.placement_from_dryrun:
+        raise SystemExit("--placement-from-dryrun is not ported yet: it "
+                         "needs the dry-run (ROADMAP queue 1, item 11)")
+    topology = parse_topology(args.topology) if args.topology else None
+    placed: dict = {}
+    if args.placement:
+        if topology is None:
+            raise SystemExit("--placement requires --topology")
+        if args.multi_pod:
+            raise SystemExit("--placement chooses the mesh: drop "
+                             "--multi-pod")
+        chosen, mix, pplan = choose_placement(args, topology, dp, tp)
+        print(tuner.format_report(pplan, chosen=chosen), flush=True)
+        sizes, names, aliases = tuner.mesh_spec(chosen, mix, topology)
+        topology = tuner.placed_topology(chosen, topology)
+        placed = dict(shape=tuple(zip(names, sizes)), aliases=aliases)
     return RunSpec(arch=args.arch, smoke=args.smoke,
                    variants=(tcfg_from_args(args),), steps=args.steps,
                    batch=args.batch, seq=args.seq, dp=dp, tp=tp,
                    device=resolve_device(args.device).type,
-                   multi_pod=args.multi_pod,
-                   topology=parse_topology(args.topology)
-                   if args.topology else None)
+                   multi_pod=args.multi_pod, topology=topology, **placed)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -414,7 +511,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     spec = spec_from_args(args)
     device = spec.device
     cfg = get_config(args.arch, smoke=args.smoke)
-    shape = mesh_shape(spec.dp, spec.tp, spec.multi_pod)
+    shape = spec.mesh()
     if spec.topology is not None:
         warn_uncovered(spec.topology, dict(shape))
     print(f"training {cfg.name} on mesh "

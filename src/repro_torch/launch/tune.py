@@ -7,6 +7,9 @@ Usage:
       --sizes-mib 1 4 16 64 256 --out plan.json
   PYTHONPATH=src python -m repro_torch.launch.tune \\
       --topology "pod:ib,node:cxl,gpu:ici" --out plan.json
+  PYTHONPATH=src python -m repro_torch.launch.tune --nranks 4 \\
+      --topology pod:cxl,node:cxl:3+1 --placement-report llama3.2-1b \\
+      --placement-axes data=4,model=1 --out plan.json
 
 Port of ``repro.launch.tune``.  The sweep prices the fused cells'
 epilogue with the H100 roofline, so a plan tuned here makes the
@@ -18,10 +21,16 @@ plan cache (``repro_torch.tuner.default_plan_path``), where
 ``repro_torch.launch.train --backend auto --plan ...`` or
 ``repro_torch.launch.serve --plan ...``.
 
+``--placement-report ARCH`` ranks the mesh-axis -> level assignments of
+the topology for ARCH's analytic collective mix (``tuner.placement``,
+the roofline windows priced on the H100), prints the table and embeds it
+in the plan's metadata (``Plan.placement()``); ``--placement-axes
+data=4,model=1`` gives the logical axis degrees (default: the products
+of the placeable levels' declared sizes).
+
 Not ported yet: ``--overlap-from-dryrun`` (needs the dry-run, ROADMAP
-queue 1, item 11), ``--measurements`` (``tuner/online.py``, item 10)
-and ``--placement-report`` / ``--placement-axes``
-(``tuner/placement.py``, item 6); each raises naming the ROADMAP.
+queue 1, item 11) and ``--measurements`` (``tuner/online.py``, item 10);
+each raises naming the ROADMAP.
 """
 from __future__ import annotations
 
@@ -37,11 +46,7 @@ from repro_torch.core.topology import parse_topology
 
 UNPORTED = {"--overlap-from-dryrun": "the dry-run (ROADMAP queue 1, item "
                                      "11)",
-            "--measurements": "tuner/online.py (ROADMAP queue 1, item 10)",
-            "--placement-report": "tuner/placement.py (ROADMAP queue 1, "
-                                  "item 6)",
-            "--placement-axes": "tuner/placement.py (ROADMAP queue 1, "
-                                "item 6)"}
+            "--measurements": "tuner/online.py (ROADMAP queue 1, item 10)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,6 +79,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="architecture whose cache footprint and active "
                          "parameter count price the kv_block recompute "
                          "arm")
+    ap.add_argument("--placement-report", default=None, metavar="ARCH",
+                    help="rank mesh-axis -> fabric-level placements of "
+                         "--topology for ARCH's analytic collective mix "
+                         "(tuner.placement), print the table and embed it "
+                         "in the plan's metadata (Plan.placement())")
+    ap.add_argument("--placement-axes", default=None,
+                    help="logical axis degrees for --placement-report, "
+                         "'name=size,...' (default: data = the product of "
+                         "the placeable levels' sizes but the innermost, "
+                         "model = the innermost's)")
     ap.add_argument("--quiet", action="store_true")
     for flag, what in UNPORTED.items():
         ap.add_argument(flag, default=None, help=f"not ported: needs {what}")
@@ -101,6 +116,26 @@ def kv_block_cells(plan: tuner.Plan, arch: str, sizes: Sequence[int], *,
         plan.add("kv_block", nbytes, 1, choice)
         picks[choice.backend] += 1
     return picks
+
+
+def parse_axes(spec: str) -> dict:
+    """``"data=4,model=1"`` -> ``{"data": 4, "model": 1}``."""
+    return {k: int(v) for k, v in (p.split("=") for p in spec.split(","))}
+
+
+def placement_axes(topology) -> dict:
+    """The reference's default degrees for ``--placement-report``: data =
+    the product of the placeable levels' sizes but the innermost, model
+    = the innermost's (None when a level's size is undeclared)."""
+    lvs = topology.levels
+    sizes = [lv.size for i, lv in enumerate(lvs)
+             if not (i + 1 < len(lvs) and lvs[i + 1].grouped)]
+    if any(s is None for s in sizes):
+        return None
+    data = 1
+    for s in sizes[:-1]:
+        data *= s
+    return {"data": data, "model": sizes[-1]}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> tuner.Plan:
@@ -133,6 +168,20 @@ def main(argv: Optional[Sequence[str]] = None) -> tuner.Plan:
                                smoke=args.smoke)
         print(f"  kv_block ({args.kv_arch}): {dict(picks)} over "
               f"{len(args.kv_block_bytes)} sizes")
+    if args.placement_report:
+        if topology is None:
+            ap.error("--placement-report requires --topology")
+        from repro_torch.configs import get_config
+        axes = parse_axes(args.placement_axes) if args.placement_axes \
+            else placement_axes(topology)
+        if axes is None:
+            ap.error("--placement-report needs --placement-axes when "
+                     "topology level sizes are undeclared")
+        mix = tuner.CollectiveMix.for_model(
+            get_config(args.placement_report), axes)
+        pplan = tuner.plan_placement(mix, topology)
+        print(tuner.format_report(pplan))
+        plan.meta["placement"] = pplan.to_json()
     dt = time.time() - t0
 
     out = args.out or tuner.default_plan_path(topology=topology)

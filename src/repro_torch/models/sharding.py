@@ -17,8 +17,9 @@ outer level first) or None.  ``param_specs`` assigns:
   and get their grads summed by ``sync_grads``, over every dp level and
   the model axis that does not shard them.
 
-The placement alias registry is not ported yet (ROADMAP queue 1, item
-6).
+Axis names go through the placement alias registry
+(``set_axis_aliases``, ``tuner.placement``) first, so specs built with
+the logical names land on the mesh axes a placement chose.
 """
 from __future__ import annotations
 
@@ -28,6 +29,45 @@ from repro_torch.core import tree
 from repro_torch.models.pcontext import ParallelContext
 
 FSDP_MIN_SIZE = 65536
+
+# -- axis-name indirection (tuner.placement) -------------------------------
+# Model code and the spec tables below speak logical axis names ("model",
+# "data").  A placement may bind a logical axis to differently-named mesh
+# axes - in particular split one logical axis across adjacent fabric
+# levels, each a mesh axis of its own; the registry maps logical -> mesh
+# axes at spec-construction time.
+
+_AXIS_ALIASES: dict = {}
+
+
+def set_axis_aliases(aliases: dict) -> None:
+    """Install the placement's logical->mesh axis map, e.g.
+    ``{"data": ("pod", "node")}``.  Values are a mesh axis name or a
+    tuple of them (outermost first, the rank-major convention)."""
+    _AXIS_ALIASES.clear()
+    _AXIS_ALIASES.update(aliases)
+
+
+def clear_axis_aliases() -> None:
+    _AXIS_ALIASES.clear()
+
+
+def resolve_axis(axis):
+    """Map a logical axis spec (name or tuple of names) through the
+    alias registry, flattening tuple-valued aliases.  Unaliased names
+    pass through, so callers can resolve unconditionally."""
+    if axis is None:
+        return None
+    if isinstance(axis, (tuple, list)):
+        out: list = []
+        for a in axis:
+            r = _AXIS_ALIASES.get(a, a)
+            out.extend(r) if isinstance(r, (tuple, list)) else \
+                out.append(r)
+        return tuple(out)
+    r = _AXIS_ALIASES.get(axis, axis)
+    return tuple(r) if isinstance(r, (tuple, list)) else r
+
 
 # leaf name -> dim sharded over the model axis (None = replicated)
 TP_DIM = {
@@ -84,8 +124,11 @@ def _tp_dim(names: tuple, rank: int, stacked: bool) -> Optional[int]:
 def param_specs(params: Any, cfg, *, model_axis: str = "model",
                 dp_axis: Union[str, tuple, None] = None,
                 fsdp: bool = True) -> Any:
-    """Spec tree matching ``params`` (tensors, meta tensors included)."""
-    tp = _MESH_SIZES.get(model_axis, 1)
+    """Spec tree matching ``params`` (tensors, meta tensors included).
+    Axis names resolve through the alias registry first."""
+    model_axis = resolve_axis(model_axis)
+    dp_axis = resolve_axis(dp_axis)
+    tp = _size(model_axis)
     dp = _size(dp_axis)
 
     def spec_for(names, leaf) -> tuple:

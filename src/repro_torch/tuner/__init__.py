@@ -11,8 +11,16 @@ collective call and the ledger audits every decision taken::
     python -m repro_torch.launch.train --arch llama3.2-1b --mesh 4x1 \\
         --backend auto --plan plan.json
 
+``tuner.placement`` chooses the mesh-axis -> fabric-level assignment:
+``plan_placement(CollectiveMix, Topology)`` ranks every feasible
+assignment (axis splits across adjacent levels, grouped shape-vector
+levels priced by their grouped decomposition) by predicted exposed step
+time; ``train --placement auto`` applies the winner, and ``tune
+--placement-report`` embeds the ranked table in the plan's metadata
+(``Plan.placement()`` reads it back).
+
 Ported from ``repro.tuner``; not ported yet: ``tuner.online`` (ROADMAP
-queue 1, item 10) and ``tuner.placement`` (item 6).
+queue 1, item 10).
 """
 from repro_torch.tuner.costmodel import (cache_clear, epilogue_flops,
                                          fused_window, ici_time,
@@ -21,6 +29,12 @@ from repro_torch.tuner.costmodel import (cache_clear, epilogue_flops,
                                          predict_level_time,
                                          predict_p2p_time, predict_time,
                                          roofline_compute_time)
+from repro_torch.tuner.placement import (AxisTraffic, CollectiveCall,
+                                         CollectiveMix, Placement,
+                                         PlacementPlan, format_report,
+                                         load_placement, mesh_spec,
+                                         placed_topology, plan_placement,
+                                         predict_call_time, save_placement)
 from repro_torch.tuner.plan import (PLAN_VERSION, Choice, Plan,
                                     PlanVersionError, hardware_fingerprint,
                                     load_plan, save_plan, size_bucket)
@@ -42,6 +56,10 @@ __all__ = [
     "roofline_compute_time", "epilogue_flops", "fused_window",
     "cache_clear",
     "generate_plan", "overlap_windows_from_dryrun",
+    "AxisTraffic", "CollectiveCall", "CollectiveMix", "Placement",
+    "PlacementPlan", "format_report", "load_placement", "mesh_spec",
+    "placed_topology", "plan_placement", "predict_call_time",
+    "save_placement",
     "hardware_fingerprint", "size_bucket", "load_plan", "save_plan",
     "activate_plan_file", "clear_active_plan", "default_plan_path",
     "ensure_default_plan", "get_active_plan", "get_active_plan_versioned",

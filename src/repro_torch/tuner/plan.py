@@ -191,9 +191,8 @@ class Plan:
         doc = self.meta.get("placement")
         if not doc:
             return None
-        raise NotImplementedError(
-            "this plan embeds a placement report: tuner/placement.py is "
-            "not ported yet (ROADMAP queue 1, item 6)")
+        from repro_torch.tuner.placement import PlacementPlan
+        return PlacementPlan.from_json(doc)
 
     def calibration(self) -> dict:
         """The learned measured/oracle calibration table persisted by

@@ -267,6 +267,19 @@ def test_shared_pool_consults_the_fault_hook():
         os.close(fd)
 
 
+def test_bench_times_ring_only_up_to_ring_max_mb():
+    """``launch.collectives.bench(ring_max_mb=...)`` times the gloo ring
+    only up to that size a rank and cxl at every size, each result
+    held to the oracle."""
+    from repro_torch.launch import collectives
+    rows = collectives.bench(2, (1, 2), reps=1, device="cpu",
+                             names=("all_gather", "reduce_scatter"),
+                             ring_max_mb=1)
+    assert sorted((r["mb"], r["backend"]) for r in rows) == sorted(
+        [(1, "ring"), (1, "cxl"), (2, "cxl")] * 2)
+    assert all(r["ok"] for r in rows)
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--reference":
         reference_main(sys.argv[2], sys.argv[3])

@@ -399,14 +399,21 @@ def test_topology_levels_book_every_fabric_and_pool_only_on_cxl(results):
 
 
 def test_tuple_axes_raise_where_the_reference_does():
-    """all_to_all and send stay single-axis; a grouped level raises
-    naming its ROADMAP item; ``axis_size`` and ``axis_index`` of a
-    tuple are the product and the rank-major index."""
+    """all_to_all and send stay single-axis; ``axis_size`` and
+    ``axis_index`` of a tuple are the product and the rank-major index.
+    A grouped level inside the tuple (``data:cxl:2+1`` under ``pod:ib``,
+    ROADMAP queue 1 item 6) computes: the all-reduce over ("pod",
+    "data") = (2, 3) on 6 gloo ranks under cxl equals the numpy oracle
+    bitwise on every rank, its data level reduce-scattering and
+    all-gathering through the grouped schedules (the sub-root exchange
+    booked on the pod level) and no fallback booked."""
     import torch
 
     from repro_torch.core.api import Communicator
     from repro_torch.core.mesh_collectives import AxisGroup
     from repro_torch.core.topology import parse_topology
+    from repro_torch.launch import collectives, ranks
+    from repro_torch.launch.mesh import level_groups
     axes = {"pod": AxisGroup("pod", 1, 2), "data": AxisGroup("data", 1, 3)}
     comm = Communicator(backend="cxl", axes=axes)
     assert comm.axis_size(("pod", "data")) == 6
@@ -416,10 +423,24 @@ def test_tuple_axes_raise_where_the_reference_does():
         comm.all_to_all(x, ("pod", "data"))
     with pytest.raises(NotImplementedError, match="single-axis"):
         comm.send(x, ("pod", "data"))
-    grouped = Communicator(backend="cxl", axes=axes,
-                           topology=parse_topology("pod:ib,data:cxl:2+1"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        grouped.all_reduce(x, ("pod", "data"))
+    topo = parse_topology("pod:ib,data:cxl:2+1")
+    shape = (("pod", 2), ("data", 3))
+    xs = np.split(np.random.default_rng(6).integers(
+        -8, 8, (36, 2)).astype(np.float32), 6)
+    case = dict(name="all_reduce_two_phase", backend="cxl", x=xs,
+                shape=shape, axis=("pod", "data"), topology=topo,
+                ledger=True)
+    res = ranks.spawn(collectives.rank_cases, 6, ([case],), device="cpu",
+                      partition_bytes=1 << 12,
+                      groups=level_groups(shape, topo), timeout_s=120.0)
+    want = collectives.oracle("all_reduce_two_phase", xs, 0)
+    for r, [(got, snap)] in enumerate(res):
+        np.testing.assert_array_equal(got, want, err_msg=f"rank {r}")
+        assert snap["fallbacks"] == []
+        lvl = snap["level_wire_bytes"]
+        assert set(lvl) == {"pod/ib", "data/cxl"}
+        assert set(lvl["data/cxl"]) == {"reduce_scatter", "all_gather",
+                                        "broadcast"}
 
 
 def test_level_groups_and_rank_major_mesh():

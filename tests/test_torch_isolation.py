@@ -86,10 +86,14 @@ def test_engine_without_device_refuses_cpu_fallback():
 def test_launcher_rejects_unported_flags():
     from repro_torch.launch import serve
     ap = serve.build_parser()
-    for flag in ("--online-retune", "--placement", "--ckpt",
-                 "--metrics-out"):
+    for flag in ("--online-retune", "--ckpt", "--metrics-out"):
         with pytest.raises(SystemExit):
             ap.parse_args(["--arch", "llama3.2-1b", flag, "x"])
+    # --placement is ported (with --placement-axes): it parses
+    args = ap.parse_args(["--arch", "llama3.2-1b", "--placement", "auto",
+                          "--placement-axes", "data=4,model=1"])
+    assert (args.placement, args.placement_axes) == \
+        ("auto", "data=4,model=1")
     args = ap.parse_args(["--arch", "llama3.2-1b", "--smoke", "--device",
                           "cpu", "--batch", "2", "--prompt-len", "8",
                           "--new-tokens", "3"])
@@ -133,10 +137,13 @@ def test_train_entry_points_without_device_refuse_cpu_fallback():
 def test_train_launcher_rejects_unported_flags_and_tp():
     from repro_torch.launch import train
     ap = train.build_parser()
-    for flag in ("--placement", "--pp-stages", "--ckpt",
-                 "--metrics-out", "--online-retune"):
+    for flag in ("--pp-stages", "--ckpt", "--metrics-out",
+                 "--online-retune"):
         with pytest.raises(SystemExit):
             ap.parse_args(["--arch", "llama3.2-1b", flag, "x"])
+    # --placement is ported: it parses
+    assert ap.parse_args(["--arch", "llama3.2-1b", "--placement",
+                          "auto"]).placement == "auto"
     args = ap.parse_args(["--arch", "llama3.2-1b", "--backend", "auto",
                           "--plan", "plan.json"])
     assert train.tcfg_from_args(args).plan_path == "plan.json"

@@ -365,10 +365,18 @@ def test_port_tune_cli_matches_the_sweep(tmp_path, monkeypatch, capsys):
     grid = dataclasses.replace(ptuner.SMOKE_GRID, nranks=(4,))
     assert _same_json(plan, ptuner.generate_plan(grid))
     assert "tuned" in capsys.readouterr().out
-    for flag in ("--overlap-from-dryrun", "--measurements",
-                 "--placement-report"):
+    for flag in ("--overlap-from-dryrun", "--measurements"):
         with pytest.raises(SystemExit):
             tune.main(["--smoke", flag, "x", "--out", out])
+    # --placement-report is ported: it needs a topology and parses
+    with pytest.raises(SystemExit):
+        tune.main(["--smoke", "--placement-report", "llama3.2-1b",
+                   "--out", out])
+    args = tune.build_parser().parse_args(
+        ["--placement-report", "llama3.2-1b", "--placement-axes",
+         "data=4,model=1"])
+    assert (args.placement_report, args.placement_axes) == \
+        ("llama3.2-1b", "data=4,model=1")
     with pytest.raises(SystemExit):
         tune.main(["--smoke", "--kv-block-bytes", "4096", "--out", out])
 
@@ -400,9 +408,22 @@ def test_plan_lookup_memo_follows_adds():
 
 
 def test_plan_with_placement_names_the_roadmap():
-    plan = ptuner.Plan(fingerprint="x", meta={"placement": {"rows": []}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plan.placement()
+    """ROADMAP queue 1 item 6 ported ``tuner/placement.py``: a plan's
+    embedded placement table reads back through ``Plan.placement()``
+    after a JSON round trip, as the reference's."""
+    from repro.tuner import placement as rpl
+    from repro_torch.tuner import placement as ppl
+    rtopo_ = rtopo.parse_topology("pod:cxl,node:cxl:3+1")
+    pplan = ppl.plan_placement(ppl.CollectiveMix(axes=(ppl.AxisTraffic(
+        "data", 4, (ppl.CollectiveCall("all_gather", 1 << 20),)),)),
+        ptopo.parse_topology("pod:cxl,node:cxl:3+1"))
+    plan = ptuner.Plan(fingerprint="x", meta={"placement": pplan.to_json()})
+    again = ptuner.Plan.from_json(plan.to_json()).placement()
+    assert again.to_json() == pplan.to_json()
+    assert again.best.assignment == (("data", ("node",)),)
+    assert rtuner.Plan.from_json(plan.to_json()).placement().to_json() == \
+        rpl.PlacementPlan.from_json(pplan.to_json()).to_json()
+    assert rtopo_.fingerprint() == again.topology.fingerprint()
     assert ptuner.Plan(fingerprint="x").placement() is None
 
 
@@ -513,14 +534,29 @@ def test_auto_choice_on_topology_levels_matches_reference(
 
 
 def test_auto_refuses_grouped_levels_and_tuple_axes():
-    """A grouped (ragged) level still raises, naming the ROADMAP item."""
+    """A grouped (ragged) level (ROADMAP queue 1 item 6, ported) resolves
+    under ``auto`` as the reference's does: the within-group phase at its
+    largest group on the level, the sub-root phase at the group count on
+    the parent, each cell the reference's.  An axis the mesh built
+    without the level's groups is refused, naming the fix."""
+    import torch
+
+    from repro.core.api import Communicator as RComm
     from repro_torch.core.api import Communicator
-    topo = ptopo.parse_topology("pod:ib,node:cxl:4+2")
-    comm = Communicator(backend="auto", plan=ptuner.Plan(
-        fingerprint="x", meta={"topology": topo.to_json()}),
-        axes={"node": _axis("node", 6)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        comm._choice("all_gather", MiB, _axis("node", 6))
+    spec = "pod:ib,node:cxl:4+2"
+    rt = rtopo.parse_topology(spec)
+    rplan = rtuner.generate_plan(rtuner.SMOKE_GRID, topology=rt)
+    comm = Communicator(backend="auto",
+                        plan=ptuner.Plan.from_json(rplan.to_json()),
+                        axes={"node": _axis("node", 6)})
+    rc = RComm(backend="auto", plan=rplan)
+    for s in (1000, 8 * MiB):
+        assert comm._choice("all_gather", s, "node", 4) == \
+            rc._choice("all_gather", s, 4, rt, "node")
+        assert comm._choice("all_gather", 4 * s, "pod", 2) == \
+            rc._choice("all_gather", 4 * s, 2, rt, "pod")
+    with pytest.raises(ValueError, match="topology"):
+        comm.all_gather(torch.zeros(4), "node")
 
 
 def test_auto_resolves_a_cell_per_level_of_a_tuple_axis(

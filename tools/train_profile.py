@@ -18,7 +18,9 @@ runs, by label: flat ``cxl`` (``--mesh 4x1``); over ``("pod",
 "data")`` = (2, 2) with ``--topology pod:cxl,data:ici``, ``hier_cxl``
 and ``hier_cxl_fused``; over ``("data", "model")`` = (2, 2) with
 ``--mesh 2x2 --topology data:cxl,model:cxl``, ``tp_cxl`` and
-``tp_cxl_fused`` (``--runs`` picks some).  Prints one JSON object and
+``tp_cxl_fused``; over the grouped data axis of ``--topology
+pod:cxl,data:cxl:3+1`` (a node of three beside a lone node),
+``ragged_cxl`` and ``ragged_cxl_fused`` (``--runs`` picks some).  Prints one JSON object and
 writes it to ``--out``.
 """
 from __future__ import annotations
@@ -36,11 +38,14 @@ import chip_smoke  # noqa: E402  (puts src/ on the path)
 
 HIER = ["--multi-pod", "--topology", chip_smoke.HIER_TOPOLOGY]
 TP = ["--topology", chip_smoke.TP_TOPOLOGY]
+RAGGED = ["--topology", chip_smoke.RAGGED_TOPOLOGY]
 RUNS = {"cxl": ["--backend", "cxl"],
         "hier_cxl": HIER + ["--backend", "cxl"],
         "hier_cxl_fused": HIER + ["--backend", "cxl", "--fuse-kernels"],
         "tp_cxl": TP + ["--backend", "cxl"],
-        "tp_cxl_fused": TP + ["--backend", "cxl", "--fuse-kernels"]}
+        "tp_cxl_fused": TP + ["--backend", "cxl", "--fuse-kernels"],
+        "ragged_cxl": RAGGED + ["--backend", "cxl"],
+        "ragged_cxl_fused": RAGGED + ["--backend", "cxl", "--fuse-kernels"]}
 MESH = {"tp_cxl": chip_smoke.TP_MESH, "tp_cxl_fused": chip_smoke.TP_MESH}
 
 
