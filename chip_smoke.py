@@ -12,18 +12,21 @@ Phases (each fails the run if its check fails):
                  kernels/csrc`` (one nvcc per source, all started together);
 2. parity      - each kernel against its plain PyTorch version on the
                  card: rms_norm (at both models' widths, D = 2048 and
-                 4096) and flash_attention at the serving path's shapes
-                 (f32, bf16; flash_attention also at the (data, model)
-                 path's (2, 1024, 16, 64)) and their gradients (the
+                 4096, and Granite's (2048, 1536)) and flash_attention
+                 at the serving path's shapes (f32, bf16; flash_attention
+                 also at the (data, model) path's (2, 1024, 16, 64) and
+                 the MoE path's (2, 1024, 12, 64)) and their gradients
+                 (at those training shapes too; the
                  kernel path's
                  autograd, for rms_norm its backward kernel, against
                  autograd through the plain version);
                  chunked_reduce (f32, bf16; n_src 2, 4, 16; the training
                  path's segment length and a ragged one, the (pod, data),
-                 (data, model) and grouped paths' shapes);
+                 (data, model), grouped and MoE paths' shapes);
                  all_gather_matmul at
                  the training paths' shapes (f32; at (data, model) x
-                 (2048, 2 x 1024) @ N = 256, 1024, 4096); ssm_scan (y and
+                 (2048, 2 x 1024) @ N = 256, 1024, 4096, on the MoE path
+                 (2048, 2 x 768) @ N = 768, 256); ssm_scan (y and
                  the
                  final state) at the JAX test shapes, Falcon's prefill and
                  decode shapes, a ragged L from a random state, L
@@ -137,13 +140,34 @@ Phases (each fails the run if its check fails):
                  kernels of 7b every step and under cxl chunked_reduce at
                  N = its group's size (3) and, on a sub-root, at N = the
                  group count (2), every auto call took its level's cell,
-                 and the placement run moves the plain run's bytes.
+                 and the placement run moves the plain run's bytes;
+7e. train MoE  - Granite-3.0-MoE (32 ``e`` rows, d_model 1536, 40 experts
+                 top-8) at full width and depth over ``--mesh 2x2
+                 --topology data:cxl,model:cxl --prefetch 0``, experts
+                 parallel over model (each row's dispatch and combine an
+                 AllToAll through the model level's pool), FSDP over data:
+                 the smoke MoE card vs CPU (rtol 2e-4), then cxl+fused
+                 (profiled, writing ``train --ckpt``), cxl and auto (2
+                 steps, 7c's plan): step-0 losses within 1e-4 of each
+                 other, every loss falls, both levels' pools move bytes,
+                 the kernels of 7b on every rank every step, every auto
+                 call (all_to_all included) at its level's cell, rank 0's
+                 all_to_all bytes as reckoned, every (token, slot) pair
+                 routed once a forward (the pairs dropped by capacity
+                 logged per step), and the checkpoint restored into the
+                 GLOBAL shapes at tp = 2 equal to the run's params
+                 bitwise, then deleted; the flat cxl+fused run of 7 writes
+                 a checkpoint too, and ``serve --ckpt`` of it must give the
+                 greedy tokens of an engine built from that run's params;
+7f. serve MoE  - ``serve --arch granite-moe-3b`` at full width (tp = 1, f32):
+                 the fixed batch of 4 x 1024-token prompts, 16 new tokens,
+                 then prefill and decode-step times.
 
 The kernels' launch counters are zeroed before each serving run and
 before each training step (in the rank processes), and read after it
 (the kernels line's ``launches_by_path`` counts the flat training runs
-as ``train``, 7b's as ``train_hier``, 7c's as ``train_tp`` and 7d's as
-``train_ragged``):
+as ``train``, 7b's as ``train_hier``, 7c's as ``train_tp``, 7d's as
+``train_ragged``, 7e's as ``train_moe`` and 7f's as ``serve_moe``):
 the training path's four kernels and rms_norm's backward kernel must
 have run on it, rms_norm and
 flash_attention on the serving path too, rms_norm and ssm_scan on the
@@ -230,6 +254,25 @@ AGM_TP_SHAPES = ((TP_TOKENS, 2, 1024, 1024), (TP_TOKENS, 2, 1024, 256),
                  (TP_TOKENS, 2, 1024, 4096))
 # flash_attention there: 2 sequences of one rank, its 16 of the 32 heads
 FA_TP_SHAPE = (TRAIN_BATCH // TP_DP, PROMPT, 32 // TP_TP, 64)
+# the MoE path: Granite-3.0-MoE at full width over (data, model) = (2, 2),
+# both levels on the pool, experts parallel over model.  --prefetch 0:
+# with the double-buffered gather every row's gathered params (201.6 MB a
+# rank) live until its backward, 6.4 GB a rank on top of 13.5 GB of
+# params, grads and moments - more than a quarter of the card
+MOE_ARCH = "granite-moe-3b"
+MOE_D, MOE_HEADS, MOE_KV = 1536, 24, 8
+MOE_PREFETCH = "0"
+# all_gather_matmul there (--fuse-kernels): x (T, 2 x 768) @ (2, 768, N),
+# this model rank's columns of wq (N = 768) and wk/wv (256); the MoE's
+# expert stacks are 3-D and gather concatenated, as in the JAX package
+AGM_MOE_SHAPES = ((TP_TOKENS, 2, 768, 768), (TP_TOKENS, 2, 768, 256))
+# flash_attention there: a rank's 2 sequences, its 12 of the 24 q heads
+# (its 4 kv heads repeated 3:1)
+FA_MOE_SHAPE = (TRAIN_BATCH // TP_DP, PROMPT, MOE_HEADS // TP_TP, 64)
+RMS_MOE = (TP_TOKENS, MOE_D)
+# the checkpoints the training phase writes and deletes (inside the
+# checkout, git-ignored)
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 # the grouped (ragged) path: the 4 data ranks as a node of three beside a
 # lone node, one flat data axis; and the physical topology whose
 # placement (--placement auto) gives it
@@ -284,6 +327,28 @@ def tp_reduce_shapes(rs_len: int) -> tuple:
     row's grads (this model rank's half of the row over 2 data ranks:
     rs_len a rank, as at DP 4)."""
     return ((2, TP_TOKENS * 2048 // 2), (2, rs_len))
+
+
+def moe_reduce_shapes() -> tuple:
+    """chunked_reduce on the MoE path: the model level's activation
+    AllReduce of (T, 1536) f32 (half of it a rank, two sources), and the
+    data level's reduce-scatter of one model rank's half of a row's FSDP
+    bucket (its attention columns, the router and its 20 experts) over 2
+    data ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.models import model, sharding
+    cfg = get_config(MOE_ARCH)
+    sharding.set_mesh_sizes({"data": TP_DP, "model": TP_TP})
+    abstract = model.abstract_params(cfg, tp=TP_TP)
+    specs = sharding.param_specs(abstract, cfg, dp_axis="data")
+    bucket = sum(x[0].numel() // (TP_TP if "model" in s else 1)
+                 for (_, x), (_, s) in zip(
+                     tree.leaves_with_paths(abstract["g0"]),
+                     tree.leaves_with_paths(specs["g0"])) if "data" in s)
+    return ((2, TP_TOKENS * MOE_D // 2), (2, bucket // TP_DP))
+
+
 SSM_ARCH = "falcon-mamba-7b"
 # (B, L, D, N, from a random state): the JAX test shapes, Falcon's prefill
 # (1 x 1024) and decode (4 slots) shapes, a ragged L from a random state;
@@ -296,11 +361,13 @@ SSM_SHAPES = ((2, 256, 256, 16, False), (1, 128, 512, 8, False),
 SSM_BF16 = (2, 300, 8192, 16, True)
 # rms_norm (T, D): Llama's prefill and decode, Falcon-Mamba's; the
 # training path's backward (one rank's 1024 tokens at d_model 2048)
-RMS_SHAPES = ((PROMPT, 2048), (SLOTS, 2048), (PROMPT, 4096), (SLOTS, 4096))
+RMS_SHAPES = ((PROMPT, 2048), (SLOTS, 2048), (PROMPT, 4096), (SLOTS, 4096),
+              RMS_MOE)
 RMS_BWD = (PROMPT, 2048)
 # the kernels each serving path must launch
 SERVE_KERNELS = {"serve": ("rms_norm", "flash_attention"),
-                 "serve_ssm": ("rms_norm", "ssm_scan")}
+                 "serve_ssm": ("rms_norm", "ssm_scan"),
+                 "serve_moe": ("rms_norm", "flash_attention")}
 
 
 def gemm_tol(k: int) -> tuple:
@@ -454,16 +521,19 @@ def grad_parity(randn, rn, fa, fc) -> list:
                     "max_abs_err": max(e for e, _ in errs),
                     "ok": all(ok for _, ok in errs)})
 
-    before = rn.rms_norm_vjp.launches
-    compare("rms_norm", [PROMPT, 2048], (rn.rms_norm, rn.rms_norm_plain),
-            [randn(PROMPT, 2048), randn(2048)], randn(PROMPT, 2048))
-    if rn.rms_norm_vjp.launches != before + 1:
-        fail("rms_norm's gradient did not come from its backward kernel")
-    qkv = [randn(1, PROMPT, 32, 64) for _ in range(3)]
-    compare("flash_attention", [1, PROMPT, 32, 64],
-            (lambda q, k, v: fa.flash_attention_train(q, k, v, True),
-             lambda q, k, v: fa.flash_attention_plain(q, k, v, True)),
-            qkv, randn(1, PROMPT, 32, 64))
+    for t, d in (RMS_BWD, RMS_MOE):
+        before = rn.rms_norm_vjp.launches
+        compare("rms_norm", [t, d], (rn.rms_norm, rn.rms_norm_plain),
+                [randn(t, d), randn(d)], randn(t, d))
+        if rn.rms_norm_vjp.launches != before + 1:
+            fail("rms_norm's gradient did not come from its backward "
+                 "kernel")
+    for shape in ((1, PROMPT, 32, 64), FA_MOE_SHAPE):
+        qkv = [randn(*shape) for _ in range(3)]
+        compare("flash_attention", list(shape),
+                (lambda q, k, v: fa.flash_attention_train(q, k, v, True),
+                 lambda q, k, v: fa.flash_attention_plain(q, k, v, True)),
+                qkv, randn(*shape))
     t, n, ks, nout = AGM_MAIN
     # dx contracts over N, dw over T: both through torch.matmul, batched
     # over the shards on one side and whole on the other
@@ -475,14 +545,14 @@ def grad_parity(randn, rn, fa, fc) -> list:
 
 
 def _train_args(extra: list, mesh: str = f"{DP}x1",
-                steps: int = TRAIN_STEPS) -> list:
+                steps: int = TRAIN_STEPS, arch: str = "llama3.2-1b") -> list:
     """The drive command's flags.  The full-width runs take --lr 3e-5:
     3 steps give the launcher's schedule no warm-up, and AdamW's first
     steps move every weight by about lr; on these random weights the
     loss along that path bottoms out before 1e-4 of travel, so at lr
     3e-4 and 1e-4 the second update overshoots (losses 12.12, 11.40,
     14.21 and 12.12, 10.57, 13.14 under all three backends alike)."""
-    return ["--arch", "llama3.2-1b", "--mesh", mesh, "--steps",
+    return ["--arch", arch, "--mesh", mesh, "--steps",
             str(steps), "--batch", str(TRAIN_BATCH), "--seq",
             str(PROMPT)] + extra
 
@@ -716,7 +786,8 @@ def rs_timing(timer, randn, rand, fc, rs_len: int) -> dict:
 
 def rms_timing(timer, randn, rn, sms: int) -> dict:
     """rms_norm (f32) at :data:`RMS_SHAPES` and its backward at
-    :data:`RMS_BWD`: the kernels, the plain versions, the library call
+    :data:`RMS_BWD` (``backward``) and :data:`RMS_MOE` (``backward_moe``):
+    the kernels, the plain versions, the library call
     and ``copy_ms``, the same bytes moved under the same timer
     (``y.copy_(x)``; for the backward ``torch.add(x, dy, out=dx)``: read
     x and dy, write dx), which no bytes-bound kernel beats.  The two
@@ -736,7 +807,14 @@ def rms_timing(timer, randn, rn, sms: int) -> dict:
             "copy_ms": timer(lambda: y.copy_(x)),
             "bytes": 2 * t * d * 4 + 4 * d, "flops": 4 * t * d,
             "shape": [t, d], "geometry": rn.rms_geometry(t, d, 4, sms)}
-    t, d = RMS_BWD
+    out["backward"] = rms_backward_timing(timer, randn, rn, sms, *RMS_BWD)
+    out["backward_moe"] = rms_backward_timing(timer, randn, rn, sms,
+                                              *RMS_MOE)
+    return out
+
+
+def rms_backward_timing(timer, randn, rn, sms: int, t: int, d: int) -> dict:
+    """rms_norm's backward at (t, d): see :func:`rms_timing`."""
     x, s = randn(t, d).requires_grad_(), randn(d).requires_grad_()
     xd, sd, dy = x.detach(), s.detach(), randn(t, d)
     dx = torch.empty_like(dy)
@@ -745,7 +823,7 @@ def rms_timing(timer, randn, rn, sms: int) -> dict:
     port, library = (
         lambda y=y: torch.autograd.grad(y, (x, s), dy, retain_graph=True)
         for y in ys)
-    out["backward"] = {
+    return {
         "ms": timer(port),
         "plain_ms": timer(lambda: rn.rms_norm_backward(xd, sd, 1e-5, dy)),
         "library_ms": timer(library),
@@ -762,7 +840,6 @@ def rms_timing(timer, randn, rn, sms: int) -> dict:
         "bytes": 3 * t * d * 4 + 8 * d, "flops": 9 * t * d,
         "shape": [t, d],
         "geometry": rn.rms_geometry(t, d, 4, sms, backward=True)}
-    return out
 
 
 def reduce_timing(timer, randn, cr, n_src: int, length: int) -> dict:
@@ -1034,18 +1111,22 @@ def check_auto_choices(run: dict, plan, topology=None) -> dict:
 
 
 def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
-                    profile: bool = True, short: tuple = ()) -> dict:
-    """Llama-3.2-1B at full width and depth through the launcher's flags:
-    each of ``runs`` (label -> its flags, after ``common``) is one
-    variant of a single spawn of the ranks, so the ranks start once; the
-    labels in ``short`` take ``SHORT_STEPS`` steps.  The first variant is
-    profiled for one more step; ``nvidia-smi`` is sampled over all."""
+                    profile: bool = True, short: tuple = (),
+                    arch: str = "llama3.2-1b", ckpt: str = None) -> dict:
+    """``arch`` (Llama-3.2-1B) at full width and depth through the
+    launcher's flags: each of ``runs`` (label -> its flags, after
+    ``common``) is one variant of a single spawn of the ranks, so the
+    ranks start once; the labels in ``short`` take ``SHORT_STEPS``
+    steps.  The first variant is profiled for one more step, and with
+    ``ckpt`` writes its checkpoint there (``train --ckpt``: its record
+    holds ``ckpt``, ``assemble_s``, ``save_s`` and ``global_params``);
+    ``nvidia-smi`` is sampled over all."""
     import dataclasses
 
     from repro_torch.launch import train
     specs = {label: train.spec_from_args(train.build_parser().parse_args(
         _train_args(common + extra + ["--lr", "3e-5"], mesh,
-                    SHORT_STEPS if label in short else TRAIN_STEPS)))
+                    SHORT_STEPS if label in short else TRAIN_STEPS, arch)))
         for label, extra in runs.items()}
     first = next(iter(specs.values()))
     for label, sp in specs.items():
@@ -1054,7 +1135,8 @@ def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
             fail(f"{label} runs on another mesh than {next(iter(runs))}")
     spec = dataclasses.replace(
         first, variants=tuple(sp.variants[0] for sp in specs.values()),
-        steps=max(sp.steps for sp in specs.values()), profile=profile)
+        steps=max(sp.steps for sp in specs.values()), profile=profile,
+        ckpt=ckpt)
     t0 = time.perf_counter()
     with SmiSampler() as smi:
         merged = train.run_ranks(spec)
@@ -1115,7 +1197,8 @@ def check_losses(runs: dict, first: float) -> None:
             fail(f"{label}: the loss did not fall: {ls}")
 
 
-def smoke_card_vs_cpu(mesh: str, tp: int = 1, extra: tuple = ()) -> dict:
+def smoke_card_vs_cpu(mesh: str, tp: int = 1, extra: tuple = (),
+                      arch: str = "llama3.2-1b") -> dict:
     """The smoke model's training path on the card against the same run
     on the CPU (cxl with fused kernels, the same numpy params at ``tp``):
     the losses of 3 steps within rtol 2e-4."""
@@ -1127,14 +1210,14 @@ def smoke_card_vs_cpu(mesh: str, tp: int = 1, extra: tuple = ()) -> dict:
     from repro_torch.launch import train
     from repro_torch.models import model
 
-    scfg = get_config("llama3.2-1b", smoke=True)
+    scfg = get_config(arch, smoke=True)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         path = os.path.join(tmp, "params.npz")
         train.save_params_npz(model.init_params(
             scfg, torch.Generator().manual_seed(0), "cpu", tp=tp), path)
         spec = train.spec_from_args(train.build_parser().parse_args(
             _train_args(["--smoke", "--backend", "cxl", "--fuse-kernels",
-                         *extra], mesh)))
+                         *extra], mesh, arch=arch)))
         losses = {}
         for device in ("cuda", "cpu"):
             run = train.run_ranks(dataclasses.replace(
@@ -1142,11 +1225,11 @@ def smoke_card_vs_cpu(mesh: str, tp: int = 1, extra: tuple = ()) -> dict:
             losses[device] = [s["loss"] for s in run["steps"]]
     err = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"]))
                        / np.abs(losses["cpu"])))
-    log(f"[train] smoke model on {mesh}, 3 steps, card vs CPU losses "
+    log(f"[train] smoke {arch} on {mesh}, 3 steps, card vs CPU losses "
         f"{losses} (max rel err {err:.2e}, rtol 2e-4)")
     if not err <= 2e-4:
-        fail(f"smoke training on {mesh} on the card differs from the CPU: "
-             f"{losses}")
+        fail(f"smoke {arch} training on {mesh} on the card differs from "
+             f"the CPU: {losses}")
     return {"losses": losses, "max_rel_err": err}
 
 
@@ -1209,6 +1292,207 @@ def check_ragged_runs(runs: dict) -> None:
                  f"{a['pool_by_level']}")
 
 
+def launcher_serve(argv: list) -> tuple:
+    """An engine from the serve launcher's flags (``engine_from_args``,
+    on the card) and its greedy tokens for a fixed batch of SLOTS x
+    PROMPT prompts (seed 0), NEW new tokens: (cfg, engine, prompts,
+    tokens, wall seconds of the generate call)."""
+    from repro_torch.launch import serve
+    args = serve.build_parser().parse_args(argv + [
+        "--batch", str(SLOTS), "--prompt-len", str(PROMPT), "--new-tokens",
+        str(NEW), "--decode-slots", str(SLOTS)])
+    cfg, eng = serve.engine_from_args(args)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                (SLOTS, PROMPT))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = eng.generate({"tokens": prompts}, NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if toks.shape != (SLOTS, NEW) or toks.min() < 0 or \
+            toks.max() >= cfg.vocab_size:
+        fail(f"serve {argv}: bad token block {toks.shape}")
+    return cfg, eng, prompts, toks, wall
+
+
+def check_flat_ckpt(run: dict) -> dict:
+    """``serve --arch llama3.2-1b --ckpt`` on the checkpoint the flat
+    cxl+fused run wrote: its greedy tokens must equal those of an engine
+    built from that run's captured GLOBAL params (the same ServeConfig);
+    then the checkpoint is deleted."""
+    import shutil
+
+    from repro_torch.models import model
+    from repro_torch.serving import ServeEngine
+    params = run.pop("global_params")
+    cfg, eng, prompts, toks, wall = launcher_serve(
+        ["--arch", "llama3.2-1b", "--ckpt", str(CKPT_DIR / "llama")])
+    scfg = eng.scfg
+    del eng
+    torch.cuda.empty_cache()
+    ref = ServeEngine(cfg, model.params_from_numpy(params,
+                                                   torch.device("cuda"),
+                                                   cfg, 1),
+                      scfg, device="cuda")
+    want = ref.generate({"tokens": prompts}, NEW)
+    del ref, params
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR / "llama")
+    rec = {"ckpt": run["ckpt"], "assemble_s": run["assemble_s"],
+           "save_s": run["save_s"], "serve_wall_s": wall, "tokens0": toks[0].tolist(),
+           "tokens_equal": bool(np.array_equal(toks, want))}
+    log(f"[train] flat cxl_fused checkpoint -> serve --ckpt: "
+        f"{json.dumps(rec)}")
+    if not rec["tokens_equal"]:
+        fail("serve --ckpt of the flat run's checkpoint gives other greedy "
+             "tokens than an engine built from the run's params")
+    return rec
+
+
+def check_moe_ckpt(run: dict) -> dict:
+    """The cxl+fused MoE run's checkpoint restored through
+    ``checkpoint.restore`` into ``abstract_params(cfg, tp=2)`` (the
+    GLOBAL padded shapes) equals the run's captured params bitwise; then
+    it is deleted (13.5 GB)."""
+    import os
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.models import model
+    from repro_torch.training import checkpoint
+    params = run.pop("global_params")
+    cfg = get_config(MOE_ARCH)
+    nbytes = os.path.getsize(os.path.join(run["ckpt"], "arrays.npz"))
+    t0 = time.perf_counter()
+    got = checkpoint.restore(str(CKPT_DIR / "moe"), TRAIN_STEPS, {
+        "params": model.abstract_params(cfg, tp=TP_TP)})["params"]
+    restore_s = time.perf_counter() - t0
+    bad = [p for p, x in tree.leaves_with_paths(got)
+           if not np.array_equal(x.view(np.uint32),
+                                 tree.get(params, p).view(np.uint32))]
+    n = sum(x.size for x in tree.leaves(got))
+    del got, params
+    shutil.rmtree(CKPT_DIR / "moe")
+    rec = {"ckpt": run["ckpt"], "bytes": nbytes, "params": n,
+           "assemble_s": run["assemble_s"], "save_s": run["save_s"],
+           "capture_s": run["capture_s"], "restore_s": restore_s,
+           "bitwise": not bad}
+    log(f"[train] MoE checkpoint {json.dumps(rec)}")
+    if bad:
+        fail(f"the MoE checkpoint restores other params: {bad[:4]}")
+    return rec
+
+
+def moe_a2a_bytes() -> float:
+    """Wire bytes of one rank's all_to_all in a step (the ledger's
+    convention, s (n - 1) / n): 6 calls a row (dispatch and combine in
+    the forward, the remat replay and the backward's transposes) of the
+    (E, C, d) f32 buffer, C = int(t k 1.25) // E at a model rank's t =
+    1024 tokens."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    m = cfg.moe
+    t = TP_TOKENS // TP_TP
+    e = m.padded_experts(TP_TP)
+    cap = max(1, int(t * m.top_k * m.capacity_factor) // e)
+    return 6 * cfg.n_layers * e * cap * cfg.d_model * 4 * (TP_TP - 1) / TP_TP
+
+
+def check_moe_runs(runs: dict) -> dict:
+    """Every step of every MoE run: the model level's all_to_all bytes on
+    rank 0's ledger equal :func:`moe_a2a_bytes`, the model level's pool
+    moves bytes, and every (token, slot) pair of the batch was routed
+    once in the forward (32 rows x 4096 tokens x top-8); returns the
+    pairs dropped by capacity per step."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_ARCH)
+    want = moe_a2a_bytes()
+    pairs = cfg.n_layers * TRAIN_BATCH * PROMPT * cfg.moe.top_k
+    out = {}
+    for label, run in runs.items():
+        drops = []
+        for i, st in enumerate(run["steps"]):
+            got = st["level_wire_bytes_rank0"].get("model/cxl", {}).get(
+                "all_to_all")
+            if got != want:
+                fail(f"{label} step {i}: all_to_all bytes {got}, reckoned "
+                     f"{want}")
+            if st["moe_assigned"] != pairs:
+                fail(f"{label} step {i}: {st['moe_assigned']} pairs routed, "
+                     f"not {pairs}")
+            drops.append(st["moe_dropped"])
+        out[label] = {"dropped": drops, "routed": pairs}
+        log(f"[train] {label}: pairs dropped by capacity per step {drops} "
+            f"of {pairs}")
+    return out
+
+
+def moe_serve(launches: dict) -> dict:
+    """``serve --arch granite-moe-3b`` at full width, tp = 1: the fixed
+    batch (kernel counters zeroed before, read after), the parameter
+    count, then prefill ms (1 x PROMPT, median of 3) and decode-step ms
+    (SLOTS slots, median of 10), a profiled prefill and decode, and the
+    peak memory."""
+    from repro_torch.core import tree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import model
+    from repro_torch.models.pcontext import UNSHARDED
+    counters = {"rms_norm": rn.rms_norm, "flash_attention": fa.flash_attention}
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, eng, prompts, toks, wall = launcher_serve(["--arch", MOE_ARCH])
+    torch.cuda.synchronize()
+    launches["serve_moe"] = {"fixed": {k: f.launches
+                                       for k, f in counters.items()}}
+    n = sum(x.numel() for x in tree.leaves(eng.params))
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    if n - norms != cfg.param_count(1):
+        fail(f"served {n} params, not {cfg.param_count(1)} + {norms}")
+    one = torch.as_tensor(prompts[:1], device="cuda")
+    max_seq = eng.scfg.max_seq
+
+    def prefill():
+        model.prefill(eng.params, {"tokens": one}, cfg, UNSHARDED, max_seq,
+                      cache_dtype=torch.float32)
+
+    pos = torch.full((SLOTS,), PROMPT, device="cuda")
+    tok = torch.zeros((SLOTS, 1), dtype=torch.long, device="cuda")
+
+    def decode():
+        model.decode_step(eng.params, eng.caches, tok, pos, cfg, UNSHARDED)
+
+    def wall_ms(fn, k):
+        out = []
+        for _ in range(k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    pre, dec = wall_ms(prefill, 3), wall_ms(decode, 10)
+    rec = {"model": cfg.name, "params": n, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": "float32",
+           "fixed_wall_s": wall, "tok_per_s": SLOTS * NEW / wall,
+           "tokens0": toks[0].tolist(),
+           "prefill_ms": float(np.median(pre)),
+           "decode_step_ms": float(np.median(dec)),
+           "profile_prefill": device_profile(prefill),
+           "profile_decode_5_steps": device_profile(
+               lambda: [decode() for _ in range(5)]),
+           "launches": launches["serve_moe"]["fixed"],
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[serve_moe] {json.dumps(rec)}")
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
 def train_phase() -> dict:
     """Phase 7: FSDP training on DP ranks sharing the card; 7b over
     (pod, data), 7c over (data, model), 7d over a grouped data axis."""
@@ -1240,7 +1524,8 @@ def train_phase() -> dict:
         "cxl": ["--backend", "cxl"],
         "ring": ["--backend", "ring"],
         "auto": ["--backend", "auto", "--plan", plan_path]}, [],
-        short=("ring",))
+        short=("ring",), ckpt=str(CKPT_DIR / "llama"))
+    out["flat_ckpt"] = check_flat_ckpt(runs["cxl_fused"])
     out["full_width"] = runs
     out["auto_choices"] = check_auto_choices(runs["auto"], plan)
     first = runs["cxl_fused"]["steps"][0]["loss"]
@@ -1310,9 +1595,33 @@ def train_phase() -> dict:
     out["ragged_auto_choices"] = check_auto_choices(
         ragged["ragged_auto"], ragged_plan, parse_topology(RAGGED_TOPOLOGY))
     check_losses(ragged, first)
+
+    # 7e. Mixture-of-Experts: Granite-3.0-MoE over (data, model) = (2, 2),
+    # experts parallel over model through the pool's AllToAll, FSDP over
+    # data; the smoke model card vs CPU, then full width and depth (the
+    # plan of 7c: the same topology)
+    out["moe_smoke_card_vs_cpu"] = smoke_card_vs_cpu(
+        TP_MESH, TP_TP, ("--topology", TP_TOPOLOGY, "--prefetch",
+                         MOE_PREFETCH), arch=MOE_ARCH)
+    moe = full_width_runs({
+        "moe_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
+        "moe_cxl": ["--backend", "cxl"],
+        "moe_auto": ["--backend", "auto", "--plan", tp_plan_path]},
+        ["--topology", TP_TOPOLOGY, "--prefetch", MOE_PREFETCH],
+        mesh=TP_MESH, short=("moe_auto",), arch=MOE_ARCH,
+        ckpt=str(CKPT_DIR / "moe"))
+    out["moe_ckpt"] = check_moe_ckpt(moe["moe_cxl_fused"])
+    check_path_runs(moe, {"data", "model"}, "moe_auto")
+    out["moe"] = moe
+    out["moe_auto_choices"] = check_auto_choices(
+        moe["moe_auto"], tp_plan, parse_topology(TP_TOPOLOGY))
+    if "all_to_all" not in out["moe_auto_choices"]:
+        fail("moe_auto resolved no all_to_all")
+    out["moe_routing"] = check_moe_runs(moe)
+    check_losses(moe, moe["moe_cxl_fused"]["steps"][0]["loss"])
     log("[train] step times (s): " + json.dumps(
         {k: [round(s["step_s"], 3) for s in r["steps"]]
-         for k, r in {**runs, **hier, **tp, **ragged}.items()}))
+         for k, r in {**runs, **hier, **tp, **ragged, **moe}.items()}))
     return out
 
 
@@ -1378,6 +1687,8 @@ def main() -> int:
                 (1, 1024, 1024, 32, None, 0), (1, 1000, 1000, 32, None, 0),
                 (1, 1024, 1024, 32, 256, 0), (1, 512, 1024, 32, None, 512),
                 (FA_TP_SHAPE[0], PROMPT, PROMPT, FA_TP_SHAPE[2], None,
+                 0),
+                (FA_MOE_SHAPE[0], PROMPT, PROMPT, FA_MOE_SHAPE[2], None,
                  0)):
             q = randn(b, lq, h, 64, dtype=dtype)
             k, v = (randn(b, lk, h, 64, dtype=dtype) for _ in range(2))
@@ -1398,7 +1709,8 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         shapes = [(n, ln) for n in (2, 4, 16) for ln in (rs_len, RAGGED)]
         shapes += [s for s in hier_reduce_shapes(rs_len) + tp_reduce_shapes(
-            rs_len) + ragged_reduce_shapes(rs_len) if s not in shapes]
+            rs_len) + ragged_reduce_shapes(rs_len) + moe_reduce_shapes()
+            if s not in shapes]
         for n_src, length in shapes:
             x = randn(n_src, length, dtype=dtype)
             err, ok = close(cr.chunked_reduce(x),
@@ -1409,7 +1721,7 @@ def main() -> int:
                            "dtype": str(dtype), "max_abs_err": err,
                            "tolerance": TOL["chunked_reduce"][dtype],
                            "ok": ok})
-    for t, n, ks, nout in AGM_SHAPES + AGM_TP_SHAPES:
+    for t, n, ks, nout in AGM_SHAPES + AGM_TP_SHAPES + AGM_MOE_SHAPES:
         x, w = randn(t, n * ks), randn(n, ks, nout)
         err, ok = close(fc.all_gather_matmul(x, w),
                         fc.all_gather_matmul_plain(x, w), *gemm_tol(n * ks))
@@ -1443,7 +1755,8 @@ def main() -> int:
     main = f"{PROMPT}x2048"
     timing = {
         "rms_norm": dict(rms["forward"][main], shapes=rms["forward"],
-                         backward=rms["backward"]),
+                         backward=rms["backward"],
+                         backward_moe=rms["backward_moe"]),
         "flash_attention": {
             "ms": timer(lambda: fa.flash_attention(q, k, v, True)),
             "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v,
@@ -1487,8 +1800,29 @@ def main() -> int:
         "bytes": 4 * qt.numel() * 4, "flops": 4 * hd * tp_pairs,
         "shape": list(FA_TP_SHAPE)}
     del qt, kt, vt, qth, kth, vth
+    # and at the MoE path's: a rank's 2 sequences, 12 heads
+    b, lq, h, hd = FA_MOE_SHAPE
+    qt, kt, vt = (randn(b, lq, h, hd) for _ in range(3))
+    qth, kth, vth = (t.transpose(1, 2).contiguous() for t in (qt, kt, vt))
+    moe_pairs = int(fa.attention_mask(lq, lq, True, None, 0, lq).sum()) \
+        * b * h
+    timing["flash_attention"]["moe"] = {
+        "ms": timer(lambda: fa.flash_attention(qt, kt, vt, True)),
+        "plain_ms": timer(lambda: fa.flash_attention_plain(qt, kt, vt,
+                                                           True)),
+        "library_ms": timer(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qth, kth, vth, is_causal=True)),
+        "bytes": 4 * qt.numel() * 4, "flops": 4 * hd * moe_pairs,
+        "shape": list(FA_MOE_SHAPE)}
+    del qt, kt, vt, qth, kth, vth
+    # chunked_reduce at the MoE path's shapes
+    reduce_moe = {f"{n}x{length}": reduce_timing(timer, randn, cr, n,
+                                                   length)
+                  for n, length in moe_reduce_shapes()}
+    timing["chunked_reduce"]["moe"] = reduce_moe
     agm = {}
-    for t, n, ks, nout in AGM_SHAPES + AGM_TP_SHAPES:
+    for t, n, ks, nout in AGM_SHAPES + AGM_TP_SHAPES + AGM_MOE_SHAPES:
         xa, wa = randn(t, n * ks), randn(n, ks, nout)
         agm[f"{t}x{n * ks}@{n}x{ks}x{nout}"] = {
             "ms": timer(lambda: fc.all_gather_matmul(xa, wa)),
@@ -1520,9 +1854,10 @@ def main() -> int:
     for rec in list(agm.values()) + list(timing.values()) + [
             scan["decode"], timing["reduce_scatter_adamw"]["bf16_param"],
             *rms["forward"].values(), rms["backward"],
-            *reduce_hier.values(), *reduce_tp.values(),
-            *reduce_ragged.values(),
-            timing["flash_attention"]["tp"]]:
+            rms["backward_moe"], *reduce_hier.values(),
+            *reduce_tp.values(), *reduce_ragged.values(),
+            *reduce_moe.values(), timing["flash_attention"]["tp"],
+            timing["flash_attention"]["moe"]]:
         byte_ms = rec["bytes"] / HBM_BW * 1e3
         op_ms = max(rec["flops"] / PEAK[torch.float32],
                     rec.get("exps", 0) / EXP_RATE) * 1e3
@@ -1530,7 +1865,8 @@ def main() -> int:
         rec["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
     for rec in list(agm.values()) + [timing["all_gather_matmul"],
                                      timing["flash_attention"],
-                                     timing["flash_attention"]["tp"]]:
+                                     timing["flash_attention"]["tp"],
+                                     timing["flash_attention"]["moe"]]:
         rec["bound_tc_ms"] = max(rec["bytes"] / HBM_BW,
                                  3 * rec["flops"] / TF32_PEAK) * 1e3
     record["all_gather_matmul_shapes"] = agm
@@ -1604,17 +1940,25 @@ def main() -> int:
     mark("collectives")
 
     # 7. training ---------------------------------------------------------
+    del timer
+    torch.cuda.empty_cache()
     record["train"] = train_phase()
-    train_launches, hier_launches, tp_launches, ragged_launches = (
+    (train_launches, hier_launches, tp_launches, ragged_launches,
+     moe_launches) = (
         {n: sum(s["launches"][n] for run in record["train"][key].values()
                 for s in run["steps"])
          for n in train.KERNEL_COUNTERS}
-        for key in ("full_width", "hier", "tp", "ragged"))
+        for key in ("full_width", "hier", "tp", "ragged", "moe"))
     record["train"]["launches"] = train_launches
     record["train"]["hier_launches"] = hier_launches
     record["train"]["tp_launches"] = tp_launches
     record["train"]["ragged_launches"] = ragged_launches
+    record["train"]["moe_launches"] = moe_launches
     mark("train")
+
+    # 7f. serve Granite-3.0-MoE at full width through the launcher --------
+    record["serve_moe"] = moe_serve(launches)
+    mark("serve_moe")
 
     # 8. launch check ----------------------------------------------------
     serve_launches = {path: {n: sum(run[n] for run in launches[path]
@@ -1639,6 +1983,9 @@ def main() -> int:
         if n <= 0:
             fail(f"the grouped training path never launched the {name} "
                  f"kernel")
+    for name, n in moe_launches.items():
+        if n <= 0:
+            fail(f"the MoE training path never launched the {name} kernel")
     api_launches = record["kernel_api"]["launches"]
     for name in API_KERNELS:
         if api_launches[name] <= 0:
@@ -1658,11 +2005,13 @@ def main() -> int:
             by_path["train_hier"] = hier_launches[name]
             by_path["train_tp"] = tp_launches[name]
             by_path["train_ragged"] = ragged_launches[name]
+            by_path["train_moe"] = moe_launches[name]
         extra = {"backward_launches_by_path": {
             "train": train_launches["rms_norm_vjp"],
             "train_hier": hier_launches["rms_norm_vjp"],
             "train_tp": tp_launches["rms_norm_vjp"],
-            "train_ragged": ragged_launches["rms_norm_vjp"]}} \
+            "train_ragged": ragged_launches["rms_norm_vjp"],
+            "train_moe": moe_launches["rms_norm_vjp"]}} \
             if name == "rms_norm" else {}
         if name in api_launches:
             by_path["kernel_api"] = api_launches[name]

@@ -44,7 +44,8 @@ reference books at trace time and scales by trip counts.
 
 The collectives that training differentiates are autograd functions
 whose backward is the transposed collective: all_gather <->
-reduce_scatter and all_reduce <-> all_reduce.  As under the reference's
+reduce_scatter, all_reduce <-> all_reduce and all_to_all <-> all_to_all
+(the MoE dispatch and combine).  As under the reference's
 ``shard_map(check_vma=False)``, the transpose of a sum over ranks is a
 sum over ranks, so a loss averaged with ``all_reduce(x) / n`` hands each
 rank a cotangent of 1, and synced grads are the sum of the ranks' local
@@ -500,9 +501,13 @@ class Communicator:
     # -- the other primitives ----------------------------------------------
 
     def all_to_all(self, x: torch.Tensor, axis: AxisSpec) -> torch.Tensor:
+        """Segment p of the result is rank p's segment ``my_rank`` (equal
+        segments along axis 0); differentiable, its own transpose."""
         if len(_axes(axis)) != 1:
             raise NotImplementedError("all_to_all is single-axis")
-        ax = self.axis(axis)
+        return _AllToAll.apply(x, self, self.axis(axis))
+
+    def _all_to_all(self, x: torch.Tensor, ax: mc.AxisGroup) -> torch.Tensor:
         self._fallback("all_to_all", ax)
         n, s = ax.size, _nbytes(x)
         backend, factor, _, ov, _ = self._choice("all_to_all", s, ax)
@@ -648,3 +653,18 @@ class _ReduceScatter(torch.autograd.Function):
     def backward(ctx, g):
         return (ctx.comm._all_gather(g.contiguous(), ctx.levels), None,
                 None)
+
+
+class _AllToAll(torch.autograd.Function):
+    """With equal segments the exchange is a permutation of blocks whose
+    inverse is itself: rank q's segment p goes to rank p's segment q, so
+    the cotangent of the result goes back by the same exchange."""
+
+    @staticmethod
+    def forward(ctx, x, comm, ax):
+        ctx.comm, ctx.ax = comm, ax
+        return comm._all_to_all(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm._all_to_all(g.contiguous(), ctx.ax), None, None

@@ -22,8 +22,13 @@ auto|PATH`` ranks the mesh-axis -> level assignments of that topology
 for the model's collective mix at ``--placement-axes`` (``tuner.
 placement``), prints the report and installs the placed topology and
 the axis aliases, as the reference launcher does (they take effect when
-serving sharded).  ``--online-retune``, ``--ckpt`` and ``--metrics-out``
-of the reference launcher are not ported yet (ROADMAP queue 1).
+serving sharded).  ``--ckpt DIR`` restores the params from a checkpoint
+in the reference's layout (``training.checkpoint``; written by either
+package's ``train --ckpt``) at ``--ckpt-step`` (unset or 0: the latest
+committed step), checked against the model's unsharded (tp = 1) shapes
+as the reference checks them: a checkpoint padded for another tp is
+refused.  ``--online-retune`` and ``--metrics-out`` of the reference
+launcher are not ported yet (ROADMAP queue 1, item 10).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
@@ -33,6 +38,10 @@ Usage:
       --prompt-reuse 0.5
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch falcon-mamba-7b --batch 4 --prompt-len 1024 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-3b --batch 4 --prompt-len 1024 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --ckpt DIR [--ckpt-step N] --batch 4 --prompt-len 1024
 
 A model whose cache has no token axis (Falcon-Mamba's SSM state) cannot
 share pooled prefixes: ``--prompt-reuse`` then runs plain prefills.
@@ -51,6 +60,7 @@ from repro_torch.core.topology import parse_topology, set_active_topology
 from repro_torch.models import model
 from repro_torch.serving import (Request, SamplingParams, ServeConfig,
                                  ServeEngine)
+from repro_torch.training import checkpoint
 
 
 def _pct(sorted_vals: list, q: float) -> float:
@@ -204,19 +214,43 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--placement-axes", default="data=2,model=4",
                     help="logical axis degrees for --placement, "
                          "'name=size,...'")
+    ap.add_argument("--ckpt", default=None,
+                    help="restore the params from this checkpoint "
+                         "directory (train --ckpt, either package)")
+    ap.add_argument("--ckpt-step", type=int, default=None,
+                    help="the checkpoint's step (unset or 0: the latest)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; "
                          "'cpu' runs on the CPU)")
     return ap
 
 
+def restore_params(cfg, ckpt_dir: str, step, device) -> dict:
+    """The params of a checkpoint in the reference's layout at ``step``
+    (None or 0: the latest committed one, as the reference launcher's
+    ``args.ckpt_step or latest_step``), restored into the structure and
+    unsharded shapes of ``{"params": init_params(cfg, tp=1)}``: a
+    checkpoint padded for another tp raises ``ValueError``."""
+    step = step or checkpoint.latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no committed checkpoint in {ckpt_dir}")
+    tree = checkpoint.restore(ckpt_dir, step,
+                              {"params": model.abstract_params(cfg, tp=1)})
+    print(f"restored {ckpt_dir} step {step}")
+    return model.params_from_numpy(tree["params"], device, cfg, tp=1)
+
+
 def engine_from_args(args) -> tuple:
-    """(cfg, engine) for parsed launcher arguments; params come from a
-    ``torch.Generator`` seeded 0 on the engine's device."""
+    """(cfg, engine) for parsed launcher arguments; params come from the
+    checkpoint of ``--ckpt``, else from a ``torch.Generator`` seeded 0 on
+    the engine's device."""
     cfg = get_config(args.arch, smoke=args.smoke)
     device = resolve_device(args.device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = model.init_params(cfg, gen, device, torch.float32)
+    if args.ckpt:
+        params = restore_params(cfg, args.ckpt, args.ckpt_step, device)
+    else:
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = model.init_params(cfg, gen, device, torch.float32)
     scfg = ServeConfig(
         max_seq=args.prompt_len + args.new_tokens + 8,
         window=args.window, temperature=args.temperature,

@@ -26,6 +26,10 @@ tensor-parallel paths:
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --mesh 4x1 --topology pod:cxl,node:cxl:3+1 --placement auto \\
       --backend cxl --steps 3 --batch 4 --seq 1024
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch granite-moe-3b --mesh 2x2 --topology data:cxl,model:cxl \\
+      --backend cxl --steps 3 --batch 4 --seq 1024 --prefetch 0 \\
+      [--fuse-kernels] [--ckpt DIR]
 
 The launcher spawns one process per rank (``spawn`` start method); rank
 r runs on ``cuda:(r % device_count)``, so the ranks of a one-card host
@@ -75,9 +79,24 @@ printed), and every rank runs on the placed mesh with the placed
 topology and the axis aliases of a split axis.  ``--placement-from-
 dryrun`` waits for the dry-run (ROADMAP queue 1, item 11).
 
+A Mixture-of-Experts model (``--arch granite-moe-3b``, ``arctic-480b``)
+trains its experts parallel over the model axis: each row's dispatch and
+combine are AllToAlls through the ``Communicator`` (``models.moe``), and
+the loss adds the routers' auxiliary loss.
+
+``--ckpt DIR`` saves the GLOBAL params after the last step, as the
+reference launcher does: ``{"params": params}`` at step ``--steps`` in
+the reference's checkpoint layout (``training.checkpoint``), the padded
+shapes of ``model.abstract_params(cfg, tp)``, assembled in this process
+from the ranks' final shards by the run's param specs.  A run of several
+variants checkpoints the first one's.
+
+The ranks build their GLOBAL params one at a time (each shards them and
+frees the rest before the next rank starts), so a model whose params
+fill a fifth of the card still starts on four ranks sharing it.
+
 Not ported yet: online re-tuning (ROADMAP queue 1, item 10), pipeline
-stages (item 9), checkpoints, metrics/trace export, faults and
-resilience (item 10).
+stages (item 9), metrics/trace export, faults and resilience (item 10).
 """
 from __future__ import annotations
 
@@ -85,11 +104,14 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import ledger, tree
@@ -109,6 +131,7 @@ from repro_torch.launch.mesh import (dp_axes, joint_groups, level_groups,
 from repro_torch.models import model, sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw_init
+from repro_torch.training import checkpoint
 from repro_torch.training.train_loop import (TrainConfig, leaf_params,
                                              make_sharded_train_step)
 
@@ -155,6 +178,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--bucket-mb", type=float, default=25.0)
     ap.add_argument("--prefetch", type=int, default=1, choices=[0, 1])
     ap.add_argument("--fuse-kernels", action="store_true")
+    ap.add_argument("--ckpt", default=None,
+                    help="save the final GLOBAL params here (the "
+                         "reference's checkpoint layout, step --steps)")
     ap.add_argument("--device", default=None,
                     help="cuda (default: the card) or cpu")
     return ap
@@ -195,6 +221,8 @@ class RunSpec:
     params_path: Optional[str] = None  # .npz of GLOBAL params at tp
     capture_grads: bool = False       # return step 0's synced grads
     capture_params: bool = False      # return the params after the run
+    ckpt: Optional[str] = None        # save the first variant's final
+    #                                   GLOBAL params here, step ``steps``
     profile: bool = False             # the first variant: one more step
     #                                   under the profiler
     timeout_s: float = 600.0
@@ -294,40 +322,129 @@ def distinct_choices(audit: list) -> list:
 def _rank_run(ctx: ranks.RankContext, spec: RunSpec) -> list:
     set_active_topology(spec.topology)
     sharding.set_axis_aliases(spec.aliases or {})
-    return [_run_variant(ctx, spec, tcfg, profile=spec.profile and k == 0)
-            for k, tcfg in enumerate(spec.variants)]
+    return [_run_variant(
+        ctx, spec, tcfg, profile=spec.profile and k == 0,
+        stage=spec.ckpt is not None and k == 0)
+        for k, tcfg in enumerate(spec.variants)]
+
+
+def _local_params(ctx: ranks.RankContext, spec: RunSpec, cfg, pspecs,
+                  pc) -> dict:
+    """This rank's shards of the GLOBAL params (seed 0 or the .npz), as
+    leaves that require grad.  The ranks take turns: each builds the
+    GLOBAL params, keeps its shards and frees the rest before the next
+    one starts, so only one GLOBAL copy is alive at a time."""
+    dev = ctx.device
+    params = None
+    for turn in range(ctx.nranks):
+        if turn == ctx.rank:
+            if spec.params_path is not None:
+                full = load_params_npz(spec.params_path, dev, cfg, spec.tp)
+            else:
+                full = model.init_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                    tp=spec.tp)
+            params = leaf_params(sharding.shard_params(
+                full, pspecs, pc.dp_axis, pc.comm.axis_index(pc.dp_axis),
+                pc.comm.axis_size(pc.dp_axis), tp_axis="model",
+                tp_rank=pc.tp_index(), tp=spec.tp))
+            del full
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
+def _layout(pspecs, pc, tp: int) -> dict:
+    """Where this rank's shards sit in the GLOBAL params: the spec of
+    every leaf, the axes they name, and this rank's indices on them."""
+    return {"specs": {"/".join(p): s
+                      for p, s in tree.leaves_with_paths(pspecs)},
+            "dp_axis": sharding.resolve_axis(pc.dp_axis),
+            "tp_axis": sharding.resolve_axis("model"),
+            "dp_index": pc.comm.axis_index(pc.dp_axis),
+            "n_dp": pc.comm.axis_size(pc.dp_axis),
+            "tp_index": pc.tp_index(), "tp": tp}
+
+
+def _stage_dir(ckpt: str, rank: int) -> str:
+    """Where a rank leaves its final shards for the checkpoint: a
+    directory beside the steps that ``checkpoint.latest_step`` never
+    takes for one."""
+    return os.path.join(ckpt, ".rank_shards", f"rank{rank}")
+
+
+def _stage_shards(params, ckpt: str, rank: int) -> None:
+    """Write this rank's final shards as one ``.npy`` a leaf (read back
+    memory-mapped by :func:`_staged_shards`): shards of GBs pickled
+    through the result queue move at tens of MB/s."""
+    d = _stage_dir(ckpt, rank)
+    os.makedirs(d, exist_ok=True)
+    for i, (_, x) in enumerate(tree.leaves_with_paths(params)):
+        np.save(os.path.join(d, f"a{i}.npy"), x.detach().cpu().numpy())
+
+
+def _staged_shards(ckpt: str, rank: int, paths: Sequence[str]) -> dict:
+    d = _stage_dir(ckpt, rank)
+    return {p: np.load(os.path.join(d, f"a{i}.npy"), mmap_mode="r")
+            for i, p in enumerate(paths)}
+
+
+def assemble_params(shards: Sequence[dict], layouts: Sequence[dict]) -> dict:
+    """The GLOBAL params (numpy, ``model.abstract_params(cfg, tp)``'s
+    shapes) from every rank's shards (path -> array) and layouts
+    (``_layout``): a leaf concatenates its data shards along its dp dim
+    and its model shards along its model dim, the inverse of
+    ``sharding.shard_params``; a replicated leaf is a copy of rank 0's
+    (the shards may be memory-mapped files)."""
+    by_index: dict = {}
+    for sh, lay in zip(shards, layouts):
+        by_index.setdefault((lay["dp_index"], lay["tp_index"]), sh)
+    lay = layouts[0]
+    out = []
+    for key, spec in lay["specs"].items():
+        tdim = spec.index(lay["tp_axis"]) \
+            if lay["tp"] > 1 and lay["tp_axis"] in spec else None
+        ddim = spec.index(lay["dp_axis"]) if lay["dp_axis"] in spec \
+            else None
+        cols = []
+        for t in range(lay["tp"] if tdim is not None else 1):
+            parts = [by_index[d, t][key]
+                     for d in range(lay["n_dp"] if ddim is not None else 1)]
+            cols.append(np.concatenate(parts, ddim) if ddim is not None
+                        else parts[0])
+        out.append((tuple(key.split("/")),
+                    np.concatenate(cols, tdim) if tdim is not None
+                    else np.array(cols[0])))
+    return tree.from_paths(out)
 
 
 def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
-                 profile: bool = False):
+                 profile: bool = False, stage: bool = False):
     """One training run on this rank: the params (seed 0 or the .npz)
     sharded over the model axis and for FSDP, AdamW from zero,
     ``spec.steps`` steps (at most the variant's ``total_steps``) on this
-    rank's data index's slice of the synthetic batches; with ``profile``
-    one more step under the profiler."""
+    rank's data index's slice of the synthetic batches; with
+    ``spec.capture_params`` the final param shards, with ``stage`` the
+    same written for the checkpoint (``_stage_shards``), each with their
+    layout; with ``profile`` one more step under the profiler."""
     dev = ctx.device
     cfg = spec.model_config()
     mesh = make_host_mesh(spec.mesh(), ctx, pools=tcfg.backend != "ring",
                           topology=spec.topology)
     step, pspecs, pc = make_sharded_train_step(cfg, tcfg, mesh,
                                                dp_axis=dp_axes(mesh))
-    if spec.params_path is not None:
-        full = load_params_npz(spec.params_path, dev, cfg, spec.tp)
-    else:
-        full = model.init_params(
-            cfg, torch.Generator(device=dev).manual_seed(0), dev,
-            tp=spec.tp)
+    t_init = time.perf_counter()
+    params = _local_params(ctx, spec, cfg, pspecs, pc)
+    init_s = time.perf_counter() - t_init
     dp_index = pc.comm.axis_index(pc.dp_axis)
-    params = leaf_params(sharding.shard_params(
-        full, pspecs, pc.dp_axis, dp_index, pc.comm.axis_size(pc.dp_axis),
-        tp_axis="model", tp_rank=pc.tp_index(), tp=spec.tp))
-    del full
     if dev.type == "cuda":
-        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     opt = adamw_init(params)
     data = iter(SyntheticTokens(cfg, batch=spec.batch, seq=spec.seq))
-    out = {"steps": [], "grads": None, "params": None, "profile": None}
+    out = {"steps": [], "grads": None, "params": None, "layout": None,
+           "profile": None, "init_s": init_s, "capture_s": 0.0}
 
     def to_dev(b):
         lb = local_batch(b, dp_index, spec.dp)
@@ -357,6 +474,8 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
                "level_wire_bytes": snap["level_wire_bytes"],
                "choices": distinct_choices(snap["auto_choices"]),
                "fallbacks": len(snap["fallbacks"]),
+               "moe_dropped": int(metrics["moe_dropped"]),
+               "moe_assigned": metrics["moe_assigned"],
                "pool_by_level": by_level,
                "pool_bytes": sum(v for c in by_level.values()
                                  for v in c.values())}
@@ -364,9 +483,15 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
         if spec.capture_grads and i == 0:
             out["grads"] = {"/".join(p): x.grad.detach().cpu().numpy()
                             for p, x in tree.leaves_with_paths(params)}
-    if spec.capture_params:
-        out["params"] = {"/".join(p): x.detach().cpu().numpy()
-                         for p, x in tree.leaves_with_paths(params)}
+    if spec.capture_params or stage:
+        t_cap = time.perf_counter()
+        if spec.capture_params:
+            out["params"] = {"/".join(p): x.detach().cpu().numpy()
+                             for p, x in tree.leaves_with_paths(params)}
+        if stage:
+            _stage_shards(params, spec.ckpt, ctx.rank)
+        out["layout"] = _layout(pspecs, pc, spec.tp)
+        out["capture_s"] = time.perf_counter() - t_cap
     if profile and dev.type == "cuda":
         batch = to_dev(next(data))
         out["profile"] = _profile_step(
@@ -397,7 +522,14 @@ def run_ranks(spec: RunSpec) -> list:
     rank's step time, the pool bytes and kernel launches summed over
     ranks (and the fewest launches of any rank), and (``capture_grads``,
     ``capture_params``) every rank's step-0 synced grad shards and its
-    final param shards."""
+    final param shards.  With ``ckpt`` the first variant's final GLOBAL
+    params are saved there (``assemble_params``), and its record holds
+    them (``global_params``), the checkpoint's path (``ckpt``) and the
+    seconds the assembly and the save took (``assemble_s``,
+    ``save_s``).  Every record holds the seconds of the spawn (ranks
+    started, all variants run, results back: ``spawn_s``) and the
+    slowest rank's seconds building its params (``init_s``) and copying
+    them out (``capture_s``)."""
     if spec.device == "cuda":
         resolve_device("cuda")        # raises without a card
         build.build_all()             # once, before the ranks start
@@ -405,6 +537,7 @@ def run_ranks(spec: RunSpec) -> list:
     need_pool = any(t.backend != "ring" for t in spec.variants)
     shape = spec.mesh()
     nranks = spec.dp * spec.tp
+    t_spawn = time.perf_counter()
     per_rank = ranks.spawn(
         _rank_run, nranks, (spec,), device=spec.device,
         partition_bytes=pool_window(cfg) if need_pool else 0,
@@ -413,8 +546,30 @@ def run_ranks(spec: RunSpec) -> list:
         world_pool=any(n == nranks for _, n in shape),
         timeout_s=spec.timeout_s,
         wait_s=spec.timeout_s * (1 + len(spec.variants) * (spec.steps + 1)))
-    return [_merge([r[v] for r in per_rank], tcfg)
+    spawn_s = time.perf_counter() - t_spawn
+    saved = None
+    if spec.ckpt is not None:
+        t0 = time.perf_counter()
+        layouts = [r[0]["layout"] for r in per_rank]
+        paths = list(layouts[0]["specs"])
+        params = assemble_params(
+            [_staged_shards(spec.ckpt, k, paths) for k in range(nranks)],
+            layouts)
+        shutil.rmtree(os.path.dirname(_stage_dir(spec.ckpt, 0)))
+        t1 = time.perf_counter()
+        path = checkpoint.save(spec.ckpt, spec.steps, {"params": params})
+        saved = {"ckpt": path, "global_params": params,
+                 "assemble_s": t1 - t0, "save_s": time.perf_counter() - t1}
+        which = f" (the first of {len(spec.variants)} variants)" \
+            if len(spec.variants) > 1 else ""
+        print(f"saved {path}{which}", flush=True)
+    runs = [_merge([r[v] for r in per_rank], tcfg)
             for v, tcfg in enumerate(spec.variants)]
+    for run in runs:
+        run["spawn_s"] = spawn_s
+    if saved is not None:
+        runs[0].update(saved)
+    return runs
 
 
 def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
@@ -439,6 +594,9 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
             "launches_min_rank": {k: min(r["launches"][k] for r in recs)
                                   for k in KERNEL_COUNTERS},
             "fallbacks": sum(r["fallbacks"] for r in recs),
+            # each rank routes its own tokens: the batch's pairs
+            "moe_dropped": sum(r["moe_dropped"] for r in recs),
+            "moe_assigned": sum(r["moe_assigned"] for r in recs),
             "chunked_reduce_by_n_per_rank": [r["chunked_reduce_by_n"]
                                              for r in recs],
             "wire_bytes_rank0": rec0["wire_bytes"],
@@ -447,7 +605,9 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
             "choices_rank0": rec0["choices"]})
     out = {"backend": tcfg.backend, "fuse_kernels": tcfg.fuse_kernels,
            "microbatches": tcfg.microbatches, "prefetch": tcfg.prefetch,
-           "steps": steps}
+           "steps": steps,
+           "init_s": max(r["init_s"] for r in per_rank),
+           "capture_s": max(r["capture_s"] for r in per_rank)}
     for key in ("grads", "params"):
         if per_rank[0][key] is not None:
             out[key] = [r[key] for r in per_rank]
@@ -503,7 +663,8 @@ def spec_from_args(args) -> RunSpec:
                    variants=(tcfg_from_args(args),), steps=args.steps,
                    batch=args.batch, seq=args.seq, dp=dp, tp=tp,
                    device=resolve_device(args.device).type,
-                   multi_pod=args.multi_pod, topology=topology, **placed)
+                   multi_pod=args.multi_pod, topology=topology,
+                   ckpt=args.ckpt, **placed)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -526,6 +687,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         print(f"step {i:5d} loss {s['loss']:.4f} lr {s['lr']:.2e} "
               f"step {s['step_s']:.2f}s pool {s['pool_bytes'] / 2**20:.1f}"
               f" MiB launches {json.dumps(s['launches'])}", flush=True)
+        if s["moe_assigned"]:
+            print(f"  MoE pairs dropped {s['moe_dropped']} of "
+                  f"{s['moe_assigned']}", flush=True)
         if len(s["pool_by_level"]) > 1:
             print("  pool MiB by level " + json.dumps(
                 {a: {k: round(v / 2**20, 1) for k, v in c.items()}
@@ -536,6 +700,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
               f"{c['backend']} factor {c['slicing_factor']} "
               f"{c['allreduce_mode']} fused={c['fused']} "
               f"({c['calls']} calls in step 0)", flush=True)
+    print(f"ranks' wall {run['spawn_s']:.1f}s (params built "
+          f"{run['init_s']:.1f}s, captured {run['capture_s']:.1f}s)"
+          + (f", checkpoint assembled {run['assemble_s']:.1f}s, saved "
+             f"{run['save_s']:.1f}s" if "ckpt" in run else ""), flush=True)
+    if run.get("peak_memory_gib"):
+        print("peak memory a rank (GiB) " + " ".join(
+            f"{g:.2f}" for g in run["peak_memory_gib"]), flush=True)
     print(f"done in {time.time() - t0:.1f}s", flush=True)
     return run
 

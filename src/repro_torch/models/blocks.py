@@ -1,15 +1,16 @@
 """Decoder rows and layer-group assembly.
 
 Port of ``repro/models/blocks.py`` for row kinds ``a`` (pre-norm
-attention + pre-norm SwiGLU FFN) and ``1`` (pre-norm Mamba-1 block).
+attention + pre-norm SwiGLU FFN), ``e`` (pre-norm attention + pre-norm
+MoE FFN, ``models.moe``) and ``1`` (pre-norm Mamba-1 block).
 Consecutive rows of one kind form a group whose params are stacked
 along a leading layer axis (the reference's ``g<i>`` layout); the model
 loops over a group's layers in Python where the reference runs
-``lax.scan``.  Attention rows train at any tp; prefill, decode and the
-decode cache at tp > 1 (the reference's sequence-sharded cache) are not
-ported yet (ROADMAP queue 1, item 11) and raise, as Mamba-1 rows at
-tp > 1 do (item 8).  The other kinds (MoE, Mamba-2, shared attention,
-cross-attention) come with the rest of the zoo.
+``lax.scan``.  Attention and MoE rows train at any tp; prefill, decode
+and the decode cache at tp > 1 (the reference's sequence-sharded cache)
+are not ported yet (ROADMAP queue 1, item 11) and raise, as Mamba-1
+rows at tp > 1 do (item 8).  Mamba-2 rows, shared attention and
+cross-attention come with the rest of the zoo (item 8).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.pcontext import ParallelContext
 
@@ -46,7 +47,7 @@ def scan_groups(cfg: ModelConfig) -> list[Group]:
 
 
 def _ported(kind: str, cfg: ModelConfig, pc=None) -> None:
-    if kind not in ("a", "1") or cfg.shared_attention \
+    if kind not in ("a", "e", "1") or cfg.shared_attention \
             or cfg.encoder is not None:
         raise NotImplementedError(
             f"{cfg.name}: row kind {kind!r} (or shared/cross attention) "
@@ -73,19 +74,32 @@ def init_row(gen: torch.Generator, kind: str, cfg: ModelConfig, tp: int,
         return {"norm1": ones,
                 "mamba": ssm.init_mamba1(gen, cfg, tp, dtype, device,
                                          layers_)}
-    return {"norm1": ones,
-            "attn": layers.init_attention(gen, cfg, tp, dtype, device,
-                                          layers_),
-            "norm2": ones.clone(),
-            "ffn": layers.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype,
-                                   device, layers_)}
+    p = {"norm1": ones,
+         "attn": layers.init_attention(gen, cfg, tp, dtype, device,
+                                       layers_),
+         "norm2": ones.clone()}
+    if kind == "e":
+        p["moe"] = moe.init_moe(gen, cfg, tp, dtype, device, layers_)
+    else:
+        p["ffn"] = layers.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype,
+                                   device, layers_)
+    return p
+
+
+def _ffn_part(p: Params, ff_in: torch.Tensor, kind: str, cfg: ModelConfig,
+              pc: ParallelContext, capacity: Optional[int] = None):
+    """The row's FFN half on its normed input: the dense SwiGLU (``a``,
+    no auxiliary loss) or the MoE (``e``).  Returns (out, aux or None)."""
+    if kind == "e":
+        return moe.moe_forward(p["moe"], ff_in, cfg, pc, capacity=capacity)
+    return layers.ffn_forward(p["ffn"], ff_in, pc), None
 
 
 def row_forward(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
                 pc: ParallelContext, positions: torch.Tensor,
                 causal: bool = True, window: Optional[int] = None):
     """Full-sequence forward for one row (training).  Returns
-    (h, aux_loss); dense rows have no auxiliary loss."""
+    (h, aux_loss); the MoE's router loss, zero for the other kinds."""
     _ported(kind, cfg, pc)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind == "1":
@@ -96,8 +110,8 @@ def row_forward(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
                                      positions, causal=causal,
                                      window=window)
     ff_in = layers.rms_norm(h, p["norm2"], cfg.norm_eps)
-    h = h + layers.ffn_forward(p["ffn"], ff_in, pc)
-    return h, aux
+    out, moe_aux = _ffn_part(p, ff_in, kind, cfg, pc)
+    return h + out, aux if moe_aux is None else moe_aux
 
 
 def row_prefill(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
@@ -123,7 +137,7 @@ def row_prefill(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
     h = h + out
     _kv_to_cache(k, v, cache)
     ff_in = layers.rms_norm(h, p["norm2"], cfg.norm_eps)
-    return h + layers.ffn_forward(p["ffn"], ff_in, pc)
+    return h + _ffn_part(p, ff_in, kind, cfg, pc)[0]
 
 
 def _kv_to_cache(k: torch.Tensor, v: torch.Tensor, cache: dict) -> None:
@@ -166,7 +180,11 @@ def row_decode(p: Params, h: torch.Tensor, kind: str, cache: dict,
         window=window, kv_write_pos=kv_write, active=active)
     h = h + out
     ff_in = layers.rms_norm(h, p["norm2"], cfg.norm_eps)
-    h = h + layers.ffn_forward(p["ffn"], ff_in, pc)
+    # decode is drop-free: worst case every assignment lands on one
+    # expert, so capacity = tokens * top_k
+    cap = ff_in.shape[0] * ff_in.shape[1] * cfg.moe.top_k \
+        if kind == "e" else None
+    h = h + _ffn_part(p, ff_in, kind, cfg, pc, capacity=cap)[0]
     return h, cache
 
 

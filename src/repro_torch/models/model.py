@@ -1,7 +1,9 @@
 """Top-level language model: init, train forward (loss), prefill, decode.
 
 Port of ``repro/models/model.py`` for decoder-only text models built from
-``a`` (attention) or ``1`` (Mamba-1) rows.  Params keep the reference's tree (``embed``/``final_norm``/
+``a`` (attention), ``e`` (attention + MoE) or ``1`` (Mamba-1) rows; the
+training loss adds the MoE rows' router losses (``aux``), each row's
+counted once: a remat replay recomputes tensors, not the sum.  Params keep the reference's tree (``embed``/``final_norm``/
 ``g<i>`` groups with a leading layer axis), so ``params_from_numpy`` is a
 renaming, not a reshuffle.  Layer groups run as Python loops where the
 reference runs ``lax.scan``; decode caches are updated in place.

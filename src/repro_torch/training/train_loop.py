@@ -24,7 +24,7 @@ import torch
 from repro_torch.core import overlap, tree
 from repro_torch.core.api import Communicator
 from repro_torch.core.hw import CXL_POOL, INFINIBAND
-from repro_torch.models import model, sharding
+from repro_torch.models import model, moe, sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.pcontext import ParallelContext, UNSHARDED
 from repro_torch.optim import (AdamWState, adamw_update,
@@ -101,8 +101,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
              for k, v in batch.items()} for i in range(mb)]
         loss_sum = 0.0
         aux_sum: dict = {}
+        dropped, assigned = 0, 0
         for b in parts:
+            moe.DROPS.start()
             loss, aux = lf(params, b)
+            # the forward's routing only: the remat replays route again
+            d, a = moe.DROPS.stop()
+            dropped, assigned = dropped + d, assigned + a
             loss.backward()
             loss_sum += loss.detach()
             for k, v in aux.items():
@@ -126,6 +131,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             lr = lr_fn(opt_state.step)
             params, opt_state = adamw_update(params, grads, opt_state, lr)
         metrics = {"loss": loss_sum / mb, "lr": lr, "grad_norm": gnorm,
+                   "moe_dropped": dropped, "moe_assigned": assigned,
                    **{k: v / mb for k, v in aux_sum.items()}}
         return params, opt_state, metrics
     return step

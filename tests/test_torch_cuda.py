@@ -38,13 +38,14 @@ def _randn(shape, dtype, device):
 
 @pytest.mark.parametrize("t,d", [(4, 2048), (1024, 2048), (300, 384),
                                  (5, 100), (1024, 4096), (4, 4096),
-                                 (1, 2048), (1000, 2048)])
+                                 (1, 2048), (1000, 2048), (2048, 1536)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rms_norm_kernel_vs_plain(cuda, t, d, dtype):
     """Each launch ``rms_geometry`` chooses: the paths' widths at prefill
     and decode; (5, 100): bf16 rows not 16-byte aligned take one element
     at a time; (300, 384): columns past D predicated off; (1000, 2048): a
-    row count that no rows-per-block choice divides."""
+    row count that no rows-per-block choice divides; (2048, 1536):
+    Granite-3.0-MoE's width, a rank's 2 x 1024 tokens."""
     x = _randn((t, d), DTYPES[dtype], cuda)
     s = _randn((d,), torch.float32, cuda)
     before = rn.rms_norm.launches
@@ -410,7 +411,8 @@ def test_fused_dense_grads_kernel_vs_plain(cuda):
 @pytest.mark.parametrize("t,d,upstream", [(1024, 2048, "random"),
                                           (4, 4096, "random"),
                                           (5, 100, "random"),
-                                          (1024, 2048, "sum")])
+                                          (1024, 2048, "sum"),
+                                          (2048, 1536, "random")])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rms_norm_grads_kernel_vs_plain(cuda, t, d, upstream, dtype):
     """x.grad and scale.grad through the kernels (the forward kernel, then
@@ -709,3 +711,98 @@ def test_flash_kernel_at_the_tp_shape(cuda):
     g_want = torch.autograd.grad(want, (q, k, v), dy)
     for a, b in zip(g_got, g_want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------- #
+# the MoE slice: the kernels at Granite-3.0-MoE's shapes over (data,
+# model) = (2, 2) (d_model 1536, 24 q / 8 kv heads, 2 x 1024 tokens a
+# rank), and the smoke MoE models on the card
+# ---------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("nout", [768, 256])
+def test_all_gather_matmul_kernel_at_the_moe_shapes(cuda, nout):
+    """x (2048, 2 x 768) @ the (2, 768, N) stack of this model rank's
+    columns of wq (N = 768) and wk/wv (256), at the tile
+    ``agm_geometry`` chooses (the 64 x 32 tile at both), against the
+    plain version at the tolerance of
+    ``test_all_gather_matmul_kernel_vs_plain``, and bitwise on
+    repeat."""
+    from repro_torch.kernels import fused_collectives as fc
+    t, n, ks = 2048, 2, 768
+    assert fc.agm_geometry(t, n, ks, nout)["tile"] == 1
+    x = _randn((t, n * ks), torch.float32, cuda)
+    w = _randn((n, ks, nout), torch.float32, cuda)
+    before = fc.all_gather_matmul.launches
+    got = fc.all_gather_matmul(x, w)
+    torch.cuda.synchronize()
+    assert fc.all_gather_matmul.launches == before + 1
+    torch.testing.assert_close(got, fc.all_gather_matmul_plain(x, w),
+                               rtol=1e-4, atol=8 * n * ks * 2.0 ** -24)
+    assert torch.equal(got, fc.all_gather_matmul(x, w))
+
+
+def test_flash_kernel_at_the_moe_shape(cuda):
+    """(2, 1024, 12, 64) causal, f32: a rank's 2 sequences and its 12 of
+    the 24 q heads, its 4 kv heads repeated 3:1 (GQA) as the model hands
+    them over, forward and the recompute VJP against the plain
+    version's autograd."""
+    q = _randn((2, 1024, 12, 64), torch.float32, cuda).requires_grad_(True)
+    k, v = (_randn((2, 1024, 4, 64), torch.float32, cuda)
+            .requires_grad_(True) for _ in range(2))
+    kk, vv = (torch.repeat_interleave(t, 3, dim=2) for t in (k, v))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention_train(q, kk, vv, True)
+    assert fa.flash_attention.launches > before
+    want = fa.flash_attention_plain(q, kk, vv, True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-5)
+    dy = _randn((2, 1024, 12, 64), torch.float32, cuda)
+    g_got = torch.autograd.grad(got, (q, k, v), dy)
+    g_want = torch.autograd.grad(want, (q, k, v), dy)
+    for a, b in zip(g_got, g_want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("length", [1_572_864, 25_196_544])
+def test_chunked_reduce_kernel_at_the_moe_shapes(cuda, length):
+    """N = 2: the model level's activation AllReduce of (2048, 1536) f32
+    (two-phase: half of it a rank) and the data level's reduce-scatter
+    of one model rank's half of a row's FSDP bucket (attention, router
+    and its 20 experts)."""
+    from repro_torch.kernels import chunked_reduce as cr
+    x = _randn((2, length), torch.float32, cuda)
+    before = cr.chunked_reduce.launches
+    got = cr.chunked_reduce(x)
+    torch.cuda.synchronize()
+    assert cr.chunked_reduce.launches == before + 1
+    torch.testing.assert_close(got, cr.chunked_reduce_plain(x), rtol=1e-6,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "arctic-480b"])
+def test_smoke_moe_model_on_card_matches_cpu(cuda, arch):
+    """A smoke MoE model's prefill at L = 1100 (the flash kernel, the
+    router, the capacity's drops) and three drop-free decode steps, the
+    card against the CPU with the same params (rtol 2e-4, atol 2e-5, as
+    ``test_smoke_model_on_card_matches_cpu``)."""
+    cfg = get_config(arch, smoke=True)
+    cpu = model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = model.params_from_numpy(model.params_to_numpy(cpu), cuda)
+    toks = RNG.integers(0, cfg.vocab_size, (1, 1100))
+    outs = []
+    for params, dev in ((cpu, torch.device("cpu")), (gpu, cuda)):
+        before = fa.flash_attention.launches
+        logits, caches = model.prefill(
+            params, {"tokens": torch.as_tensor(toks, device=dev)}, cfg,
+            UNSHARDED, 1104, cache_dtype=torch.float32)
+        res = [logits]
+        pos = torch.tensor([1100], device=dev)
+        for i in range(3):
+            lg, caches = model.decode_step(
+                params, caches, torch.tensor([[5 + i]], device=dev), pos,
+                cfg, UNSHARDED)
+            res.append(lg)
+            pos = pos + 1
+        outs.append([t.cpu() for t in res + [caches[0]["k"]]])
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    for a, b in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)

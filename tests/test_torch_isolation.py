@@ -83,12 +83,19 @@ def test_engine_without_device_refuses_cpu_fallback():
     assert out.shape == (1, 2)
 
 
-def test_launcher_rejects_unported_flags():
+def test_launcher_rejects_unported_flags(tmp_path):
     from repro_torch.launch import serve
     ap = serve.build_parser()
-    for flag in ("--online-retune", "--ckpt", "--metrics-out"):
+    for flag in ("--online-retune", "--metrics-out"):
         with pytest.raises(SystemExit):
             ap.parse_args(["--arch", "llama3.2-1b", flag, "x"])
+    # --ckpt / --ckpt-step are ported: they parse and reach the restore
+    args = ap.parse_args(["--arch", "llama3.2-1b", "--smoke", "--device",
+                          "cpu", "--ckpt", str(tmp_path), "--ckpt-step",
+                          "3"])
+    assert (args.ckpt, args.ckpt_step) == (str(tmp_path), 3)
+    with pytest.raises(FileNotFoundError, match="step_00000003"):
+        serve.engine_from_args(args)
     # --placement is ported (with --placement-axes): it parses
     args = ap.parse_args(["--arch", "llama3.2-1b", "--placement", "auto",
                           "--placement-axes", "data=4,model=1"])
@@ -137,10 +144,13 @@ def test_train_entry_points_without_device_refuse_cpu_fallback():
 def test_train_launcher_rejects_unported_flags_and_tp():
     from repro_torch.launch import train
     ap = train.build_parser()
-    for flag in ("--pp-stages", "--ckpt", "--metrics-out",
-                 "--online-retune"):
+    for flag in ("--pp-stages", "--metrics-out", "--online-retune"):
         with pytest.raises(SystemExit):
             ap.parse_args(["--arch", "llama3.2-1b", flag, "x"])
+    # --ckpt is ported: it parses and reaches the run's spec
+    assert train.spec_from_args(ap.parse_args(
+        ["--arch", "llama3.2-1b", "--ckpt", "ckpt_dir", "--device",
+         "cpu"])).ckpt == "ckpt_dir"
     # --placement is ported: it parses
     assert ap.parse_args(["--arch", "llama3.2-1b", "--placement",
                           "auto"]).placement == "auto"
