@@ -30,7 +30,14 @@ Phases (each fails the run if its check fails):
                  the
                  final state) at the JAX test shapes, Falcon's prefill and
                  decode shapes, a ragged L from a random state, L
-                 across ring-stage boundaries, L = 4096, and bf16;
+                 across ring-stage boundaries, L = 4096, and bf16, and
+                 at N = 64 (Zamba2's prefill and decode, a ragged L, L =
+                 4096); its backward kernel (every input's grad, with a
+                 cotangent on the final state) against autograd through
+                 the plain version at Falcon's training shape (1, 1024,
+                 8192, 16), Zamba2's (1, 1024, 4096, 64), L = 4096 and
+                 from h0, each repeated bitwise; rms_norm's gradients at
+                 (1024, 4096) too;
                  reduce_scatter_rmsnorm and reduce_scatter_adamw (f32 and
                  bf16, weight decay 0 and 0.1) at the JAX test shapes, the
                  training path's shapes and a ragged T / L; the two
@@ -56,14 +63,20 @@ Phases (each fails the run if its check fails):
                  x and dy, write dx), the backward's library call the
                  autograd backward of ``F.rms_norm``; chunked_reduce and
                  ``torch.sum`` in turns, five times each, each beside
-                 ``copy_ms``, a copy of the same bytes;
+                 ``copy_ms``, a copy of the same bytes; ssm_scan also at
+                 Zamba2's prefill and decode (N = 64, beside
+                 ``bound_ssd_ms``, the bound with one exp a head, as the
+                 Mamba-2 function needs), the training forward writing
+                 its checkpoints and the backward kernel at Falcon's and
+                 Zamba2's training shapes;
 3b. kernel API - ``repro_torch.kernels.ops.reduce_scatter_rmsnorm`` and
                  ``reduce_scatter_adamw`` at the training path's shapes
                  (the path that carries them in the JAX package too);
 4. reference   - the smoke-size models on the card against the same models
                  on the CPU: Llama (prefill at L = 1100, through the flash
-                 kernel) and Falcon-Mamba (prefill at L = 300, through the
-                 ssm_scan kernel), each with three per-slot decode steps;
+                 kernel), Falcon-Mamba and Zamba2 (prefill at L = 300,
+                 through the ssm_scan kernel), each with three per-slot
+                 decode steps;
 5. serve       - Llama-3.2-1B at full width (f32, seeded random params):
                  a fixed batch of 4 x 1024-token prompts with a roomy HBM
                  budget, the same with a budget 4 blocks short and eviction
@@ -73,19 +86,23 @@ Phases (each fails the run if its check fails):
                  rows, d_model 4096, f32): the same fixed batch roomy and
                  4 blocks short (whole-image eviction of the token-free SSM
                  state), and a Poisson trace of 8 requests (prefix sharing
-                 turns itself off: the state has no token axis);
+                 turns itself off: the state has no token axis); then
+                 Zamba2-1.2B at full width (32 Mamba-2 rows, the shared
+                 attention block 6 times, f32) the same way (its hybrid
+                 cache mixes KV leaves with token-free SSM leaves: whole
+                 slot images, no prefix sharing);
 6. collectives - every flat collective on 4 ranks sharing the card, ring
                  (gloo; to 16 MB) and cxl (the pinned shared host pool),
                  at 1, 16 and 256 MB per rank: each rank's result against
                  a numpy oracle (bitwise), and the median time; then
-                 every primitive that
-                 takes a tuple axis over ("pod", "data") = (2, 2) with the
-                 topology ``pod:cxl,data:ici`` (every level group with its
-                 own gloo group and pool), beside the same primitive over
-                 the flat axis of all 4 ranks, under cxl and auto (plans
-                 tuned in the run) and, to 16 MB, ring: each result
-                 bitwise against the oracle and the tuple's against the
-                 flat one's, the median time and the wire bytes by level;
+                 every primitive that takes a tuple axis over ("pod",
+                 "data") = (2, 2) with the topology ``pod:cxl,data:ici``
+                 (every level group with its own gloo group and pool),
+                 beside the same primitive over the flat axis of all 4
+                 ranks, at 1 and 16 MB per rank, under cxl, auto (plans
+                 tuned in the run) and ring: each result bitwise against
+                 the oracle and the tuple's against the flat one's, the
+                 median time and the wire bytes by level;
 7. train       - FSDP training on 4 ranks sharing the card: the smoke
                  model on the card against the same run on the CPU (losses
                  over 3 steps), then Llama-3.2-1B at full width and depth
@@ -94,7 +111,9 @@ Phases (each fails the run if its check fails):
                  ``--backend auto --plan`` on a plan that
                  ``repro_torch.launch.tune --nranks 4 --sizes-mib 1 4 16 64
                  256`` writes into ``OUT_DIR`` (``--mesh 4x1
-                 --batch 4 --seq 1024``, 3 steps each, ring 2, the same
+                 --batch 4 --seq 1024``, cxl+fused 3 steps, the others 2
+                 (the earlier paths' depth is cut to keep the time limit;
+                 ring is gloo-bound), the same
                  seeded params and batches; the runs of one path are the
                  variants of one spawn of the ranks, in turn): the four
                  step-0 losses agree, every
@@ -105,7 +124,7 @@ Phases (each fails the run if its check fails):
                  rms_norm's device time by kernel name); then the same
                  model with ``--multi-pod --topology pod:cxl,data:ici``
                  (the data axis ("pod", "data") = (2, 2)) under cxl
-                 +fused, cxl and auto (2 steps) on a plan that
+                 +fused, cxl and auto (the last two 2 steps) on a plan that
                  ``launch.tune --topology pod:cxl,data:ici --nranks 2``
                  writes: step-0
                  losses within 1e-4 of the flat cxl+fused run's, every
@@ -119,7 +138,8 @@ Phases (each fails the run if its check fails):
                  ``--topology data:cxl,model:cxl``: the smoke model on
                  the card against the CPU (losses of 3 steps, rtol 2e-4),
                  then Llama-3.2-1B at full width and depth under cxl
-                 +fused (profiled), cxl and auto on a plan that
+                 +fused (profiled), cxl and auto (2 steps each) on a plan
+                 that
                  ``launch.tune --topology data:cxl,model:cxl --nranks 2``
                  writes: step-0 losses within 1e-4 of the flat cxl+fused
                  run's, every loss falls, cxl moves pool bytes at both
@@ -130,7 +150,8 @@ Phases (each fails the run if its check fails):
                  beside a lone node on one flat data axis): the smoke
                  model on the card against the CPU (rtol 2e-4), then
                  Llama-3.2-1B at full width and depth under cxl+fused
-                 (profiled), cxl and auto on a plan that ``launch.tune
+                 (profiled), cxl and auto (2 steps each) on a plan that
+                 ``launch.tune
                  --topology pod:cxl,data:cxl:3+1 --nranks 4`` writes, and
                  ``--topology pod:cxl,node:cxl:3+1 --placement auto`` under
                  cxl: step-0 losses within 1e-4 of the flat cxl+fused
@@ -148,7 +169,7 @@ Phases (each fails the run if its check fails):
                  AllToAll through the model level's pool), FSDP over data:
                  the smoke MoE card vs CPU (rtol 2e-4), then cxl+fused
                  (profiled, writing ``train --ckpt``), cxl and auto (2
-                 steps, 7c's plan): step-0 losses within 1e-4 of each
+                 steps each, 7c's plan): step-0 losses within 1e-4 of each
                  other, every loss falls, both levels' pools move bytes,
                  the kernels of 7b on every rank every step, every auto
                  call (all_to_all included) at its level's cell, rank 0's
@@ -162,21 +183,40 @@ Phases (each fails the run if its check fails):
 7f. serve MoE  - ``serve --arch granite-moe-3b`` at full width (tp = 1, f32):
                  the fixed batch of 4 x 1024-token prompts, 16 new tokens,
                  then prefill and decode-step times.
+7g. train hybrid - falcon-mamba-smoke and zamba2-smoke training on the
+                 card against the CPU (losses of 3 steps, rtol 2e-4), then
+                 Zamba2-1.2B at full width and depth over ``--mesh 4x1``
+                 under cxl+fused (profiled), cxl and auto on phase 7's
+                 plan: step-0 losses within 1e-4, every loss falls, every
+                 rank launches the ssm_scan kernel and its backward,
+                 rms_norm's backward and flash_attention every step
+                 (all_gather_matmul under --fuse-kernels, on the shared
+                 block's products), ``shared_a`` gathered once a shared
+                 group (6, the reference's sites), every auto call at its
+                 plan cell.
+
+Phase 7 starts with every path's smoke check at once: the six smoke
+models' training runs on the card and the same runs on the CPU go side
+by side (each is mostly its ranks' start-up); the SSM smoke models'
+take sequences of 128 tokens (the CPU's plain scan is a loop over L).
 
 The kernels' launch counters are zeroed before each serving run and
 before each training step (in the rank processes), and read after it
 (the kernels line's ``launches_by_path`` counts the flat training runs
 as ``train``, 7b's as ``train_hier``, 7c's as ``train_tp``, 7d's as
-``train_ragged``, 7e's as ``train_moe`` and 7f's as ``serve_moe``):
+``train_ragged``, 7e's as ``train_moe``, 7f's as ``serve_moe``, 7g's as
+``train_hybrid`` and Zamba2's serving as ``serve_hybrid``; ssm_scan's
+backward kernel under ``backward_launches_by_path``):
 the training path's four kernels and rms_norm's backward kernel must
 have run on it, rms_norm and
 flash_attention on the serving path too, rms_norm and ssm_scan on the
-SSM serving path, and the two reduce_scatter kernels on the kernel API
-path (their counters are zeroed before it and read after).  The last three lines of
-standard output are the kernels' JSON line, the card's name and power
-limit, and the result line.  The full record, with the wall seconds
-of every phase (``phase_walls_s``), goes to ``chip_smoke.json`` in
-``OUT_DIR``.
+SSM serving path, all three on the hybrid one, ssm_scan's backward on
+the hybrid training path, and the two reduce_scatter kernels on the
+kernel API path (their counters are zeroed before it and read after).
+The last three lines of standard output are the kernels' JSON line,
+the card's name and power limit, and the result line.  The full
+record, with the wall seconds of every phase (``phase_walls_s``), goes
+to ``chip_smoke.json`` in ``OUT_DIR``.
 """
 from __future__ import annotations
 
@@ -221,7 +261,17 @@ TOL = {"rms_norm": {torch.float32: (1e-5, 1e-5),
        # to bf16 after the f32 sum, the sum's order differs
        "ssm_scan": {torch.float32: (1e-4, 1e-4),
                     torch.bfloat16: (1e-2, 1e-2)},
+       # N = 64 at L = 4096: y sums 64 lanes of a state rounded 4096
+       # times in f32; the plain version and the kernel each drift from
+       # an f64 evaluation by about the (1e-4, 1e-4) band, each within
+       # (2e-4, 2e-4) (tests/test_torch_mamba2.py::
+       # test_long_scan_f32_error_at_n64), so against each other 4e-4
+       "ssm_scan_long": (4e-4, 4e-4),
        "grad": {torch.float32: (1e-4, 1e-4)},
+       # ssm_scan's backward against autograd through the plain loop:
+       # (rtol, atol as a fraction of the grad's largest entry); the
+       # kernel sums over L, N and the channels in other orders
+       "ssm_scan_grad": (1e-4, 1e-5),
        # the JAX test's bf16 band; f32 widened from its rtol 1e-6, atol
        # 1e-7: the kernel and torch sum the D squares in other orders (a
        # random walk of about sqrt(D) roundings of 2^-24 relative, 1e-6 at
@@ -279,10 +329,14 @@ CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 RAGGED_TOPOLOGY = "pod:cxl,data:cxl:3+1"
 RAGGED_PLACEMENT_TOPOLOGY = "pod:cxl,node:cxl:3+1"
 RAGGED_GROUPS = (3, 1)
-# the gloo-bound runs take 2 steps (step 0 and one to show the loss fall)
+# the earlier paths' runs but the profiled first, and the gloo-bound ones,
+# take 2 steps (step 0 and one to show the loss fall)
 SHORT_STEPS = 2
 # the flat collectives table runs ring (gloo) up to this size a rank
 RING_MAX_MB = 16
+# the tuple collectives table's sizes a rank (256 MB, under auto about a
+# second a call, is left to ``launch.collectives --multi-pod``)
+TUPLE_SIZES_MB = (1, 16)
 TUNE_SIZES_MIB = ("1", "4", "16", "64", "256")
 # reduce_scatter_rmsnorm (n_src, T, D): the JAX test shapes, one rank's
 # 1024 tokens at d_model 2048, a ragged T
@@ -349,6 +403,35 @@ def moe_reduce_shapes() -> tuple:
     return ((2, TP_TOKENS * MOE_D // 2), (2, bucket // TP_DP))
 
 
+def hybrid_reduce_shapes() -> tuple:
+    """chunked_reduce on the hybrid path (FSDP over DP ranks at tp = 1):
+    the reduce-scatters of a Mamba-2 row's bucket, of ``shared_a``'s,
+    and of ``shared_a``'s two buckets under ``--fuse-kernels`` (the
+    matmul weights sharded on dim 0, then wo and wd), each DP sources of
+    one rank's segment."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import overlap, tree
+    from repro_torch.models import model, sharding
+    cfg = get_config(HYBRID_ARCH)
+    sharding.set_mesh_sizes({"data": DP})
+    abstract = model.abstract_params(cfg)
+    specs = sharding.param_specs(abstract, cfg, dp_axis="data")
+
+    def sharded(key, row):
+        return [(path[-1], s.index("data") - int(row),
+                 (x[0] if row else x).numel())
+                for (path, x), (_, s) in zip(
+                    tree.leaves_with_paths(abstract[key]),
+                    tree.leaves_with_paths(specs[key])) if "data" in s]
+    shared = sharded("shared_a", False)
+    fused = sum(n for name, dim, n in shared
+                if name in overlap.FUSABLE_PARAMS and dim == 0)
+    lengths = (sum(n for *_, n in sharded("g0", True)),
+               sum(n for *_, n in shared), fused,
+               sum(n for *_, n in shared) - fused)
+    return tuple((DP, n // DP) for n in lengths)
+
+
 SSM_ARCH = "falcon-mamba-7b"
 # (B, L, D, N, from a random state): the JAX test shapes, Falcon's prefill
 # (1 x 1024) and decode (4 slots) shapes, a ragged L from a random state;
@@ -359,15 +442,48 @@ SSM_SHAPES = ((2, 256, 256, 16, False), (1, 128, 512, 8, False),
               (1, 63, 8192, 16, True), (1, 65, 8192, 16, False),
               (1, 129, 8192, 16, True), (1, 4096, 8192, 16, False))
 SSM_BF16 = (2, 300, 8192, 16, True)
+# the hybrid path: Zamba2-1.2B (32 Mamba-2 rows at d_inner 4096, N = 64,
+# one shared attention block applied 6 times)
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_D, HYBRID_N, HYBRID_HEADS = 4096, 64, 64   # d_inner, d_state, nh
+# ssm_scan at N = 64: Zamba2's prefill and training shape (1 x 1024, a
+# rank's rows), a decode step (4 slots, from the cached state), a ragged
+# L from a state, L = 4096
+SSM64_SHAPES = ((1, PROMPT, HYBRID_D, HYBRID_N, False),
+                (SLOTS, 1, HYBRID_D, HYBRID_N, True),
+                (2, 300, HYBRID_D, HYBRID_N, True),
+                (1, 4096, HYBRID_D, HYBRID_N, False))
+# the backward kernel against autograd through the plain version:
+# Falcon-Mamba's training shape, Zamba2's, L = 4096 (at 1024 channels:
+# the plain version's autograd keeps every step's state), and from h0
+# with a cotangent on h_last
+SSM_BWD_SHAPES = ((1, PROMPT, 8192, 16, False),
+                  (1, PROMPT, HYBRID_D, HYBRID_N, False),
+                  (1, 4096, 1024, HYBRID_N, False),
+                  (2, 300, HYBRID_D, HYBRID_N, True))
+# the SSM smoke models' training, card vs CPU, at sequences of 128: the
+# CPU's plain scan is a Python loop over L, four ranks sharing the
+# machine's 8 cores (about 4 min a run at 1024)
+SSM_SMOKE_SEQ = 128
+# the kernels every rank must launch every step of the hybrid path
+HYBRID_KERNELS = ("rms_norm", "rms_norm_vjp", "flash_attention",
+                  "ssm_scan", "ssm_scan_vjp")
+# the kernels of the Llama training paths (the counters' other names are
+# the SSM kernels')
+LLAMA_TRAIN_KERNELS = ("rms_norm", "rms_norm_vjp", "flash_attention",
+                       "chunked_reduce", "all_gather_matmul")
 # rms_norm (T, D): Llama's prefill and decode, Falcon-Mamba's; the
 # training path's backward (one rank's 1024 tokens at d_model 2048)
 RMS_SHAPES = ((PROMPT, 2048), (SLOTS, 2048), (PROMPT, 4096), (SLOTS, 4096),
               RMS_MOE)
 RMS_BWD = (PROMPT, 2048)
+RMS_HYBRID = (PROMPT, HYBRID_D)      # Zamba2's gated norm over d_inner
 # the kernels each serving path must launch
 SERVE_KERNELS = {"serve": ("rms_norm", "flash_attention"),
                  "serve_ssm": ("rms_norm", "ssm_scan"),
-                 "serve_moe": ("rms_norm", "flash_attention")}
+                 "serve_moe": ("rms_norm", "flash_attention"),
+                 "serve_hybrid": ("rms_norm", "flash_attention",
+                                  "ssm_scan")}
 
 
 def gemm_tol(k: int) -> tuple:
@@ -521,7 +637,7 @@ def grad_parity(randn, rn, fa, fc) -> list:
                     "max_abs_err": max(e for e, _ in errs),
                     "ok": all(ok for _, ok in errs)})
 
-    for t, d in (RMS_BWD, RMS_MOE):
+    for t, d in (RMS_BWD, RMS_MOE, RMS_HYBRID):
         before = rn.rms_norm_vjp.launches
         compare("rms_norm", [t, d], (rn.rms_norm, rn.rms_norm_plain),
                 [randn(t, d), randn(d)], randn(t, d))
@@ -545,7 +661,8 @@ def grad_parity(randn, rn, fa, fc) -> list:
 
 
 def _train_args(extra: list, mesh: str = f"{DP}x1",
-                steps: int = TRAIN_STEPS, arch: str = "llama3.2-1b") -> list:
+                steps: int = TRAIN_STEPS, arch: str = "llama3.2-1b",
+                seq: int = PROMPT) -> list:
     """The drive command's flags.  The full-width runs take --lr 3e-5:
     3 steps give the launcher's schedule no warm-up, and AdamW's first
     steps move every weight by about lr; on these random weights the
@@ -554,7 +671,7 @@ def _train_args(extra: list, mesh: str = f"{DP}x1",
     14.21 and 12.12, 10.57, 13.14 under all three backends alike)."""
     return ["--arch", arch, "--mesh", mesh, "--steps",
             str(steps), "--batch", str(TRAIN_BATCH), "--seq",
-            str(PROMPT)] + extra
+            str(seq)] + extra
 
 
 def _summarise_profile(per_rank: list) -> dict:
@@ -657,20 +774,146 @@ def ssm_cost(b, l, d, n, with_h0, itemsize: int = 4) -> dict:
 def ssm_parity(randn, ss) -> list:
     """ssm_scan's y and final state against the plain version."""
     out = []
-    shapes = [(sh, torch.float32) for sh in SSM_SHAPES] + \
+    shapes = [(sh, torch.float32) for sh in SSM_SHAPES + SSM64_SHAPES] + \
         [(SSM_BF16, torch.bfloat16)]
     for (b, l, d, n, with_h0), dtype in shapes:
         args, h0 = ssm_inputs(randn, b, l, d, n, with_h0, dtype)
         y, h = ss.ssm_scan(*args, h0=h0, return_state=True)
         want_y, want_h = ss.ssm_scan_plain(*args, h0=h0, return_state=True)
-        errs = [close(y, want_y, *TOL["ssm_scan"][dtype]),
+        tol = TOL["ssm_scan_long"] if n == HYBRID_N and l > PROMPT \
+            else TOL["ssm_scan"][dtype]
+        errs = [close(y, want_y, *tol),
                 close(h, want_h, *TOL["ssm_scan"][torch.float32])]
         out.append({"kernel": "ssm_scan", "shape": [b, l, d, n],
-                    "h0": with_h0, "dtype": str(dtype),
-                    "tolerance": TOL["ssm_scan"][dtype],
+                    "h0": with_h0, "dtype": str(dtype), "tolerance": tol,
                     "max_abs_err": max(e for e, _ in errs),
                     "max_abs_err_h_last": errs[1][0],
                     "ok": all(ok for _, ok in errs)})
+    return out
+
+
+def _scan_grads(fn, args, h0, dy, dh) -> list:
+    """Every input's grad of (y * dy).sum() + (h_last * dh).sum() through
+    ``fn`` (ssm_scan or its plain version)."""
+    leaves = [t.clone().requires_grad_() for t in
+              list(args) + ([h0] if h0 is not None else [])]
+    y, h = fn(*leaves[:6], h0=leaves[6] if h0 is not None else None,
+              return_state=True)
+    ((y.float() * dy).sum() + (h * dh).sum()).backward()
+    return [t.grad for t in leaves]
+
+
+def ssm_grad_parity(randn, ss) -> list:
+    """Every input's grad through the scan kernels (the forward writing
+    its checkpoints, one launch of the backward) against autograd through
+    the plain version, with a cotangent on the final state; a repeat must
+    be bitwise equal and each backward one count of ``ssm_scan_vjp``."""
+    out = []
+    rtol, frac = TOL["ssm_scan_grad"]
+    for b, l, d, n, with_h0 in SSM_BWD_SHAPES:
+        args, h0 = ssm_inputs(randn, b, l, d, n, with_h0)
+        dy, dh = randn(b, l, d), randn(b, d, n)
+        want = _scan_grads(ss.ssm_scan_plain, args, h0, dy, dh)
+        before = ss.ssm_scan_vjp.launches
+        got = _scan_grads(ss.ssm_scan, args, h0, dy, dh)
+        again = _scan_grads(ss.ssm_scan, args, h0, dy, dh)
+        torch.cuda.synchronize()
+        errs = [close(g, w, rtol, frac * float(w.abs().max()))
+                for g, w in zip(got, want)]
+        repeat = all(torch.equal(g, g2) for g, g2 in zip(got, again))
+        out.append({"kernel": "ssm_scan", "check": "grad",
+                    "shape": [b, l, d, n], "h0": with_h0,
+                    "dtype": str(torch.float32),
+                    "tolerance": [rtol, f"{frac} x max |grad|"],
+                    "max_abs_err": max(e for e, _ in errs),
+                    "max_abs_err_by_input": dict(zip(
+                        ("x", "dt", "A", "B", "C", "D", "h0"),
+                        (e for e, _ in errs))),
+                    "repeat_bitwise": repeat,
+                    "backward_launches": ss.ssm_scan_vjp.launches - before,
+                    "ok": all(ok for _, ok in errs) and repeat and
+                    ss.ssm_scan_vjp.launches == before + 2})
+        del args, h0, dy, dh, want, got, again
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_bwd_cost(b, l, d, n, with_h0, n_ckpt: int) -> dict:
+    """What the scan's VJP must move and compute, f32: x, dt and dy read,
+    dx and ddt written; B, C read, dB, dC written; A, D read, dA, dD
+    written; the forward's ``n_ckpt`` checkpoints a sequence read;
+    h0, dh_last read and dh0 written when there is h0; one exp and 15
+    flops per (b, t, d, n) (the state's recompute, the cotangent's step
+    and the five products it feeds)."""
+    ck = b * n_ckpt * d * n
+    nbytes = (5 * b * l * d + 4 * b * l * n + 2 * (d * n + d) + ck
+              + (3 * b * d * n if with_h0 else 0)) * 4
+    return {"bytes": nbytes, "flops": 15 * b * l * d * n,
+            "exps": b * l * d * n}
+
+
+def ssm_timing(timer, randn, ss, sms: int) -> dict:
+    """The scan as each path calls it: Falcon-Mamba's prefill and decode
+    (N = 16, the row of earlier PRs), Zamba2's prefill and decode (N =
+    64), the training forward writing checkpoints and the backward
+    kernel at Falcon's and Zamba2's training shapes.  At N = 64 the
+    kernel forms exp(dt A) for every (channel, lane) where Mamba-2's
+    function needs one a head: ``bound_ssd_ms`` is the bound with those
+    exps."""
+    out = {}
+    for key, (b, l, d, n, with_h0) in (
+            ("prefill", (1, PROMPT, 8192, 16, False)),
+            ("decode", (SLOTS, 1, 8192, 16, True)),
+            ("n64_prefill", (1, PROMPT, HYBRID_D, HYBRID_N, False)),
+            ("n64_decode", (SLOTS, 1, HYBRID_D, HYBRID_N, True))):
+        args, h0 = ssm_inputs(randn, b, l, d, n, with_h0)
+        out[key] = {
+            "ms": timer(lambda: ss.ssm_scan(*args, h0=h0,
+                                            return_state=True)),
+            "plain_ms": timer(lambda: ss.ssm_scan_plain(
+                *args, h0=h0, return_state=True), iters=5),
+            "library_ms": None, **ssm_cost(b, l, d, n, with_h0),
+            "shape": [b, l, d, n],
+            "geometry": ss.ssm_geometry(b, l, d, n, sms)}
+    for key, (b, l, d, n) in (("train_forward", (1, PROMPT, 8192, 16)),
+                              ("n64_train_forward",
+                               (1, PROMPT, HYBRID_D, HYBRID_N))):
+        args, _ = ssm_inputs(randn, b, l, d, n, False)
+        geo = ss.ssm_geometry(b, l, d, n, sms)
+        cost = ssm_cost(b, l, d, n, False)
+        # the checkpoints
+        cost["bytes"] += b * ss.checkpoint_count(l) * d * n * 4
+        out[key] = {"ms": timer(lambda: ss._launch(
+            *args, None, True, geo, checkpoints=True)),
+            "plain_ms": None, "library_ms": None, **cost,
+            "shape": [b, l, d, n], "geometry": geo}
+    for key, (b, l, d, n) in (("backward", (1, PROMPT, 8192, 16)),
+                              ("n64_backward",
+                               (1, PROMPT, HYBRID_D, HYBRID_N))):
+        args, _ = ssm_inputs(randn, b, l, d, n, False)
+        geo = ss.ssm_geometry(b, l, d, n, sms)
+        _, _, hc = ss._launch(*args, None, True, geo, checkpoints=True)
+        dy = randn(b, l, d)
+        before = ss.ssm_scan_vjp.launches
+        out[key] = {
+            "ms": timer(lambda: ss.ssm_scan_vjp(*args, hc, dy)),
+            "plain_ms": timer(lambda: ss.ssm_scan_backward_plain(
+                *args, dy), iters=2, warmup=1),
+            "library_ms": None, **ssm_bwd_cost(
+                b, l, d, n, False, ss.checkpoint_count(l)),
+            "shape": [b, l, d, n], "geometry": geo}
+        ss.ssm_scan_vjp.launches = before     # timing counts no path
+        del hc, dy
+    del args
+    for key in ("n64_prefill", "n64_decode", "n64_train_forward",
+                "n64_backward"):
+        rec = out[key]
+        b, l = rec["shape"][:2]
+        ssd = dict(rec, exps=b * l * HYBRID_HEADS)
+        rec["bound_ssd_ms"] = max(ssd["bytes"] / HBM_BW,
+                                  ssd["flops"] / PEAK[torch.float32],
+                                  ssd["exps"] / EXP_RATE) * 1e3
+    torch.cuda.empty_cache()
     return out
 
 
@@ -786,7 +1029,8 @@ def rs_timing(timer, randn, rand, fc, rs_len: int) -> dict:
 
 def rms_timing(timer, randn, rn, sms: int) -> dict:
     """rms_norm (f32) at :data:`RMS_SHAPES` and its backward at
-    :data:`RMS_BWD` (``backward``) and :data:`RMS_MOE` (``backward_moe``):
+    :data:`RMS_BWD` (``backward``), :data:`RMS_MOE` (``backward_moe``)
+    and :data:`RMS_HYBRID` (``backward_hybrid``):
     the kernels, the plain versions, the library call
     and ``copy_ms``, the same bytes moved under the same timer
     (``y.copy_(x)``; for the backward ``torch.add(x, dy, out=dx)``: read
@@ -810,6 +1054,8 @@ def rms_timing(timer, randn, rn, sms: int) -> dict:
     out["backward"] = rms_backward_timing(timer, randn, rn, sms, *RMS_BWD)
     out["backward_moe"] = rms_backward_timing(timer, randn, rn, sms,
                                               *RMS_MOE)
+    out["backward_hybrid"] = rms_backward_timing(timer, randn, rn, sms,
+                                                 *RMS_HYBRID)
     return out
 
 
@@ -1198,13 +1444,15 @@ def check_losses(runs: dict, first: float) -> None:
 
 
 def smoke_card_vs_cpu(mesh: str, tp: int = 1, extra: tuple = (),
-                      arch: str = "llama3.2-1b") -> dict:
+                      arch: str = "llama3.2-1b", seq: int = PROMPT) -> dict:
     """The smoke model's training path on the card against the same run
-    on the CPU (cxl with fused kernels, the same numpy params at ``tp``):
-    the losses of 3 steps within rtol 2e-4."""
+    on the CPU (cxl with fused kernels, the same numpy params at ``tp``,
+    sequences of ``seq`` tokens): the losses of 3 steps within rtol
+    2e-4."""
     import dataclasses
     import os
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import get_config
     from repro_torch.launch import train
@@ -1217,12 +1465,14 @@ def smoke_card_vs_cpu(mesh: str, tp: int = 1, extra: tuple = (),
             scfg, torch.Generator().manual_seed(0), "cpu", tp=tp), path)
         spec = train.spec_from_args(train.build_parser().parse_args(
             _train_args(["--smoke", "--backend", "cxl", "--fuse-kernels",
-                         *extra], mesh, arch=arch)))
-        losses = {}
-        for device in ("cuda", "cpu"):
-            run = train.run_ranks(dataclasses.replace(
-                spec, device=device, params_path=path))[0]
-            losses[device] = [s["loss"] for s in run["steps"]]
+                         *extra], mesh, arch=arch, seq=seq)))
+        # the two runs side by side: each is mostly its ranks' start-up
+        with ThreadPoolExecutor(2) as pool:
+            runs = {device: pool.submit(train.run_ranks, dataclasses.replace(
+                spec, device=device, params_path=path))
+                for device in ("cuda", "cpu")}
+            losses = {device: [s["loss"] for s in run.result()[0]["steps"]]
+                      for device, run in runs.items()}
     err = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"]))
                        / np.abs(losses["cpu"])))
     log(f"[train] smoke {arch} on {mesh}, 3 steps, card vs CPU losses "
@@ -1231,6 +1481,35 @@ def smoke_card_vs_cpu(mesh: str, tp: int = 1, extra: tuple = (),
         fail(f"smoke {arch} training on {mesh} on the card differs from "
              f"the CPU: {losses}")
     return {"losses": losses, "max_rel_err": err}
+
+
+def smoke_checks() -> dict:
+    """Phase 7's smoke card-vs-CPU checks, one a training path (flat,
+    (data, model), grouped, MoE, Falcon-Mamba's and Zamba2's SSM rows),
+    all at once: each is mostly its ranks' start-up, which overlaps."""
+    from concurrent.futures import ThreadPoolExecutor
+    flat = f"{DP}x1"
+    checks = {
+        "smoke_card_vs_cpu": dict(mesh=flat),
+        "tp_smoke_card_vs_cpu": dict(mesh=TP_MESH, tp=TP_TP,
+                                     extra=("--topology", TP_TOPOLOGY)),
+        "ragged_smoke_card_vs_cpu": dict(
+            mesh=flat, extra=("--topology", RAGGED_TOPOLOGY)),
+        "moe_smoke_card_vs_cpu": dict(
+            mesh=TP_MESH, tp=TP_TP, arch=MOE_ARCH,
+            extra=("--topology", TP_TOPOLOGY, "--prefetch", MOE_PREFETCH)),
+        "ssm_smoke_card_vs_cpu": dict(mesh=flat, arch=SSM_ARCH,
+                                      seq=SSM_SMOKE_SEQ),
+        "hybrid_smoke_card_vs_cpu": dict(mesh=flat, arch=HYBRID_ARCH,
+                                         seq=SSM_SMOKE_SEQ)}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(checks)) as pool:
+        futures = {key: pool.submit(smoke_card_vs_cpu, **kw)
+                   for key, kw in checks.items()}
+        out = {key: f.result() for key, f in futures.items()}
+    log(f"[train] {len(checks)} smoke checks side by side: "
+        f"{time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def check_path_runs(runs: dict, need_levels: set, label_auto: str,
@@ -1290,6 +1569,34 @@ def check_ragged_runs(runs: dict) -> None:
             fail(f"--placement auto moved other bytes than the plain "
                  f"grouped run: {b['pool_by_level']} vs "
                  f"{a['pool_by_level']}")
+
+
+def check_hybrid_runs(runs: dict) -> None:
+    """Every step of every hybrid run: the kernels of ``HYBRID_KERNELS``
+    (and all_gather_matmul under --fuse-kernels: the shared block's
+    products) on every rank; ``shared_a`` gathered once a shared group,
+    the reference's gather sites under the double-buffered prefetch; the
+    pool moves bytes under cxl."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    sites = sum(g.shared for g in blocks.scan_groups(get_config(
+        HYBRID_ARCH)))
+    for label, run in runs.items():
+        need = HYBRID_KERNELS + (("all_gather_matmul",)
+                                 if run["fuse_kernels"] else ())
+        for i, s in enumerate(run["steps"]):
+            idle = [k for k in need if s["launches_min_rank"][k] <= 0]
+            if idle:
+                fail(f"{label} step {i}: a rank launched no {idle}: "
+                     f"{s['launches_min_rank']}")
+            got = s["gathers_rank0"].get("shared_a", 0)
+            if got != sites:
+                fail(f"{label} step {i}: shared_a gathered {got} times, "
+                     f"the reference's sites {sites}")
+            if run["backend"] == "cxl" and s["pool_bytes"] <= 0:
+                fail(f"{label} step {i}: no pool bytes under cxl")
+        log(f"[train] {label}: gathers a step (rank 0) "
+            f"{json.dumps(run['steps'][0]['gathers_rank0'])}")
 
 
 def launcher_serve(argv: list) -> tuple:
@@ -1493,14 +1800,34 @@ def moe_serve(launches: dict) -> dict:
     return rec
 
 
+def hybrid_train_phase(plan_path: str, plan) -> dict:
+    """Phase 7g: Zamba2-1.2B (32 Mamba-2 rows through ssm_scan and its
+    backward kernel, the shared attention block gathered once a shared
+    group) at full width and depth over the flat data axis, FSDP through
+    the pool, on phase 7's plan (the smoke SSM models' training on the
+    card against the CPU is among ``smoke_checks``)."""
+    out = {}
+    hybrid = full_width_runs({
+        "hybrid_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
+        "hybrid_cxl": ["--backend", "cxl"],
+        "hybrid_auto": ["--backend", "auto", "--plan", plan_path]}, [],
+        arch=HYBRID_ARCH)
+    check_hybrid_runs(hybrid)
+    out["hybrid"] = hybrid
+    out["hybrid_auto_choices"] = check_auto_choices(hybrid["hybrid_auto"],
+                                                    plan)
+    check_losses(hybrid, hybrid["hybrid_cxl_fused"]["steps"][0]["loss"])
+    return out
+
+
 def train_phase() -> dict:
     """Phase 7: FSDP training on DP ranks sharing the card; 7b over
     (pod, data), 7c over (data, model), 7d over a grouped data axis."""
     from repro_torch.core.topology import parse_topology
 
-    out: dict = {}
-    # the smoke model: the card's training path against the CPU's
-    out["smoke_card_vs_cpu"] = smoke_card_vs_cpu(f"{DP}x1")
+    # every path's smoke model: the card's training path against the
+    # CPU's
+    out: dict = smoke_checks()
 
     # the plans the auto runs resolve against: the flat one for its 4
     # ranks, the hierarchical one per level of its topology (2 ranks each)
@@ -1517,14 +1844,15 @@ def train_phase() -> dict:
                hier_plan_path])
     hier_plan = tuner.load_plan(hier_plan_path)
 
-    # full width and depth, through the launcher's flags; the gloo-bound
-    # ring run takes SHORT_STEPS
+    # full width and depth, through the launcher's flags; the runs but
+    # the profiled first take SHORT_STEPS (of the earlier paths, to keep
+    # the time limit; the gloo-bound ring run for its own sake)
     runs = full_width_runs({
         "cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "cxl": ["--backend", "cxl"],
         "ring": ["--backend", "ring"],
         "auto": ["--backend", "auto", "--plan", plan_path]}, [],
-        short=("ring",), ckpt=str(CKPT_DIR / "llama"))
+        short=("cxl", "ring", "auto"), ckpt=str(CKPT_DIR / "llama"))
     out["flat_ckpt"] = check_flat_ckpt(runs["cxl_fused"])
     out["full_width"] = runs
     out["auto_choices"] = check_auto_choices(runs["auto"], plan)
@@ -1538,7 +1866,8 @@ def train_phase() -> dict:
         "hier_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "hier_cxl": ["--backend", "cxl"],
         "hier_auto": ["--backend", "auto", "--plan", hier_plan_path]},
-        ["--multi-pod", "--topology", HIER_TOPOLOGY], short=("hier_auto",))
+        ["--multi-pod", "--topology", HIER_TOPOLOGY],
+        short=("hier_cxl", "hier_auto"))
     # cxl moves bytes through both levels' pools; auto never through the
     # ici level's
     check_path_runs(hier, {"pod", "data"}, "hier_auto", auto_skip="data")
@@ -1552,9 +1881,7 @@ def train_phase() -> dict:
     check_losses(hier, first)
 
     # 7c. tensor parallelism: (data, model) = (2, 2), both levels on the
-    # pool; the smoke model card vs CPU, then full width and depth
-    out["tp_smoke_card_vs_cpu"] = smoke_card_vs_cpu(
-        TP_MESH, TP_TP, ("--topology", TP_TOPOLOGY))
+    # pool; full width and depth
     tp_plan_path = str(OUT_DIR / "plan_auto_tp.json")
     tune.main(["--topology", TP_TOPOLOGY, "--nranks", str(TP_TP),
                "--sizes-mib", *TUNE_SIZES_MIB, "--quiet", "--out",
@@ -1564,7 +1891,8 @@ def train_phase() -> dict:
         "tp_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "tp_cxl": ["--backend", "cxl"],
         "tp_auto": ["--backend", "auto", "--plan", tp_plan_path]},
-        ["--topology", TP_TOPOLOGY], mesh=TP_MESH)
+        ["--topology", TP_TOPOLOGY], mesh=TP_MESH,
+        short=("tp_cxl", "tp_auto"))
     check_path_runs(tp, {"data", "model"}, "tp_auto")
     out["tp"] = tp
     out["tp_auto_choices"] = check_auto_choices(
@@ -1572,10 +1900,8 @@ def train_phase() -> dict:
     check_losses(tp, first)
 
     # 7d. a grouped (ragged) data axis: the 4 ranks as a node of three
-    # beside a lone node; the smoke model card vs CPU, then full width
-    # and depth, and the same run chosen by --placement auto
-    out["ragged_smoke_card_vs_cpu"] = smoke_card_vs_cpu(
-        f"{DP}x1", extra=("--topology", RAGGED_TOPOLOGY))
+    # beside a lone node; full width and depth, and the same run chosen
+    # by --placement auto
     ragged_plan_path = str(OUT_DIR / "plan_auto_ragged.json")
     tune.main(["--topology", RAGGED_TOPOLOGY, "--nranks", str(DP),
                "--sizes-mib", *TUNE_SIZES_MIB, "--quiet", "--out",
@@ -1585,7 +1911,8 @@ def train_phase() -> dict:
         "ragged_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "ragged_cxl": ["--backend", "cxl"],
         "ragged_auto": ["--backend", "auto", "--plan", ragged_plan_path]},
-        ["--topology", RAGGED_TOPOLOGY])
+        ["--topology", RAGGED_TOPOLOGY],
+        short=("ragged_cxl", "ragged_auto"))
     ragged["ragged_placed"] = full_width_run(
         "ragged_placed", ["--backend", "cxl", "--topology",
                           RAGGED_PLACEMENT_TOPOLOGY, "--placement", "auto"])
@@ -1598,17 +1925,13 @@ def train_phase() -> dict:
 
     # 7e. Mixture-of-Experts: Granite-3.0-MoE over (data, model) = (2, 2),
     # experts parallel over model through the pool's AllToAll, FSDP over
-    # data; the smoke model card vs CPU, then full width and depth (the
-    # plan of 7c: the same topology)
-    out["moe_smoke_card_vs_cpu"] = smoke_card_vs_cpu(
-        TP_MESH, TP_TP, ("--topology", TP_TOPOLOGY, "--prefetch",
-                         MOE_PREFETCH), arch=MOE_ARCH)
+    # data; full width and depth (the plan of 7c: the same topology)
     moe = full_width_runs({
         "moe_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "moe_cxl": ["--backend", "cxl"],
         "moe_auto": ["--backend", "auto", "--plan", tp_plan_path]},
         ["--topology", TP_TOPOLOGY, "--prefetch", MOE_PREFETCH],
-        mesh=TP_MESH, short=("moe_auto",), arch=MOE_ARCH,
+        mesh=TP_MESH, short=("moe_cxl", "moe_auto"), arch=MOE_ARCH,
         ckpt=str(CKPT_DIR / "moe"))
     out["moe_ckpt"] = check_moe_ckpt(moe["moe_cxl_fused"])
     check_path_runs(moe, {"data", "model"}, "moe_auto")
@@ -1619,9 +1942,14 @@ def train_phase() -> dict:
         fail("moe_auto resolved no all_to_all")
     out["moe_routing"] = check_moe_runs(moe)
     check_losses(moe, moe["moe_cxl_fused"]["steps"][0]["loss"])
+
+    # 7g. the hybrid path
+    out.update(hybrid_train_phase(plan_path, plan))
+    hybrid = out["hybrid"]
     log("[train] step times (s): " + json.dumps(
         {k: [round(s["step_s"], 3) for s in r["steps"]]
-         for k, r in {**runs, **hier, **tp, **ragged, **moe}.items()}))
+         for k, r in {**runs, **hier, **tp, **ragged, **moe,
+                      **hybrid}.items()}))
     return out
 
 
@@ -1706,11 +2034,12 @@ def main() -> int:
     rs_len = sum(x[0].numel() for x in tree.leaves(
         model.abstract_params(cfg)["g0"])
         if x[0].numel() >= sharding.FSDP_MIN_SIZE) // DP
+    hybrid_rs = hybrid_reduce_shapes()
     for dtype in (torch.float32, torch.bfloat16):
         shapes = [(n, ln) for n in (2, 4, 16) for ln in (rs_len, RAGGED)]
         shapes += [s for s in hier_reduce_shapes(rs_len) + tp_reduce_shapes(
-            rs_len) + ragged_reduce_shapes(rs_len) + moe_reduce_shapes()
-            if s not in shapes]
+            rs_len) + ragged_reduce_shapes(rs_len) + hybrid_rs +
+            moe_reduce_shapes() if s not in shapes]
         for n_src, length in shapes:
             x = randn(n_src, length, dtype=dtype)
             err, ok = close(cr.chunked_reduce(x),
@@ -1732,6 +2061,7 @@ def main() -> int:
     parity += repeat_parity(randn, fa, fc)
     parity += grad_parity(randn, rn, fa, fc)
     parity += ssm_parity(randn, ss)
+    parity += ssm_grad_parity(randn, ss)
     parity += rs_parity(randn, rand, fc, rs_len)
     del x, w
     torch.cuda.synchronize()
@@ -1756,7 +2086,8 @@ def main() -> int:
     timing = {
         "rms_norm": dict(rms["forward"][main], shapes=rms["forward"],
                          backward=rms["backward"],
-                         backward_moe=rms["backward_moe"]),
+                         backward_moe=rms["backward_moe"],
+                         backward_hybrid=rms["backward_hybrid"]),
         "flash_attention": {
             "ms": timer(lambda: fa.flash_attention(q, k, v, True)),
             "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v,
@@ -1821,6 +2152,12 @@ def main() -> int:
                                                    length)
                   for n, length in moe_reduce_shapes()}
     timing["chunked_reduce"]["moe"] = reduce_moe
+    # and at the hybrid path's: a Mamba-2 row's bucket, shared_a's, and
+    # shared_a's two buckets under --fuse-kernels
+    reduce_hybrid = {f"{n}x{length}": reduce_timing(timer, randn, cr, n,
+                                                      length)
+                     for n, length in hybrid_rs}
+    timing["chunked_reduce"]["hybrid"] = reduce_hybrid
     agm = {}
     for t, n, ks, nout in AGM_SHAPES + AGM_TP_SHAPES + AGM_MOE_SHAPES:
         xa, wa = randn(t, n * ks), randn(n, ks, nout)
@@ -1833,30 +2170,23 @@ def main() -> int:
             "flops": 2 * t * n * ks * nout, "shape": [t, n, ks, nout]}
     t, n, ks, nout = AGM_MAIN
     timing["all_gather_matmul"] = dict(agm[f"{t}x{n * ks}@{n}x{ks}x{nout}"])
-    # ssm_scan as the SSM serving path calls it: a prefill (1 x PROMPT,
-    # from zero) and a decode step (SLOTS x 1, from the cached state),
-    # both writing the final state; no single PyTorch call computes it
-    scan = {}
-    for key, (b, l, with_h0) in (("prefill", (1, PROMPT, False)),
-                                 ("decode", (SLOTS, 1, True))):
-        args, h0 = ssm_inputs(randn, b, l, 8192, 16, with_h0)
-        scan[key] = {
-            "ms": timer(lambda: ss.ssm_scan(*args, h0=h0,
-                                            return_state=True)),
-            "plain_ms": timer(lambda: ss.ssm_scan_plain(
-                *args, h0=h0, return_state=True), iters=5),
-            "library_ms": None, **ssm_cost(b, l, 8192, 16, with_h0),
-            "shape": [b, l, 8192, 16],
-            "geometry": ss.ssm_geometry(b, l, 8192, 16, sms)}
-    del args, h0
-    timing["ssm_scan"] = dict(scan["prefill"], decode=scan["decode"])
+    # ssm_scan as the SSM paths call it: Falcon-Mamba's and Zamba2's
+    # prefill (1 x PROMPT, from zero) and decode step (SLOTS x 1, from the
+    # cached state), both writing the final state, the training forward
+    # (with checkpoints) and the backward; no single PyTorch call
+    # computes it
+    scan = ssm_timing(timer, randn, ss, sms)
+    timing["ssm_scan"] = dict(scan["prefill"], **{
+        k: v for k, v in scan.items() if k != "prefill"})
     timing.update(rs_timing(timer, randn, rand, fc, rs_len))
     for rec in list(agm.values()) + list(timing.values()) + [
-            scan["decode"], timing["reduce_scatter_adamw"]["bf16_param"],
+            *(v for k, v in scan.items() if k != "prefill"),
+            timing["reduce_scatter_adamw"]["bf16_param"],
             *rms["forward"].values(), rms["backward"],
-            rms["backward_moe"], *reduce_hier.values(),
+            rms["backward_moe"], rms["backward_hybrid"], *reduce_hier.values(),
             *reduce_tp.values(), *reduce_ragged.values(),
-            *reduce_moe.values(), timing["flash_attention"]["tp"],
+            *reduce_moe.values(), *reduce_hybrid.values(),
+            timing["flash_attention"]["tp"],
             timing["flash_attention"]["moe"]]:
         byte_ms = rec["bytes"] / HBM_BW * 1e3
         op_ms = max(rec["flops"] / PEAK[torch.float32],
@@ -1890,7 +2220,8 @@ def main() -> int:
 
     # 4. reference: smoke models on the card vs on the CPU ---------------
     record["reference"] = {}
-    for arch, length in (("llama3.2-1b", 1100), (SSM_ARCH, 300)):
+    for arch, length in (("llama3.2-1b", 1100), (SSM_ARCH, 300),
+                         (HYBRID_ARCH, 300)):
         err, ok = card_vs_cpu(arch, length, dev)
         record["reference"][arch] = {"prefill_len": length,
                                      "max_abs_err": err}
@@ -1906,6 +2237,8 @@ def main() -> int:
     launches: dict = {}
     record["serve"] = serve_phase("llama3.2-1b", "serve", dev, launches)
     record["serve_ssm"] = serve_phase(SSM_ARCH, "serve_ssm", dev, launches)
+    record["serve_hybrid"] = serve_phase(HYBRID_ARCH, "serve_hybrid", dev,
+                                         launches)
     record["launches"] = launches
     mark("serve")
 
@@ -1926,7 +2259,8 @@ def main() -> int:
     # axis of all DP ranks
     from repro_torch.core.topology import parse_topology
     t0 = time.perf_counter()
-    rows = collectives.bench_tuple(DP, (1, 16, 256), reps=3, device="cuda",
+    rows = collectives.bench_tuple(DP, TUPLE_SIZES_MB, reps=3,
+                                   device="cuda",
                                    topology=parse_topology(HIER_TOPOLOGY))
     for r in rows:
         log(f"[collectives tuple] {json.dumps(r)}")
@@ -1944,16 +2278,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["train"] = train_phase()
     (train_launches, hier_launches, tp_launches, ragged_launches,
-     moe_launches) = (
+     moe_launches, hybrid_launches) = (
         {n: sum(s["launches"][n] for run in record["train"][key].values()
                 for s in run["steps"])
-         for n in train.KERNEL_COUNTERS}
-        for key in ("full_width", "hier", "tp", "ragged", "moe"))
+         for n in names}
+        for key, names in (("full_width", LLAMA_TRAIN_KERNELS),
+                           ("hier", LLAMA_TRAIN_KERNELS),
+                           ("tp", LLAMA_TRAIN_KERNELS),
+                           ("ragged", LLAMA_TRAIN_KERNELS),
+                           ("moe", LLAMA_TRAIN_KERNELS),
+                           ("hybrid", HYBRID_KERNELS + (
+                               "chunked_reduce", "all_gather_matmul"))))
     record["train"]["launches"] = train_launches
     record["train"]["hier_launches"] = hier_launches
     record["train"]["tp_launches"] = tp_launches
     record["train"]["ragged_launches"] = ragged_launches
     record["train"]["moe_launches"] = moe_launches
+    record["train"]["hybrid_launches"] = hybrid_launches
     mark("train")
 
     # 7f. serve Granite-3.0-MoE at full width through the launcher --------
@@ -1986,6 +2327,10 @@ def main() -> int:
     for name, n in moe_launches.items():
         if n <= 0:
             fail(f"the MoE training path never launched the {name} kernel")
+    for name, n in hybrid_launches.items():
+        if n <= 0:
+            fail(f"the hybrid training path never launched the {name} "
+                 f"kernel")
     api_launches = record["kernel_api"]["launches"]
     for name in API_KERNELS:
         if api_launches[name] <= 0:
@@ -2006,13 +2351,28 @@ def main() -> int:
             by_path["train_tp"] = tp_launches[name]
             by_path["train_ragged"] = ragged_launches[name]
             by_path["train_moe"] = moe_launches[name]
-        extra = {"backward_launches_by_path": {
-            "train": train_launches["rms_norm_vjp"],
-            "train_hier": hier_launches["rms_norm_vjp"],
-            "train_tp": tp_launches["rms_norm_vjp"],
-            "train_ragged": ragged_launches["rms_norm_vjp"],
-            "train_moe": moe_launches["rms_norm_vjp"]}} \
-            if name == "rms_norm" else {}
+        if name in hybrid_launches:
+            by_path["train_hybrid"] = hybrid_launches[name]
+        extra = {}
+        if name == "rms_norm":
+            extra = {"backward_launches_by_path": {
+                "train": train_launches["rms_norm_vjp"],
+                "train_hier": hier_launches["rms_norm_vjp"],
+                "train_tp": tp_launches["rms_norm_vjp"],
+                "train_ragged": ragged_launches["rms_norm_vjp"],
+                "train_moe": moe_launches["rms_norm_vjp"],
+                "train_hybrid": hybrid_launches["rms_norm_vjp"]}}
+        if name == "ssm_scan":
+            # the N = 64 forward and the backward kernel at the hybrid
+            # path's shapes, each measured in this run beside its bound
+            keys = ("ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_ssd_ms", "library_ms", "shape")
+            extra = {"backward_launches_by_path": {
+                "train_hybrid": hybrid_launches["ssm_scan_vjp"]},
+                **{k: {f: t[k][f] for f in keys if f in t[k]}
+                   for k in ("n64_prefill", "n64_decode",
+                             "n64_train_forward", "backward",
+                             "n64_backward")}}
         if name in api_launches:
             by_path["kernel_api"] = api_launches[name]
         kernels.append({

@@ -7,9 +7,9 @@ Mamba-1 SSM (Falcon-Mamba), with the reference's dense configs (Yi-6B,
 Phi-3-medium-14B, DeepSeek-Coder-33B and the paper's Sec. 5.5 model,
 Llama-3-8B), and the Mixture-of-Experts decoders (Granite-3.0-MoE,
 registered under the reference's id and as ``granite-moe-3b``, and
-Snowflake Arctic).  Still to port (ROADMAP queue 1, item 8): the Mamba-2
-hybrid zamba2-1.2b, whisper-tiny's encoder-decoder and phi-3-vision's
-vision frontend.
+Snowflake Arctic), and the Mamba-2 hybrid with a shared attention block
+(Zamba2-1.2B).  Still to port (ROADMAP queue 1, item 8): whisper-tiny's
+encoder-decoder and phi-3-vision's vision frontend.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ _MODULES = {
     "granite-moe-3b-a800m": "granite_moe_3b",
     "granite-moe-3b": "granite_moe_3b",
     "arctic-480b": "arctic_480b",
+    "zamba2-1.2b": "zamba2_1p2b",
 }
 
 ARCH_IDS = list(_MODULES)
@@ -38,7 +39,7 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     if arch_id not in _MODULES:
         raise KeyError(
             f"arch {arch_id!r} is not ported yet (ROADMAP queue 1, "
-            f"item 8: zamba2-1.2b, whisper-tiny, phi-3-vision-4.2b); "
+            f"item 8: whisper-tiny, phi-3-vision-4.2b); "
             f"ported: {ARCH_IDS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_MODULES[arch_id]}")

@@ -20,6 +20,7 @@ per-leaf ones.  The prefetch schedule lives in ``models.model``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Any, Optional, Sequence
 
@@ -167,8 +168,11 @@ def make_gather_fn(all_row_specs: dict, pc, dp_axis,
     their sizes in shards.  The gather runs over the dp axis only: a
     leaf's model-axis shard stays local (at tp > 1, ``wq``/``wk``/
     ``wv``/``wg``/``wu`` stack their dp shards of this rank's columns;
-    ``wo``/``wd``, dp-sharded on dim 1, gather concatenated)."""
+    ``wo``/``wd``, dp-sharded on dim 1, gather concatenated).
+    ``gather.calls`` counts the calls by group key (a remat replay's
+    too)."""
     def gather(group_key: str, row_params):
+        gather.calls[group_key] += 1
         specs = all_row_specs[group_key]
         items = tree.leaves_with_paths(row_params)
         n_total = pc.comm.axis_size(dp_axis)
@@ -209,4 +213,5 @@ def make_gather_fn(all_row_specs: dict, pc, dp_axis,
                 m = m.reshape((n_total * s.shape[0],) + s.shape[1:])
                 out[s.index] = m.movedim(0, dims[s.index])
         return tree.from_paths([(p, x) for (p, _), x in zip(items, out)])
+    gather.calls = collections.Counter()
     return gather

@@ -1,15 +1,21 @@
-"""Selective scan (Mamba-1): the CUDA kernel's wrapper, its launch
-geometry, its plain version, its launch count.
+"""Selective scan (the Mamba-1 core, and Mamba-2's with one B/C group):
+the CUDA kernels' wrapper, the launch geometry, the plain versions, the
+launch counts.
 
-The kernel (``csrc/ssm_scan.cu``) replaces the Pallas TPU kernel
+The forward kernel (``csrc/ssm_scan.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/ssm_scan.py::ssm_scan``, with an optional starting state
 ``h0`` and final state ``h_last`` beside it (a prefill fills the decode
 cache with ``h_last``; a decode step is L = 1 from the cached state).
 ``ssm_scan`` launches it for CUDA tensors and takes the plain PyTorch
-version for CPU tensors.  The kernel has no backward yet (ROADMAP
-queue 2, item 7b): on the card the wrapper refuses inputs that need a
-gradient rather than return an output without autograd history; the
-plain version on the CPU stays differentiable.
+version for CPU tensors.  On the card the scan is a
+``torch.autograd.Function``: under grad the forward also writes the
+state before every 16th step, and the backward kernel (the same source;
+there is no Pallas backward, the reference differentiates its
+``associative_scan``) recomputes each 16-step chunk from its checkpoint
+with the forward's own step and walks it back (:func:`ssm_scan_vjp`,
+counted apart).  :func:`ssm_scan_backward_plain` is the reverse scan it
+computes, in PyTorch; on the CPU the plain forward stays differentiable
+through autograd.
 
 On the card a thread keeps ``k`` lanes of one channel's state in
 registers and walks all of L inside its block, in one pass;
@@ -31,10 +37,15 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-STATE_SIZES = (1, 2, 4, 8, 16, 32)     # N: a power of two <= 32
-# x, dt, A, B, C, D, h0, y, h_last, then batch, L, D, N, dtype, k, vec,
-# stream
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+STATE_SIZES = (1, 2, 4, 8, 16, 32, 64)     # N: a power of two <= 64
+# x, dt, A, B, C, D, h0, y, h_last, hc, then batch, L, D, N, dtype, k,
+# vec, stream
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# x, dt, A, B, C, D, hc, dy, dh_last, dx, ddt, part_bc, part_a, part_d,
+# dh0, dbc, dA, dD, then batch, L, D, N, k, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + \
+    [ctypes.c_void_p]
+CKPT = 16            # steps between the forward's state checkpoints
 H100_SMS = 132
 CHANNELS = 32        # channels a block owns (the kernel's kChannels)
 SCAN_LANES = 4       # state lanes a thread holds (N itself when N < 4)
@@ -50,6 +61,12 @@ def ssm_geometry(b: int, l: int, d: int, n: int,
     k = min(n, SCAN_LANES)
     warps = b * -(-d // CHANNELS) * (CHANNELS * n // k) / 32
     return {"k": k, "warps_per_sm": warps / sms}
+
+
+def checkpoint_count(l: int) -> int:
+    """States the forward writes under grad for L = ``l``: the one
+    before every :data:`CKPT`-th step."""
+    return -(-l // CKPT)
 
 
 def ssm_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -104,15 +121,66 @@ def _check(x, dt, A, B, C, D, h0) -> None:
         raise ValueError("ssm_scan's inputs must be on one device")
 
 
-def _launch(x, dt, A, B, C, D, h0, return_state: bool, geo: dict):
-    """One launch of the kernel with the launch ``geo`` (an
+def ssm_scan_backward_plain(x, dt, A, B, C, D, dy, h0=None,
+                            dh_last=None):
+    """The VJP of :func:`ssm_scan_plain` for the upstream ``dy`` (and
+    ``dh_last``, the final state's cotangent), written as the reverse
+    scan the backward kernel computes, in f32: with g = dL/dh_t,
+
+        g += C_t dy_t;   dB_t = sum_d g dt x;   dC_t = sum_d dy_t h_t
+        dx = dt sum_n g B + D dy;   ddt = x sum_n g B + sum_n g h_{t-1} e A
+        dA += g h_{t-1} e dt;   dD += dy x;   g *= e = exp(dt A)
+
+    and dh0 = g at the end.  The states are the forward's, kept whole
+    here.  Returns (dx, ddt, dA, dB, dC, dD, dh0) in f32 (dh0 None
+    without ``h0``)."""
+    bsz, length, d = x.shape
+    x32, dt32, a32 = x.float(), dt.float(), A.float()
+    b32, c32, dy32 = B.float(), C.float(), dy.float()
+    decay = torch.exp(dt32[..., None] * a32)                  # (B,L,D,N)
+    drive = (dt32 * x32)[..., None] * b32[:, :, None, :]
+    h = torch.zeros((bsz, d, a32.shape[1]), dtype=torch.float32,
+                    device=x.device) if h0 is None else h0.float()
+    hs = [h]
+    for t in range(length):
+        h = decay[:, t] * h + drive[:, t]
+        hs.append(h)
+    g = torch.zeros_like(h) if dh_last is None else dh_last.float()
+    sdx = torch.empty_like(x32)
+    sdt = torch.empty_like(x32)
+    dB = torch.empty_like(b32)
+    dC = torch.empty_like(c32)
+    dA = torch.zeros_like(a32)
+    for t in range(length - 1, -1, -1):
+        g = g + c32[:, t, None, :] * dy32[:, t, :, None]
+        dB[:, t] = (g * (dt32[:, t] * x32[:, t])[..., None]).sum(dim=1)
+        dC[:, t] = (hs[t + 1] * dy32[:, t, :, None]).sum(dim=1)
+        sdx[:, t] = (g * b32[:, t, None, :]).sum(dim=-1)
+        w = g * hs[t] * decay[:, t]
+        sdt[:, t] = (w * a32).sum(dim=-1)
+        dA = dA + (w * dt32[:, t, :, None]).sum(dim=0)
+        g = g * decay[:, t]
+    dx = sdx * dt32 + D.float() * dy32
+    ddt = sdx * x32 + sdt
+    dD = (dy32 * x32).sum(dim=(0, 1))
+    return dx, ddt, dA, dB, dC, dD, (g if h0 is not None else None)
+
+
+def _launch(x, dt, A, B, C, D, h0, return_state: bool, geo: dict,
+            checkpoints: bool = False):
+    """One launch of the forward kernel with the launch ``geo`` (an
     :func:`ssm_geometry`), for :func:`ssm_scan` and the card tests.
-    Counts nothing."""
+    Counts nothing.  Returns y [, h_last]; with ``checkpoints`` (y,
+    h_last or None, hc), hc the state before every :data:`CKPT`-th step,
+    (B, ceil(L / CKPT), D, N) f32, what the backward kernel starts its
+    chunks from."""
     bsz, length, d = x.shape
     n = A.shape[1]
     y = torch.empty_like(x)
-    h_last = (torch.empty((bsz, d, n), dtype=torch.float32, device=x.device)
-              if return_state else None)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    h_last = torch.empty((bsz, d, n), **f32) if return_state else None
+    hc = torch.empty((bsz, checkpoint_count(length), d, n), **f32) \
+        if checkpoints else None
     item = x.element_size()
     vec = (d * item) % 16 == 0 and (length * n * item) % 16 == 0 and \
         all(t.data_ptr() % 16 == 0 for t in (x, dt, B, C))
@@ -120,39 +188,121 @@ def _launch(x, dt, A, B, C, D, h0, return_state: bool, geo: dict):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(None if t is None else t.data_ptr() for t in
-                   (x, dt, A, B, C, D, h0, y, h_last)),
+                   (x, dt, A, B, C, D, h0, y, h_last, hc)),
                  bsz, length, d, n, _DTYPES[x.dtype], geo["k"], int(vec),
                  stream)
     build.check("ssm_scan", err)
+    if checkpoints:
+        return y, h_last, hc
     return (y, h_last) if return_state else y
+
+
+def _backward_launch(x, dt, A, B, C, D, hc, dy, dh_last, want_dh0: bool,
+                     geo: dict):
+    """One launch of the backward (the scan, then its three fixed-order
+    sums), f32 inputs; for :func:`ssm_scan_vjp` and the card tests.
+    Counts nothing.  Returns (dx, ddt, dA, dB, dC, dD, dh0 or None)."""
+    bsz, length, d = x.shape
+    n = A.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    nblk = -(-d // CHANNELS)
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    part_bc = torch.empty((bsz, nblk, length, 2 * n), **f32)
+    part_a = torch.empty((bsz, d, n), **f32)
+    part_d = torch.empty((bsz, d), **f32)
+    dh0 = torch.empty((bsz, d, n), **f32) if want_dh0 else None
+    dbc = torch.empty((bsz, length, 2 * n), **f32)
+    dA = torch.empty((d, n), **f32)
+    dD = torch.empty((d,), **f32)
+    fn = build.entry("ssm_scan", "ssm_scan_backward_launch", _BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(None if t is None else t.data_ptr() for t in
+                   (x, dt, A, B, C, D, hc, dy, dh_last, dx, ddt, part_bc,
+                    part_a, part_d, dh0, dbc, dA, dD)),
+                 bsz, length, d, n, geo["k"], stream)
+    build.check("ssm_scan", err)
+    return dx, ddt, dA, dbc[..., :n], dbc[..., n:], dD, dh0
+
+
+def _geometry_of(x, n: int) -> dict:
+    bsz, length, d = x.shape
+    return ssm_geometry(bsz, length, d, n, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+
+
+def ssm_scan_vjp(x, dt, A, B, C, D, hc, dy, h0=None, dh_last=None):
+    """(dx, ddt, dA, dB, dC, dD, dh0) of :func:`ssm_scan` for ``dy``
+    (and ``dh_last``), each grad in its input's dtype (dh0 None without
+    ``h0``).  CUDA tensors launch the backward kernel from the forward's
+    checkpoints ``hc`` (or raise); CPU tensors take
+    :func:`ssm_scan_backward_plain`, which needs no checkpoints."""
+    dtype = x.dtype
+    if x.device.type == "cpu":
+        out = ssm_scan_backward_plain(x, dt, A, B, C, D, dy, h0, dh_last)
+        return tuple(None if g is None else
+                     g.to(dtype) if i in (0, 1, 3, 4) else g
+                     for i, g in enumerate(out))
+    if x.device.type != "cuda":
+        raise ValueError(f"ssm_scan_vjp runs on cuda or cpu, not "
+                         f"{x.device}")
+    f = [t.float().contiguous() for t in (x, dt, B, C, dy)]
+    dh = None if dh_last is None else dh_last.float().contiguous()
+    out = _backward_launch(f[0], f[1], A, f[2], f[3], D, hc, f[4], dh,
+                           h0 is not None, _geometry_of(x, A.shape[1]))
+    ssm_scan_vjp.launches += 1
+    dx, ddt, dA, dB, dC, dD, dh0 = out
+    return (dx.to(dtype), ddt.to(dtype), dA, dB.to(dtype), dC.to(dtype),
+            dD, dh0)
+
+
+class _Scan(torch.autograd.Function):
+    """The forward kernel with checkpoints, and the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0):
+        y, h_last, hc = _launch(x, dt, A, B, C, D, h0, True,
+                                _geometry_of(x, A.shape[1]),
+                                checkpoints=True)
+        ssm_scan.launches += 1
+        ctx.save_for_backward(x, dt, A, B, C, D, h0, hc)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dt, A, B, C, D, h0, hc = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ssm_scan_vjp(x, dt, A, B, C, D, hc, dy, h0, dh_last)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad))
 
 
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
              h0: Optional[torch.Tensor] = None,
              return_state: bool = False):
-    """Selective scan of ``x`` along L (see the module docstring).  CUDA
-    tensors launch the kernel (or raise); CPU tensors take
-    :func:`ssm_scan_plain`."""
+    """Selective scan of ``x`` along L (see the module docstring),
+    differentiable in every input.  CUDA tensors launch the kernel (or
+    raise), and under grad the backward kernel in the backward; CPU
+    tensors take :func:`ssm_scan_plain`."""
     _check(x, dt, A, B, C, D, h0)
     if x.device.type == "cpu":
         return ssm_scan_plain(x, dt, A, B, C, D, h0, return_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu, not {x.device}")
     inputs = [t for t in (x, dt, A, B, C, D, h0) if t is not None]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        raise NotImplementedError(
-            "the ssm_scan kernel has no backward yet (ROADMAP queue 2, "
-            "item 7b: training SSM rows on the card waits for a "
-            "reverse-scan kernel)")
     if not all(t.is_contiguous() for t in inputs):
         raise ValueError("ssm_scan kernel needs contiguous inputs")
-    bsz, length, d = x.shape
-    geo = ssm_geometry(bsz, length, d, A.shape[1], torch.cuda.
-                       get_device_properties(x.device).multi_processor_count)
-    out = _launch(x, dt, A, B, C, D, h0, return_state, geo)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        y, h_last = _Scan.apply(x, dt, A, B, C, D, h0)
+        return (y, h_last) if return_state else y
+    out = _launch(x, dt, A, B, C, D, h0, return_state,
+                  _geometry_of(x, A.shape[1]))
     ssm_scan.launches += 1
     return out
 
 
-ssm_scan.launches = 0    # kernel launches since the last reset
+ssm_scan.launches = 0        # forward kernel launches since the last reset
+ssm_scan_vjp.launches = 0    # backward launches (one per backward)

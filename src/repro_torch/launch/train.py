@@ -30,6 +30,11 @@ tensor-parallel paths:
       --arch granite-moe-3b --mesh 2x2 --topology data:cxl,model:cxl \\
       --backend cxl --steps 3 --batch 4 --seq 1024 --prefetch 0 \\
       [--fuse-kernels] [--ckpt DIR]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --mesh 4x1 --backend cxl --steps 3 --batch 4 --seq 1024 \\
+      [--fuse-kernels]
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch falcon-mamba-7b --smoke --mesh 4x1 --backend cxl --steps 3
 
 The launcher spawns one process per rank (``spawn`` start method); rank
 r runs on ``cuda:(r % device_count)``, so the ranks of a one-card host
@@ -84,6 +89,13 @@ trains its experts parallel over the model axis: each row's dispatch and
 combine are AllToAlls through the ``Communicator`` (``models.moe``), and
 the loss adds the routers' auxiliary loss.
 
+The SSM rows (Falcon-Mamba's Mamba-1, Zamba2's Mamba-2) train through
+the ``ssm_scan`` kernel and its backward kernel at tp = 1; Zamba2's
+shared attention block (``shared_a``) is gathered as its own FSDP group,
+once per shared group under ``--prefetch 1`` and at each use under
+``--prefetch 0``, its grads summed over its uses.  Each step's record
+counts the FSDP gathers by group (``gathers``).
+
 ``--ckpt DIR`` saves the GLOBAL params after the last step, as the
 reference launcher does: ``{"params": params}`` at step ``--steps`` in
 the reference's checkpoint layout (``training.checkpoint``), the padded
@@ -125,6 +137,7 @@ from repro_torch.kernels.chunked_reduce import chunked_reduce
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_collectives import all_gather_matmul
 from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_vjp
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_vjp
 from repro_torch.launch import ranks
 from repro_torch.launch.mesh import (dp_axes, joint_groups, level_groups,
                                      make_host_mesh, mesh_shape, parse_mesh)
@@ -138,7 +151,8 @@ from repro_torch.training.train_loop import (TrainConfig, leaf_params,
 KERNEL_COUNTERS = {"rms_norm": rms_norm, "rms_norm_vjp": rms_norm_vjp,
                    "flash_attention": flash_attention,
                    "chunked_reduce": chunked_reduce,
-                   "all_gather_matmul": all_gather_matmul}
+                   "all_gather_matmul": all_gather_matmul,
+                   "ssm_scan": ssm_scan, "ssm_scan_vjp": ssm_scan_vjp}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -456,6 +470,7 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
         for f in KERNEL_COUNTERS.values():
             f.launches = 0
         chunked_reduce.launches_by_n = {}
+        step.gathers.clear()
         ledger.reset()
         pool_before = _pool_counts(mesh)
         synchronize(dev)
@@ -469,6 +484,7 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
                "t_start": t_start, "t_end": time.time(),
                "lr": metrics["lr"], "launches": _counters(),
                "chunked_reduce_by_n": dict(chunked_reduce.launches_by_n),
+               "gathers": dict(step.gathers),
                "wire_bytes": snap["wire_bytes"],
                "fused_bytes": snap["fused_bytes"],
                "level_wire_bytes": snap["level_wire_bytes"],
@@ -599,6 +615,7 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
             "moe_assigned": sum(r["moe_assigned"] for r in recs),
             "chunked_reduce_by_n_per_rank": [r["chunked_reduce_by_n"]
                                              for r in recs],
+            "gathers_rank0": rec0["gathers"],
             "wire_bytes_rank0": rec0["wire_bytes"],
             "fused_bytes_rank0": rec0["fused_bytes"],
             "level_wire_bytes_rank0": rec0["level_wire_bytes"],

@@ -2,15 +2,18 @@
 
 Port of ``repro/models/blocks.py`` for row kinds ``a`` (pre-norm
 attention + pre-norm SwiGLU FFN), ``e`` (pre-norm attention + pre-norm
-MoE FFN, ``models.moe``) and ``1`` (pre-norm Mamba-1 block).
-Consecutive rows of one kind form a group whose params are stacked
-along a leading layer axis (the reference's ``g<i>`` layout); the model
-loops over a group's layers in Python where the reference runs
-``lax.scan``.  Attention and MoE rows train at any tp; prefill, decode
-and the decode cache at tp > 1 (the reference's sequence-sharded cache)
-are not ported yet (ROADMAP queue 1, item 11) and raise, as Mamba-1
-rows at tp > 1 do (item 8).  Mamba-2 rows, shared attention and
-cross-attention come with the rest of the zoo (item 8).
+MoE FFN, ``models.moe``), ``1`` and ``2`` (pre-norm Mamba-1 / Mamba-2
+block), and Zamba2's shared attention rows: ``a`` rows of a
+``shared_attention`` model form ``shared`` groups that hold no params
+of their own and all apply the one ``shared_a`` set (``models.model``),
+each occurrence with its own KV cache.  Consecutive rows of one kind
+form a group whose params are stacked along a leading layer axis (the
+reference's ``g<i>`` layout); the model loops over a group's layers in
+Python where the reference runs ``lax.scan``.  Attention and MoE rows
+train at any tp; prefill, decode and the decode cache at tp > 1 (the
+reference's sequence-sharded cache) are not ported yet (ROADMAP queue
+1, item 11) and raise, as SSM rows at tp > 1 do (item 8).
+Cross-attention comes with whisper-tiny (item 8).
 """
 from __future__ import annotations
 
@@ -47,14 +50,13 @@ def scan_groups(cfg: ModelConfig) -> list[Group]:
 
 
 def _ported(kind: str, cfg: ModelConfig, pc=None) -> None:
-    if kind not in ("a", "e", "1") or cfg.shared_attention \
-            or cfg.encoder is not None:
+    if kind not in ("a", "e", "1", "2") or cfg.encoder is not None:
         raise NotImplementedError(
-            f"{cfg.name}: row kind {kind!r} (or shared/cross attention) "
-            f"is not ported yet (ROADMAP queue 1, item 8)")
-    if kind == "1" and pc is not None and pc.tp_active:
+            f"{cfg.name}: row kind {kind!r} (or cross attention) is not "
+            f"ported yet (ROADMAP queue 1, item 8)")
+    if kind in ("1", "2") and pc is not None and pc.tp_active:
         raise NotImplementedError(
-            f"{cfg.name}: Mamba-1 rows at tp > 1 are not ported yet "
+            f"{cfg.name}: Mamba-{kind} rows at tp > 1 are not ported yet "
             f"(ROADMAP queue 1, item 8)")
 
 
@@ -70,10 +72,10 @@ def init_row(gen: torch.Generator, kind: str, cfg: ModelConfig, tp: int,
     _ported(kind, cfg)
     ones = torch.ones((layers_, cfg.d_model), dtype=torch.float32,
                       device=device)
-    if kind == "1":
+    if kind in ("1", "2"):
+        init = ssm.init_mamba1 if kind == "1" else ssm.init_mamba2
         return {"norm1": ones,
-                "mamba": ssm.init_mamba1(gen, cfg, tp, dtype, device,
-                                         layers_)}
+                "mamba": init(gen, cfg, tp, dtype, device, layers_)}
     p = {"norm1": ones,
          "attn": layers.init_attention(gen, cfg, tp, dtype, device,
                                        layers_),
@@ -102,9 +104,10 @@ def row_forward(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
     (h, aux_loss); the MoE's router loss, zero for the other kinds."""
     _ported(kind, cfg, pc)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    if kind == "1":
+    if kind in ("1", "2"):
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
-        return h + ssm.mamba1_forward(p["mamba"], m_in, cfg, pc), aux
+        fwd = ssm.mamba1_forward if kind == "1" else ssm.mamba2_forward
+        return h + fwd(p["mamba"], m_in, cfg, pc), aux
     attn_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
     h = h + layers.attention_forward(p["attn"], attn_in, cfg, pc,
                                      positions, causal=causal,
@@ -119,16 +122,16 @@ def row_prefill(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
                 window: Optional[int] = None) -> torch.Tensor:
     """Full-sequence forward that also fills this row's decode cache
     ``cache`` (attention {'k','v'}: (B, max_seq, n_kv, hd); Mamba-1
-    {'conv','ssm'}), written in place where the reference returns a new
-    one.  Returns h."""
+    {'conv','ssm'}; Mamba-2 {'conv','conv_bc','ssm'}), written in place
+    where the reference returns a new one.  Returns h."""
     _ported(kind, cfg, pc)
     layers.require_unsharded_decode(pc)
-    if kind == "1":
+    if kind in ("1", "2"):
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
-        out, (conv, st) = ssm.mamba1_forward(p["mamba"], m_in, cfg, pc,
-                                             return_state=True)
-        cache["conv"].copy_(conv)
-        cache["ssm"].copy_(st)
+        fwd = ssm.mamba1_forward if kind == "1" else ssm.mamba2_forward
+        out, state = fwd(p["mamba"], m_in, cfg, pc, return_state=True)
+        for key, new in zip(_ssm_keys(kind), state):
+            cache[key].copy_(new)
         return h + out
     attn_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
     out, (k, v) = layers.attention_forward(
@@ -151,22 +154,29 @@ def _kv_to_cache(k: torch.Tensor, v: torch.Tensor, cache: dict) -> None:
     cache["v"][:, :l] = v
 
 
+def _ssm_keys(kind: str) -> tuple:
+    """A Mamba row's cache entries, in the order of its state tuple."""
+    return ("conv", "ssm") if kind == "1" else ("conv", "conv_bc", "ssm")
+
+
 def row_decode(p: Params, h: torch.Tensor, kind: str, cache: dict,
                pos: torch.Tensor, cfg: ModelConfig, pc: ParallelContext,
                window: Optional[int] = None,
                active: Optional[torch.Tensor] = None):
     """Single-token decode for one row; writes the row's cache in place:
     attention ``{'k','v'}`` (see ``layers.decode_attention``), Mamba-1
-    ``{'conv','ssm'}``.  With ``active`` ((B,) bool) only those slots'
-    state is written; an inactive slot's stays bitwise as it was.
-    Returns (h, cache)."""
+    ``{'conv','ssm'}``, Mamba-2 ``{'conv','conv_bc','ssm'}``.  With
+    ``active`` ((B,) bool) only those slots' state is written; an
+    inactive slot's stays bitwise as it was.  Returns (h, cache)."""
     _ported(kind, cfg, pc)
     layers.require_unsharded_decode(pc)
-    if kind == "1":
+    if kind in ("1", "2"):
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
-        out, (conv, st) = ssm.mamba1_decode(
-            p["mamba"], m_in, (cache["conv"], cache["ssm"]), cfg, pc)
-        for key, new in (("conv", conv), ("ssm", st)):
+        dec = ssm.mamba1_decode if kind == "1" else ssm.mamba2_decode
+        keys = _ssm_keys(kind)
+        out, state = dec(p["mamba"], m_in, tuple(cache[k] for k in keys),
+                         cfg, pc)
+        for key, new in zip(keys, state):
             if active is not None:
                 keep = active.reshape(-1, *([1] * (new.dim() - 1)))
                 new = torch.where(keep, new.to(cache[key].dtype),
@@ -190,20 +200,24 @@ def row_decode(p: Params, h: torch.Tensor, kind: str, cache: dict,
 
 def row_cache_init(kind: str, cfg: ModelConfig, pc: ParallelContext,
                    batch: int, max_seq: int, dtype, device,
-                   layers_: int = 1) -> dict:
-    """Zero decode cache of ``layers_`` stacked rows: attention
+                   layers_: Optional[int] = 1) -> dict:
+    """Zero decode cache of ``layers_`` stacked rows (``layers_`` None:
+    one row without the layer axis, a shared occurrence's): attention
     {'k','v'}: (layers_, batch, max_seq, n_kv, hd); Mamba-1 {'conv':
     (layers_, batch, d_conv - 1, d_inner) in ``dtype``, 'ssm': (layers_,
-    batch, d_inner, d_state) f32} (no token axis)."""
+    batch, d_inner, d_state) f32}; Mamba-2 {'conv' in ``dtype``,
+    'conv_bc': (layers_, batch, d_conv - 1, 2 d_state) f32, 'ssm':
+    (layers_, batch, nh, headdim, d_state) f32} (no token axis)."""
     _ported(kind, cfg, pc)
     layers.require_unsharded_decode(pc)
-    if kind == "1":
-        conv_s, ssm_s = ssm.mamba_state_shapes(cfg, pc.tp, batch, 1)
-        return {"conv": torch.zeros((layers_,) + conv_s, dtype=dtype,
-                                    device=device),
-                "ssm": torch.zeros((layers_,) + ssm_s,
-                                   dtype=torch.float32, device=device)}
+    lead = () if layers_ is None else (layers_,)
+    if kind in ("1", "2"):
+        shapes = ssm.mamba_state_shapes(cfg, pc.tp, batch, int(kind))
+        # the x conv in the cache dtype; the B/C conv and the state f32
+        dtypes = (dtype,) + (torch.float32,) * (len(shapes) - 1)
+        return {key: torch.zeros(lead + shape, dtype=dt, device=device)
+                for key, shape, dt in zip(_ssm_keys(kind), shapes, dtypes)}
     d = layers.attn_dims(cfg, pc.tp)
-    shape = (layers_, batch, max_seq, d.n_kv, d.head_dim)
+    shape = lead + (batch, max_seq, d.n_kv, d.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,12 +1,16 @@
 """Top-level language model: init, train forward (loss), prefill, decode.
 
 Port of ``repro/models/model.py`` for decoder-only text models built from
-``a`` (attention), ``e`` (attention + MoE) or ``1`` (Mamba-1) rows; the
-training loss adds the MoE rows' router losses (``aux``), each row's
-counted once: a remat replay recomputes tensors, not the sum.  Params keep the reference's tree (``embed``/``final_norm``/
-``g<i>`` groups with a leading layer axis), so ``params_from_numpy`` is a
-renaming, not a reshuffle.  Layer groups run as Python loops where the
-reference runs ``lax.scan``; decode caches are updated in place.
+``a`` (attention), ``e`` (attention + MoE), ``1`` (Mamba-1) or ``2``
+(Mamba-2) rows, with Zamba2's shared attention block; the training loss
+adds the MoE rows' router losses (``aux``), each row's counted once: a
+remat replay recomputes tensors, not the sum.  Params keep the
+reference's tree (``embed``/``final_norm``/``g<i>`` groups with a
+leading layer axis, and ``shared_a``, one un-stacked ``a`` row that
+every shared group applies; a shared group has no ``g<i>`` of its
+own), so ``params_from_numpy`` is a renaming, not a reshuffle.  Layer
+groups run as Python loops where the reference runs ``lax.scan``;
+decode caches are updated in place.
 ``remat`` maps to ``torch.utils.checkpoint`` (non-reentrant): a row's
 activations, and the FSDP gathers issued inside it, are recomputed in
 the backward pass, as ``jax.checkpoint`` replays them.
@@ -50,6 +54,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                  device=device),
     }
     for gi, g in enumerate(blocks.scan_groups(cfg)):
+        if g.shared:
+            if "shared_a" not in params:     # one set for every occurrence
+                params["shared_a"] = _layer(blocks.init_row(
+                    generator, "a", cfg, tp, dtype, device, 1), 0)
+            continue
         params[f"g{gi}"] = blocks.init_row(generator, g.kind, cfg, tp,
                                            dtype, device, g.count)
     return params
@@ -120,6 +129,10 @@ def _run_groups(params: Params, h, cfg, pc, positions, remat: bool,
     ``ledger.hidden()``) in the same body that computes row ``l``, and
     the gathered params ride to the next body as its input (so, as in
     the reference, each row's gathered params live until its backward).
+    A shared group applies ``params["shared_a"]``: under ``prefetch >=
+    1`` gathered once for the group (exposed, as the reference) and
+    reused by its occurrences; under ``prefetch 0`` gathered at each
+    occurrence inside its remat body (so the replay gathers again).
     """
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     prefetching = gather_fn is not None and prefetch >= 1
@@ -151,6 +164,17 @@ def _run_groups(params: Params, h, cfg, pc, positions, remat: bool,
         return _maybe_remat(body, remat)
 
     for gi, g in enumerate(blocks.scan_groups(cfg)):
+        if g.shared:
+            shared = params["shared_a"]
+            if prefetching:
+                shared = gather_fn("shared_a", shared)
+                body = make_consume("a")
+            else:
+                body = make_body("a", "shared_a")
+            for _ in range(g.count):
+                h, aux = body(h, shared)
+                aux_total = aux_total + aux
+            continue
         stacked = params[f"g{gi}"]
         if prefetching:
             gathered = gather_fn(f"g{gi}", _layer(stacked, 0))  # prologue
@@ -203,8 +227,9 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
             cache_dtype=torch.bfloat16, window: Optional[int] = None):
     """Full-sequence forward producing last-position logits (B, 1, V)
     and the decode cache (a list aligned with layer groups, each
-    {'k','v'}: (layers, B, max_seq, n_kv, hd) for attention rows or
-    {'conv','ssm'} for Mamba-1 rows, see ``blocks.row_cache_init``)."""
+    {'k','v'}: (layers, B, max_seq, n_kv, hd) for attention rows or the
+    Mamba rows' state, see ``blocks.row_cache_init``; a shared group's
+    entry is a list of its occurrences' un-stacked caches)."""
     tokens = batch["tokens"]
     h = layers.embed_tokens(params["embed"], tokens, cfg, pc)
     positions = torch.arange(h.shape[1], device=h.device)
@@ -212,22 +237,35 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
                         device=h.device)
     for gi, g in enumerate(blocks.scan_groups(cfg)):
         for i in range(g.count):
-            h = blocks.row_prefill(_layer(params[f"g{gi}"], i), h, g.kind,
-                                   cfg, pc, positions,
-                                   _layer(caches[gi], i), window=window)
+            p, c = _row_and_cache(params, caches, gi, g, i)
+            h = blocks.row_prefill(p, h, g.kind, cfg, pc, positions, c,
+                                   window=window)
     h = layers.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = layers.lm_logits(params["embed"], h[:, -1:], cfg, pc)
     return logits, caches
+
+
+def _row_and_cache(params: Params, caches: list, gi: int, g, i: int):
+    """Row ``i`` of group ``gi``: its params (``shared_a`` for a shared
+    group) and its cache (views, no copy)."""
+    if g.shared:
+        return params["shared_a"], caches[gi][i]
+    return _layer(params[f"g{gi}"], i), _layer(caches[gi], i)
 
 
 def init_cache(cfg: ModelConfig, pc: ParallelContext, batch: int,
                max_seq: int, cache_dtype=torch.bfloat16,
                window: Optional[int] = None, device=None):
     """Zero decode cache; ``device="meta"`` probes shapes without
-    allocating (the serving layout uses that)."""
+    allocating (the serving layout uses that).  A shared group's entry
+    is a list of one un-stacked cache per occurrence, as the
+    reference's."""
     eff_seq = min(max_seq, window) if window else max_seq
     device = resolve_device(device)
-    return [blocks.row_cache_init(g.kind, cfg, pc, batch, eff_seq,
+    return [[blocks.row_cache_init(g.kind, cfg, pc, batch, eff_seq,
+                                   cache_dtype, device, None)
+             for _ in range(g.count)] if g.shared else
+            blocks.row_cache_init(g.kind, cfg, pc, batch, eff_seq,
                                   cache_dtype, device, g.count)
             for g in blocks.scan_groups(cfg)]
 
@@ -246,9 +284,9 @@ def decode_step(params: Params, caches: list, tokens: torch.Tensor,
     h = layers.embed_tokens(params["embed"], tokens, cfg, pc)
     for gi, g in enumerate(blocks.scan_groups(cfg)):
         for i in range(g.count):
-            h, _ = blocks.row_decode(_layer(params[f"g{gi}"], i), h,
-                                     g.kind, _layer(caches[gi], i), pos,
-                                     cfg, pc, window=window, active=active)
+            p, c = _row_and_cache(params, caches, gi, g, i)
+            h, _ = blocks.row_decode(p, h, g.kind, c, pos, cfg, pc,
+                                     window=window, active=active)
     h = layers.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = layers.lm_logits(params["embed"], h, cfg, pc)
     return logits[..., :cfg.vocab_size], caches

@@ -7,7 +7,9 @@ entry per dim: an axis name, a tuple of names (a hierarchical dp axis,
 outer level first) or None.  ``param_specs`` assigns:
 
 * the tensor-parallel dim (over ``model``): Megatron column/row rules
-  per leaf name, as the reference writes them; ``wk``/``wv`` stay
+  per leaf name, as the reference writes them (the Mamba leaves too:
+  at tp = 1 the axis shards nothing, but it keeps the FSDP dim where
+  the reference puts it); ``wk``/``wv`` stay
   replicated over ``model`` when tp does not divide the kv heads (with
   tp = 1 the axis has size 1, so it shards nothing);
 * the FSDP dim (over the dp axis): the first remaining dim (after a
@@ -23,6 +25,7 @@ the logical names land on the mesh axes a placement chose.
 """
 from __future__ import annotations
 
+import collections
 from typing import Any, Optional, Union
 
 from repro_torch.core import tree
@@ -74,7 +77,16 @@ TP_DIM = {
     "wq": 1, "wk": 1, "wv": 1, "wo": 0,
     "wg": None, "wu": None, "wd": None,    # resolved by rank below
     "tok": 0, "head": 1,
-    "norm1": None, "norm2": None, "final_norm": None,
+    "router": None,
+    # Mamba rows: x/z/dt projections and their per-channel leaves column-
+    # sharded, out_proj row-sharded; Mamba-2's B/C projection and its
+    # conv replicated (B and C are shared across heads)
+    "in_x": 1, "in_z": 1, "in_dt": 1, "in_bc": None,
+    "conv_w": 0, "conv_x": 0, "conv_bc": None,
+    "x_proj": 0, "dt_proj": 1, "dt_bias": 0,
+    "A_log": 0, "D": 0, "norm": 0,
+    "out_proj": 0,
+    "norm1": None, "norm2": None, "norm_x": None, "final_norm": None,
 }
 
 # Axis sizes for spec construction; set by callers before building specs
@@ -234,8 +246,10 @@ def fsdp_gather_fn(all_row_specs: dict, pc: ParallelContext, dp_axis):
     """Returns gather(group_key, row_params) -> gathered params: one
     AllGather per dp-sharded leaf, whose autograd transpose is the
     matching ReduceScatter (per-leaf reference path; the trainer uses
-    ``core.overlap.make_gather_fn``)."""
+    ``core.overlap.make_gather_fn``); ``gather.calls`` counts the calls
+    by group key."""
     def gather(group_key: str, row_params):
+        gather.calls[group_key] += 1
         specs = all_row_specs[group_key]
 
         def g(path, x):
@@ -245,4 +259,5 @@ def fsdp_gather_fn(all_row_specs: dict, pc: ParallelContext, dp_axis):
             full = pc.comm.all_gather(x.movedim(dim, 0), dp_axis)
             return full.movedim(0, dim)
         return tree.map_with_path(g, row_params)
+    gather.calls = collections.Counter()
     return gather

@@ -1,17 +1,29 @@
-"""Mamba-1 (S6 selective scan) blocks.
+"""Mamba-1 (S6 selective scan) and Mamba-2 (SSD, scalar A per head)
+blocks.
 
-Port of the Mamba-1 half of ``repro/models/ssm.py`` at tp = 1 (the
-reference's tp collectives are the identity here).  The in/x/dt/out
-products are plain ``torch.matmul``; the recurrence goes through the
-hand-written ``ssm_scan`` kernel (``kernels/ssm_scan.py``), in prefill
-and in decode, where the reference evaluates the same contraction with
-``associative_scan`` and an einsum with C.  The kernel starts from the
-cached state and returns the final one, so a decode step is the same
-call at L = 1.  Mamba-2 (SSD) is not ported yet (ROADMAP queue 1,
-item 8).
+Port of ``repro/models/ssm.py`` at tp = 1 (the reference's tp
+collectives are the identity here; SSM rows at tp > 1 are ROADMAP queue
+1, item 8).  The projections are plain ``torch.matmul``; the recurrence
+goes through the hand-written ``ssm_scan`` kernel
+(``kernels/ssm_scan.py``), in prefill, decode and training (its
+backward kernel), where the reference evaluates the same contraction
+with ``associative_scan`` and an einsum with C.  The kernel starts from
+the cached state and returns the final one, so a decode step is the
+same call at L = 1.
 
-Decode state per row: (conv_state (B, d_conv - 1, d_inner), ssm_state
-(B, d_inner, d_state) f32).
+Mamba-2 with one B/C group is the Mamba-1 contraction over the D = nh x
+headdim channels of ``x``: a channel takes the dt, A and skip D of its
+head, and the state (B, nh, headdim, N) is a view of the kernel's (B,
+nh x headdim, N).  The reference forms exp(dt_h A_h) per head and
+broadcasts it; the kernel forms the same product of the same two f32
+numbers per (channel, lane), so the decay is the same, formed headdim x
+N times over (ROADMAP queue 2).  Routing through the kernel keeps the
+reference's (B, L, nh, headdim, N) states out of memory.
+
+Decode state per row: Mamba-1 (conv_state (B, d_conv - 1, d_inner),
+ssm_state (B, d_inner, d_state) f32); Mamba-2 (conv_x (B, d_conv - 1,
+d_inner), conv_bc (B, d_conv - 1, 2 d_state) f32, ssm (B, nh, headdim,
+d_state) f32).
 """
 from __future__ import annotations
 
@@ -135,13 +147,105 @@ def mamba1_decode(params: Params, x: torch.Tensor, state: tuple,
                           return_state=True)
 
 
+# ----------------------------------------------------------------------- #
+# Mamba-2 (SSD, scalar A per head)
+# ----------------------------------------------------------------------- #
+
+def init_mamba2(gen: torch.Generator, cfg: ModelConfig, tp: int, dtype,
+                device, layers_: int = 1) -> Params:
+    """GLOBAL shapes with a leading ``layers_`` axis, the reference's
+    leaves: x/z/dt projections, the replicated B/C projection and its
+    f32 conv, per-head A_log and D, the gated norm's scale."""
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    nh = d_in // s.headdim
+    lead = (layers_,)
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def conv(width):
+        return torch.randn(lead + (width, s.d_conv), generator=gen,
+                           device=device).div_(math.sqrt(s.d_conv))
+
+    return {
+        "in_x": layers._dense_init(gen, lead + (cfg.d_model, d_in),
+                                   cfg.d_model, dtype, device),
+        "in_z": layers._dense_init(gen, lead + (cfg.d_model, d_in),
+                                   cfg.d_model, dtype, device),
+        "in_bc": layers._dense_init(gen, lead + (cfg.d_model,
+                                                 2 * s.d_state),
+                                    cfg.d_model, dtype, device),
+        "in_dt": layers._dense_init(gen, lead + (cfg.d_model, nh),
+                                    cfg.d_model, dtype, device),
+        "conv_x": conv(d_in).to(dtype),
+        "conv_bc": conv(2 * s.d_state),
+        "A_log": torch.zeros(lead + (nh,), **f32),
+        "D": torch.ones(lead + (nh,), **f32),
+        "norm": torch.ones(lead + (d_in,), **f32),
+        "out_proj": layers._dense_init(gen, lead + (d_in, cfg.d_model),
+                                       d_in, dtype, device),
+    }
+
+
+def mamba2_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                   pc: ParallelContext, state: Optional[tuple] = None,
+                   return_state: bool = False):
+    """x: (B, L, d_model).  state: (conv_x, conv_bc, ssm) for decode
+    continuation.  The scan runs in f32 through ``ssm_scan`` over the
+    nh x headdim channels (see the module docstring); the gated norm
+    ``rms_norm(y * silu(z), norm)`` over d_inner is the RMSNorm
+    kernel's."""
+    s = cfg.ssm
+    b, l, _ = x.shape
+    d_loc = params["out_proj"].shape[0]
+    nh = d_loc // s.headdim
+    xin = x @ params["in_x"]
+    z = x @ params["in_z"]
+    bc = (x @ params["in_bc"]).float()
+    dt = x @ params["in_dt"]
+    cs_x = state[0] if state is not None else None
+    cs_bc = state[1] if state is not None else None
+    xconv, new_conv_x = causal_conv1d(xin, params["conv_x"], cs_x)
+    bcconv, new_conv_bc = causal_conv1d(bc, params["conv_bc"], cs_bc)
+    xin = F.silu(xconv)
+    b_mat, c_mat = torch.split(F.silu(bcconv), s.d_state, dim=-1)
+
+    dt = F.softplus(dt.float())                           # (B, L, nh)
+    A = -torch.exp(params["A_log"])                       # (nh,)
+    # each head's dt, A and D for its headdim channels
+    dt_ch = dt.repeat_interleave(s.headdim, dim=-1)       # (B, L, d_in)
+    a_ch = A.repeat_interleave(s.headdim)[:, None].expand(
+        d_loc, s.d_state).contiguous()                    # (d_in, N)
+    d_ch = params["D"].repeat_interleave(s.headdim)
+    h0 = state[2].reshape(b, d_loc, s.d_state) if state is not None \
+        else None
+    y, h_last = ssm_scan(xin.float().contiguous(), dt_ch, a_ch,
+                         b_mat.contiguous(), c_mat.contiguous(), d_ch,
+                         h0=h0, return_state=True)
+    y = layers.rms_norm(y.to(x.dtype) * F.silu(z), params["norm"],
+                        cfg.norm_eps)
+    out = pc.tp_all_reduce(y @ params["out_proj"])
+    if return_state:
+        return out, (new_conv_x, new_conv_bc,
+                     h_last.reshape(b, nh, s.headdim, s.d_state))
+    return out
+
+
+def mamba2_decode(params: Params, x: torch.Tensor, state: tuple,
+                  cfg: ModelConfig, pc: ParallelContext):
+    """Single-token decode; x: (B, 1, d_model)."""
+    return mamba2_forward(params, x, cfg, pc, state=state,
+                          return_state=True)
+
+
 def mamba_state_shapes(cfg: ModelConfig, tp: int, batch: int,
                        version: int) -> tuple:
-    """Decode-state shapes of one row: v1 -> (conv, ssm)."""
-    if version != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba-2 (SSD) rows are not ported yet (ROADMAP "
-            f"queue 1, item 8)")
+    """Decode-state shapes of one row: v1 -> (conv, ssm); v2 ->
+    (conv_x, conv_bc, ssm)."""
     s = cfg.ssm
     d_loc = s.expand * cfg.d_model // tp
-    return ((batch, s.d_conv - 1, d_loc), (batch, d_loc, s.d_state))
+    if version == 1:
+        return ((batch, s.d_conv - 1, d_loc), (batch, d_loc, s.d_state))
+    nh = d_loc // s.headdim
+    return ((batch, s.d_conv - 1, d_loc),
+            (batch, s.d_conv - 1, 2 * s.d_state),
+            (batch, nh, s.headdim, s.d_state))

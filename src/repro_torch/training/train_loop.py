@@ -65,7 +65,8 @@ def make_gather_fn(tcfg: TrainConfig, rspecs: dict, pc: ParallelContext,
                    dp_axis):
     """FSDP gather hook: row-fused buckets (``core.overlap``; a row is
     one bucket whatever ``bucket_mb``, which only caps the grad-sync
-    buffers) or the per-leaf reference when ``bucket_mb <= 0``."""
+    buffers) or the per-leaf reference when ``bucket_mb <= 0``.  Either
+    counts its calls by group key in its ``calls``."""
     if tcfg.bucket_bytes > 0:
         return overlap.make_gather_fn(rspecs, pc, dp_axis,
                                       bucket_bytes=None,
@@ -174,6 +175,7 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     gather = make_gather_fn(tcfg, rspecs, pc, dp_spec)
     step = make_train_step(cfg, tcfg, pc, gather_fn=gather,
                            param_spec_tree=pspecs, dp_axis=dp_spec)
+    step.gathers = gather.calls
     return step, pspecs, pc
 
 

@@ -93,7 +93,8 @@ def _files(path: str) -> dict:
             "arrays": arrays}
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "llama3.2-1b"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "llama3.2-1b",
+                                  "zamba2-1.2b"])
 def test_checkpoints_cross_between_the_packages(tmp_path, arch):
     """The reference's checkpoint of a model's params restores in the
     port byte for byte, and the port's restores through

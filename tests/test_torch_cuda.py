@@ -192,7 +192,11 @@ def _scan_inputs(b, l, d, n, dtype, device, with_h0):
     # L one under and over a 64-step ring stage, and two stages + 1
     (1, 63, 8192, 16, True), (1, 65, 8192, 16, False),
     (1, 129, 8192, 16, True),
-    (1, 4096, 8192, 16, False)])                 # error grows with L
+    (1, 4096, 8192, 16, False),                  # error grows with L
+    (1, 1024, 4096, 64, False),                  # Zamba2 prefill (N = 64)
+    (4, 1, 4096, 64, True),                      # Zamba2 decode step
+    (2, 300, 4096, 64, True),                    # ragged L, N = 64
+    (1, 4096, 4096, 64, False)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssm_scan_kernel_vs_plain(cuda, b, l, d, n, with_h0, dtype):
     """y and h_last against the plain version (rtol/atol 1e-4 in f32, as
@@ -215,7 +219,7 @@ def test_ssm_scan_kernel_vs_plain(cuda, b, l, d, n, with_h0, dtype):
 @pytest.mark.parametrize("b,l,d,n,with_h0", [
     (2, 300, 8192, 16, True), (1, 1024, 256, 16, False),
     (3, 161, 100, 32, True), (1, 257, 70, 1, True), (2, 96, 130, 2, False),
-    (1, 200, 64, 8, True), (2, 130, 96, 4, True)])
+    (1, 200, 64, 8, True), (2, 130, 96, 4, True), (2, 97, 100, 64, True)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssm_scan_every_variant_vs_plain_and_bitwise(cuda, b, l, d, n,
                                                       with_h0, dtype):
@@ -239,18 +243,79 @@ def test_ssm_scan_every_variant_vs_plain_and_bitwise(cuda, b, l, d, n,
     assert ss.ssm_scan.launches == before        # only ssm_scan counts
 
 
-def test_ssm_scan_kernel_refuses_grad(cuda):
-    """No backward kernel yet: an input that needs a gradient raises
-    rather than get an output without autograd history."""
-    args, _ = _scan_inputs(1, 8, 64, 16, torch.float32, cuda, False)
+def _scan_grads(fn, args, h0, dy, dh):
+    """Every input's grad of (y * dy).sum() + (h_last * dh).sum() through
+    ``fn`` (ssm_scan or its plain version)."""
+    leaves = [t.clone().requires_grad_() for t in
+              list(args) + ([h0] if h0 is not None else [])]
+    y, h = fn(*leaves[:6], h0=leaves[6] if h0 is not None else None,
+              return_state=True)
+    ((y.float() * dy).sum() + (h * dh).sum()).backward()
+    return [t.grad for t in leaves]
+
+
+# (rtol, atol as a fraction of the grad's largest entry): the kernel
+# recomputes each 16-step chunk from its checkpoint and sums over L, N
+# and the channels in other orders than autograd through the plain loop
+SCAN_GRAD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-2)}
+
+
+@pytest.mark.parametrize("b,l,d,n,with_h0", [
+    (1, 1024, 8192, 16, False),                  # Falcon's training shape
+    (1, 1024, 4096, 64, False),                  # Zamba2's, a rank's rows
+    (1, 4096, 1024, 64, False),                  # L = 4096
+    (2, 300, 4096, 64, True),                    # from h0, ragged L
+    (2, 77, 100, 16, True), (1, 33, 70, 1, True),    # ragged D, N = 1
+    (2, 50, 64, 2, True), (1, 40, 96, 4, False), (2, 65, 130, 8, True),
+    (1, 48, 64, 32, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_backward_kernel_vs_plain(cuda, b, l, d, n, with_h0,
+                                           dtype):
+    """Every input's grad through the kernels (the forward writing its
+    checkpoints, one launch of the backward) against autograd through
+    the plain version, with a cotangent on the final state, and a repeat
+    bitwise equal (no atomics)."""
+    args, h0 = _scan_inputs(b, l, d, n, DTYPES[dtype], cuda, with_h0)
+    dy = _randn((b, l, d), torch.float32, cuda)
+    dh = _randn((b, d, n), torch.float32, cuda)
+    want = _scan_grads(ss.ssm_scan_plain, args, h0, dy, dh)
+    before = ss.ssm_scan_vjp.launches
+    got = _scan_grads(ss.ssm_scan, args, h0, dy, dh)
+    again = _scan_grads(ss.ssm_scan, args, h0, dy, dh)
+    torch.cuda.synchronize()
+    assert ss.ssm_scan_vjp.launches == before + 2
+    rtol, frac = SCAN_GRAD_TOL[dtype]
+    for g, w, g2 in zip(got, want, again):
+        assert g.dtype == w.dtype and torch.equal(g, g2)
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=frac * float(w.abs().max()))
+
+
+def test_ssm_scan_backward_counts_and_refusals(cuda):
+    """One backward count per backward and none in the forward; a
+    forward without grad writes no checkpoints; non-contiguous inputs
+    still raise; CPU tensors take the plain backward and count
+    nothing."""
+    args, _ = _scan_inputs(1, 40, 64, 16, torch.float32, cuda, False)
     x = args[0].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ss.ssm_scan(x, *args[1:])
+    fwd, bwd = ss.ssm_scan.launches, ss.ssm_scan_vjp.launches
+    y = ss.ssm_scan(x, *args[1:])
+    assert (ss.ssm_scan.launches, ss.ssm_scan_vjp.launches) == \
+        (fwd + 1, bwd)
+    y.sum().backward()
+    assert ss.ssm_scan_vjp.launches == bwd + 1 and x.grad is not None
     with torch.no_grad():
-        ss.ssm_scan(x, *args[1:])
+        assert not ss.ssm_scan(x, *args[1:]).requires_grad
     strided = torch.cat([args[3], args[3]], dim=-1)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         ss.ssm_scan(*args[:3], strided, *args[4:])
+    cpu = [t.cpu() for t in args]
+    dy = torch.ones(1, 40, 64)
+    got = ss.ssm_scan_vjp(*cpu, None, dy)       # CPU: the plain backward
+    assert ss.ssm_scan_vjp.launches == bwd + 1
+    for g, w in zip(got, ss.ssm_scan_backward_plain(*cpu, dy)):
+        assert (g is None) == (w is None)
+        assert g is None or torch.equal(g, w)
 
 
 def test_falcon_smoke_on_card_matches_cpu(cuda):
@@ -281,6 +346,73 @@ def test_falcon_smoke_on_card_matches_cpu(cuda):
     assert ss.ssm_scan.launches == before + 4 * cfg.n_layers
     for a, b in zip(outs[1], outs[0]):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+def test_zamba2_smoke_on_card_matches_cpu(cuda):
+    """zamba2-smoke (Mamba-2 rows at N = 16, the shared attention block):
+    prefill at L = 300 and three per-slot decode steps, then the loss
+    and every grad of one training forward, the card (ssm_scan and its
+    backward kernel, rms_norm's, flash_attention) against the CPU
+    (plain versions), at rtol 2e-4, atol 2e-5 (grads: atol 2e-5 of the
+    leaf's largest entry)."""
+    cfg = get_config("zamba2-1.2b", smoke=True)
+    cpu = model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = model.params_from_numpy(model.params_to_numpy(cpu), cuda)
+    toks = RNG.integers(0, cfg.vocab_size, (2, 300))
+    outs, grads = [], []
+    for params, dev in ((cpu, torch.device("cpu")), (gpu, cuda)):
+        before = ss.ssm_scan.launches, ss.ssm_scan_vjp.launches
+        logits, caches = model.prefill(
+            params, {"tokens": torch.as_tensor(toks, device=dev)}, cfg,
+            UNSHARDED, 320, cache_dtype=torch.float32)
+        res = [logits]
+        pos = torch.tensor([300, 300], device=dev)
+        active = torch.tensor([True, False], device=dev)
+        for i in range(3):
+            lg, caches = model.decode_step(
+                params, caches, torch.tensor([[5 + i], [9]], device=dev),
+                pos, cfg, UNSHARDED, active=active)
+            res.append(lg)
+            pos = pos + 1
+        leaves = {k: v for k, v in _flat(params).items()}
+        train = {k: v.clone().requires_grad_() for k, v in leaves.items()}
+        batch = {"tokens": torch.as_tensor(toks[:, :64], device=dev),
+                 "labels": torch.as_tensor(toks[:, 1:65], device=dev)}
+        loss, _ = model.loss_fn(_unflat(train), batch, cfg, UNSHARDED)
+        loss.backward()
+        res.append(loss.detach())
+        outs.append([t.cpu() for t in res])
+        grads.append({k: t.grad.cpu() for k, t in train.items()})
+    rows = cfg.layer_pattern.count("2")
+    assert ss.ssm_scan.launches == before[0] + (4 + 2) * rows
+    assert ss.ssm_scan_vjp.launches == before[1] + rows
+    for a, b in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+    for k, w in grads[0].items():
+        torch.testing.assert_close(grads[1][k], w, rtol=2e-4,
+                                   atol=2e-5 * float(w.abs().max()),
+                                   msg=k)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _unflat(flat):
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
 
 
 def test_falcon_engine_on_card_matches_cpu_and_evicts_bitwise(cuda):
@@ -409,6 +541,7 @@ def test_fused_dense_grads_kernel_vs_plain(cuda):
 
 
 @pytest.mark.parametrize("t,d,upstream", [(1024, 2048, "random"),
+                                          (1024, 4096, "random"),
                                           (4, 4096, "random"),
                                           (5, 100, "random"),
                                           (1024, 2048, "sum"),

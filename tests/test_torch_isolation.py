@@ -125,8 +125,9 @@ def test_serve_launcher_activates_the_topology(capsys):
 
 def test_unported_arch_names_the_roadmap():
     from repro_torch.configs import get_config
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("zamba2-1.2b")
+    for arch in ("whisper-tiny", "phi-3-vision-4.2b"):
+        with pytest.raises(KeyError, match="ROADMAP"):
+            get_config(arch)
 
 
 def test_train_entry_points_without_device_refuse_cpu_fallback():

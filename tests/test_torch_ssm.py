@@ -112,7 +112,8 @@ def test_ssm_scan_h0_and_h_last_split_run():
 
 def _emulate_kernel(x, dt, a, bs, cs, dres, h0, k):
     """csrc/ssm_scan.cu's order of operations in torch f32 with ``k``
-    lanes a thread: one pass over L, a thread's k lanes summed in order
+    lanes a thread: one pass over L, the state's fused multiply-add
+    (``step_h``), a thread's k lanes summed in order
     into y, the N / k threads of a channel reduce-scattered (lane
     t % (N / k) keeps step t).  Returns (y, h_last)."""
     b, l, d = x.shape
@@ -123,8 +124,11 @@ def _emulate_kernel(x, dt, a, bs, cs, dres, h0, k):
     ys = []
     for t in range(l):
         dv = dt[:, t]
-        h = torch.exp(dv[..., None] * a) * h + \
-            (dv * x[:, t])[..., None] * bs[:, t, None, :]
+        # fma(exp(dt*A), h, (dt*x)*B): one rounding of the sum (a product
+        # of two f32 values is exact in f64)
+        h = (torch.exp(dv[..., None] * a).double() * h.double() +
+             ((dv * x[:, t])[..., None] * bs[:, t, None, :]).double()
+             ).float()
         part = (h * cs[:, t, None, :]).reshape(b, d, g, k)
         acc = part[..., 0]
         for j in range(1, k):
@@ -157,7 +161,9 @@ def _jax_scan_with_state(x, dt, a, bs, cs, dres, h0):
     (2, 300, 64, 16, True),                      # ragged L from a state
     (1, 63, 64, 16, False), (1, 129, 64, 16, True),  # across ring stages
     (1, 97, 32, 32, True), (1, 40, 16, 2, False),    # N = 32, N = 2
-    (1, 33, 70, 1, True)])                       # N = 1, ragged D
+    (1, 33, 70, 1, True),                        # N = 1, ragged D
+    (1, 128, 256, 64, False),                    # N = 64 (Zamba2's)
+    (1, 97, 64, 64, True), (2, 33, 100, 64, True)])  # 32-step stages
 def test_kernel_order_vs_pallas_and_ref(b, l, d, n, with_h0):
     """The kernel's arithmetic (emulated) with the lanes a thread that
     ssm_geometry picks, against the Pallas kernel (interpret mode) and
@@ -205,8 +211,8 @@ def test_ssm_scan_wrapper_refusals():
     x, dt, a, bs, cs, dres = _t(*_scan_inputs(RNG, 1, 8, 16, 4))
     with pytest.raises(ValueError, match="state size"):       # N = 3
         ss.ssm_scan(x, dt, a[:, :3], bs[..., :3], cs[..., :3], dres)
-    wide = _t(*_scan_inputs(RNG, 1, 8, 16, 64))
-    with pytest.raises(ValueError, match="state size"):       # N = 64
+    wide = _t(*_scan_inputs(RNG, 1, 8, 16, 128))
+    with pytest.raises(ValueError, match="state size"):       # N = 128
         ss.ssm_scan(*wide)
     with pytest.raises(ValueError, match="disagree"):
         ss.ssm_scan(x, dt, a, bs[:, :4], cs, dres)
@@ -226,7 +232,7 @@ def test_ssm_scan_wrapper_refusals():
 
 def test_ssm_scan_plain_is_differentiable_on_cpu():
     """On the CPU the wrapper's plain version keeps autograd history (on
-    the card the kernel refuses inputs that need a gradient)."""
+    the card the backward kernel takes its place)."""
     inputs = [t.requires_grad_() for t in
               _t(*_scan_inputs(RNG, 1, 12, 16, 4))]
     ss.ssm_scan(*inputs).sum().backward()
@@ -306,13 +312,14 @@ def test_mamba1_forward_and_decode_match_reference(setup):
 
 
 def test_mamba2_rows_name_the_roadmap(setup):
-    cfg = setup[0]
-    v2 = dataclasses.replace(cfg, layer_pattern="22")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        blocks.row_cache_init("2", v2, UNSHARDED, 1, 8, torch.float32,
-                              "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssm.mamba_state_shapes(cfg, 1, 1, version=2)
+    """Mamba-2 rows run at tp = 1 (tests/test_torch_mamba2.py); at tp > 1
+    they raise naming ROADMAP item 8, as Mamba-1 rows do."""
+    v2 = get_config("zamba2-1.2b", smoke=True)
+    pc = dataclasses.replace(UNSHARDED, tp_axis="model", tp=2)
+    x = torch.zeros(1, 4, v2.d_model)
+    for kind in ("1", "2"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            blocks.row_forward({}, x, kind, v2, pc, torch.arange(4))
 
 
 # -- the model ------------------------------------------------------------ #
