@@ -36,7 +36,10 @@ Phases (each fails the run if its check fails):
                  cotangent on the final state) against autograd through
                  the plain version at Falcon's training shape (1, 1024,
                  8192, 16), Zamba2's (1, 1024, 4096, 64), L = 4096 and
-                 from h0, each repeated bitwise; rms_norm's gradients at
+                 from h0, and its head mode (``ssm_scan_heads``: dt, A
+                 and D per head of 64, ddt, dA and dD per head) at
+                 Zamba2's shape, L = 4096 and from h0, each repeated
+                 bitwise; rms_norm's gradients at
                  (1024, 4096) too;
                  reduce_scatter_rmsnorm and reduce_scatter_adamw (f32 and
                  bf16, weight decay 0 and 0.1) at the JAX test shapes, the
@@ -68,7 +71,8 @@ Phases (each fails the run if its check fails):
                  ``bound_ssd_ms``, the bound with one exp a head, as the
                  Mamba-2 function needs), the training forward writing
                  its checkpoints and the backward kernel at Falcon's and
-                 Zamba2's training shapes;
+                 Zamba2's training shapes per channel and at Zamba2's
+                 and L = 4096 per head, each beside ``copy_ms``;
 3b. kernel API - ``repro_torch.kernels.ops.reduce_scatter_rmsnorm`` and
                  ``reduce_scatter_adamw`` at the training path's shapes
                  (the path that carries them in the JAX package too);
@@ -221,6 +225,7 @@ to ``chip_smoke.json`` in ``OUT_DIR``.
 from __future__ import annotations
 
 import datetime
+import functools
 import json
 import pathlib
 import subprocess
@@ -246,6 +251,14 @@ TC_KERNELS = {"all_gather_matmul": "agm_tf32x3_kernel",
 RMS_KERNELS = {"rms_norm": "rmsnorm_fwd_kernel",
                "rms_norm_vjp": "rmsnorm_bwd_kernel",
                "rms_norm_vjp_colsum": "rmsnorm_colsum_kernel"}
+# ssm_scan's kernels by the names the training step's profile gives them:
+# the forward, the backward's scan and its fixed-order sums (per head the
+# row and column sums, per channel the partial sums)
+SSM_KERNELS = {"ssm_scan": "ssm_scan_kernel",
+               "ssm_scan_vjp": "ssm_scan_bwd_kernel",
+               "ssm_scan_vjp_rows": "bwd_rows_kernel",
+               "ssm_scan_vjp_colsum": "col_sum_kernel",
+               "ssm_scan_vjp_partials": "sum_partials_kernel"}
 EXP_RATE = 16 * 132 * 1.98e9    # SFU exps/s: 16 per clock per SM, 132 SMs
 # (rtol, atol).  chunked_reduce: the kernel and torch sum the sources in
 # other orders, n_src - 1 roundings of partial sums up to about 16
@@ -461,6 +474,14 @@ SSM_BWD_SHAPES = ((1, PROMPT, 8192, 16, False),
                   (1, PROMPT, HYBRID_D, HYBRID_N, False),
                   (1, 4096, 1024, HYBRID_N, False),
                   (2, 300, HYBRID_D, HYBRID_N, True))
+# the same through the per-head entry (ssm_scan_heads, the backward
+# kernel's head mode) at Zamba2's heads of 64: (b, l, heads, headdim, N,
+# h0)
+HYBRID_HEADDIM = HYBRID_D // HYBRID_HEADS
+SSM_HEAD_BWD_SHAPES = (
+    (1, PROMPT, HYBRID_HEADS, HYBRID_HEADDIM, HYBRID_N, False),
+    (1, 4096, 1024 // HYBRID_HEADDIM, HYBRID_HEADDIM, HYBRID_N, False),
+    (2, 300, HYBRID_HEADS, HYBRID_HEADDIM, HYBRID_N, True))
 # the SSM smoke models' training, card vs CPU, at sequences of 128: the
 # CPU's plain scan is a Python loop over L, four ranks sharing the
 # machine's 8 cores (about 4 min a run at 1024)
@@ -685,11 +706,12 @@ def _summarise_profile(per_rank: list) -> dict:
     for p in per_rank:
         for k in p["top"]:
             top[k["kernel"]] = top.get(k["kernel"], 0.0) + k["us"]
-    # the tensor-core kernels and rms_norm's by name, whether or not they
-    # make the top
+    # the tensor-core kernels, rms_norm's and ssm_scan's by name, whether
+    # or not they make the top
     named = {name: sum(us for p in per_rank
                        for k, us in p["by_kernel"].items() if fn in k)
-             for name, fn in {**TC_KERNELS, **RMS_KERNELS}.items()}
+             for name, fn in {**TC_KERNELS, **RMS_KERNELS,
+                              **SSM_KERNELS}.items()}
     def by_name(pick) -> float:
         return sum(us for p in per_rank for k, us in p["by_kernel"].items()
                    if pick(k))
@@ -806,22 +828,38 @@ def _scan_grads(fn, args, h0, dy, dh) -> list:
 def ssm_grad_parity(randn, ss) -> list:
     """Every input's grad through the scan kernels (the forward writing
     its checkpoints, one launch of the backward) against autograd through
-    the plain version, with a cotangent on the final state; a repeat must
-    be bitwise equal and each backward one count of ``ssm_scan_vjp``."""
+    the plain version, with a cotangent on the final state, per channel
+    (``ssm_scan``) and per head (``ssm_scan_heads``, the backward's head
+    mode: ddt, dA and dD per head); a repeat must be bitwise equal and
+    each backward one count of ``ssm_scan_vjp``."""
     out = []
     rtol, frac = TOL["ssm_scan_grad"]
-    for b, l, d, n, with_h0 in SSM_BWD_SHAPES:
+    cases = [(b, l, d, n, with_h0, None)
+             for b, l, d, n, with_h0 in SSM_BWD_SHAPES] + \
+        [(b, l, nh * hd, n, with_h0, hd)
+         for b, l, nh, hd, n, with_h0 in SSM_HEAD_BWD_SHAPES]
+    for b, l, d, n, with_h0, hd in cases:
         args, h0 = ssm_inputs(randn, b, l, d, n, with_h0)
+        if hd is not None:      # dt, A and D per head
+            nh = d // hd
+            args = (args[0], randn(b, l, nh).abs() * 0.1, -randn(nh).abs(),
+                    args[3], args[4], randn(nh))
+            fns = (functools.partial(ss.ssm_scan_heads_plain, headdim=hd),
+                   functools.partial(ss.ssm_scan_heads, headdim=hd))
+        else:
+            fns = (ss.ssm_scan_plain, ss.ssm_scan)
         dy, dh = randn(b, l, d), randn(b, d, n)
-        want = _scan_grads(ss.ssm_scan_plain, args, h0, dy, dh)
+        want = _scan_grads(fns[0], args, h0, dy, dh)
         before = ss.ssm_scan_vjp.launches
-        got = _scan_grads(ss.ssm_scan, args, h0, dy, dh)
-        again = _scan_grads(ss.ssm_scan, args, h0, dy, dh)
+        got = _scan_grads(fns[1], args, h0, dy, dh)
+        again = _scan_grads(fns[1], args, h0, dy, dh)
         torch.cuda.synchronize()
         errs = [close(g, w, rtol, frac * float(w.abs().max()))
                 for g, w in zip(got, want)]
         repeat = all(torch.equal(g, g2) for g, g2 in zip(got, again))
         out.append({"kernel": "ssm_scan", "check": "grad",
+                    "mode": "per channel" if hd is None else
+                    f"per head of {hd}",
                     "shape": [b, l, d, n], "h0": with_h0,
                     "dtype": str(torch.float32),
                     "tolerance": [rtol, f"{frac} x max |grad|"],
@@ -838,25 +876,37 @@ def ssm_grad_parity(randn, ss) -> list:
     return out
 
 
-def ssm_bwd_cost(b, l, d, n, with_h0, n_ckpt: int) -> dict:
+def ssm_bwd_cost(b, l, d, n, with_h0, n_ckpt: int,
+                 headdim: int = None) -> dict:
     """What the scan's VJP must move and compute, f32: x, dt and dy read,
     dx and ddt written; B, C read, dB, dC written; A, D read, dA, dD
     written; the forward's ``n_ckpt`` checkpoints a sequence read;
-    h0, dh_last read and dh0 written when there is h0; one exp and 15
-    flops per (b, t, d, n) (the state's recompute, the cotangent's step
-    and the five products it feeds)."""
+    h0, dh_last read and dh0 written when there is h0.  Per channel (no
+    ``headdim``): one exp and 15 flops per (b, t, d, n) (the state's
+    recompute, the cotangent's step and the five products it feeds).  Per
+    head of ``headdim`` channels: dt, ddt, A, D, dA and dD per head, one
+    exp a (b, t, head) and 12 flops an element (the recompute's 2, the
+    walk's 6 and the sums they feed)."""
     ck = b * n_ckpt * d * n
-    nbytes = (5 * b * l * d + 4 * b * l * n + 2 * (d * n + d) + ck
-              + (3 * b * d * n if with_h0 else 0)) * 4
-    return {"bytes": nbytes, "flops": 15 * b * l * d * n,
-            "exps": b * l * d * n}
+    state = 3 * b * d * n if with_h0 else 0
+    if headdim is None:
+        nbytes = (5 * b * l * d + 4 * b * l * n + 2 * (d * n + d) + ck
+                  + state) * 4
+        return {"bytes": nbytes, "flops": 15 * b * l * d * n,
+                "exps": b * l * d * n}
+    nh = d // headdim
+    nbytes = (3 * b * l * d + 2 * b * l * nh + 4 * b * l * n + 4 * nh + ck
+              + state) * 4
+    return {"bytes": nbytes, "flops": 12 * b * l * d * n,
+            "exps": b * l * nh}
 
 
 def ssm_timing(timer, randn, ss, sms: int) -> dict:
     """The scan as each path calls it: Falcon-Mamba's prefill and decode
     (N = 16, the row of earlier PRs), Zamba2's prefill and decode (N =
     64), the training forward writing checkpoints and the backward
-    kernel at Falcon's and Zamba2's training shapes.  At N = 64 the
+    kernel at Falcon's and Zamba2's training shapes per channel, and per
+    head at Zamba2's and L = 4096 (the path's mode).  At N = 64 the
     kernel forms exp(dt A) for every (channel, lane) where Mamba-2's
     function needs one a head: ``bound_ssd_ms`` is the bound with those
     exps."""
@@ -887,23 +937,51 @@ def ssm_timing(timer, randn, ss, sms: int) -> dict:
             *args, None, True, geo, checkpoints=True)),
             "plain_ms": None, "library_ms": None, **cost,
             "shape": [b, l, d, n], "geometry": geo}
-    for key, (b, l, d, n) in (("backward", (1, PROMPT, 8192, 16)),
-                              ("n64_backward",
-                               (1, PROMPT, HYBRID_D, HYBRID_N))):
+    # the backward per channel at Falcon's and Zamba2's training shapes,
+    # per head (Zamba2's heads of 64) at Zamba2's and L = 4096; each
+    # beside a copy of the bytes its function must move
+    for key, (b, l, d, n), hd in (
+            ("backward", (1, PROMPT, 8192, 16), None),
+            ("n64_backward", (1, PROMPT, HYBRID_D, HYBRID_N), None),
+            ("n64_heads_backward", (1, PROMPT, HYBRID_D, HYBRID_N),
+             HYBRID_HEADDIM),
+            ("n64_heads_backward_l4096", (1, 4096, 1024, HYBRID_N),
+             HYBRID_HEADDIM)):
         args, _ = ssm_inputs(randn, b, l, d, n, False)
-        geo = ss.ssm_geometry(b, l, d, n, sms)
-        _, _, hc = ss._launch(*args, None, True, geo, checkpoints=True)
+        fwd = args
+        if hd is not None:
+            nh = d // hd
+            args = (args[0], randn(b, l, nh).abs() * 0.1, -randn(nh).abs(),
+                    args[3], args[4], randn(nh))
+            dt_ch, a_ch, d_ch = ss._expand_heads(args[1], args[2], args[5],
+                                                 hd, n)
+            fwd = (args[0], dt_ch, a_ch, args[3], args[4], d_ch)
+        _, _, hc = ss._launch(*fwd, None, True, ss.ssm_geometry(
+            b, l, d, n, sms), checkpoints=True)
+        del fwd
         dy = randn(b, l, d)
+        cost = ssm_bwd_cost(b, l, d, n, False, ss.checkpoint_count(l), hd)
+        src = torch.empty(cost["bytes"] // 8, device="cuda")
+        dst = torch.empty_like(src)
         before = ss.ssm_scan_vjp.launches
+        if hd is None:
+            run = functools.partial(ss.ssm_scan_vjp, *args, hc, dy)
+            plain = functools.partial(ss.ssm_scan_backward_plain, *args, dy)
+        else:
+            run = functools.partial(ss.ssm_scan_heads_vjp, *args, hc, dy, hd)
+            plain = functools.partial(ss.ssm_scan_heads_backward_plain,
+                                      *args, dy, hd)
+        # the plain loop at L = 4096 takes about a second a call: once
         out[key] = {
-            "ms": timer(lambda: ss.ssm_scan_vjp(*args, hc, dy)),
-            "plain_ms": timer(lambda: ss.ssm_scan_backward_plain(
-                *args, dy), iters=2, warmup=1),
-            "library_ms": None, **ssm_bwd_cost(
-                b, l, d, n, False, ss.checkpoint_count(l)),
-            "shape": [b, l, d, n], "geometry": geo}
+            "ms": timer(run),
+            "plain_ms": timer(plain, iters=1 if l > PROMPT else 2,
+                              warmup=0 if l > PROMPT else 1),
+            "copy_ms": timer(lambda: dst.copy_(src)),
+            "library_ms": None, **cost, "shape": [b, l, d, n],
+            "headdim": hd,
+            "geometry": ss.ssm_bwd_geometry(b, l, d, n, hd, sms)}
         ss.ssm_scan_vjp.launches = before     # timing counts no path
-        del hc, dy
+        del hc, dy, src, dst, run, plain
     del args
     for key in ("n64_prefill", "n64_decode", "n64_train_forward",
                 "n64_backward"):
@@ -2365,14 +2443,15 @@ def main() -> int:
         if name == "ssm_scan":
             # the N = 64 forward and the backward kernel at the hybrid
             # path's shapes, each measured in this run beside its bound
-            keys = ("ms", "plain_ms", "bound_ms", "bound_by",
+            keys = ("ms", "plain_ms", "copy_ms", "bound_ms", "bound_by",
                     "bound_ssd_ms", "library_ms", "shape")
             extra = {"backward_launches_by_path": {
                 "train_hybrid": hybrid_launches["ssm_scan_vjp"]},
                 **{k: {f: t[k][f] for f in keys if f in t[k]}
                    for k in ("n64_prefill", "n64_decode",
                              "n64_train_forward", "backward",
-                             "n64_backward")}}
+                             "n64_backward", "n64_heads_backward",
+                             "n64_heads_backward_l4096")}}
         if name in api_launches:
             by_path["kernel_api"] = api_launches[name]
         kernels.append({

@@ -14,10 +14,12 @@ same call at L = 1.
 Mamba-2 with one B/C group is the Mamba-1 contraction over the D = nh x
 headdim channels of ``x``: a channel takes the dt, A and skip D of its
 head, and the state (B, nh, headdim, N) is a view of the kernel's (B,
-nh x headdim, N).  The reference forms exp(dt_h A_h) per head and
-broadcasts it; the kernel forms the same product of the same two f32
-numbers per (channel, lane), so the decay is the same, formed headdim x
-N times over (ROADMAP queue 2).  Routing through the kernel keeps the
+nh x headdim, N).  ``ssm_scan_heads`` takes dt, A and D per head.  Its
+forward repeats them over the head's channels and runs the scan kernel,
+which forms the decay exp(dt_h A_h), the reference's per-head product of
+the same two f32 numbers, per (channel, lane): headdim x N times over
+(ROADMAP queue 2).  Its backward kernel forms it once a (t, head) and
+returns ddt, dA and dD per head.  Routing through the kernels keeps the
 reference's (B, L, nh, headdim, N) states out of memory.
 
 Decode state per row: Mamba-1 (conv_state (B, d_conv - 1, d_inner),
@@ -33,7 +35,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssm_scan import ssm_scan
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_heads
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.pcontext import ParallelContext
@@ -190,8 +192,8 @@ def mamba2_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                    pc: ParallelContext, state: Optional[tuple] = None,
                    return_state: bool = False):
     """x: (B, L, d_model).  state: (conv_x, conv_bc, ssm) for decode
-    continuation.  The scan runs in f32 through ``ssm_scan`` over the
-    nh x headdim channels (see the module docstring); the gated norm
+    continuation.  The scan runs in f32 through ``ssm_scan_heads``, dt,
+    A and D per head (see the module docstring); the gated norm
     ``rms_norm(y * silu(z), norm)`` over d_inner is the RMSNorm
     kernel's."""
     s = cfg.ssm
@@ -211,16 +213,12 @@ def mamba2_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
     dt = F.softplus(dt.float())                           # (B, L, nh)
     A = -torch.exp(params["A_log"])                       # (nh,)
-    # each head's dt, A and D for its headdim channels
-    dt_ch = dt.repeat_interleave(s.headdim, dim=-1)       # (B, L, d_in)
-    a_ch = A.repeat_interleave(s.headdim)[:, None].expand(
-        d_loc, s.d_state).contiguous()                    # (d_in, N)
-    d_ch = params["D"].repeat_interleave(s.headdim)
     h0 = state[2].reshape(b, d_loc, s.d_state) if state is not None \
         else None
-    y, h_last = ssm_scan(xin.float().contiguous(), dt_ch, a_ch,
-                         b_mat.contiguous(), c_mat.contiguous(), d_ch,
-                         h0=h0, return_state=True)
+    y, h_last = ssm_scan_heads(xin.float().contiguous(), dt, A,
+                               b_mat.contiguous(), c_mat.contiguous(),
+                               params["D"], s.headdim, h0=h0,
+                               return_state=True)
     y = layers.rms_norm(y.to(x.dtype) * F.silu(z), params["norm"],
                         cfg.norm_eps)
     out = pc.tp_all_reduce(y @ params["out_proj"])

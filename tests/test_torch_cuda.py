@@ -318,6 +318,128 @@ def test_ssm_scan_backward_counts_and_refusals(cuda):
         assert g is None or torch.equal(g, w)
 
 
+def _head_inputs(b, l, nh, hd, n, dtype, device, with_h0):
+    """x (b, l, nh hd), dt (b, l, nh), A, D (nh,), B, C (and h0) as
+    tests/test_kernels.py draws the scan's, per head."""
+    x = _randn((b, l, nh * hd), dtype, device)
+    dt = (_randn((b, l, nh), torch.float32, device).abs() * 0.1).to(dtype)
+    a = -_randn((nh,), torch.float32, device).abs()
+    bs, cs = (_randn((b, l, n), dtype, device) for _ in range(2))
+    dres = _randn((nh,), torch.float32, device)
+    h0 = _randn((b, nh * hd, n), torch.float32, device) if with_h0 \
+        else None
+    return (x, dt, a, bs, cs, dres), h0
+
+
+def _head_grads(fn, args, hd, h0, dy, dh):
+    """Every input's grad of (y * dy).sum() + (h_last * dh).sum() through
+    ``fn`` (ssm_scan_heads or its plain version)."""
+    leaves = [t.clone().requires_grad_() for t in
+              list(args) + ([h0] if h0 is not None else [])]
+    y, h = fn(*leaves[:6], hd, h0=leaves[6] if h0 is not None else None,
+              return_state=True)
+    ((y.float() * dy).sum() + (h * dh).sum()).backward()
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("b,l,nh,hd,n,with_h0", [
+    (1, 1024, 64, 64, 64, False),                # Zamba2's training shape
+    (1, 4096, 16, 64, 64, False),                # L = 4096
+    (2, 300, 64, 64, 64, True),                  # from h0, ragged L
+    (2, 50, 3, 48, 16, True),    # heads across blocks, nh odd: 2 clusters
+    (1, 33, 5, 7, 64, True),     # headdim 7: heads inside thread groups
+    (2, 40, 4, 16, 8, False), (1, 20, 6, 5, 1, True),
+    (1, 37, 2, 64, 2, True), (1, 64, 8, 4, 4, False),
+    (1, 17, 3, 32, 32, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_heads_backward_kernel_vs_plain(cuda, b, l, nh, hd, n,
+                                                 with_h0, dtype):
+    """Every grad through the head mode (the forward on the repeated
+    values writing its checkpoints, one launch of the backward kernel in
+    its head mode: ddt, dA and dD per head) against autograd through the
+    plain version, with a cotangent on the final state, every N, and a
+    repeat bitwise equal."""
+    args, h0 = _head_inputs(b, l, nh, hd, n, DTYPES[dtype], cuda, with_h0)
+    dy = _randn((b, l, nh * hd), torch.float32, cuda)
+    dh = _randn((b, nh * hd, n), torch.float32, cuda)
+    want = _head_grads(ss.ssm_scan_heads_plain, args, hd, h0, dy, dh)
+    before = ss.ssm_scan_vjp.launches, ss.ssm_scan.launches
+    got = _head_grads(ss.ssm_scan_heads, args, hd, h0, dy, dh)
+    again = _head_grads(ss.ssm_scan_heads, args, hd, h0, dy, dh)
+    torch.cuda.synchronize()
+    assert (ss.ssm_scan_vjp.launches, ss.ssm_scan.launches) == \
+        (before[0] + 2, before[1] + 2)
+    rtol, frac = SCAN_GRAD_TOL[dtype]
+    for g, w, g2 in zip(got, want, again):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, g2)
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=frac * float(w.abs().max()))
+
+
+def test_ssm_scan_heads_kernel_equals_plain_backward(cuda):
+    """The head mode's launch against ``ssm_scan_heads_backward_plain``
+    (the explicit per-head VJP) and the per-channel mode on the repeated
+    values summed over each head, at Zamba2's row of 4 x 64 heads from
+    h0 with dh_last, L ragged."""
+    b, l, nh, hd, n = 2, 77, 4, 64, 64
+    args, h0 = _head_inputs(b, l, nh, hd, n, torch.float32, cuda, True)
+    dy = _randn((b, l, nh * hd), torch.float32, cuda)
+    dh = _randn((b, nh * hd, n), torch.float32, cuda)
+    dt_ch, a_ch, d_ch = ss._expand_heads(args[1], args[2], args[5], hd, n)
+    _, _, hc = ss._launch(args[0], dt_ch, a_ch, *args[3:5], d_ch, h0, True,
+                          ss.ssm_geometry(b, l, nh * hd, n),
+                          checkpoints=True)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    got = ss._backward_launch(*args, hc, dy, dh, True,
+                              ss.ssm_bwd_geometry(b, l, nh * hd, n, hd, sms),
+                              hd)
+    plain = ss.ssm_scan_heads_backward_plain(*args, dy, hd, h0, dh)
+    chan = list(ss._backward_launch(
+        args[0], dt_ch, a_ch, *args[3:5], d_ch, hc, dy, dh, True,
+        ss.ssm_bwd_geometry(b, l, nh * hd, n, None, sms)))
+    torch.cuda.synchronize()
+    chan[1] = chan[1].reshape(b, l, nh, hd).sum(-1)
+    chan[2] = chan[2].sum(-1).reshape(nh, hd).sum(-1)
+    chan[5] = chan[5].reshape(nh, hd).sum(-1)
+    for name, g, w, c in zip(("dx", "ddt", "dA", "dB", "dC", "dD", "dh0"),
+                             got, plain, chan):
+        for other in (w, c):
+            torch.testing.assert_close(
+                g, other, rtol=1e-4, atol=1e-5 * float(other.abs().max()),
+                msg=name)
+
+
+def test_ssm_scan_heads_counts_and_refusals(cuda):
+    """One forward count per forward (none in the backward), one backward
+    count per backward; no checkpoints without grad; non-contiguous
+    inputs and shapes that disagree raise; CPU tensors take the plain
+    versions and count nothing."""
+    args, _ = _head_inputs(1, 40, 2, 32, 16, torch.float32, cuda, False)
+    x = args[0].clone().requires_grad_()
+    fwd, bwd = ss.ssm_scan.launches, ss.ssm_scan_vjp.launches
+    y = ss.ssm_scan_heads(x, *args[1:], 32)
+    assert (ss.ssm_scan.launches, ss.ssm_scan_vjp.launches) == \
+        (fwd + 1, bwd)
+    y.sum().backward()
+    assert ss.ssm_scan_vjp.launches == bwd + 1 and x.grad is not None
+    assert ss.ssm_scan.launches == fwd + 1
+    with torch.no_grad():
+        assert not ss.ssm_scan_heads(x, *args[1:], 32).requires_grad
+    strided = torch.cat([args[3], args[3]], dim=-1)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.ssm_scan_heads(*args[:3], strided, *args[4:], 32)
+    with pytest.raises(ValueError, match="disagree"):
+        ss.ssm_scan_heads(*args, 16)
+    cpu = [t.cpu() for t in args]
+    dy = torch.ones(1, 40, 64)
+    got = ss.ssm_scan_heads_vjp(*cpu, None, dy, 32)
+    assert ss.ssm_scan_vjp.launches == bwd + 1
+    for g, w in zip(got, ss.ssm_scan_heads_backward_plain(*cpu, dy, 32)):
+        assert (g is None) == (w is None)
+        assert g is None or torch.equal(g, w)
+
+
 def test_falcon_smoke_on_card_matches_cpu(cuda):
     """Falcon-Mamba SMOKE: prefill at L = 300 and three per-slot decode
     steps, the card (ssm_scan kernel) against the CPU (plain version),

@@ -116,79 +116,160 @@ def _step(h, dv, a, dx, bv):
     return _fma(torch.exp(dv[..., None] * a), h, dx[..., None] * bv[:, None])
 
 
-def _emulate_backward(x, dt, a, bs, cs, dres, dy, h0, dh_last, k):
-    """The backward kernel's algorithm in torch f32: the forward's states
-    kept only before every 16th step; each 16-step chunk, from the last,
-    recomputed from its checkpoint with the forward's step and walked
-    back; a thread's k lanes summed in order, then the channel's N / k
-    threads, the block's 32 channels and the blocks, each in a fixed
-    order; dA and dD over the batch last.  Returns (dx, ddt, dA, dB, dC,
-    dD, dh0)."""
+def _tree(vals):
+    """The reduce-scatter's order over a channel group's lanes: lane j
+    adds lane j + G/2's value, then j + G/4's, ... (a halving tree)."""
+    while len(vals) > 1:
+        h = len(vals) // 2
+        vals = [vals[i] + vals[i + h] for i in range(h)]
+    return vals[0]
+
+
+def _in_order(vals):
+    acc = vals[0]
+    for v in vals[1:]:
+        acc = acc + v
+    return acc
+
+
+def _fma_chain(a, b, dim):
+    """sum over ``dim`` of a * b as the kernel's in-thread fma chain,
+    from the first product."""
+    acc = a.select(dim, 0) * b.select(dim, 0)
+    for i in range(1, a.shape[dim]):
+        acc = _fma(a.select(dim, i), b.select(dim, i), acc)
+    return acc
+
+
+def _emulate_backward(x, dt, a, bs, cs, dres, dy, h0, dh_last, geo,
+                      headdim=None):
+    """The backward kernel's algorithm in torch f32, per channel or per
+    head of ``headdim`` channels, with the launch ``geo`` (an
+    ``ssm_bwd_geometry``): the forward's states kept only before every
+    16th step; each 16-step chunk, from the last, recomputed from its
+    checkpoint with the forward's step (per head from one decay a (t,
+    head)) and walked back.  A thread holds k lanes of m channels: the
+    lane sums (g B; g h_{t-1}, or g h e A per channel) are fma chains
+    over its k lanes, then the reduce-scatter's tree over the channel
+    group's N / k threads; dB and dC are fma chains over its m channels,
+    then the block's channel groups, the cluster's blocks and the
+    clusters, each in order.  Per head, a block's share of each head's
+    sum_d x (g B), S and sum_d dy x (channels in order), the blocks in
+    order, ddt = fma(A e, S, X), and dA, dD over the (b, t) rows as the
+    column-sum kernel takes them (256 strided partials, then a tree);
+    a block's share of a head: a lane's channels (every 32nd) in order,
+    then a tree over the warp's lanes;
+    per channel dA and dD over the batch in order.  Returns (dx, ddt, dA,
+    dB, dC, dD, dh0)."""
     b, l, d = x.shape
-    n = a.shape[1]
-    grp = n // k
-    nblk = -(-d // 32)
+    n = bs.shape[-1]
+    k, m, cb, cl = geo["k"], geo["m"], geo["channels"], geo["cluster"]
+    grp, dpad = n // k, geo["grid"] * cb
+    head = headdim is not None
+    if head:
+        nh = d // headdim
+        dt_ch = dt.repeat_interleave(headdim, -1)
+        a_ch = a.repeat_interleave(headdim)[:, None].expand(d, n)
+        d_ch = dres.repeat_interleave(headdim)
+    else:
+        dt_ch, a_ch, d_ch = dt, a, dres
+    pad = dpad - d
+
+    def padc(v):                     # (b, d, ...) -> (b, dpad, ...)
+        return torch.nn.functional.pad(v, (0, 0) * (v.dim() - 2) +
+                                       (0, pad))
+
+    def decay(t):                    # (b, d, n): per head formed once
+        if head:
+            e = torch.exp(dt[:, t] * a)                   # (b, nh)
+            return e.repeat_interleave(headdim, -1)[..., None].expand(
+                b, d, n)
+        return torch.exp(dt_ch[:, t, :, None] * a_ch)
+
+    def step(h, t):                  # the forward's step_h
+        return _fma(decay(t), h, (dt_ch[:, t] * x[:, t])[..., None] *
+                    bs[:, t, None, :])
+
     ck = []
     h = torch.zeros(b, d, n) if h0 is None else h0.clone()
     for t in range(l):
         if t % ss.CKPT == 0:
             ck.append(h)
-        h = _step(h, dt[:, t], a, dt[:, t] * x[:, t], bs[:, t])
+        h = step(h, t)
+
+    def lane_sum(v):                 # (b, d, n) -> (b, d)
+        part = _fma_chain(v[0].reshape(b, d, grp, k),
+                          v[1].reshape(b, d, grp, k), 3)
+        return _tree([part[..., j] for j in range(grp)])
+
+    def channel_sum(u, w):           # sum_d u[d, n] w[d] -> (b, n)
+        u = padc(u).reshape(b, dpad // m, m, n)
+        w = padc(w).reshape(b, dpad // m, m)[..., None].expand(u.shape)
+        part = _fma_chain(u, w, 2).reshape(b, dpad // cb, cb // m, n)
+        blk = _in_order([part[:, :, q] for q in range(cb // m)])
+        blk = blk.reshape(b, -1, cl, n)
+        clu = _in_order([blk[:, :, r] for r in range(cl)])
+        return _in_order([clu[:, q] for q in range(clu.shape[1])])
+
     gr = torch.zeros(b, d, n) if dh_last is None else dh_last.clone()
-    pad = nblk * 32 - d
-    dx, ddt = torch.zeros(b, l, d), torch.zeros(b, l, d)
+    dx, sx_all, st_all = (torch.zeros(b, l, d) for _ in range(3))
     d_b, d_c = torch.zeros(b, l, n), torch.zeros(b, l, n)
     da = torch.zeros(b, d, n)
     dd = torch.zeros(b, d)
-
-    def lane_sum(v):                 # (b, d, n) -> (b, d): k, then grp
-        v = v.reshape(b, d, grp, k)
-        acc = v[..., 0]
-        for j in range(1, k):
-            acc = acc + v[..., j]
-        out = acc[..., 0]
-        for g in range(1, grp):
-            out = out + acc[..., g]
-        return out
-
-    def channel_sum(v):              # (b, d, n) -> (b, n): 32, then blocks
-        v = torch.nn.functional.pad(v, (0, 0, 0, pad)).reshape(
-            b, nblk, 32, n)
-        acc = v[:, :, 0]
-        for c in range(1, 32):
-            acc = acc + v[:, :, c]
-        out = acc[:, 0]
-        for blk in range(1, nblk):
-            out = out + acc[:, blk]
-        return out
-
     for c in range(len(ck) - 1, -1, -1):
         t0 = c * ss.CKPT
-        rows = min(ss.CKPT, l - t0)
         hist = [ck[c]]
-        for u in range(rows):
-            t = t0 + u
-            hist.append(_step(hist[-1], dt[:, t], a, dt[:, t] * x[:, t],
-                              bs[:, t]))
-        for u in range(rows - 1, -1, -1):
-            t = t0 + u
-            dv, xv, dyv = dt[:, t], x[:, t], dy[:, t]
+        for t in range(t0, min(t0 + ss.CKPT, l)):
+            hist.append(step(hist[-1], t))
+        for t in range(min(t0 + ss.CKPT, l) - 1, t0 - 1, -1):
+            u = t - t0
+            dv, xv, dyv = dt_ch[:, t], x[:, t], dy[:, t]
+            e = decay(t)
             gr = _fma(cs[:, t, None, :], dyv[..., None], gr)
-            d_b[:, t] = channel_sum(gr * (dv * xv)[..., None])
-            d_c[:, t] = channel_sum(hist[u + 1] * dyv[..., None])
-            e = torch.exp(dv[..., None] * a)
-            w = gr * hist[u] * e
-            sdx = lane_sum(gr * bs[:, t, None, :])
-            sdt = lane_sum(w * a)
-            da = _fma(w, dv[..., None], da)
-            dd = _fma(dyv, xv, dd)
+            d_b[:, t] = channel_sum(gr, _fma(dv, xv, torch.zeros(())))
+            d_c[:, t] = channel_sum(hist[u + 1], dyv)
+            sx = lane_sum((gr, bs[:, t, None, :].expand(b, d, n)))
+            if head:
+                st = lane_sum((gr, hist[u]))
+            else:
+                w = gr * hist[u] * e
+                st = lane_sum((w, a_ch.expand(b, d, n)))
+                da = _fma(w, dv[..., None], da)
+                dd = _fma(dyv, xv, dd)
             gr = gr * e
-            dx[:, t] = _fma(sdx, dv, dres * dyv)
-            ddt[:, t] = _fma(sdx, xv, sdt)
-    d_a, d_d = da[0], dd[0]
-    for i in range(1, b):
-        d_a, d_d = d_a + da[i], d_d + dd[i]
-    return dx, ddt, d_a, d_b, d_c, d_d, (gr if h0 is not None else None)
+            sx_all[:, t], st_all[:, t] = sx, st
+            dx[:, t] = _fma(sx, dt_ch[:, t], d_ch * dyv)
+    if not head:
+        ddt = _fma(sx_all, x, st_all)
+        return dx, ddt, _in_order(list(da)), d_b, d_c, _in_order(list(dd)), \
+            (gr if h0 is not None else None)
+    # per head: blocks' shares, the row kernel, the column sums
+    cols = torch.zeros(b * l, 2 * nh)
+    ddt = torch.zeros(b, l, nh)
+    for h in range(nh):
+        shares = []
+        for blk in range(h * headdim // cb, ((h + 1) * headdim - 1) // cb + 1):
+            lo, hi = max(h * headdim, blk * cb), min((h + 1) * headdim,
+                                                     blk * cb + cb, d)
+            # a lane's channels (every 32nd) in order, then the lanes' tree
+            lanes = [[torch.zeros(b, l)] * 3 for _ in range(32)]
+            for ch in range(lo, hi):
+                ln = (ch - blk * cb) % 32
+                lanes[ln] = [lanes[ln][0] + x[..., ch] * sx_all[..., ch],
+                             lanes[ln][1] + st_all[..., ch],
+                             lanes[ln][2] + dy[..., ch] * x[..., ch]]
+            shares.append([_tree([v[i] for v in lanes]) for i in range(3)])
+        X, S, Q = (_in_order([sh[i] for sh in shares]) for i in range(3))
+        e = torch.exp(dt[..., h] * a[h])
+        ddt[..., h] = _fma(a[h] * e, S, X)
+        cols[:, h] = (dt[..., h] * e * S).reshape(-1)
+        cols[:, nh + h] = Q.reshape(-1)
+    rows = cols.shape[0]
+    part = [_in_order([cols[r] for r in range(j, rows, 256)])
+            if j < rows else torch.zeros(2 * nh) for j in range(256)]
+    tot = _tree(part)
+    return dx, ddt, tot[:nh], d_b, d_c, tot[nh:], \
+        (gr if h0 is not None else None)
 
 
 def _jax_vjp(inputs, h0, dy, dh_last):
@@ -210,7 +291,7 @@ def _jax_vjp(inputs, h0, dy, dh_last):
     (1, 64, 32, 16, False), (2, 20, 33, 4, True)])
 def test_backward_plain_and_kernel_order_vs_jax_vjp(b, l, d, n, with_h0):
     """``ssm_scan_backward_plain`` and the backward kernel's algorithm
-    (emulated, with the lanes a thread that ssm_geometry picks) against
+    (emulated, with the launch ssm_bwd_geometry picks) against
     ``jax.vjp`` of the reference's scan, from a random ``h0`` or zero,
     with a cotangent on the final state; ragged L and D cross the
     16-step chunks and the 32-channel blocks."""
@@ -227,7 +308,7 @@ def test_backward_plain_and_kernel_order_vs_jax_vjp(b, l, d, n, with_h0):
                                        torch.as_tensor(dh_last))
     emu = _emulate_backward(*t_in, torch.as_tensor(dy), t_h0,
                             torch.as_tensor(dh_last),
-                            ss.ssm_geometry(b, l, d, n)["k"])
+                            ss.ssm_bwd_geometry(b, l, d, n))
     names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
     for got in (plain, emu):
         for name, g, w in zip(names, got, want):
@@ -236,6 +317,148 @@ def test_backward_plain_and_kernel_order_vs_jax_vjp(b, l, d, n, with_h0):
                 continue
             np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-4,
                                        err_msg=name)
+
+
+def _head_inputs(rng, b, l, nh, hd, n):
+    """x, dt, A, B, C, D of the per-head scan (numpy f32), drawn as
+    ``_scan_inputs`` draws the per-channel ones."""
+    return (rng.standard_normal((b, l, nh * hd)).astype(np.float32),
+            (np.abs(rng.standard_normal((b, l, nh))) * 0.1)
+            .astype(np.float32),
+            -np.abs(rng.standard_normal((nh,))).astype(np.float32),
+            rng.standard_normal((b, l, n)).astype(np.float32),
+            rng.standard_normal((b, l, n)).astype(np.float32),
+            rng.standard_normal((nh,)).astype(np.float32))
+
+
+def _jax_heads_vjp(inputs, hd, h0, dy, dh_last):
+    """jax.vjp of the reference's per-head Mamba-2 arithmetic
+    (``repro.models.ssm.mamba2_forward``'s scan: one decay a (t, head),
+    ``linear_scan`` over (B, L, nh, headdim, N), the einsum with C, the
+    skip D per head) from ``h0``, with the final state as a second
+    output."""
+    def f(x, dt, a, bs, cs, dres, h0):
+        b, l, d = x.shape
+        nh, n = a.shape[0], bs.shape[-1]
+        xh = x.reshape(b, l, nh, hd)
+        decay = jnp.exp(dt * a[None, None])
+        bu = (dt[..., None] * xh)[..., None] * bs[:, :, None, None, :]
+        hs, h_last = jax_ssm.linear_scan(decay[..., None, None], bu,
+                                         h0.reshape(b, nh, hd, n))
+        y = jnp.einsum("blhdn,bln->blhd", hs, cs) + \
+            dres[None, None, :, None] * xh
+        return y.reshape(b, l, d), h_last.reshape(b, d, n)
+    j = [jnp.asarray(v) for v in inputs] + [jnp.asarray(h0)]
+    _, vjp = jax.vjp(f, *j)
+    return vjp((jnp.asarray(dy), jnp.asarray(dh_last)))
+
+
+@pytest.mark.parametrize("b,l,nh,hd,n,with_h0,with_dh", [
+    (2, 50, 3, 48, 16, True, True),   # heads across blocks and clusters
+    (1, 37, 2, 64, 64, True, False),  # Zamba2's widths, ragged L
+    (2, 33, 5, 7, 8, False, True),    # headdim 7: heads inside threads
+    (1, 20, 6, 16, 4, False, False),
+    (1, 40, 9, 32, 16, True, True)])  # 9 heads: 5 clusters of 2, padded
+def test_heads_backward_plain_and_kernel_order_vs_jax_vjp(
+        b, l, nh, hd, n, with_h0, with_dh):
+    """``ssm_scan_heads_backward_plain`` and the backward kernel's head
+    mode (emulated with the launch ssm_bwd_geometry picks: one decay a
+    (t, head), the factorised ddt / dA, the heads' shares over blocks and
+    clusters) against ``jax.vjp`` of the reference's per-head scan, from
+    a random ``h0`` or zero, with and without a cotangent on the final
+    state; ragged L crosses the 16-step chunks."""
+    rng = np.random.default_rng(b * 7919 + l * 31 + nh * hd + n)
+    inputs = _head_inputs(rng, b, l, nh, hd, n)
+    d = nh * hd
+    h0 = rng.standard_normal((b, d, n)).astype(np.float32) if with_h0 \
+        else np.zeros((b, d, n), np.float32)
+    dy = rng.standard_normal((b, l, d)).astype(np.float32)
+    dh_last = rng.standard_normal((b, d, n)).astype(np.float32) \
+        if with_dh else np.zeros((b, d, n), np.float32)
+    want = [np.asarray(w) for w in _jax_heads_vjp(inputs, hd, h0, dy,
+                                                    dh_last)]
+    t_in = _t(*inputs)
+    t_h0 = torch.as_tensor(h0) if with_h0 else None
+    t_dh = torch.as_tensor(dh_last) if with_dh else None
+    plain = ss.ssm_scan_heads_backward_plain(*t_in, torch.as_tensor(dy), hd,
+                                             t_h0, t_dh)
+    geo = ss.ssm_bwd_geometry(b, l, d, n, hd)
+    emu = _emulate_backward(*t_in, torch.as_tensor(dy), t_h0, t_dh, geo, hd)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD", "dh0")
+    for got in (plain, emu):
+        for name, g, w in zip(names, got, want):
+            if name == "dh0" and not with_h0:
+                assert g is None
+                continue
+            assert tuple(g.shape) == w.shape, name
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-4, atol=1e-4,
+                                       err_msg=name)
+
+
+def test_head_decay_equals_lane_decay_bitwise():
+    """The head mode's one decay a (t, head), exp(dt_h A_h), is bitwise
+    the decay the forward forms per (channel, lane) from the repeated
+    values: the same two f32 operands, the same product and exp."""
+    rng = np.random.default_rng(5)
+    _x, dt, a, _bs, _cs, dres = _t(*_head_inputs(rng, 2, 40, 6, 8, 16))
+    dt_ch, a_ch, _ = ss._expand_heads(dt, a, dres, 8, 16)
+    per_head = torch.exp(dt * a)                               # (B, L, nh)
+    per_lane = torch.exp(dt_ch[..., None] * a_ch)              # (B,L,D,N)
+    want = per_head.repeat_interleave(8, -1)[..., None].expand_as(per_lane)
+    assert torch.equal(per_lane, want)
+
+
+def test_heads_entry_on_cpu_is_the_plain_path():
+    """``ssm_scan_heads`` on CPU tensors is the expanded plain scan,
+    differentiated by autograd into per-head grads that
+    ``ssm_scan_heads_backward_plain`` matches; ``ssm_scan_heads_vjp``
+    counts nothing there; shapes that disagree raise."""
+    rng = np.random.default_rng(8)
+    inputs = _t(*_head_inputs(rng, 2, 21, 3, 5, 8))
+    h0 = torch.as_tensor(rng.standard_normal((2, 15, 8)).astype(np.float32))
+    leaves = [v.clone().requires_grad_() for v in inputs + [h0]]
+    fwd, bwd = ss.ssm_scan.launches, ss.ssm_scan_vjp.launches
+    y, h = ss.ssm_scan_heads(*leaves[:6], 5, h0=leaves[6], return_state=True)
+    dt_ch, a_ch, d_ch = ss._expand_heads(inputs[1], inputs[2], inputs[5], 5,
+                                         8)
+    wy, wh = ss.ssm_scan_plain(inputs[0], dt_ch, a_ch, *inputs[3:5], d_ch,
+                               h0, return_state=True)
+    assert torch.equal(y, wy) and torch.equal(h, wh)
+    dy, dh = torch.randn_like(y), torch.randn_like(h)
+    torch.autograd.backward((y, h), (dy, dh))
+    got = ss.ssm_scan_heads_vjp(*inputs, None, dy, 5, h0, dh)
+    assert (ss.ssm_scan.launches, ss.ssm_scan_vjp.launches) == (fwd, bwd)
+    for g, leaf in zip(got, leaves):
+        assert g.shape == leaf.grad.shape
+        _close(g, leaf.grad, 1e-4, 1e-5)
+    with pytest.raises(ValueError, match="disagree"):
+        ss.ssm_scan_heads(*inputs, 4)
+
+
+@pytest.mark.parametrize("shape,headdim,want", [
+    # Zamba2's training row: 2 lanes x 4 channels a thread, 32 channels
+    # (256 threads) a block, clusters of 2; 31.03 channels an SM on
+    # average, 32 on the busiest: the best whole channels can do
+    ((1, 1024, 4096, 64), 64, (2, 4, 32, 256, 128, 2, 128, 1, 4096 / 132 /
+                                32)),
+    ((1, 4096, 1024, 64), 64, (2, 4, 32, 256, 32, 2, 32, 1, 1024 / 132 /
+                                32)),
+    ((2, 300, 4096, 64), 64, (2, 4, 32, 256, 128, 2, 128, 1, 8192 / 132 /
+                               64)),
+    # Falcon-Mamba per channel: 2 x 2 a thread, 128 threads a block
+    ((1, 1024, 8192, 16), None, (2, 2, 32, 128, 256, 2, 256, 0, 8192 /
+                                 132 / 64)),
+    # per channel at N = 64: 16 channels a block; a ragged D pads the
+    # grid to whole clusters
+    ((1, 77, 100, 64), None, (2, 2, 16, 256, 7, 2, 8, 0, 100 / 132 / 16)),
+    # heads of 48 across blocks of 32: two slots a block
+    ((2, 50, 144, 16), 48, (2, 4, 32, 64, 5, 2, 6, 2, 288 / 132 / 32)),
+    ((1, 33, 70, 1), None, (1, 2, 64, 32, 2, 2, 2, 0, 70 / 132 / 64))])
+def test_ssm_bwd_geometry_pins(shape, headdim, want):
+    geo = ss.ssm_bwd_geometry(*shape, headdim)
+    keys = ("k", "m", "channels", "threads", "blocks", "cluster", "grid",
+            "head_slots", "fill")
+    assert tuple(geo[k] for k in keys) == pytest.approx(want)
 
 
 def test_plain_backward_equals_autograd_of_plain_forward():
