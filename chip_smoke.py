@@ -39,7 +39,10 @@ Phases (each fails the run if its check fails):
                  from h0, and its head mode (``ssm_scan_heads``: dt, A
                  and D per head of 64, ddt, dA and dD per head) at
                  Zamba2's shape, L = 4096 and from h0, each repeated
-                 bitwise; rms_norm's gradients at
+                 bitwise; at a rank's shapes of 7h, the head mode at (2,
+                 1024, 32 x 64, 64), the forward at (2, 1024, 2048, 64)
+                 and the per-channel backward at Falcon-Mamba's tp-2
+                 (2, 1024, 4096, 16); rms_norm's gradients at
                  (1024, 4096) too;
                  reduce_scatter_rmsnorm and reduce_scatter_adamw (f32 and
                  bf16, weight decay 0 and 0.1) at the JAX test shapes, the
@@ -95,7 +98,8 @@ Phases (each fails the run if its check fails):
                  attention block 6 times, f32) the same way (its hybrid
                  cache mixes KV leaves with token-free SSM leaves: whole
                  slot images, no prefix sharing);
-6. collectives - every flat collective on 4 ranks sharing the card, ring
+6. collectives - (one spawn of the ranks for both tables) every flat
+                 collective on 4 ranks sharing the card, ring
                  (gloo; to 16 MB) and cxl (the pinned shared host pool),
                  at 1, 16 and 256 MB per rank: each rank's result against
                  a numpy oracle (bitwise), and the median time; then
@@ -197,25 +201,41 @@ Phases (each fails the run if its check fails):
                  (all_gather_matmul under --fuse-kernels, on the shared
                  block's products), ``shared_a`` gathered once a shared
                  group (6, the reference's sites), every auto call at its
-                 plan cell.
+                 plan cell (cxl and auto 2 steps);
+7h. train hybrid (data, model) - Zamba2-1.2B at full width and depth
+                 over ``--mesh 2x2 --topology data:cxl,model:cxl``
+                 (Mamba channels and heads, the shared block's heads and
+                 FFN columns, the vocabulary sharded over model; each
+                 Mamba-2 row's gated norm one model-level AllReduce more)
+                 under cxl+fused (profiled, 3 steps), cxl and auto (7c's
+                 plan, 2 steps): the checks of 7g, pool bytes at both
+                 levels, every auto call at its level's cell, and the
+                 step-0 losses within 1e-4 of each other and of 7g's
+                 (the model is the same function at tp 2).
 
-Phase 7 starts with every path's smoke check at once: the six smoke
-models' training runs on the card and the same runs on the CPU go side
-by side (each is mostly its ranks' start-up); the SSM smoke models'
-take sequences of 128 tokens (the CPU's plain scan is a loop over L).
+Phase 7 starts with every path's smoke check at once: the eight smoke
+models' training runs (the SSM models' at ``4x1`` and at ``2x2``) on
+the card and the same runs on the CPU, the models of one mesh and
+topology in one spawn of the ranks a side (``train.run_many``: a rank's
+start-up on the card is most of a check), every spawn side by side; the
+SSM smoke models' take sequences of 128 tokens (the CPU's plain scan is
+a loop over L).  For the same reason the full-width runs of one mesh and
+topology share a spawn of the ranks: 7's flat Llama runs with 7g's
+Zamba2 runs, 7c's Llama runs with 7e's Granite and 7h's Zamba2 runs.
 
 The kernels' launch counters are zeroed before each serving run and
 before each training step (in the rank processes), and read after it
 (the kernels line's ``launches_by_path`` counts the flat training runs
 as ``train``, 7b's as ``train_hier``, 7c's as ``train_tp``, 7d's as
 ``train_ragged``, 7e's as ``train_moe``, 7f's as ``serve_moe``, 7g's as
-``train_hybrid`` and Zamba2's serving as ``serve_hybrid``; ssm_scan's
+``train_hybrid``, 7h's as ``train_hybrid_tp`` and Zamba2's serving as
+``serve_hybrid``; ssm_scan's
 backward kernel under ``backward_launches_by_path``):
 the training path's four kernels and rms_norm's backward kernel must
 have run on it, rms_norm and
 flash_attention on the serving path too, rms_norm and ssm_scan on the
 SSM serving path, all three on the hybrid one, ssm_scan's backward on
-the hybrid training path, and the two reduce_scatter kernels on the
+the hybrid training paths, and the two reduce_scatter kernels on the
 kernel API path (their counters are zeroed before it and read after).
 The last three lines of standard output are the kernels' JSON line,
 the card's name and power limit, and the result line.  The full
@@ -312,10 +332,13 @@ TP_DP = TP_TP = 2
 TP_TOKENS = TRAIN_BATCH // TP_DP * PROMPT      # one rank's tokens, T
 # all_gather_matmul on the (data, model) path (--fuse-kernels): x (T,
 # n*Ks) @ (n, Ks, N), n = 2 data shards of Ks = 1024 rows, N this model
-# rank's columns of wq, wk/wv and wg/wu
+# rank's columns of wq, wk/wv and wg/wu; Zamba2's shared block at tp 2
+# (phase 7h) gives the first and the last (its 32 kv heads: wk / wv at N
+# = 1024 too)
 AGM_TP_SHAPES = ((TP_TOKENS, 2, 1024, 1024), (TP_TOKENS, 2, 1024, 256),
                  (TP_TOKENS, 2, 1024, 4096))
-# flash_attention there: 2 sequences of one rank, its 16 of the 32 heads
+# flash_attention there (and in 7h's shared block): 2 sequences of one
+# rank, its 16 of the 32 heads
 FA_TP_SHAPE = (TRAIN_BATCH // TP_DP, PROMPT, 32 // TP_TP, 64)
 # the MoE path: Granite-3.0-MoE at full width over (data, model) = (2, 2),
 # both levels on the pool, experts parallel over model.  --prefetch 0:
@@ -445,6 +468,40 @@ def hybrid_reduce_shapes() -> tuple:
     return tuple((DP, n // DP) for n in lengths)
 
 
+def hybrid_tp_reduce_shapes() -> tuple:
+    """chunked_reduce on the hybrid path at (data, model) = (2, 2), all
+    at N = 2: the model level's AllReduces (two-phase: each rank reduces
+    2 sources of half) of a row's output (T, 2048) f32 and of the gated
+    norm's sum of squares (T, 1) f32, and the data level's
+    reduce-scatters of this model rank's share of a Mamba-2 row's FSDP
+    bucket, of ``shared_a``'s, and of ``shared_a``'s two buckets under
+    ``--fuse-kernels`` (the matmul weights sharded on dim 0, then wo and
+    wd), each over 2 data ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import overlap, tree
+    from repro_torch.models import model, sharding
+    cfg = get_config(HYBRID_ARCH)
+    sharding.set_mesh_sizes({"data": TP_DP, "model": TP_TP})
+    abstract = model.abstract_params(cfg, tp=TP_TP)
+    specs = sharding.param_specs(abstract, cfg, dp_axis="data")
+
+    def sharded(key, row):
+        return [(path[-1], s.index("data") - int(row),
+                 (x[0] if row else x).numel() // (TP_TP if "model" in s
+                                                  else 1))
+                for (path, x), (_, s) in zip(
+                    tree.leaves_with_paths(abstract[key]),
+                    tree.leaves_with_paths(specs[key])) if "data" in s]
+    shared = sharded("shared_a", False)
+    fused = sum(n for name, dim, n in shared
+                if name in overlap.FUSABLE_PARAMS and dim == 0)
+    lengths = (sum(n for *_, n in sharded("g0", True)),
+               sum(n for *_, n in shared), fused,
+               sum(n for *_, n in shared) - fused)
+    return ((2, TP_TOKENS * cfg.d_model // 2), (2, TP_TOKENS // 2)) + \
+        tuple((TP_DP, n // TP_DP) for n in lengths)
+
+
 SSM_ARCH = "falcon-mamba-7b"
 # (B, L, D, N, from a random state): the JAX test shapes, Falcon's prefill
 # (1 x 1024) and decode (4 slots) shapes, a ragged L from a random state;
@@ -459,29 +516,42 @@ SSM_BF16 = (2, 300, 8192, 16, True)
 # one shared attention block applied 6 times)
 HYBRID_ARCH = "zamba2-1.2b"
 HYBRID_D, HYBRID_N, HYBRID_HEADS = 4096, 64, 64   # d_inner, d_state, nh
+HYBRID_HEADDIM = HYBRID_D // HYBRID_HEADS
+# the hybrid path at tp 2 (phase 7h): Zamba2-1.2B over (data, model) =
+# (2, 2), both levels on the pool.  A rank's scan: its 2 rows of 1024
+# tokens, its 32 of the 64 heads (b, l, heads, headdim, N); the
+# per-channel backward at Falcon-Mamba-7B's tp-2 width (its 4096 of 8192
+# channels: b, l, d, N), reached by the kernel phases and the smoke
+# model only (the 7B model does not fit four ranks in f32)
+SSM_TP_HEADS = (TRAIN_BATCH // TP_DP, PROMPT, HYBRID_HEADS // TP_TP,
+                HYBRID_HEADDIM, HYBRID_N)
+SSM_TP_CHANNEL = (TRAIN_BATCH // TP_DP, PROMPT, 8192 // TP_TP, 16)
 # ssm_scan at N = 64: Zamba2's prefill and training shape (1 x 1024, a
 # rank's rows), a decode step (4 slots, from the cached state), a ragged
-# L from a state, L = 4096
+# L from a state, L = 4096, and a rank's scan at tp 2
 SSM64_SHAPES = ((1, PROMPT, HYBRID_D, HYBRID_N, False),
                 (SLOTS, 1, HYBRID_D, HYBRID_N, True),
                 (2, 300, HYBRID_D, HYBRID_N, True),
-                (1, 4096, HYBRID_D, HYBRID_N, False))
+                (1, 4096, HYBRID_D, HYBRID_N, False),
+                (SSM_TP_HEADS[0], PROMPT, HYBRID_D // TP_TP, HYBRID_N,
+                 False))
 # the backward kernel against autograd through the plain version:
 # Falcon-Mamba's training shape, Zamba2's, L = 4096 (at 1024 channels:
-# the plain version's autograd keeps every step's state), and from h0
-# with a cotangent on h_last
+# the plain version's autograd keeps every step's state), from h0 with
+# a cotangent on h_last, and Falcon-Mamba's at tp 2
 SSM_BWD_SHAPES = ((1, PROMPT, 8192, 16, False),
                   (1, PROMPT, HYBRID_D, HYBRID_N, False),
                   (1, 4096, 1024, HYBRID_N, False),
-                  (2, 300, HYBRID_D, HYBRID_N, True))
+                  (2, 300, HYBRID_D, HYBRID_N, True),
+                  SSM_TP_CHANNEL + (False,))
 # the same through the per-head entry (ssm_scan_heads, the backward
 # kernel's head mode) at Zamba2's heads of 64: (b, l, heads, headdim, N,
-# h0)
-HYBRID_HEADDIM = HYBRID_D // HYBRID_HEADS
+# h0); the last a rank's at tp 2
 SSM_HEAD_BWD_SHAPES = (
     (1, PROMPT, HYBRID_HEADS, HYBRID_HEADDIM, HYBRID_N, False),
     (1, 4096, 1024 // HYBRID_HEADDIM, HYBRID_HEADDIM, HYBRID_N, False),
-    (2, 300, HYBRID_HEADS, HYBRID_HEADDIM, HYBRID_N, True))
+    (2, 300, HYBRID_HEADS, HYBRID_HEADDIM, HYBRID_N, True),
+    SSM_TP_HEADS + (False,))
 # the SSM smoke models' training, card vs CPU, at sequences of 128: the
 # CPU's plain scan is a Python loop over L, four ranks sharing the
 # machine's 8 cores (about 4 min a run at 1024)
@@ -496,8 +566,9 @@ LLAMA_TRAIN_KERNELS = ("rms_norm", "rms_norm_vjp", "flash_attention",
 # rms_norm (T, D): Llama's prefill and decode, Falcon-Mamba's; the
 # training path's backward (one rank's 1024 tokens at d_model 2048)
 RMS_SHAPES = ((PROMPT, 2048), (SLOTS, 2048), (PROMPT, 4096), (SLOTS, 4096),
-              RMS_MOE)
+              RMS_MOE, (TP_TOKENS, 2048))
 RMS_BWD = (PROMPT, 2048)
+RMS_TP = (TP_TOKENS, 2048)       # a rank's row norms at (data, model)
 RMS_HYBRID = (PROMPT, HYBRID_D)      # Zamba2's gated norm over d_inner
 # the kernels each serving path must launch
 SERVE_KERNELS = {"serve": ("rms_norm", "flash_attention"),
@@ -906,7 +977,9 @@ def ssm_timing(timer, randn, ss, sms: int) -> dict:
     (N = 16, the row of earlier PRs), Zamba2's prefill and decode (N =
     64), the training forward writing checkpoints and the backward
     kernel at Falcon's and Zamba2's training shapes per channel, and per
-    head at Zamba2's and L = 4096 (the path's mode).  At N = 64 the
+    head at Zamba2's and L = 4096 (the path's mode); at tp 2 (phase 7h)
+    a rank's per-head forward and backward and Falcon's per-channel
+    backward.  At N = 64 the
     kernel forms exp(dt A) for every (channel, lane) where Mamba-2's
     function needs one a head: ``bound_ssd_ms`` is the bound with those
     exps."""
@@ -937,15 +1010,35 @@ def ssm_timing(timer, randn, ss, sms: int) -> dict:
             *args, None, True, geo, checkpoints=True)),
             "plain_ms": None, "library_ms": None, **cost,
             "shape": [b, l, d, n], "geometry": geo}
-    # the backward per channel at Falcon's and Zamba2's training shapes,
-    # per head (Zamba2's heads of 64) at Zamba2's and L = 4096; each
-    # beside a copy of the bytes its function must move
+    # the forward through the per-head entry (ssm_scan_heads: dt, A and
+    # D repeated over a head's channels, then the kernel) at a rank's
+    # shape at tp 2, beside the per-head plain version
+    b, l, nh, hd, n = SSM_TP_HEADS
+    args, _ = ssm_inputs(randn, b, l, nh * hd, n, False)
+    args = (args[0], randn(b, l, nh).abs() * 0.1, -randn(nh).abs(),
+            args[3], args[4], randn(nh))
+    out["tp_heads_forward"] = {
+        "ms": timer(lambda: ss.ssm_scan_heads(*args, hd,
+                                              return_state=True)),
+        "plain_ms": timer(lambda: ss.ssm_scan_heads_plain(
+            *args, hd, return_state=True), iters=5),
+        "library_ms": None, **ssm_cost(b, l, nh * hd, n, False),
+        "shape": [b, l, nh * hd, n], "headdim": hd,
+        "geometry": ss.ssm_geometry(b, l, nh * hd, n, sms)}
+    # the backward per channel at Falcon's and Zamba2's training shapes
+    # and Falcon's at tp 2, per head (Zamba2's heads of 64) at Zamba2's,
+    # L = 4096 and a rank's at tp 2; each beside a copy of the bytes its
+    # function must move
     for key, (b, l, d, n), hd in (
             ("backward", (1, PROMPT, 8192, 16), None),
             ("n64_backward", (1, PROMPT, HYBRID_D, HYBRID_N), None),
             ("n64_heads_backward", (1, PROMPT, HYBRID_D, HYBRID_N),
              HYBRID_HEADDIM),
             ("n64_heads_backward_l4096", (1, 4096, 1024, HYBRID_N),
+             HYBRID_HEADDIM),
+            ("tp_backward", SSM_TP_CHANNEL, None),
+            ("tp_heads_backward", (SSM_TP_HEADS[0], PROMPT,
+                                   HYBRID_D // TP_TP, HYBRID_N),
              HYBRID_HEADDIM)):
         args, _ = ssm_inputs(randn, b, l, d, n, False)
         fwd = args
@@ -984,10 +1077,10 @@ def ssm_timing(timer, randn, ss, sms: int) -> dict:
         del hc, dy, src, dst, run, plain
     del args
     for key in ("n64_prefill", "n64_decode", "n64_train_forward",
-                "n64_backward"):
+                "n64_backward", "tp_heads_forward"):
         rec = out[key]
-        b, l = rec["shape"][:2]
-        ssd = dict(rec, exps=b * l * HYBRID_HEADS)
+        b, l, d = rec["shape"][:3]
+        ssd = dict(rec, exps=b * l * d // HYBRID_HEADDIM)
         rec["bound_ssd_ms"] = max(ssd["bytes"] / HBM_BW,
                                   ssd["flops"] / PEAK[torch.float32],
                                   ssd["exps"] / EXP_RATE) * 1e3
@@ -1107,8 +1200,9 @@ def rs_timing(timer, randn, rand, fc, rs_len: int) -> dict:
 
 def rms_timing(timer, randn, rn, sms: int) -> dict:
     """rms_norm (f32) at :data:`RMS_SHAPES` and its backward at
-    :data:`RMS_BWD` (``backward``), :data:`RMS_MOE` (``backward_moe``)
-    and :data:`RMS_HYBRID` (``backward_hybrid``):
+    :data:`RMS_BWD` (``backward``), :data:`RMS_MOE` (``backward_moe``),
+    :data:`RMS_HYBRID` (``backward_hybrid``) and :data:`RMS_TP`
+    (``backward_tp``, a rank's row norms at (data, model)):
     the kernels, the plain versions, the library call
     and ``copy_ms``, the same bytes moved under the same timer
     (``y.copy_(x)``; for the backward ``torch.add(x, dy, out=dx)``: read
@@ -1134,6 +1228,7 @@ def rms_timing(timer, randn, rn, sms: int) -> dict:
                                               *RMS_MOE)
     out["backward_hybrid"] = rms_backward_timing(timer, randn, rn, sms,
                                                  *RMS_HYBRID)
+    out["backward_tp"] = rms_backward_timing(timer, randn, rn, sms, *RMS_TP)
     return out
 
 
@@ -1436,41 +1531,53 @@ def check_auto_choices(run: dict, plan, topology=None) -> dict:
 
 def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
                     profile: bool = True, short: tuple = (),
-                    arch: str = "llama3.2-1b", ckpt: str = None) -> dict:
+                    arch: str = "llama3.2-1b", archs: dict = None,
+                    ckpt: dict = None) -> dict:
     """``arch`` (Llama-3.2-1B) at full width and depth through the
     launcher's flags: each of ``runs`` (label -> its flags, after
     ``common``) is one variant of a single spawn of the ranks, so the
-    ranks start once; the labels in ``short`` take ``SHORT_STEPS``
-    steps.  The first variant is profiled for one more step, and with
-    ``ckpt`` writes its checkpoint there (``train --ckpt``: its record
-    holds ``ckpt``, ``assemble_s``, ``save_s`` and ``global_params``);
-    ``nvidia-smi`` is sampled over all."""
+    ranks start once; the labels in ``archs`` (label -> arch) train that
+    model instead, in the same spawn (``train.run_many``: one spec a
+    model, the models in turn).  The labels in ``short`` take
+    ``SHORT_STEPS`` steps.  Each model's first variant is profiled for
+    one more step, and with ``ckpt`` (arch -> directory) writes its
+    checkpoint there (``train --ckpt``: its record holds ``ckpt``,
+    ``assemble_s``, ``save_s`` and ``global_params``); ``nvidia-smi``
+    is sampled over all."""
     import dataclasses
 
     from repro_torch.launch import train
-    specs = {label: train.spec_from_args(train.build_parser().parse_args(
-        _train_args(common + extra + ["--lr", "3e-5"], mesh,
-                    SHORT_STEPS if label in short else TRAIN_STEPS, arch)))
-        for label, extra in runs.items()}
-    first = next(iter(specs.values()))
-    for label, sp in specs.items():
-        if dataclasses.replace(sp, variants=first.variants,
-                               steps=first.steps) != first:
-            fail(f"{label} runs on another mesh than {next(iter(runs))}")
-    spec = dataclasses.replace(
-        first, variants=tuple(sp.variants[0] for sp in specs.values()),
-        steps=max(sp.steps for sp in specs.values()), profile=profile,
-        ckpt=ckpt)
+    archs, ckpt = archs or {}, ckpt or {}
+    by_arch: dict = {}
+    for label in runs:
+        by_arch.setdefault(archs.get(label, arch), []).append(label)
+    specs = []
+    for a, labels in by_arch.items():
+        per = {label: train.spec_from_args(train.build_parser().parse_args(
+            _train_args(common + runs[label] + ["--lr", "3e-5"], mesh,
+                        SHORT_STEPS if label in short else TRAIN_STEPS, a)))
+            for label in labels}
+        first = per[labels[0]]
+        for label, sp in per.items():
+            if dataclasses.replace(sp, variants=first.variants,
+                                   steps=first.steps) != first:
+                fail(f"{label} runs on another mesh than {labels[0]}")
+        specs.append(dataclasses.replace(
+            first, variants=tuple(sp.variants[0] for sp in per.values()),
+            steps=max(sp.steps for sp in per.values()), profile=profile,
+            ckpt=ckpt.get(a)))
     t0 = time.perf_counter()
     with SmiSampler() as smi:
-        merged = train.run_ranks(spec)
+        merged = train.run_many(specs)
     wall = time.perf_counter() - t0
     log(f"[train] {' + '.join(runs)}: {wall:.1f}s in one spawn of the "
         f"ranks")
+    got = {label: run for labels, model_runs in zip(by_arch.values(), merged)
+           for label, run in zip(labels, model_runs)}
     out = {}
-    for label, run in zip(runs, merged):
-        run["group_wall_s"] = wall
-        out[label] = _report_run(label, run, smi)
+    for label in runs:
+        got[label]["group_wall_s"] = wall
+        out[label] = _report_run(label, got[label], smi)
     return out
 
 
@@ -1521,51 +1628,42 @@ def check_losses(runs: dict, first: float) -> None:
             fail(f"{label}: the loss did not fall: {ls}")
 
 
-def smoke_card_vs_cpu(mesh: str, tp: int = 1, extra: tuple = (),
-                      arch: str = "llama3.2-1b", seq: int = PROMPT) -> dict:
-    """The smoke model's training path on the card against the same run
-    on the CPU (cxl with fused kernels, the same numpy params at ``tp``,
-    sequences of ``seq`` tokens): the losses of 3 steps within rtol
-    2e-4."""
+def smoke_spec(tmp: str, key: str, mesh: str, tp: int = 1,
+               extra: tuple = (), arch: str = "llama3.2-1b",
+               seq: int = PROMPT):
+    """The smoke model's training run of one card-vs-CPU check (cxl with
+    fused kernels, sequences of ``seq`` tokens) through the launcher's
+    flags, from numpy params (seed 0, at ``tp``) written under ``tmp``."""
     import dataclasses
     import os
-    import tempfile
-    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.models import model
 
-    scfg = get_config(arch, smoke=True)
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
-        path = os.path.join(tmp, "params.npz")
-        train.save_params_npz(model.init_params(
-            scfg, torch.Generator().manual_seed(0), "cpu", tp=tp), path)
-        spec = train.spec_from_args(train.build_parser().parse_args(
-            _train_args(["--smoke", "--backend", "cxl", "--fuse-kernels",
-                         *extra], mesh, arch=arch, seq=seq)))
-        # the two runs side by side: each is mostly its ranks' start-up
-        with ThreadPoolExecutor(2) as pool:
-            runs = {device: pool.submit(train.run_ranks, dataclasses.replace(
-                spec, device=device, params_path=path))
-                for device in ("cuda", "cpu")}
-            losses = {device: [s["loss"] for s in run.result()[0]["steps"]]
-                      for device, run in runs.items()}
-    err = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"]))
-                       / np.abs(losses["cpu"])))
-    log(f"[train] smoke {arch} on {mesh}, 3 steps, card vs CPU losses "
-        f"{losses} (max rel err {err:.2e}, rtol 2e-4)")
-    if not err <= 2e-4:
-        fail(f"smoke {arch} training on {mesh} on the card differs from "
-             f"the CPU: {losses}")
-    return {"losses": losses, "max_rel_err": err}
+    path = os.path.join(tmp, f"{key}.npz")
+    train.save_params_npz(model.init_params(
+        get_config(arch, smoke=True), torch.Generator().manual_seed(0),
+        "cpu", tp=tp), path)
+    spec = train.spec_from_args(train.build_parser().parse_args(
+        _train_args(["--smoke", "--backend", "cxl", "--fuse-kernels",
+                     *extra], mesh, arch=arch, seq=seq)))
+    return dataclasses.replace(spec, params_path=path)
 
 
 def smoke_checks() -> dict:
     """Phase 7's smoke card-vs-CPU checks, one a training path (flat,
-    (data, model), grouped, MoE, Falcon-Mamba's and Zamba2's SSM rows),
-    all at once: each is mostly its ranks' start-up, which overlaps."""
+    (data, model), grouped, MoE, Falcon-Mamba's and Zamba2's SSM rows,
+    both at (data, model) too): each smoke model's training on the card
+    against the same run on the CPU (the same numpy params), the losses
+    of 3 steps within rtol 2e-4.  The checks of one mesh and topology
+    run in one spawn of the ranks on each side (``train.run_many``: a
+    rank's start-up is most of a check), every spawn side by side."""
+    import dataclasses
+    import tempfile
     from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch import train
     flat = f"{DP}x1"
     checks = {
         "smoke_card_vs_cpu": dict(mesh=flat),
@@ -1579,14 +1677,46 @@ def smoke_checks() -> dict:
         "ssm_smoke_card_vs_cpu": dict(mesh=flat, arch=SSM_ARCH,
                                       seq=SSM_SMOKE_SEQ),
         "hybrid_smoke_card_vs_cpu": dict(mesh=flat, arch=HYBRID_ARCH,
-                                         seq=SSM_SMOKE_SEQ)}
+                                         seq=SSM_SMOKE_SEQ),
+        "ssm_tp_smoke_card_vs_cpu": dict(
+            mesh=TP_MESH, tp=TP_TP, arch=SSM_ARCH, seq=SSM_SMOKE_SEQ,
+            extra=("--topology", TP_TOPOLOGY)),
+        "hybrid_tp_smoke_card_vs_cpu": dict(
+            mesh=TP_MESH, tp=TP_TP, arch=HYBRID_ARCH, seq=SSM_SMOKE_SEQ,
+            extra=("--topology", TP_TOPOLOGY))}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(checks)) as pool:
-        futures = {key: pool.submit(smoke_card_vs_cpu, **kw)
-                   for key, kw in checks.items()}
-        out = {key: f.result() for key, f in futures.items()}
-    log(f"[train] {len(checks)} smoke checks side by side: "
-        f"{time.perf_counter() - t0:.1f}s")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
+        specs = {key: smoke_spec(tmp, key, **kw)
+                 for key, kw in checks.items()}
+        groups: dict = {}
+        for key, sp in specs.items():
+            groups.setdefault((sp.mesh(), sp.topology), []).append(key)
+        with ThreadPoolExecutor(2 * len(groups)) as pool:
+            futures = {(keys[0], device): pool.submit(
+                train.run_many, [dataclasses.replace(specs[k], device=device)
+                                 for k in keys])
+                for keys in groups.values() for device in ("cuda", "cpu")}
+            losses = {}
+            for keys in groups.values():
+                for device in ("cuda", "cpu"):
+                    for k, runs in zip(keys,
+                                       futures[keys[0], device].result()):
+                        losses.setdefault(k, {})[device] = [
+                            s["loss"] for s in runs[0]["steps"]]
+    out = {}
+    for key, kw in checks.items():
+        got = losses[key]
+        err = float(np.max(np.abs(np.subtract(got["cuda"], got["cpu"]))
+                           / np.abs(got["cpu"])))
+        arch, mesh = kw.get("arch", "llama3.2-1b"), kw["mesh"]
+        log(f"[train] smoke {arch} on {mesh}, 3 steps, card vs CPU losses "
+            f"{got} (max rel err {err:.2e}, rtol 2e-4)")
+        if not err <= 2e-4:
+            fail(f"smoke {arch} training on {mesh} on the card differs "
+                 f"from the CPU: {got}")
+        out[key] = {"losses": got, "max_rel_err": err}
+    log(f"[train] {len(checks)} smoke checks in {len(groups)} spawns a "
+        f"side, side by side: {time.perf_counter() - t0:.1f}s")
     return out
 
 
@@ -1878,23 +2008,70 @@ def moe_serve(launches: dict) -> dict:
     return rec
 
 
-def hybrid_train_phase(plan_path: str, plan) -> dict:
-    """Phase 7g: Zamba2-1.2B (32 Mamba-2 rows through ssm_scan and its
-    backward kernel, the shared attention block gathered once a shared
-    group) at full width and depth over the flat data axis, FSDP through
-    the pool, on phase 7's plan (the smoke SSM models' training on the
-    card against the CPU is among ``smoke_checks``)."""
+# 7g's runs, Zamba2-1.2B over the flat data axis (variants of the flat
+# path's spawn of the ranks)
+HYBRID_RUNS = ("hybrid_cxl_fused", "hybrid_cxl", "hybrid_auto")
+
+
+def hybrid_train_phase(hybrid: dict, plan) -> dict:
+    """Phase 7g's checks: Zamba2-1.2B (32 Mamba-2 rows through ssm_scan
+    and its backward kernel, the shared attention block gathered once a
+    shared group) at full width and depth over the flat data axis, FSDP
+    through the pool, on phase 7's plan (``hybrid``: its runs, made in
+    the flat path's spawn; the smoke SSM models' training on the card
+    against the CPU is among ``smoke_checks``)."""
     out = {}
-    hybrid = full_width_runs({
-        "hybrid_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
-        "hybrid_cxl": ["--backend", "cxl"],
-        "hybrid_auto": ["--backend", "auto", "--plan", plan_path]}, [],
-        arch=HYBRID_ARCH)
     check_hybrid_runs(hybrid)
     out["hybrid"] = hybrid
     out["hybrid_auto_choices"] = check_auto_choices(hybrid["hybrid_auto"],
                                                     plan)
     check_losses(hybrid, hybrid["hybrid_cxl_fused"]["steps"][0]["loss"])
+    return out
+
+
+def check_hybrid_tp_runs(runs: dict, first_4x1: float) -> None:
+    """Phase 7h's own gates, on top of :func:`check_hybrid_runs`: every
+    step of every run moves pool bytes at both levels; every step-0
+    loss within 1e-4 of the ``4x1`` path's (``first_4x1``: the gated
+    norm is the same function at tp 2); every rank's model-level
+    AllReduces a step equal (rank 0's are logged)."""
+    for label, run in runs.items():
+        ls = [s["loss"] for s in run["steps"]]
+        if abs(ls[0] - first_4x1) > 1e-4 * abs(first_4x1):
+            fail(f"{label}: step-0 loss {ls[0]} is not the 4x1 path's "
+                 f"{first_4x1}")
+        for i, s in enumerate(run["steps"]):
+            moved = {a for a, c in s["pool_by_level"].items()
+                     if c["retrieved"] > 0}
+            if run["backend"] != "ring" and moved != {"data", "model"}:
+                fail(f"{label} step {i}: pool bytes by level "
+                     f"{s['pool_by_level']}")
+        calls = run["steps"][0]["level_counts_rank0"]
+        log(f"[train] {label}: collective calls a step by level (rank 0) "
+            f"{json.dumps(calls)}")
+
+
+# 7e's runs, Granite-3.0-MoE over (data, model) (variants of 7c's spawn)
+MOE_RUNS = ("moe_cxl_fused", "moe_cxl", "moe_auto")
+# 7h's runs, Zamba2-1.2B over (data, model) (variants of 7c's spawn)
+HYBRID_TP_RUNS = ("hybrid_tp_cxl_fused", "hybrid_tp_cxl", "hybrid_tp_auto")
+
+
+def hybrid_tp_train_phase(runs: dict, tp_plan, first_4x1: float) -> dict:
+    """Phase 7h's checks: Zamba2-1.2B at full width and depth over
+    ``--mesh 2x2 --topology data:cxl,model:cxl`` (Mamba channels and
+    heads, the shared block's heads and FFN columns and the vocabulary
+    sharded over model, FSDP over data, both levels on the pool) under
+    cxl+fused (profiled, 3 steps), cxl and auto (7c's plan; 2 steps
+    each), ``runs``, made in 7c's spawn: the checks of 7g, both levels'
+    pools, every auto call at its level's cell, and the step-0 losses
+    within 1e-4 of each other and of the ``4x1`` path's."""
+    from repro_torch.core.topology import parse_topology
+    check_hybrid_runs(runs)
+    check_hybrid_tp_runs(runs, first_4x1)
+    out = {"hybrid_tp": runs, "hybrid_tp_auto_choices": check_auto_choices(
+        runs["hybrid_tp_auto"], tp_plan, parse_topology(TP_TOPOLOGY))}
+    check_losses(runs, runs["hybrid_tp_cxl_fused"]["steps"][0]["loss"])
     return out
 
 
@@ -1923,14 +2100,21 @@ def train_phase() -> dict:
     hier_plan = tuner.load_plan(hier_plan_path)
 
     # full width and depth, through the launcher's flags; the runs but
-    # the profiled first take SHORT_STEPS (of the earlier paths, to keep
-    # the time limit; the gloo-bound ring run for its own sake)
+    # the profiled first of each model take SHORT_STEPS (of the earlier
+    # paths, to keep the time limit; the gloo-bound ring run for its own
+    # sake).  7g's Zamba2 runs ride the same spawn of the ranks.
     runs = full_width_runs({
         "cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "cxl": ["--backend", "cxl"],
         "ring": ["--backend", "ring"],
-        "auto": ["--backend", "auto", "--plan", plan_path]}, [],
-        short=("cxl", "ring", "auto"), ckpt=str(CKPT_DIR / "llama"))
+        "auto": ["--backend", "auto", "--plan", plan_path],
+        "hybrid_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
+        "hybrid_cxl": ["--backend", "cxl"],
+        "hybrid_auto": ["--backend", "auto", "--plan", plan_path]}, [],
+        short=("cxl", "ring", "auto", "hybrid_cxl", "hybrid_auto"),
+        archs=dict.fromkeys(HYBRID_RUNS, HYBRID_ARCH),
+        ckpt={"llama3.2-1b": str(CKPT_DIR / "llama")})
+    hybrid = {k: runs.pop(k) for k in HYBRID_RUNS}
     out["flat_ckpt"] = check_flat_ckpt(runs["cxl_fused"])
     out["full_width"] = runs
     out["auto_choices"] = check_auto_choices(runs["auto"], plan)
@@ -1965,12 +2149,28 @@ def train_phase() -> dict:
                "--sizes-mib", *TUNE_SIZES_MIB, "--quiet", "--out",
                tp_plan_path])
     tp_plan = tuner.load_plan(tp_plan_path)
+    # (7e's Granite-3.0-MoE runs and 7h's Zamba2 runs ride the same
+    # spawn of the ranks: the same mesh and topology, on this plan)
     tp = full_width_runs({
         "tp_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "tp_cxl": ["--backend", "cxl"],
-        "tp_auto": ["--backend", "auto", "--plan", tp_plan_path]},
+        "tp_auto": ["--backend", "auto", "--plan", tp_plan_path],
+        "moe_cxl_fused": ["--backend", "cxl", "--fuse-kernels",
+                          "--prefetch", MOE_PREFETCH],
+        "moe_cxl": ["--backend", "cxl", "--prefetch", MOE_PREFETCH],
+        "moe_auto": ["--backend", "auto", "--plan", tp_plan_path,
+                     "--prefetch", MOE_PREFETCH],
+        "hybrid_tp_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
+        "hybrid_tp_cxl": ["--backend", "cxl"],
+        "hybrid_tp_auto": ["--backend", "auto", "--plan", tp_plan_path]},
         ["--topology", TP_TOPOLOGY], mesh=TP_MESH,
-        short=("tp_cxl", "tp_auto"))
+        short=("tp_cxl", "tp_auto", "moe_cxl", "moe_auto", "hybrid_tp_cxl",
+               "hybrid_tp_auto"),
+        archs={**dict.fromkeys(MOE_RUNS, MOE_ARCH),
+               **dict.fromkeys(HYBRID_TP_RUNS, HYBRID_ARCH)},
+        ckpt={MOE_ARCH: str(CKPT_DIR / "moe")})
+    moe = {k: tp.pop(k) for k in MOE_RUNS}
+    hybrid_tp_runs = {k: tp.pop(k) for k in HYBRID_TP_RUNS}
     check_path_runs(tp, {"data", "model"}, "tp_auto")
     out["tp"] = tp
     out["tp_auto_choices"] = check_auto_choices(
@@ -2003,14 +2203,8 @@ def train_phase() -> dict:
 
     # 7e. Mixture-of-Experts: Granite-3.0-MoE over (data, model) = (2, 2),
     # experts parallel over model through the pool's AllToAll, FSDP over
-    # data; full width and depth (the plan of 7c: the same topology)
-    moe = full_width_runs({
-        "moe_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
-        "moe_cxl": ["--backend", "cxl"],
-        "moe_auto": ["--backend", "auto", "--plan", tp_plan_path]},
-        ["--topology", TP_TOPOLOGY, "--prefetch", MOE_PREFETCH],
-        mesh=TP_MESH, short=("moe_cxl", "moe_auto"), arch=MOE_ARCH,
-        ckpt=str(CKPT_DIR / "moe"))
+    # data; full width and depth (run in 7c's spawn, on its plan: the
+    # same topology)
     out["moe_ckpt"] = check_moe_ckpt(moe["moe_cxl_fused"])
     check_path_runs(moe, {"data", "model"}, "moe_auto")
     out["moe"] = moe
@@ -2021,13 +2215,17 @@ def train_phase() -> dict:
     out["moe_routing"] = check_moe_runs(moe)
     check_losses(moe, moe["moe_cxl_fused"]["steps"][0]["loss"])
 
-    # 7g. the hybrid path
-    out.update(hybrid_train_phase(plan_path, plan))
-    hybrid = out["hybrid"]
+    # 7g. the hybrid path; 7h. the same model over (data, model), on
+    # 7c's plan
+    out.update(hybrid_train_phase(hybrid, plan))
+    out.update(hybrid_tp_train_phase(
+        hybrid_tp_runs, tp_plan,
+        hybrid["hybrid_cxl_fused"]["steps"][0]["loss"]))
+    hybrid_tp = out["hybrid_tp"]
     log("[train] step times (s): " + json.dumps(
         {k: [round(s["step_s"], 3) for s in r["steps"]]
          for k, r in {**runs, **hier, **tp, **ragged, **moe,
-                      **hybrid}.items()}))
+                      **hybrid, **hybrid_tp}.items()}))
     return out
 
 
@@ -2113,11 +2311,12 @@ def main() -> int:
         model.abstract_params(cfg)["g0"])
         if x[0].numel() >= sharding.FSDP_MIN_SIZE) // DP
     hybrid_rs = hybrid_reduce_shapes()
+    hybrid_tp_rs = hybrid_tp_reduce_shapes()
     for dtype in (torch.float32, torch.bfloat16):
         shapes = [(n, ln) for n in (2, 4, 16) for ln in (rs_len, RAGGED)]
         shapes += [s for s in hier_reduce_shapes(rs_len) + tp_reduce_shapes(
             rs_len) + ragged_reduce_shapes(rs_len) + hybrid_rs +
-            moe_reduce_shapes() if s not in shapes]
+            hybrid_tp_rs + moe_reduce_shapes() if s not in shapes]
         for n_src, length in shapes:
             x = randn(n_src, length, dtype=dtype)
             err, ok = close(cr.chunked_reduce(x),
@@ -2165,7 +2364,8 @@ def main() -> int:
         "rms_norm": dict(rms["forward"][main], shapes=rms["forward"],
                          backward=rms["backward"],
                          backward_moe=rms["backward_moe"],
-                         backward_hybrid=rms["backward_hybrid"]),
+                         backward_hybrid=rms["backward_hybrid"],
+                         backward_tp=rms["backward_tp"]),
         "flash_attention": {
             "ms": timer(lambda: fa.flash_attention(q, k, v, True)),
             "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v,
@@ -2236,6 +2436,13 @@ def main() -> int:
                                                       length)
                      for n, length in hybrid_rs}
     timing["chunked_reduce"]["hybrid"] = reduce_hybrid
+    # and at the hybrid path's at (data, model): the row's and the gated
+    # norm's model-level AllReduces, the data level's reduce-scatters
+    reduce_hybrid_tp = {f"{n}x{length}": reduce_timing(timer, randn, cr, n,
+                                                         length)
+                        for n, length in hybrid_tp_rs
+                        if f"{n}x{length}" not in reduce_tp}
+    timing["chunked_reduce"]["hybrid_tp"] = reduce_hybrid_tp
     agm = {}
     for t, n, ks, nout in AGM_SHAPES + AGM_TP_SHAPES + AGM_MOE_SHAPES:
         xa, wa = randn(t, n * ks), randn(n, ks, nout)
@@ -2261,9 +2468,11 @@ def main() -> int:
             *(v for k, v in scan.items() if k != "prefill"),
             timing["reduce_scatter_adamw"]["bf16_param"],
             *rms["forward"].values(), rms["backward"],
-            rms["backward_moe"], rms["backward_hybrid"], *reduce_hier.values(),
+            rms["backward_moe"], rms["backward_hybrid"], rms["backward_tp"],
+            *reduce_hier.values(),
             *reduce_tp.values(), *reduce_ragged.values(),
             *reduce_moe.values(), *reduce_hybrid.values(),
+            *reduce_hybrid_tp.values(),
             timing["flash_attention"]["tp"],
             timing["flash_attention"]["moe"]]:
         byte_ms = rec["bytes"] / HBM_BW * 1e3
@@ -2320,32 +2529,28 @@ def main() -> int:
     record["launches"] = launches
     mark("serve")
 
-    # 6. collectives on one card ------------------------------------------
+    # 6. collectives on one card: the flat table and the tuple
+    # primitives over (pod, data) = (2, DP/2), beside the flat axis of all
+    # DP ranks, from one spawn of the ranks ------------------------------
+    from repro_torch.core.topology import parse_topology
     from repro_torch.launch import collectives
     t0 = time.perf_counter()
-    rows = collectives.bench(DP, (1, 16, 256), reps=3, device="cuda",
-                             ring_max_mb=RING_MAX_MB)
+    rows, tuple_rows = collectives.bench_all(
+        DP, (1, 16, 256), TUPLE_SIZES_MB, reps=3, device="cuda",
+        ring_max_mb=RING_MAX_MB, topology=parse_topology(HIER_TOPOLOGY))
     for r in rows:
         log(f"[collectives] {json.dumps(r)}")
     record["collectives"] = rows
-    log(f"[collectives] {len(rows)} cells in "
-        f"{time.perf_counter() - t0:.1f}s")
+    for r in tuple_rows:
+        log(f"[collectives tuple] {json.dumps(r)}")
+    record["collectives_tuple"] = tuple_rows
+    log(f"[collectives] {len(rows)} flat and {len(tuple_rows)} tuple cells "
+        f"in {time.perf_counter() - t0:.1f}s, one spawn of the ranks")
     bad = [r for r in rows if not r["ok"]]
     if bad:
         fail(f"collectives disagree with the numpy oracle: {bad}")
-    # the tuple primitives over (pod, data) = (2, DP/2), beside the flat
-    # axis of all DP ranks
-    from repro_torch.core.topology import parse_topology
-    t0 = time.perf_counter()
-    rows = collectives.bench_tuple(DP, TUPLE_SIZES_MB, reps=3,
-                                   device="cuda",
-                                   topology=parse_topology(HIER_TOPOLOGY))
-    for r in rows:
-        log(f"[collectives tuple] {json.dumps(r)}")
-    record["collectives_tuple"] = rows
-    log(f"[collectives tuple] {len(rows)} cells in "
-        f"{time.perf_counter() - t0:.1f}s")
-    bad = [r for r in rows if not (r["ok"] and r.get("equal_flat", True))]
+    bad = [r for r in tuple_rows
+           if not (r["ok"] and r.get("equal_flat", True))]
     if bad:
         fail(f"tuple collectives disagree with the oracle or the flat "
              f"axis: {bad}")
@@ -2356,7 +2561,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     record["train"] = train_phase()
     (train_launches, hier_launches, tp_launches, ragged_launches,
-     moe_launches, hybrid_launches) = (
+     moe_launches, hybrid_launches, hybrid_tp_launches) = (
         {n: sum(s["launches"][n] for run in record["train"][key].values()
                 for s in run["steps"])
          for n in names}
@@ -2366,6 +2571,8 @@ def main() -> int:
                            ("ragged", LLAMA_TRAIN_KERNELS),
                            ("moe", LLAMA_TRAIN_KERNELS),
                            ("hybrid", HYBRID_KERNELS + (
+                               "chunked_reduce", "all_gather_matmul")),
+                           ("hybrid_tp", HYBRID_KERNELS + (
                                "chunked_reduce", "all_gather_matmul"))))
     record["train"]["launches"] = train_launches
     record["train"]["hier_launches"] = hier_launches
@@ -2373,6 +2580,7 @@ def main() -> int:
     record["train"]["ragged_launches"] = ragged_launches
     record["train"]["moe_launches"] = moe_launches
     record["train"]["hybrid_launches"] = hybrid_launches
+    record["train"]["hybrid_tp_launches"] = hybrid_tp_launches
     mark("train")
 
     # 7f. serve Granite-3.0-MoE at full width through the launcher --------
@@ -2409,6 +2617,10 @@ def main() -> int:
         if n <= 0:
             fail(f"the hybrid training path never launched the {name} "
                  f"kernel")
+    for name, n in hybrid_tp_launches.items():
+        if n <= 0:
+            fail(f"the hybrid (data, model) training path never launched "
+                 f"the {name} kernel")
     api_launches = record["kernel_api"]["launches"]
     for name in API_KERNELS:
         if api_launches[name] <= 0:
@@ -2431,6 +2643,7 @@ def main() -> int:
             by_path["train_moe"] = moe_launches[name]
         if name in hybrid_launches:
             by_path["train_hybrid"] = hybrid_launches[name]
+            by_path["train_hybrid_tp"] = hybrid_tp_launches[name]
         extra = {}
         if name == "rms_norm":
             extra = {"backward_launches_by_path": {
@@ -2439,19 +2652,23 @@ def main() -> int:
                 "train_tp": tp_launches["rms_norm_vjp"],
                 "train_ragged": ragged_launches["rms_norm_vjp"],
                 "train_moe": moe_launches["rms_norm_vjp"],
-                "train_hybrid": hybrid_launches["rms_norm_vjp"]}}
+                "train_hybrid": hybrid_launches["rms_norm_vjp"],
+                "train_hybrid_tp": hybrid_tp_launches["rms_norm_vjp"]}}
         if name == "ssm_scan":
             # the N = 64 forward and the backward kernel at the hybrid
             # path's shapes, each measured in this run beside its bound
             keys = ("ms", "plain_ms", "copy_ms", "bound_ms", "bound_by",
                     "bound_ssd_ms", "library_ms", "shape")
             extra = {"backward_launches_by_path": {
-                "train_hybrid": hybrid_launches["ssm_scan_vjp"]},
+                "train_hybrid": hybrid_launches["ssm_scan_vjp"],
+                "train_hybrid_tp": hybrid_tp_launches["ssm_scan_vjp"]},
                 **{k: {f: t[k][f] for f in keys if f in t[k]}
                    for k in ("n64_prefill", "n64_decode",
                              "n64_train_forward", "backward",
                              "n64_backward", "n64_heads_backward",
-                             "n64_heads_backward_l4096")}}
+                             "n64_heads_backward_l4096",
+                             "tp_heads_forward", "tp_heads_backward",
+                             "tp_backward")}}
         if name in api_launches:
             by_path["kernel_api"] = api_launches[name]
         kernels.append({

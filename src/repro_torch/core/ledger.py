@@ -66,10 +66,12 @@ _HIDDEN: dict = defaultdict(float)
 _FUSED: dict = defaultdict(float)   # bytes whose epilogue/prologue fused
 _COUNTS: dict = defaultdict(int)
 _CALLS: dict = defaultdict(float)   # trip-count-scaled launch count
-# Per-(level axis, fabric) wire bytes: "<axis>/<fabric>" -> kind -> bytes.
-# Populated when the Communicator decomposes against a Topology, so a
-# dry-run can attribute traffic to the fabric that actually carries it.
+# Per-(level axis, fabric) wire bytes: "<axis>/<fabric>" -> kind -> bytes,
+# and the calls that booked them.  Populated when the Communicator
+# decomposes against a Topology, so a dry-run can attribute traffic to
+# the fabric that actually carries it.
 _LEVEL_BYTES: dict = defaultdict(lambda: defaultdict(float))
+_LEVEL_CALLS: dict = defaultdict(lambda: defaultdict(int))
 _MULT: list = [1.0]
 _HIDDEN_CTX: list = [False]
 _FUSED_CTX: list = [False]
@@ -90,6 +92,7 @@ def reset() -> None:
     _COUNTS.clear()
     _CALLS.clear()
     _LEVEL_BYTES.clear()
+    _LEVEL_CALLS.clear()
     _MULT[:] = [1.0]
     _HIDDEN_CTX[:] = [False]
     _FUSED_CTX[:] = [False]
@@ -160,6 +163,7 @@ def record(kind: str, wire_bytes: float, *,
     _CALLS[kind] += m
     if level is not None:
         _LEVEL_BYTES[f"{level}/{fabric or '?'}"][kind] += wire_bytes * m
+        _LEVEL_CALLS[f"{level}/{fabric or '?'}"][kind] += 1
 
 
 def record_fallback(primitive: str, *, level: "str | None" = None,
@@ -317,6 +321,7 @@ def snapshot() -> dict:
             "total_collective_calls": float(sum(_CALLS.values())),
             "level_wire_bytes": {k: dict(v)
                                  for k, v in _LEVEL_BYTES.items()},
+            "level_counts": {k: dict(v) for k, v in _LEVEL_CALLS.items()},
             "auto_choices": list(_CHOICES),
             "fallbacks": list(_FALLBACKS),
             "timings": list(_TIMINGS),

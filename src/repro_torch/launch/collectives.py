@@ -225,12 +225,7 @@ def bench(nranks: int = 4, sizes_mb: Sequence[int] = (1, 16, 256),
                            device=device,
                            partition_bytes=max(sizes_mb) << 20,
                            timeout_s=timeout_s)
-    rows = []
-    for i, row in enumerate(per_rank[0]):
-        recs = [r[i] for r in per_rank]
-        rows.append(dict(row, median_s=max(r["median_s"] for r in recs),
-                         ok=all(r["ok"] for r in recs)))
-    return rows
+    return _merge_rows(per_rank)
 
 
 def tuple_backends(mb: int) -> tuple:
@@ -296,6 +291,20 @@ def rank_bench_tuple(ctx: ranks.RankContext, sizes_mb: Sequence[int],
     return out
 
 
+def _tuple_plans(nranks: int, sizes_mb: Sequence[int],
+                 topology: Topology) -> dict:
+    """The plans ``auto`` resolves against in the tuple bench, tuned here
+    for its sizes: the flat axis's, and the tuple's per level of
+    ``topology``."""
+    from repro_torch import tuner
+    sizes = tuple(mb << 20 for mb in sizes_mb)
+    return {"flat": tuner.generate_plan(tuner.TuneGrid(
+                nranks=(nranks,), sizes=sizes)),
+            "tuple": tuner.generate_plan(tuner.TuneGrid(
+                nranks=tuple(sorted({2, nranks // 2})), sizes=sizes),
+                topology=topology)}
+
+
 def bench_tuple(nranks: int = 4, sizes_mb: Sequence[int] = (1, 16, 256),
                 reps: int = 3, device: str = "cuda",
                 names: Sequence[str] = TUPLE_PRIMITIVES,
@@ -304,20 +313,52 @@ def bench_tuple(nranks: int = 4, sizes_mb: Sequence[int] = (1, 16, 256),
     """Every rank's :func:`rank_bench_tuple`, merged as :func:`bench`
     merges; ``auto`` resolves against plans tuned here for these sizes
     (the tuple's per level of ``topology``)."""
-    from repro_torch import tuner
     topology = topology or parse_topology(DEFAULT_TOPOLOGY)
-    sizes = tuple(mb << 20 for mb in sizes_mb)
-    plans = {"flat": tuner.generate_plan(tuner.TuneGrid(
-                 nranks=(nranks,), sizes=sizes)),
-             "tuple": tuner.generate_plan(tuner.TuneGrid(
-                 nranks=tuple(sorted({2, nranks // 2})), sizes=sizes),
-                 topology=topology)}
+    plans = _tuple_plans(nranks, sizes_mb, topology)
     shape = mesh_shape(nranks, 1, True)
     per_rank = ranks.spawn(rank_bench_tuple, nranks,
                            (tuple(sizes_mb), reps, tuple(names), topology,
                             plans),
                            device=device, partition_bytes=max(sizes_mb) << 20,
                            groups=level_groups(shape), timeout_s=timeout_s)
+    return _merge_rows(per_rank)
+
+
+def rank_bench_all(ctx: ranks.RankContext, flat_args: tuple,
+                   tuple_args: tuple) -> tuple:
+    """:func:`rank_bench` then :func:`rank_bench_tuple` on this rank."""
+    return rank_bench(ctx, *flat_args), rank_bench_tuple(ctx, *tuple_args)
+
+
+def bench_all(nranks: int = 4, sizes_mb: Sequence[int] = (1, 16, 256),
+              tuple_sizes_mb: Sequence[int] = (1, 16), reps: int = 3,
+              device: str = "cuda", ring_max_mb: Optional[int] = None,
+              topology: Optional[Topology] = None,
+              names: Sequence[str] = tuple(PRIMITIVES),
+              tuple_names: Sequence[str] = TUPLE_PRIMITIVES,
+              timeout_s: float = 600.0) -> tuple:
+    """:func:`bench` and :func:`bench_tuple` on ONE spawn of the ranks
+    (each rank maps the flat pool and the level groups' pools, at the
+    larger partition): (flat rows, tuple rows), merged as each merges."""
+    topology = topology or parse_topology(DEFAULT_TOPOLOGY)
+    plans = _tuple_plans(nranks, tuple_sizes_mb, topology)
+    per_rank = ranks.spawn(
+        rank_bench_all, nranks,
+        ((tuple(sizes_mb), reps, tuple(names), ring_max_mb),
+         (tuple(tuple_sizes_mb), reps, tuple(tuple_names), topology,
+          plans)),
+        device=device,
+        partition_bytes=max(tuple(sizes_mb) + tuple(tuple_sizes_mb)) << 20,
+        groups=level_groups(mesh_shape(nranks, 1, True)),
+        timeout_s=timeout_s)
+    return (_merge_rows([r[0] for r in per_rank]),
+            _merge_rows([r[1] for r in per_rank]))
+
+
+def _merge_rows(per_rank: list) -> list:
+    """Every rank's rows -> one a cell: the slowest rank's median,
+    whether all ranks matched the oracle (and, for a tuple row, the flat
+    axis)."""
     rows = []
     for i, row in enumerate(per_rank[0]):
         recs = [r[i] for r in per_rank]

@@ -33,6 +33,9 @@ tensor-parallel paths:
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
       --mesh 4x1 --backend cxl --steps 3 --batch 4 --seq 1024 \\
       [--fuse-kernels]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+      --mesh 2x2 --topology data:cxl,model:cxl --backend cxl --steps 3 \\
+      --batch 4 --seq 1024 [--fuse-kernels]
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch falcon-mamba-7b --smoke --mesh 4x1 --backend cxl --steps 3
 
@@ -60,7 +63,7 @@ collective over the tuple decomposes against the topology.
 ``--topology`` (an ``axis:fabric,...`` spec or a JSON file, as in
 ``launch.tune``) is activated in every rank, and this process warns
 about mesh axes it does not cover.  Each step's record holds the pool
-bytes of each level and the ledger's wire bytes by level.
+bytes of each level and the ledger's wire bytes and calls by level.
 
 ``--mesh DPxTP`` with TP > 1 adds the model axis (``launch.mesh``: rank
 r at data r // TP, model r % TP): the weights are Megatron-sharded over
@@ -90,11 +93,15 @@ combine are AllToAlls through the ``Communicator`` (``models.moe``), and
 the loss adds the routers' auxiliary loss.
 
 The SSM rows (Falcon-Mamba's Mamba-1, Zamba2's Mamba-2) train through
-the ``ssm_scan`` kernel and its backward kernel at tp = 1; Zamba2's
-shared attention block (``shared_a``) is gathered as its own FSDP group,
-once per shared group under ``--prefetch 1`` and at each use under
-``--prefetch 0``, its grads summed over its uses.  Each step's record
-counts the FSDP gathers by group (``gathers``).
+the ``ssm_scan`` kernel and its backward kernel at any ``--mesh``: at tp
+> 1 their channels and heads are sharded over the model axis, and a
+Mamba-2 row's gated norm sums its squares over it (one more model-level
+AllReduce a row, ``models.ssm.gated_norm``), so the model is the same
+function at every tp.  Zamba2's shared attention block (``shared_a``) is
+gathered as its own FSDP group, once per shared group under
+``--prefetch 1`` and at each use under ``--prefetch 0``, its grads
+summed over its uses.  Each step's record counts the FSDP gathers by
+group (``gathers``).
 
 ``--ckpt DIR`` saves the GLOBAL params after the last step, as the
 reference launcher does: ``{"params": params}`` at step ``--steps`` in
@@ -295,11 +302,12 @@ def _delta(after: dict, before: dict) -> dict:
 
 def _profile_step(run_step, dev) -> dict:
     """Device time by kernel for one step of this rank, with copies
-    (Memcpy) apart from kernels, and the step's wall time."""
+    (Memcpy) apart from kernels, and the step's wall time.  The profiler
+    records the device's activity only: the CPU ops' events add nothing
+    to the device times and cost seconds a step to record and fold."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         synchronize(dev)
         t0 = time.perf_counter()
         run_step()
@@ -333,13 +341,17 @@ def distinct_choices(audit: list) -> list:
                                             for v in kv[0]))]
 
 
-def _rank_run(ctx: ranks.RankContext, spec: RunSpec) -> list:
-    set_active_topology(spec.topology)
-    sharding.set_axis_aliases(spec.aliases or {})
-    return [_run_variant(
-        ctx, spec, tcfg, profile=spec.profile and k == 0,
-        stage=spec.ckpt is not None and k == 0)
-        for k, tcfg in enumerate(spec.variants)]
+def _rank_run(ctx: ranks.RankContext, specs: Sequence[RunSpec]) -> list:
+    """Every spec's variants on this rank, spec after spec."""
+    out = []
+    for spec in specs:
+        set_active_topology(spec.topology)
+        sharding.set_axis_aliases(spec.aliases or {})
+        out.append([_run_variant(
+            ctx, spec, tcfg, profile=spec.profile and k == 0,
+            stage=spec.ckpt is not None and k == 0)
+            for k, tcfg in enumerate(spec.variants)])
+    return out
 
 
 def _local_params(ctx: ranks.RankContext, spec: RunSpec, cfg, pspecs,
@@ -488,6 +500,7 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
                "wire_bytes": snap["wire_bytes"],
                "fused_bytes": snap["fused_bytes"],
                "level_wire_bytes": snap["level_wire_bytes"],
+               "level_counts": snap["level_counts"],
                "choices": distinct_choices(snap["auto_choices"]),
                "fallbacks": len(snap["fallbacks"]),
                "moe_dropped": int(metrics["moe_dropped"]),
@@ -546,46 +559,73 @@ def run_ranks(spec: RunSpec) -> list:
     started, all variants run, results back: ``spawn_s``) and the
     slowest rank's seconds building its params (``init_s``) and copying
     them out (``capture_s``)."""
-    if spec.device == "cuda":
+    return run_many([spec])[0]
+
+
+def run_many(specs: Sequence[RunSpec]) -> list:
+    """:func:`run_ranks` of several specs on ONE spawn of the ranks: the
+    specs (models, params, variants, steps) run in turn in the same rank
+    processes, so the ranks start once.  They must share the device, the
+    mesh, the topology and the axis aliases; the pools take the largest
+    partition any spec asks for.  Returns each spec's records, as
+    :func:`run_ranks` returns them (``spawn_s`` the one spawn's)."""
+    first = specs[0]
+    place = (first.device, first.mesh(), first.topology, first.aliases)
+    if any((sp.device, sp.mesh(), sp.topology, sp.aliases) != place
+           for sp in specs):
+        raise ValueError("run_many: the specs must share the device, the "
+                         "mesh, the topology and the axis aliases")
+    if first.device == "cuda":
         resolve_device("cuda")        # raises without a card
         build.build_all()             # once, before the ranks start
-    cfg = spec.model_config()
-    need_pool = any(t.backend != "ring" for t in spec.variants)
-    shape = spec.mesh()
-    nranks = spec.dp * spec.tp
+    windows = [pool_window(sp.model_config()) for sp in specs
+               if any(t.backend != "ring" for t in sp.variants)]
+    shape = first.mesh()
+    nranks = first.dp * first.tp
     t_spawn = time.perf_counter()
     per_rank = ranks.spawn(
-        _rank_run, nranks, (spec,), device=spec.device,
-        partition_bytes=pool_window(cfg) if need_pool else 0,
-        groups=level_groups(shape, spec.topology),
+        _rank_run, nranks, (tuple(specs),), device=first.device,
+        partition_bytes=max(windows, default=0),
+        groups=level_groups(shape, first.topology),
         poolless=joint_groups(shape),
         world_pool=any(n == nranks for _, n in shape),
-        timeout_s=spec.timeout_s,
-        wait_s=spec.timeout_s * (1 + len(spec.variants) * (spec.steps + 1)))
+        timeout_s=max(sp.timeout_s for sp in specs),
+        wait_s=sum(sp.timeout_s * (1 + len(sp.variants) * (sp.steps + 1))
+                   for sp in specs))
     spawn_s = time.perf_counter() - t_spawn
-    saved = None
-    if spec.ckpt is not None:
-        t0 = time.perf_counter()
-        layouts = [r[0]["layout"] for r in per_rank]
-        paths = list(layouts[0]["specs"])
-        params = assemble_params(
-            [_staged_shards(spec.ckpt, k, paths) for k in range(nranks)],
-            layouts)
-        shutil.rmtree(os.path.dirname(_stage_dir(spec.ckpt, 0)))
-        t1 = time.perf_counter()
-        path = checkpoint.save(spec.ckpt, spec.steps, {"params": params})
-        saved = {"ckpt": path, "global_params": params,
-                 "assemble_s": t1 - t0, "save_s": time.perf_counter() - t1}
-        which = f" (the first of {len(spec.variants)} variants)" \
-            if len(spec.variants) > 1 else ""
-        print(f"saved {path}{which}", flush=True)
-    runs = [_merge([r[v] for r in per_rank], tcfg)
-            for v, tcfg in enumerate(spec.variants)]
-    for run in runs:
-        run["spawn_s"] = spawn_s
-    if saved is not None:
-        runs[0].update(saved)
-    return runs
+    out = []
+    for i, spec in enumerate(specs):
+        mine = [r[i] for r in per_rank]
+        saved = None
+        if spec.ckpt is not None:
+            saved = _save_ckpt(spec, [r[0]["layout"] for r in mine], nranks)
+        runs = [_merge([r[v] for r in mine], tcfg)
+                for v, tcfg in enumerate(spec.variants)]
+        for run in runs:
+            run["spawn_s"] = spawn_s
+        if saved is not None:
+            runs[0].update(saved)
+        out.append(runs)
+    return out
+
+
+def _save_ckpt(spec: RunSpec, layouts: list, nranks: int) -> dict:
+    """The first variant's final GLOBAL params, assembled from the
+    ranks' staged shards, saved to ``spec.ckpt`` at step ``spec.steps``
+    (the staging directory removed)."""
+    t0 = time.perf_counter()
+    paths = list(layouts[0]["specs"])
+    params = assemble_params(
+        [_staged_shards(spec.ckpt, k, paths) for k in range(nranks)],
+        layouts)
+    shutil.rmtree(os.path.dirname(_stage_dir(spec.ckpt, 0)))
+    t1 = time.perf_counter()
+    path = checkpoint.save(spec.ckpt, spec.steps, {"params": params})
+    which = f" (the first of {len(spec.variants)} variants)" \
+        if len(spec.variants) > 1 else ""
+    print(f"saved {path}{which}", flush=True)
+    return {"ckpt": path, "global_params": params, "assemble_s": t1 - t0,
+            "save_s": time.perf_counter() - t1}
 
 
 def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
@@ -619,6 +659,7 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
             "wire_bytes_rank0": rec0["wire_bytes"],
             "fused_bytes_rank0": rec0["fused_bytes"],
             "level_wire_bytes_rank0": rec0["level_wire_bytes"],
+            "level_counts_rank0": rec0["level_counts"],
             "choices_rank0": rec0["choices"]})
     out = {"backend": tcfg.backend, "fuse_kernels": tcfg.fuse_kernels,
            "microbatches": tcfg.microbatches, "prefetch": tcfg.prefetch,
@@ -711,6 +752,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             print("  pool MiB by level " + json.dumps(
                 {a: {k: round(v / 2**20, 1) for k, v in c.items()}
                  for a, c in s["pool_by_level"].items()}), flush=True)
+        if s["level_counts_rank0"]:
+            print("  collective calls by level (rank 0) "
+                  + json.dumps(s["level_counts_rank0"]), flush=True)
     for c in run["steps"][0]["choices_rank0"] if run["steps"] else []:
         print(f"auto {c['primitive']} {c['msg_bytes']} B x{c['nranks']}"
               + (f" at {c['level']}" if c.get("level") else "") + ": "

@@ -9,11 +9,12 @@ of their own and all apply the one ``shared_a`` set (``models.model``),
 each occurrence with its own KV cache.  Consecutive rows of one kind
 form a group whose params are stacked along a leading layer axis (the
 reference's ``g<i>`` layout); the model loops over a group's layers in
-Python where the reference runs ``lax.scan``.  Attention and MoE rows
-train at any tp; prefill, decode and the decode cache at tp > 1 (the
-reference's sequence-sharded cache) are not ported yet (ROADMAP queue
-1, item 11) and raise, as SSM rows at tp > 1 do (item 8).
-Cross-attention comes with whisper-tiny (item 8).
+Python where the reference runs ``lax.scan``.  Every row kind trains
+at any tp (the Mamba rows channel- and head-sharded over the model
+axis, ``models.ssm``); prefill, decode and the decode cache at tp > 1
+(the reference's sequence-sharded cache) are not ported yet (ROADMAP
+queue 1, item 11) and raise.  Cross-attention comes with whisper-tiny
+(item 8).
 """
 from __future__ import annotations
 
@@ -49,15 +50,11 @@ def scan_groups(cfg: ModelConfig) -> list[Group]:
     return groups
 
 
-def _ported(kind: str, cfg: ModelConfig, pc=None) -> None:
+def _ported(kind: str, cfg: ModelConfig) -> None:
     if kind not in ("a", "e", "1", "2") or cfg.encoder is not None:
         raise NotImplementedError(
             f"{cfg.name}: row kind {kind!r} (or cross attention) is not "
             f"ported yet (ROADMAP queue 1, item 8)")
-    if kind in ("1", "2") and pc is not None and pc.tp_active:
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba-{kind} rows at tp > 1 are not ported yet "
-            f"(ROADMAP queue 1, item 8)")
 
 
 # ----------------------------------------------------------------------- #
@@ -102,7 +99,7 @@ def row_forward(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
                 causal: bool = True, window: Optional[int] = None):
     """Full-sequence forward for one row (training).  Returns
     (h, aux_loss); the MoE's router loss, zero for the other kinds."""
-    _ported(kind, cfg, pc)
+    _ported(kind, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind in ("1", "2"):
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
@@ -124,7 +121,7 @@ def row_prefill(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
     ``cache`` (attention {'k','v'}: (B, max_seq, n_kv, hd); Mamba-1
     {'conv','ssm'}; Mamba-2 {'conv','conv_bc','ssm'}), written in place
     where the reference returns a new one.  Returns h."""
-    _ported(kind, cfg, pc)
+    _ported(kind, cfg)
     layers.require_unsharded_decode(pc)
     if kind in ("1", "2"):
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
@@ -168,7 +165,7 @@ def row_decode(p: Params, h: torch.Tensor, kind: str, cache: dict,
     ``{'conv','ssm'}``, Mamba-2 ``{'conv','conv_bc','ssm'}``.  With
     ``active`` ((B,) bool) only those slots' state is written; an
     inactive slot's stays bitwise as it was.  Returns (h, cache)."""
-    _ported(kind, cfg, pc)
+    _ported(kind, cfg)
     layers.require_unsharded_decode(pc)
     if kind in ("1", "2"):
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
@@ -208,7 +205,7 @@ def row_cache_init(kind: str, cfg: ModelConfig, pc: ParallelContext,
     batch, d_inner, d_state) f32}; Mamba-2 {'conv' in ``dtype``,
     'conv_bc': (layers_, batch, d_conv - 1, 2 d_state) f32, 'ssm':
     (layers_, batch, nh, headdim, d_state) f32} (no token axis)."""
-    _ported(kind, cfg, pc)
+    _ported(kind, cfg)
     layers.require_unsharded_decode(pc)
     lead = () if layers_ is None else (layers_,)
     if kind in ("1", "2"):

@@ -1,9 +1,18 @@
 """Mamba-1 (S6 selective scan) and Mamba-2 (SSD, scalar A per head)
 blocks.
 
-Port of ``repro/models/ssm.py`` at tp = 1 (the reference's tp
-collectives are the identity here; SSM rows at tp > 1 are ROADMAP queue
-1, item 8).  The projections are plain ``torch.matmul``; the recurrence
+Port of ``repro/models/ssm.py``, channel-parallel over the model axis
+as the reference: ``d_inner`` (Mamba-2: its heads) is sharded, the scan
+is independent per channel, Mamba-1's ``x_proj`` and both blocks'
+``out_proj`` are row-parallel matmuls summed by ``pc.tp_all_reduce``
+(``src/repro/models/ssm.py:121, 138, 220``), and Mamba-2's B/C
+projection and its conv are replicated.  One place differs on purpose:
+at tp > 1 the reference's Mamba-2 gated norm reduces over the rank's
+d_inner / tp channels only (``src/repro/models/ssm.py:219``), so its
+sharded row is another function than its unsharded one; the port's
+gated norm sums its squares over the model axis first
+(:func:`gated_norm`), so a row computes the same function at every tp.
+The projections are plain ``torch.matmul``; the recurrence
 goes through the hand-written ``ssm_scan`` kernel
 (``kernels/ssm_scan.py``), in prefill, decode and training (its
 backward kernel), where the reference evaluates the same contraction
@@ -113,7 +122,10 @@ def mamba1_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                    return_state: bool = False):
     """x: (B, L, d_model).  state: (conv_state, ssm_state) for decode
     continuation.  The scan runs in f32 on f32 copies of its inputs, as
-    the reference upcasts them."""
+    the reference upcasts them.  Port of ``src/repro/models/ssm.py:
+    105-141``: at tp > 1 ``x_proj`` is row-parallel, its partial
+    products summed over the model axis (:121), so B, C and dt see the
+    whole d_inner and the sharded row is the unsharded one."""
     s = cfg.ssm
     r = _dt_rank(cfg)
     xin = x @ params["in_x"]                              # (B, L, d_in)
@@ -194,8 +206,8 @@ def mamba2_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
     """x: (B, L, d_model).  state: (conv_x, conv_bc, ssm) for decode
     continuation.  The scan runs in f32 through ``ssm_scan_heads``, dt,
     A and D per head (see the module docstring); the gated norm
-    ``rms_norm(y * silu(z), norm)`` over d_inner is the RMSNorm
-    kernel's."""
+    ``rms_norm(y * silu(z), norm)`` spans the whole d_inner at every tp
+    (:func:`gated_norm`).  Port of ``src/repro/models/ssm.py:184-224``."""
     s = cfg.ssm
     b, l, _ = x.shape
     d_loc = params["out_proj"].shape[0]
@@ -219,13 +231,32 @@ def mamba2_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                                b_mat.contiguous(), c_mat.contiguous(),
                                params["D"], s.headdim, h0=h0,
                                return_state=True)
-    y = layers.rms_norm(y.to(x.dtype) * F.silu(z), params["norm"],
-                        cfg.norm_eps)
+    y = gated_norm(y.to(x.dtype) * F.silu(z), params["norm"],
+                   s.expand * cfg.d_model, cfg.norm_eps, pc)
     out = pc.tp_all_reduce(y @ params["out_proj"])
     if return_state:
         return out, (new_conv_x, new_conv_bc,
                      h_last.reshape(b, nh, s.headdim, s.d_state))
     return out
+
+
+def gated_norm(g: torch.Tensor, scale: torch.Tensor, d_inner: int,
+               eps: float, pc: ParallelContext) -> torch.Tensor:
+    """RMSNorm of the gated output ``g`` = y * silu(z) (B, L, d_loc)
+    over the WHOLE d_inner, whatever the tp.  At tp = 1 the RMSNorm
+    kernel's (``layers.rms_norm``).  At tp > 1, where a rank holds
+    d_loc = d_inner / tp channels: the local sum of squares (B, L) in
+    f32, summed over the model axis by ``pc.tp_all_reduce`` (through
+    the ``Communicator``; its autograd transpose sums the cotangent
+    back), then ``g * rsqrt(sum / d_inner + eps) * scale``, the
+    reference's unsharded ``rms_norm`` (``src/repro/models/layers.py:
+    57-62``) on this rank's channels.  The reference's sharded step
+    normalises over d_loc instead (``src/repro/models/ssm.py:219``)."""
+    if not pc.tp_active:
+        return layers.rms_norm(g, scale, eps)
+    g32 = g.float()
+    ss = pc.tp_all_reduce(g32.square().sum(dim=-1, keepdim=True))
+    return (g32 * torch.rsqrt(ss / d_inner + eps) * scale).to(g.dtype)
 
 
 def mamba2_decode(params: Params, x: torch.Tensor, state: tuple,

@@ -280,6 +280,26 @@ def test_bench_times_ring_only_up_to_ring_max_mb():
     assert all(r["ok"] for r in rows)
 
 
+def test_bench_all_runs_both_tables_on_one_spawn():
+    """``launch.collectives.bench_all``: the flat table and the tuple
+    table over ("pod", "data") = (2, 2) from one spawn of the ranks, the
+    cells of ``bench`` and ``bench_tuple``, each result held to the
+    oracle and each tuple result to the flat axis'."""
+    from repro_torch.launch import collectives
+    names = ("all_gather", "reduce_scatter")
+    flat, tup = collectives.bench_all(4, (1, 2), (1,), reps=1, device="cpu",
+                                      ring_max_mb=1, names=names,
+                                      tuple_names=("all_reduce_two_phase",))
+    assert sorted((r["primitive"], r["mb"], r["backend"]) for r in flat) \
+        == sorted((n, mb, b) for n in names
+                  for mb, b in ((1, "ring"), (1, "cxl"), (2, "cxl")))
+    assert sorted((r["backend"], r["axis"]) for r in tup) == sorted(
+        (b, a) for b in collectives.tuple_backends(1)
+        for a in ("flat", "tuple"))
+    assert all(r["ok"] for r in flat + tup)
+    assert all(r["equal_flat"] for r in tup if r["axis"] == "tuple")
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--reference":
         reference_main(sys.argv[2], sys.argv[3])

@@ -312,14 +312,20 @@ def test_mamba1_forward_and_decode_match_reference(setup):
 
 
 def test_mamba2_rows_name_the_roadmap(setup):
-    """Mamba-2 rows run at tp = 1 (tests/test_torch_mamba2.py); at tp > 1
-    they raise naming ROADMAP item 8, as Mamba-1 rows do."""
+    """Mamba rows run at every tp (tests/test_torch_ssm_tp.py); what
+    still raises naming ROADMAP item 8 is a model with an encoder (cross
+    attention, whisper-tiny), at tp = 1 and at tp 2, for every row
+    kind."""
+    from repro_torch.models.config import EncoderConfig
     v2 = get_config("zamba2-1.2b", smoke=True)
-    pc = dataclasses.replace(UNSHARDED, tp_axis="model", tp=2)
+    enc = dataclasses.replace(v2, encoder=EncoderConfig(n_layers=1,
+                                                        source_len=4))
     x = torch.zeros(1, 4, v2.d_model)
-    for kind in ("1", "2"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            blocks.row_forward({}, x, kind, v2, pc, torch.arange(4))
+    for tp in (1, 2):
+        pc = dataclasses.replace(UNSHARDED, tp_axis="model", tp=tp)
+        for kind in ("1", "2", "a"):
+            with pytest.raises(NotImplementedError, match="item 8"):
+                blocks.row_forward({}, x, kind, enc, pc, torch.arange(4))
 
 
 # -- the model ------------------------------------------------------------ #

@@ -595,12 +595,15 @@ def test_agm_geometry_at_the_tp_shapes(nout, tile, blocks):
 
 def test_tp_paths_not_ported_raise():
     """Decode, its cache and prefill at tp > 1 (the reference's
-    sequence-sharded KV cache), ``tp_psum_max`` and Mamba-1 rows at tp >
-    1 raise with their ROADMAP item, never computing at tp = 1."""
+    sequence-sharded KV cache) and ``tp_psum_max`` raise with their
+    ROADMAP item, never computing at tp = 1; a Mamba-1 row computes at
+    tp 2 (through its two model-axis AllReduces, the identity on a
+    one-rank stand-in here: tests/test_torch_ssm_tp.py holds the values
+    on 2 and 4 ranks), and its prefill and decode raise item 11."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import blocks, layers, model
+    from repro_torch.models import blocks, layers, model, sharding
     from repro_torch.models.pcontext import ParallelContext
     cfg = get_config(ARCH, smoke=True)
     pc = ParallelContext(tp_axis="model", tp=2)
@@ -618,9 +621,32 @@ def test_tp_paths_not_ported_raise():
         blocks.row_prefill({}, torch.zeros(1, 1, 256), "a", cfg, pc,
                            torch.arange(1), {})
     mcfg = get_config("falcon-mamba-7b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        blocks.row_forward({}, torch.zeros(1, 1, mcfg.d_model), "1", mcfg,
-                           pc, torch.arange(1))
+    row = model._layer(blocks.init_row(torch.Generator().manual_seed(0),
+                                       "1", mcfg, 2, torch.float32,
+                                       "cpu"), 0)
+    row = sharding.shard_params(
+        row, sharding.param_specs(row, mcfg, fsdp=False), None, 0, 1,
+        tp_axis="model", tp_rank=0, tp=2)
+    calls = []
+
+    class _Identity:                  # a model axis of one rank's sums
+        def all_reduce(self, x, axis):
+            calls.append((tuple(x.shape), axis))
+            return x
+    mpc = ParallelContext(tp_axis="model", tp=2, comm=_Identity())
+    h = torch.randn(1, 3, mcfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    out, aux = blocks.row_forward(row, h, "1", mcfg, mpc, torch.arange(3))
+    assert out.shape == h.shape and bool(torch.isfinite(out).all())
+    assert float(aux) == 0.0
+    # x_proj's and out_proj's row-parallel sums, over the model axis
+    assert [a for _, a in calls] == ["model", "model"]
+    for fn in (blocks.row_prefill, blocks.row_decode):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            args = (row, h, "1", mcfg, mpc, torch.arange(3), {}) \
+                if fn is blocks.row_prefill else \
+                (row, h, "1", {}, torch.tensor(0), mcfg, mpc)
+            fn(*args)
     # at tp = 1 the same context is the identity
     one = ParallelContext(tp_axis="model", tp=1)
     x = torch.ones(3)
