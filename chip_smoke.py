@@ -49,6 +49,18 @@ Phases (each fails the run if its check fails):
                  training path's shapes and a ragged T / L; the two
                  tensor-core kernels (all_gather_matmul, flash_attention)
                  run twice on the same inputs and must repeat bitwise;
+                 the non-text models' shapes: flash_attention non-causal
+                 at whisper-tiny's encoder (4, 1500, 6, 64) and cross
+                 attention (4, 1024 x 1500, 6, 64), causal at
+                 Phi-3-vision's (1, 1600, 32, 96) (the D = 96 build, f32
+                 and bf16) and a ragged D = 96 case, their gradients at a
+                 rank's shapes and their repeats; rms_norm (forward and
+                 gradients) at (1500, 384) and (1600, 3072);
+                 all_gather_matmul at whisper's (T, 4 x 96) @ N = 384,
+                 1536 (T = 1024 and 1500) and Phi-3's (1600, 4 x 768) @
+                 N = 3072, 8192; chunked_reduce at both models' row and
+                 grad-sync buckets (``frontend_reduce_shapes``; f32 also
+                 bitwise against the plain version);
 3. timing      - each kernel, its plain version and one PyTorch library
                  call on the same inputs (device time from CUDA events, L2
                  flushed before every call; for the two reduce_scatter
@@ -82,8 +94,10 @@ Phases (each fails the run if its check fails):
 4. reference   - the smoke-size models on the card against the same models
                  on the CPU: Llama (prefill at L = 1100, through the flash
                  kernel), Falcon-Mamba and Zamba2 (prefill at L = 300,
-                 through the ssm_scan kernel), each with three per-slot
-                 decode steps;
+                 through the ssm_scan kernel), whisper-smoke and
+                 phi3-vision-smoke (L = 1100 behind their stub input;
+                 whisper's cross-attention ``ck`` / ``cv`` among the
+                 compared leaves), each with three per-slot decode steps;
 5. serve       - Llama-3.2-1B at full width (f32, seeded random params):
                  a fixed batch of 4 x 1024-token prompts with a roomy HBM
                  budget, the same with a budget 4 blocks short and eviction
@@ -97,7 +111,15 @@ Phases (each fails the run if its check fails):
                  Zamba2-1.2B at full width (32 Mamba-2 rows, the shared
                  attention block 6 times, f32) the same way (its hybrid
                  cache mixes KV leaves with token-free SSM leaves: whole
-                 slot images, no prefix sharing);
+                 slot images, no prefix sharing); then whisper-tiny and
+                 Phi-3-vision-4.2B at full width (f32; the fixed batch
+                 with its stub input, Phi-3's ``max_seq`` 1624 holding
+                 its 576 patches), roomy and 4 blocks short, no trace
+                 (the launcher's trace carries no frontend input);
+                 whisper's published 448-position decoder context is
+                 replaced by RoPE in the repo's config, and its 1024-
+                 token prompts are what bring cross attention to the
+                 flash kernel;
 6. collectives - (one spawn of the ranks for both tables) every flat
                  collective on 4 ranks sharing the card, ring
                  (gloo; to 16 MB) and cxl (the pinned shared host pool),
@@ -211,25 +233,44 @@ Phases (each fails the run if its check fails):
                  plan, 2 steps): the checks of 7g, pool bytes at both
                  levels, every auto call at its level's cell, and the
                  step-0 losses within 1e-4 of each other and of 7g's
-                 (the model is the same function at tp 2).
+                 (the model is the same function at tp 2);
+7i. train non-text - whisper-tiny and Phi-3-vision-4.2B at full width and
+                 depth over ``--mesh 4x1`` in the flat path's spawn:
+                 whisper under cxl+fused (profiled, 3 steps), cxl and
+                 auto (2 steps; phase 7's plan), Phi-3 at ``--prefetch
+                 0`` under cxl+fused (profiled) and cxl, 2 steps each (no
+                 auto: about 10 s a step, the time limit): step-0
+                 losses within 1e-4, every loss falls, every rank
+                 launches flash_attention exactly as often as the path
+                 calls it every step (whisper 20 a rank-step: 4 encoder
+                 rows, 4 self and 4 cross attentions, the decoder's 8
+                 again in the remat replay; Phi-3 64), rms_norm and its
+                 backward (all_gather_matmul under --fuse-kernels),
+                 every auto call at its plan cell; peak memory a rank.
 
-Phase 7 starts with every path's smoke check at once: the eight smoke
-models' training runs (the SSM models' at ``4x1`` and at ``2x2``) on
+Phase 7 starts with every path's smoke check at once: the eleven smoke
+models' training runs (the SSM models' at ``4x1`` and at ``2x2``, the
+non-text models' at ``4x1`` and whisper-smoke's at ``2x2``, the only
+card check of the encoder's and cross attention's model-level
+AllReduces) on
 the card and the same runs on the CPU, the models of one mesh and
 topology in one spawn of the ranks a side (``train.run_many``: a rank's
 start-up on the card is most of a check), every spawn side by side; the
 SSM smoke models' take sequences of 128 tokens (the CPU's plain scan is
-a loop over L).  For the same reason the full-width runs of one mesh and
+a loop over L), and so does whisper-smoke's at ``2x2``.  For the same
+reason the full-width runs of one mesh and
 topology share a spawn of the ranks: 7's flat Llama runs with 7g's
-Zamba2 runs, 7c's Llama runs with 7e's Granite and 7h's Zamba2 runs.
+Zamba2 runs and 7i's whisper-tiny and Phi-3-vision runs, 7c's Llama
+runs with 7e's Granite and 7h's Zamba2 runs.
 
 The kernels' launch counters are zeroed before each serving run and
 before each training step (in the rank processes), and read after it
 (the kernels line's ``launches_by_path`` counts the flat training runs
 as ``train``, 7b's as ``train_hier``, 7c's as ``train_tp``, 7d's as
 ``train_ragged``, 7e's as ``train_moe``, 7f's as ``serve_moe``, 7g's as
-``train_hybrid``, 7h's as ``train_hybrid_tp`` and Zamba2's serving as
-``serve_hybrid``; ssm_scan's
+``train_hybrid``, 7h's as ``train_hybrid_tp``, 7i's as ``train_audio``
+and ``train_vlm``, Zamba2's serving as ``serve_hybrid`` and the
+non-text models' as ``serve_audio`` and ``serve_vlm``; ssm_scan's
 backward kernel under ``backward_launches_by_path``):
 the training path's four kernels and rms_norm's backward kernel must
 have run on it, rms_norm and
@@ -502,6 +543,39 @@ def hybrid_tp_reduce_shapes() -> tuple:
         tuple((TP_DP, n // TP_DP) for n in lengths)
 
 
+def frontend_reduce_shapes(arch: str) -> tuple:
+    """chunked_reduce on a non-text model's flat path (FSDP over DP
+    ranks, cxl): the reduce-scatters of a decoder row's FSDP bucket, and
+    of its two buckets under ``--fuse-kernels`` (the matmul weights
+    sharded on dim 0, then the rest), each DP sources of one rank's
+    segment; then the grad sync's AllReduces (two-phase: DP sources of a
+    DP-th) of the dp-replicated leaves, bucketed as the trainer buckets
+    them (whisper's encoder and ``enc_proj``, Phi-3's ``front_proj``,
+    the norms)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import overlap, tree
+    from repro_torch.models import model, sharding
+    cfg = get_config(arch)
+    sharding.set_mesh_sizes({"data": DP})
+    abstract = model.abstract_params(cfg)
+    specs = sharding.param_specs(abstract, cfg, dp_axis="data")
+    row = [(path[-1], s.index("data") - 1, x[0].numel())
+           for (path, x), (_, s) in zip(
+               tree.leaves_with_paths(abstract["g0"]),
+               tree.leaves_with_paths(specs["g0"])) if "data" in s]
+    fused = sum(n for name, dim, n in row
+                if name in overlap.FUSABLE_PARAMS and dim == 0)
+    total = sum(n for *_, n in row)
+    synced = [(i, tuple(x.shape), x.dtype, ("data",)) for i, ((_, x), (
+        _, s)) in enumerate(zip(tree.leaves_with_paths(abstract),
+                                tree.leaves_with_paths(specs)))
+        if "data" not in s]
+    lengths = [total, fused, total - fused] + [
+        b.elems for b in overlap.assign_buckets(
+            synced, overlap.DEFAULT_BUCKET_BYTES)]
+    return tuple((DP, -(-n // DP)) for n in lengths)
+
+
 SSM_ARCH = "falcon-mamba-7b"
 # (B, L, D, N, from a random state): the JAX test shapes, Falcon's prefill
 # (1 x 1024) and decode (4 slots) shapes, a ragged L from a random state;
@@ -563,10 +637,44 @@ HYBRID_KERNELS = ("rms_norm", "rms_norm_vjp", "flash_attention",
 # the SSM kernels')
 LLAMA_TRAIN_KERNELS = ("rms_norm", "rms_norm_vjp", "flash_attention",
                        "chunked_reduce", "all_gather_matmul")
+# the non-text models: whisper-tiny (4 encoder + 4 decoder rows, d_model
+# 384, 6 heads of 64, an audio stub of 1500 frames; cross attention in
+# every decoder row) and Phi-3-vision-4.2B (32 rows, d_model 3072, 32
+# heads of 96, 576 patch embeddings ahead of the tokens)
+AUDIO_ARCH, VLM_ARCH = "whisper-tiny", "phi-3-vision-4.2b"
+AUDIO_FRAMES, VLM_PREFIX = 1500, 576
+VLM_TOKENS = VLM_PREFIX + PROMPT
+# Phi-3-vision trains at --prefetch 0: 3.8B f32 params, grads and AdamW
+# moments take 14.2 GiB a rank; prefetch 1 would keep every row's
+# gathered params (453 MB) until its backward
+VLM_PREFETCH = "0"
+# flash_attention there (b, lq, lk, heads, head_dim, causal): whisper's
+# encoder (non-causal, 1500 = 23 x 64 + 28: ragged last q and kv tiles)
+# and cross attention (lq != lk) on the fixed batch of SLOTS prompts,
+# Phi-3-vision's 576 + 1024 tokens at head_dim 96 (causal), a ragged
+# D = 96 case
+FA_FRONTEND = {
+    "audio_encoder": (SLOTS, AUDIO_FRAMES, AUDIO_FRAMES, 6, 64, False),
+    "audio_cross": (SLOTS, PROMPT, AUDIO_FRAMES, 6, 64, False),
+    "vlm_d96": (1, VLM_TOKENS, VLM_TOKENS, 32, 96, True),
+    "d96_ragged": (2, 77, 141, 3, 96, True)}
+# their gradients at a training rank's shapes (one sequence a rank)
+FA_FRONTEND_GRAD = ((1, PROMPT, AUDIO_FRAMES, 6, 64, False),
+                    (1, AUDIO_FRAMES, AUDIO_FRAMES, 6, 64, False),
+                    (1, VLM_TOKENS, VLM_TOKENS, 32, 96, True))
+RMS_AUDIO = (AUDIO_FRAMES, 384)      # whisper's encoder rows
+RMS_VLM = (VLM_TOKENS, 3072)         # Phi-3-vision's rows
+# all_gather_matmul under --fuse-kernels at --mesh 4x1: x (T, 4 x Ks) @
+# (4, Ks, N); whisper's wq / wk / wv (N = 384; T = 1500 for cross
+# attention's wk / wv on the encoder's output) and wg / wu (1536),
+# Phi-3-vision's wq / wk / wv (3072) and wg / wu (8192) at T = 1600
+AGM_AUDIO_SHAPES = ((PROMPT, DP, 96, 384), (AUDIO_FRAMES, DP, 96, 384),
+                    (PROMPT, DP, 96, 1536))
+AGM_VLM_SHAPES = ((VLM_TOKENS, DP, 768, 3072), (VLM_TOKENS, DP, 768, 8192))
 # rms_norm (T, D): Llama's prefill and decode, Falcon-Mamba's; the
 # training path's backward (one rank's 1024 tokens at d_model 2048)
 RMS_SHAPES = ((PROMPT, 2048), (SLOTS, 2048), (PROMPT, 4096), (SLOTS, 4096),
-              RMS_MOE, (TP_TOKENS, 2048))
+              RMS_MOE, (TP_TOKENS, 2048), RMS_AUDIO, RMS_VLM)
 RMS_BWD = (PROMPT, 2048)
 RMS_TP = (TP_TOKENS, 2048)       # a rank's row norms at (data, model)
 RMS_HYBRID = (PROMPT, HYBRID_D)      # Zamba2's gated norm over d_inner
@@ -575,7 +683,9 @@ SERVE_KERNELS = {"serve": ("rms_norm", "flash_attention"),
                  "serve_ssm": ("rms_norm", "ssm_scan"),
                  "serve_moe": ("rms_norm", "flash_attention"),
                  "serve_hybrid": ("rms_norm", "flash_attention",
-                                  "ssm_scan")}
+                                  "ssm_scan"),
+                 "serve_audio": ("rms_norm", "flash_attention"),
+                 "serve_vlm": ("rms_norm", "flash_attention")}
 
 
 def gemm_tol(k: int) -> tuple:
@@ -696,15 +806,21 @@ def repeat_parity(randn, fa, fc) -> list:
                     "shape": [t, n, ks, nout], "dtype": str(torch.float32),
                     "max_abs_err": float((a - b).abs().max()),
                     "ok": bool(torch.equal(a, b))})
+    fa_shapes = [(1, PROMPT, PROMPT, 32, 64, True)] + [
+        FA_FRONTEND[k] for k in ("audio_cross", "vlm_d96")]
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (randn(1, PROMPT, 32, 64, dtype=dtype) for _ in range(3))
-        a = fa._launch(q, k, v, True, None, 0, PROMPT, True)
-        b = fa._launch(q, k, v, True, None, 0, PROMPT, True)
-        out.append({"kernel": "flash_attention", "check": "repeat",
-                    "shape": [1, PROMPT, 32, 64], "dtype": str(dtype),
-                    "max_abs_err": max(float((x - y).float().abs().max())
-                                       for x, y in zip(a, b)),
-                    "ok": all(torch.equal(x, y) for x, y in zip(a, b))})
+        for b_, lq, lk, h, d, causal in fa_shapes:
+            q = randn(b_, lq, h, d, dtype=dtype)
+            k, v = (randn(b_, lk, h, d, dtype=dtype) for _ in range(2))
+            a = fa._launch(q, k, v, causal, None, 0, lk, True)
+            b = fa._launch(q, k, v, causal, None, 0, lk, True)
+            out.append({"kernel": "flash_attention", "check": "repeat",
+                        "shape": [b_, lq, lk, h, d], "causal": causal,
+                        "dtype": str(dtype),
+                        "max_abs_err": max(float((x - y).float().abs()
+                                                 .max())
+                                           for x, y in zip(a, b)),
+                        "ok": all(torch.equal(x, y) for x, y in zip(a, b))})
     return out
 
 
@@ -729,7 +845,7 @@ def grad_parity(randn, rn, fa, fc) -> list:
                     "max_abs_err": max(e for e, _ in errs),
                     "ok": all(ok for _, ok in errs)})
 
-    for t, d in (RMS_BWD, RMS_MOE, RMS_HYBRID):
+    for t, d in (RMS_BWD, RMS_MOE, RMS_HYBRID, RMS_AUDIO, RMS_VLM):
         before = rn.rms_norm_vjp.launches
         compare("rms_norm", [t, d], (rn.rms_norm, rn.rms_norm_plain),
                 [randn(t, d), randn(d)], randn(t, d))
@@ -742,6 +858,16 @@ def grad_parity(randn, rn, fa, fc) -> list:
                 (lambda q, k, v: fa.flash_attention_train(q, k, v, True),
                  lambda q, k, v: fa.flash_attention_plain(q, k, v, True)),
                 qkv, randn(*shape))
+    # the non-text models' shapes: cross attention (lq != lk), whisper's
+    # encoder, Phi-3-vision's head_dim 96
+    for b, lq, lk, h, d, causal in FA_FRONTEND_GRAD:
+        compare("flash_attention", [b, lq, lk, h, d],
+                (lambda q, k, v, c=causal: fa.flash_attention_train(
+                    q, k, v, c),
+                 lambda q, k, v, c=causal: fa.flash_attention_plain(
+                     q, k, v, c)),
+                [randn(b, lq, h, d), randn(b, lk, h, d), randn(b, lk, h, d)],
+                randn(b, lq, h, d))
     t, n, ks, nout = AGM_MAIN
     # dx contracts over N, dw over T: both through torch.matmul, batched
     # over the shards on one side and whole on the other
@@ -1229,6 +1355,10 @@ def rms_timing(timer, randn, rn, sms: int) -> dict:
     out["backward_hybrid"] = rms_backward_timing(timer, randn, rn, sms,
                                                  *RMS_HYBRID)
     out["backward_tp"] = rms_backward_timing(timer, randn, rn, sms, *RMS_TP)
+    out["backward_audio"] = rms_backward_timing(timer, randn, rn, sms,
+                                                *RMS_AUDIO)
+    out["backward_vlm"] = rms_backward_timing(timer, randn, rn, sms,
+                                              *RMS_VLM)
     return out
 
 
@@ -1259,6 +1389,29 @@ def rms_backward_timing(timer, randn, rn, sms: int, t: int, d: int) -> dict:
         "bytes": 3 * t * d * 4 + 8 * d, "flops": 9 * t * d,
         "shape": [t, d],
         "geometry": rn.rms_geometry(t, d, 4, sms, backward=True)}
+
+
+def flash_timing(timer, randn, fa, b: int, lq: int, lk: int, h: int,
+                 d: int, causal: bool) -> dict:
+    """flash_attention (f32) at (b, lq, lk, h, d): the kernel, the plain
+    version and ``scaled_dot_product_attention`` on the same inputs in
+    its (B, H, L, D) layout (the transposes made before timing); bytes:
+    q, k, v read and o written once; flops: 4 d a (query, key) pair the
+    mask lets through."""
+    q = randn(b, lq, h, d)
+    k, v = (randn(b, lk, h, d) for _ in range(2))
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = int(fa.attention_mask(lq, lk, causal, None, 0, lk)
+                .expand(lq, lk).sum()) * b * h
+    return {"ms": timer(lambda: fa.flash_attention(q, k, v, causal)),
+            "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v,
+                                                               causal)),
+            "library_ms": timer(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=causal)),
+            "bytes": 4 * (2 * q.numel() + 2 * k.numel()),
+            "flops": 4 * d * pairs, "shape": [b, lq, lk, h, d],
+            "causal": causal}
 
 
 def reduce_timing(timer, randn, cr, n_src: int, length: int) -> dict:
@@ -1321,11 +1474,14 @@ def kernel_api_phase(randn, rand, rs_len: int) -> dict:
 
 def card_vs_cpu(arch: str, length: int, dev) -> tuple:
     """The smoke-size model of ``arch`` on the card against the CPU with
-    the same params: prefill at ``length``, then three per-slot decode
-    steps; logits and the first group's cache leaves at rtol 2e-4, atol
-    2e-5 (cuBLAS and the CPU BLAS sum in other orders).  Returns (max abs
+    the same params: prefill at ``length`` (behind the frontend's stub
+    input, as the serve launcher draws it), then three per-slot decode
+    steps; logits and the first group's cache leaves (with an encoder
+    its cross-attention ``ck`` / ``cv`` too) at rtol 2e-4, atol 2e-5
+    (cuBLAS and the CPU BLAS sum in other orders).  Returns (max abs
     error, within tolerance)."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve import stub_batch
     from repro_torch.models import model
     from repro_torch.models.pcontext import UNSHARDED
     cfg = get_config(arch, smoke=True)
@@ -1334,15 +1490,16 @@ def card_vs_cpu(arch: str, length: int, dev) -> tuple:
     params = {"cpu": cpu_params,
               "gpu": model.params_from_numpy(
                   model.params_to_numpy(cpu_params), dev)}
-    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                             (1, length))
+    batch = stub_batch(cfg, 1, length, np.random.default_rng(0))
+    start = model.prefix_tokens(cfg) + length
     outs = {}
     for name, d in (("cpu", torch.device("cpu")), ("gpu", dev)):
         logits, caches = model.prefill(
-            params[name], {"tokens": torch.as_tensor(toks, device=d)}, cfg,
-            UNSHARDED, length + 4, cache_dtype=torch.float32)
+            params[name], {k: torch.as_tensor(v, device=d)
+                           for k, v in batch.items()}, cfg,
+            UNSHARDED, start + 4, cache_dtype=torch.float32)
         steps = [logits]
-        pos = torch.tensor([length], device=d)
+        pos = torch.tensor([start], device=d)
         for i in range(3):
             lg, caches = model.decode_step(
                 params[name], caches, torch.tensor([[7 + i]], device=d),
@@ -1358,13 +1515,16 @@ def card_vs_cpu(arch: str, length: int, dev) -> tuple:
 
 def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
     """Serve ``arch`` at full width on the card (f32, params from seed 0):
-    a fixed batch of SLOTS x PROMPT prompts with a roomy HBM budget, the
-    same 4 blocks short with eviction to the pool (greedy tokens must
-    match, evictions and restores must happen), a Poisson trace of 8
-    requests through the launcher's flags (half the prompts share a
-    pooled prefix: hits where the cache has a token axis, none where it
-    has not), then step times, a profiled prefill and 5 profiled decode
-    steps, and the peak memory.  Kernel launches per run go to
+    a fixed batch of SLOTS x PROMPT prompts (with a stub frontend's
+    input, ``launch.serve.stub_batch``; a vision prefix sizes
+    ``max_seq`` with it) with a roomy HBM budget, the same 4 blocks
+    short with eviction to the pool (greedy tokens must match, evictions
+    and restores must happen), a Poisson trace of 8 requests through
+    the launcher's flags (half the prompts share a pooled prefix: hits
+    where the cache has a token axis, none where it has not; not for a
+    model whose requests carry a frontend's input, which the launcher's
+    trace refuses), then step times, a profiled prefill and 5 profiled
+    decode steps, and the peak memory.  Kernel launches per run go to
     ``launches[path]``."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -1373,7 +1533,7 @@ def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models import model
     from repro_torch.models.pcontext import UNSHARDED
-    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.serving import ServeConfig, ServeEngine, kvcache
     cfg = get_config(arch)
     counters = {"rms_norm": rn.rms_norm,
                 "flash_attention": fa.flash_attention,
@@ -1381,10 +1541,14 @@ def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     params = model.init_params(cfg, torch.Generator(device=dev)
                                .manual_seed(0), dev, torch.float32)
-    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                                (SLOTS, PROMPT))
-    max_seq = PROMPT + NEW + 8
-    blocks_needed = SLOTS * -(-(PROMPT + NEW) // BT)
+    batch = serve.stub_batch(cfg, SLOTS, PROMPT, np.random.default_rng(0))
+    prefix = model.prefix_tokens(cfg)
+    max_seq = prefix + PROMPT + NEW + 8
+    blocks_needed = SLOTS * -(-(prefix + PROMPT + NEW) // BT)
+    # room in the pool for two evicted slot images (Phi-3-vision's is
+    # 1.3 GB at 1616 tokens)
+    pool_bytes = max(1 << 30, 2 * kvcache.CacheLayout(
+        cfg, UNSHARDED, SLOTS, max_seq, torch.float32).bytes_for(max_seq))
     runs = launches.setdefault(path, {})
 
     def run(label, fn):
@@ -1402,8 +1566,8 @@ def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
     def fixed(**kw):
         eng = ServeEngine(cfg, params, ServeConfig(
             max_seq=max_seq, decode_slots=SLOTS, kv_block_tokens=BT,
-            pool_budget_bytes=1 << 30, **kw), device=dev)
-        return eng, eng.generate({"tokens": prompts}, NEW)
+            pool_budget_bytes=pool_bytes, **kw), device=dev)
+        return eng, eng.generate(batch, NEW)
 
     (roomy, roomy_toks), roomy_s = run("fixed_roomy", lambda: fixed())
     (tight, tight_toks), tight_s = run(
@@ -1412,8 +1576,9 @@ def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
                       hbm_budget_blocks=blocks_needed - 4))
     c = tight.counters
     rec = {"model": cfg.name, "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "dtype": "float32",
-           "cache_image_bytes": tight.layout.bytes_for(PROMPT + NEW),
+           "d_model": cfg.d_model, "dtype": "float32", "max_seq": max_seq,
+           "cache_image_bytes": tight.layout.bytes_for(prefix + PROMPT
+                                                       + NEW),
            "fixed_roomy": {"wall_s": roomy_s,
                            "tok_per_s": SLOTS * NEW / roomy_s,
                            **roomy.counters},
@@ -1431,31 +1596,39 @@ def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
         fail(f"{path}: pool-eviction run's greedy tokens differ from the "
              f"roomy run")
     sharable = roomy.layout.block_sharable
-    del roomy, tight
-
-    args = serve.build_parser().parse_args([
-        "--arch", arch, "--trace", "poisson", "--requests", "8",
-        "--prompt-reuse", "0.5", "--prompt-len", str(PROMPT),
-        "--new-tokens", str(NEW), "--decode-slots", str(SLOTS),
-        "--kv-block-tokens", str(BT), "--pool-budget-mib", "1024"])
-    eng = ServeEngine(cfg, params, ServeConfig(
-        max_seq=max_seq, decode_slots=SLOTS, kv_block_tokens=BT,
-        pool_budget_bytes=args.pool_budget_mib << 20, prefix_sharing=True),
-        device=dev)
-    trace, _ = run("trace_poisson", lambda: serve.run_trace(eng, cfg, args))
-    if trace["requests"] != 8 or (trace["prefix_hits"] > 0) != sharable:
-        fail(f"{path}: trace lost requests, or pooled prefix hits "
-             f"{trace['prefix_hits']} where the cache is "
-             f"{'' if sharable else 'not '}block-sharable: {trace}")
+    rec["block_sharable"] = sharable
+    del tight
+    trace = {}
+    eng = roomy
+    del roomy
+    if not model.frontend_inputs(cfg):
+        # (the launcher's trace builds text requests: a model that takes
+        # a frontend's input is served by the fixed batch alone)
+        del eng
+        args = serve.build_parser().parse_args([
+            "--arch", arch, "--trace", "poisson", "--requests", "8",
+            "--prompt-reuse", "0.5", "--prompt-len", str(PROMPT),
+            "--new-tokens", str(NEW), "--decode-slots", str(SLOTS),
+            "--kv-block-tokens", str(BT), "--pool-budget-mib", "1024"])
+        eng = ServeEngine(cfg, params, ServeConfig(
+            max_seq=max_seq, decode_slots=SLOTS, kv_block_tokens=BT,
+            pool_budget_bytes=args.pool_budget_mib << 20,
+            prefix_sharing=True), device=dev)
+        trace, _ = run("trace_poisson",
+                       lambda: serve.run_trace(eng, cfg, args))
+        if trace["requests"] != 8 or (trace["prefix_hits"] > 0) != sharable:
+            fail(f"{path}: trace lost requests, or pooled prefix hits "
+                 f"{trace['prefix_hits']} where the cache is "
+                 f"{'' if sharable else 'not '}block-sharable: {trace}")
 
     # step times at full width (after the counted runs)
-    one = torch.as_tensor(prompts[:1], device=dev)
+    one = {k: torch.as_tensor(v[:1], device=dev) for k, v in batch.items()}
 
     def prefill():
-        model.prefill(params, {"tokens": one}, cfg, UNSHARDED, max_seq,
+        model.prefill(params, one, cfg, UNSHARDED, max_seq,
                       cache_dtype=torch.float32)
 
-    pos = torch.full((SLOTS,), PROMPT, device=dev)
+    pos = torch.full((SLOTS,), prefix + PROMPT, device=dev)
     tok = torch.zeros((SLOTS, 1), dtype=torch.long, device=dev)
 
     def decode():
@@ -1481,12 +1654,17 @@ def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
     trace["decode_step_ms"] = float(np.median(dec))
     rec["trace_poisson"] = trace
     rec["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[{path}] trace: {trace['req_per_s']:.3f} req/s  "
-        f"{trace['tok_per_s']:.1f} tok/s  p50 {trace['latency_p50_s']:.3f}s"
-        f"  p99 {trace['latency_p99_s']:.3f}s  prefill(1x{PROMPT}) "
-        f"{trace['prefill_ms']:.1f} ms  decode step ({SLOTS} slots) "
-        f"{trace['decode_step_ms']:.2f} ms  prefix hits "
-        f"{trace['prefix_hits']}  peak memory "
+    if "requests" in trace:
+        log(f"[{path}] trace: {trace['req_per_s']:.3f} req/s  "
+            f"{trace['tok_per_s']:.1f} tok/s  p50 "
+            f"{trace['latency_p50_s']:.3f}s  p99 "
+            f"{trace['latency_p99_s']:.3f}s  prefix hits "
+            f"{trace['prefix_hits']}")
+    log(f"[{path}] prefill(1x{prefix}+{PROMPT}) {trace['prefill_ms']:.1f} "
+        f"ms (busy {trace['profile_prefill']['busy_share']:.3f})  decode "
+        f"step ({SLOTS} slots) {trace['decode_step_ms']:.2f} ms (busy "
+        f"{trace['profile_decode_5_steps']['busy_share']:.3f})  fixed "
+        f"{rec['fixed_roomy']['tok_per_s']:.1f} tok/s  peak memory "
         f"{rec['peak_memory_gib']:.2f} GiB")
     del params, eng
     torch.cuda.empty_cache()
@@ -1583,8 +1761,9 @@ def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
 
 def full_width_run(label: str, extra: list, mesh: str = f"{DP}x1") -> dict:
     """One run of Llama-3.2-1B at full width through the launcher's
-    flags, in a spawn of its own."""
-    return full_width_runs({label: extra}, [], mesh, profile=False)[label]
+    flags, in a spawn of its own, ``SHORT_STEPS`` steps."""
+    return full_width_runs({label: extra}, [], mesh, profile=False,
+                           short=(label,))[label]
 
 
 def _report_run(label: str, run: dict, smi) -> dict:
@@ -1683,6 +1862,14 @@ def smoke_checks() -> dict:
             extra=("--topology", TP_TOPOLOGY)),
         "hybrid_tp_smoke_card_vs_cpu": dict(
             mesh=TP_MESH, tp=TP_TP, arch=HYBRID_ARCH, seq=SSM_SMOKE_SEQ,
+            extra=("--topology", TP_TOPOLOGY)),
+        "audio_smoke_card_vs_cpu": dict(mesh=flat, arch=AUDIO_ARCH),
+        "vlm_smoke_card_vs_cpu": dict(mesh=flat, arch=VLM_ARCH),
+        # the only card check of the encoder's and the cross attention's
+        # model-level AllReduces (their count does not grow with the
+        # sequence: 128 tokens keep the CPU side short)
+        "audio_tp_smoke_card_vs_cpu": dict(
+            mesh=TP_MESH, tp=TP_TP, arch=AUDIO_ARCH, seq=SSM_SMOKE_SEQ,
             extra=("--topology", TP_TOPOLOGY))}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
@@ -2051,6 +2238,65 @@ def check_hybrid_tp_runs(runs: dict, first_4x1: float) -> None:
             f"{json.dumps(calls)}")
 
 
+# 7i's runs, whisper-tiny and Phi-3-vision-4.2B over the flat data axis
+# (variants of the flat path's spawn of the ranks)
+AUDIO_RUNS = ("audio_cxl_fused", "audio_cxl", "audio_auto")
+# Phi-3-vision takes about 10 s a step: its profiled run takes 2 steps
+# too, and it leaves auto to whisper-tiny's run of the same path (the
+# time limit)
+VLM_RUNS = ("vlm_cxl_fused", "vlm_cxl")
+
+
+def frontend_flash_launches(arch: str) -> int:
+    """flash_attention launches a rank-step (batch 1 a rank, --seq
+    PROMPT): whisper's 4 encoder rows, 4 self and 4 cross attentions, and
+    the decoder rows' 8 again in the remat replay; Phi-3-vision's 32
+    rows (576 + 1024 tokens) and their replay.  The encoder has no
+    remat."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    per_row = 2 if cfg.encoder is not None else 1
+    enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    return enc + 2 * per_row * cfg.n_layers
+
+
+def frontend_train_phase(runs: dict, arch: str, plan) -> dict:
+    """Phase 7i's checks of one model (``runs``: its cxl+fused and cxl
+    runs and its auto run where it has one, made in the flat path's
+    spawn): every step of every run,
+    every rank launched flash_attention exactly
+    :func:`frontend_flash_launches` times, rms_norm and its backward, and
+    under --fuse-kernels all_gather_matmul; cxl moved pool bytes; every
+    auto call took its plan cell; the step-0 losses within 1e-4 of each
+    other and every loss falls."""
+    want = frontend_flash_launches(arch)
+    for label, run in runs.items():
+        need = ("rms_norm", "rms_norm_vjp") + (
+            ("all_gather_matmul",) if run["fuse_kernels"] else ())
+        for i, s in enumerate(run["steps"]):
+            idle = [k for k in need if s["launches_min_rank"][k] <= 0]
+            if idle:
+                fail(f"{label} step {i}: a rank launched no {idle}: "
+                     f"{s['launches_min_rank']}")
+            fl = (s["launches_min_rank"]["flash_attention"],
+                  s["launches"]["flash_attention"])
+            if fl != (want, DP * want):
+                fail(f"{label} step {i}: flash_attention launches (fewest "
+                     f"a rank, all ranks) {fl}, want ({want}, "
+                     f"{DP * want})")
+            if run["backend"] == "cxl" and s["pool_bytes"] <= 0:
+                fail(f"{label} step {i}: no pool bytes under cxl")
+        log(f"[train] {label}: launches a step (all ranks) "
+            f"{json.dumps(run['steps'][0]['launches'])}, gathers (rank 0) "
+            f"{json.dumps(run['steps'][0]['gathers_rank0'])}")
+    auto = [k for k in runs if k.endswith("_auto")]
+    out = {"runs": runs, "auto_choices": check_auto_choices(
+        runs[auto[0]], plan) if auto else None}
+    first = runs[next(iter(runs))]["steps"][0]["loss"]
+    check_losses(runs, first)
+    return out
+
+
 # 7e's runs, Granite-3.0-MoE over (data, model) (variants of 7c's spawn)
 MOE_RUNS = ("moe_cxl_fused", "moe_cxl", "moe_auto")
 # 7h's runs, Zamba2-1.2B over (data, model) (variants of 7c's spawn)
@@ -2102,7 +2348,9 @@ def train_phase() -> dict:
     # full width and depth, through the launcher's flags; the runs but
     # the profiled first of each model take SHORT_STEPS (of the earlier
     # paths, to keep the time limit; the gloo-bound ring run for its own
-    # sake).  7g's Zamba2 runs ride the same spawn of the ranks.
+    # sake).  7g's Zamba2 runs and 7i's whisper-tiny and Phi-3-vision
+    # runs ride the same spawn of the ranks.
+    vlm = ["--prefetch", VLM_PREFETCH]
     runs = full_width_runs({
         "cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "cxl": ["--backend", "cxl"],
@@ -2110,11 +2358,24 @@ def train_phase() -> dict:
         "auto": ["--backend", "auto", "--plan", plan_path],
         "hybrid_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "hybrid_cxl": ["--backend", "cxl"],
-        "hybrid_auto": ["--backend", "auto", "--plan", plan_path]}, [],
-        short=("cxl", "ring", "auto", "hybrid_cxl", "hybrid_auto"),
-        archs=dict.fromkeys(HYBRID_RUNS, HYBRID_ARCH),
+        "hybrid_auto": ["--backend", "auto", "--plan", plan_path],
+        "audio_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
+        "audio_cxl": ["--backend", "cxl"],
+        "audio_auto": ["--backend", "auto", "--plan", plan_path],
+        "vlm_cxl_fused": ["--backend", "cxl", "--fuse-kernels", *vlm],
+        "vlm_cxl": ["--backend", "cxl", *vlm]}, [],
+        short=("cxl", "ring", "auto", "hybrid_cxl", "hybrid_auto",
+               "audio_cxl", "audio_auto", "vlm_cxl_fused", "vlm_cxl"),
+        archs={**dict.fromkeys(HYBRID_RUNS, HYBRID_ARCH),
+               **dict.fromkeys(AUDIO_RUNS, AUDIO_ARCH),
+               **dict.fromkeys(VLM_RUNS, VLM_ARCH)},
         ckpt={"llama3.2-1b": str(CKPT_DIR / "llama")})
     hybrid = {k: runs.pop(k) for k in HYBRID_RUNS}
+    audio = {k: runs.pop(k) for k in AUDIO_RUNS}
+    vlm = {k: runs.pop(k) for k in VLM_RUNS}
+    # 7i. the non-text models, on phase 7's plan
+    out["audio"] = frontend_train_phase(audio, AUDIO_ARCH, plan)
+    out["vlm"] = frontend_train_phase(vlm, VLM_ARCH, plan)
     out["flat_ckpt"] = check_flat_ckpt(runs["cxl_fused"])
     out["full_width"] = runs
     out["auto_choices"] = check_auto_choices(runs["auto"], plan)
@@ -2225,7 +2486,7 @@ def train_phase() -> dict:
     log("[train] step times (s): " + json.dumps(
         {k: [round(s["step_s"], 3) for s in r["steps"]]
          for k, r in {**runs, **hier, **tp, **ragged, **moe,
-                      **hybrid, **hybrid_tp}.items()}))
+                      **hybrid, **hybrid_tp, **audio, **vlm}.items()}))
     return out
 
 
@@ -2305,6 +2566,19 @@ def main() -> int:
                            "shape": [b, lq, lk, h, 64], "window": window,
                            "q_offset": q_off, "dtype": str(dtype),
                            "max_abs_err": err, "ok": ok})
+        # the non-text models' shapes: non-causal lq = lk = 1500 and
+        # lq != lk, head_dim 96
+        for key, (b, lq, lk, h, d, causal) in FA_FRONTEND.items():
+            q = randn(b, lq, h, d, dtype=dtype)
+            k, v = (randn(b, lk, h, d, dtype=dtype) for _ in range(2))
+            err, ok = close(fa.flash_attention(q, k, v, causal),
+                            fa.flash_attention_plain(q, k, v, causal),
+                            *TOL["flash_attention"][dtype])
+            parity.append({"kernel": "flash_attention", "path": key,
+                           "shape": [b, lq, lk, h, d], "causal": causal,
+                           "dtype": str(dtype), "max_abs_err": err,
+                           "ok": ok})
+        del q, k, v
     # the training slice: one rank's segment of a row's FSDP grad bucket
     cfg = get_config("llama3.2-1b")
     rs_len = sum(x[0].numel() for x in tree.leaves(
@@ -2312,11 +2586,14 @@ def main() -> int:
         if x[0].numel() >= sharding.FSDP_MIN_SIZE) // DP
     hybrid_rs = hybrid_reduce_shapes()
     hybrid_tp_rs = hybrid_tp_reduce_shapes()
+    frontend_rs = {arch: frontend_reduce_shapes(arch)
+                   for arch in (AUDIO_ARCH, VLM_ARCH)}
     for dtype in (torch.float32, torch.bfloat16):
         shapes = [(n, ln) for n in (2, 4, 16) for ln in (rs_len, RAGGED)]
         shapes += [s for s in hier_reduce_shapes(rs_len) + tp_reduce_shapes(
             rs_len) + ragged_reduce_shapes(rs_len) + hybrid_rs +
-            hybrid_tp_rs + moe_reduce_shapes() if s not in shapes]
+            hybrid_tp_rs + moe_reduce_shapes() + sum(
+                frontend_rs.values(), ()) if s not in shapes]
         for n_src, length in shapes:
             x = randn(n_src, length, dtype=dtype)
             err, ok = close(cr.chunked_reduce(x),
@@ -2327,7 +2604,19 @@ def main() -> int:
                            "dtype": str(dtype), "max_abs_err": err,
                            "tolerance": TOL["chunked_reduce"][dtype],
                            "ok": ok})
-    for t, n, ks, nout in AGM_SHAPES + AGM_TP_SHAPES + AGM_MOE_SHAPES:
+    # the non-text models' reduce shapes, f32: the kernel sums the
+    # sources in the plain version's order, so the two agree bitwise
+    for n_src, length in sum(frontend_rs.values(), ()):
+        x = randn(n_src, length)
+        y, want = cr.chunked_reduce(x), cr.chunked_reduce_plain(x)
+        parity.append({"kernel": "chunked_reduce", "check": "bitwise",
+                       "shape": [n_src, length],
+                       "dtype": str(torch.float32),
+                       "max_abs_err": float((y - want).abs().max()),
+                       "ok": bool(torch.equal(y, want))})
+    del y, want
+    for t, n, ks, nout in AGM_SHAPES + AGM_TP_SHAPES + AGM_MOE_SHAPES + \
+            AGM_AUDIO_SHAPES + AGM_VLM_SHAPES:
         x, w = randn(t, n * ks), randn(n, ks, nout)
         err, ok = close(fc.all_gather_matmul(x, w),
                         fc.all_gather_matmul_plain(x, w), *gemm_tol(n * ks))
@@ -2353,28 +2642,17 @@ def main() -> int:
     timer = Timer()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rms = rms_timing(timer, randn, rn, sms)
-    q, k, v = (randn(1, PROMPT, 32, 64) for _ in range(3))
-    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = int(fa.attention_mask(PROMPT, PROMPT, True, None, 0, PROMPT)
-                .sum()) * 32
-    fa_flops = 4 * 64 * pairs
-    fa_bytes = 4 * q.numel() * 4
     main = f"{PROMPT}x2048"
     timing = {
         "rms_norm": dict(rms["forward"][main], shapes=rms["forward"],
                          backward=rms["backward"],
                          backward_moe=rms["backward_moe"],
                          backward_hybrid=rms["backward_hybrid"],
-                         backward_tp=rms["backward_tp"]),
-        "flash_attention": {
-            "ms": timer(lambda: fa.flash_attention(q, k, v, True)),
-            "plain_ms": timer(lambda: fa.flash_attention_plain(q, k, v,
-                                                               True)),
-            "library_ms": timer(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qh, kh, vh, is_causal=True)),
-            "bytes": fa_bytes, "flops": fa_flops,
-            "shape": [1, PROMPT, 32, 64]},
+                         backward_tp=rms["backward_tp"],
+                         backward_audio=rms["backward_audio"],
+                         backward_vlm=rms["backward_vlm"]),
+        "flash_attention": flash_timing(timer, randn, fa, 1, PROMPT, PROMPT,
+                                        32, 64, True),
     }
     timing["chunked_reduce"] = reduce_timing(timer, randn, cr, DP, rs_len)
     # the (pod, data) path's shapes: each level reduces 2 sources
@@ -2392,39 +2670,11 @@ def main() -> int:
                                                       length)
                      for n, length in ragged_reduce_shapes(rs_len)}
     timing["chunked_reduce"]["ragged"] = reduce_ragged
-    # flash_attention at the (data, model) path's shape: a rank's 2
-    # sequences, 16 heads
-    b, lq, h, hd = FA_TP_SHAPE
-    qt, kt, vt = (randn(b, lq, h, hd) for _ in range(3))
-    qth, kth, vth = (t.transpose(1, 2).contiguous() for t in (qt, kt, vt))
-    tp_pairs = int(fa.attention_mask(lq, lq, True, None, 0, lq).sum()) \
-        * b * h
-    timing["flash_attention"]["tp"] = {
-        "ms": timer(lambda: fa.flash_attention(qt, kt, vt, True)),
-        "plain_ms": timer(lambda: fa.flash_attention_plain(qt, kt, vt,
-                                                           True)),
-        "library_ms": timer(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qth, kth, vth, is_causal=True)),
-        "bytes": 4 * qt.numel() * 4, "flops": 4 * hd * tp_pairs,
-        "shape": list(FA_TP_SHAPE)}
-    del qt, kt, vt, qth, kth, vth
-    # and at the MoE path's: a rank's 2 sequences, 12 heads
-    b, lq, h, hd = FA_MOE_SHAPE
-    qt, kt, vt = (randn(b, lq, h, hd) for _ in range(3))
-    qth, kth, vth = (t.transpose(1, 2).contiguous() for t in (qt, kt, vt))
-    moe_pairs = int(fa.attention_mask(lq, lq, True, None, 0, lq).sum()) \
-        * b * h
-    timing["flash_attention"]["moe"] = {
-        "ms": timer(lambda: fa.flash_attention(qt, kt, vt, True)),
-        "plain_ms": timer(lambda: fa.flash_attention_plain(qt, kt, vt,
-                                                           True)),
-        "library_ms": timer(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qth, kth, vth, is_causal=True)),
-        "bytes": 4 * qt.numel() * 4, "flops": 4 * hd * moe_pairs,
-        "shape": list(FA_MOE_SHAPE)}
-    del qt, kt, vt, qth, kth, vth
+    # flash_attention at the (data, model) path's shape (a rank's 2
+    # sequences, 16 heads) and the MoE path's (12 heads)
+    for key, (b, lq, h, hd) in (("tp", FA_TP_SHAPE), ("moe", FA_MOE_SHAPE)):
+        timing["flash_attention"][key] = flash_timing(timer, randn, fa, b,
+                                                      lq, lq, h, hd, True)
     # chunked_reduce at the MoE path's shapes
     reduce_moe = {f"{n}x{length}": reduce_timing(timer, randn, cr, n,
                                                    length)
@@ -2443,8 +2693,21 @@ def main() -> int:
                         for n, length in hybrid_tp_rs
                         if f"{n}x{length}" not in reduce_tp}
     timing["chunked_reduce"]["hybrid_tp"] = reduce_hybrid_tp
+    # and at the non-text models' (their row buckets, fused and not, and
+    # the grad sync's buckets of the dp-replicated leaves)
+    reduce_frontend = {f"{n}x{length}": reduce_timing(timer, randn, cr, n,
+                                                        length)
+                       for shapes in frontend_rs.values()
+                       for n, length in shapes}
+    timing["chunked_reduce"]["frontend"] = reduce_frontend
+    # flash_attention at the non-text models' shapes
+    fa_frontend = {key: flash_timing(timer, randn, fa, *shape)
+                   for key, shape in FA_FRONTEND.items()
+                   if key != "d96_ragged"}
+    timing["flash_attention"].update(fa_frontend)
     agm = {}
-    for t, n, ks, nout in AGM_SHAPES + AGM_TP_SHAPES + AGM_MOE_SHAPES:
+    for t, n, ks, nout in AGM_SHAPES + AGM_TP_SHAPES + AGM_MOE_SHAPES + \
+            AGM_AUDIO_SHAPES + AGM_VLM_SHAPES:
         xa, wa = randn(t, n * ks), randn(n, ks, nout)
         agm[f"{t}x{n * ks}@{n}x{ks}x{nout}"] = {
             "ms": timer(lambda: fc.all_gather_matmul(xa, wa)),
@@ -2469,6 +2732,8 @@ def main() -> int:
             timing["reduce_scatter_adamw"]["bf16_param"],
             *rms["forward"].values(), rms["backward"],
             rms["backward_moe"], rms["backward_hybrid"], rms["backward_tp"],
+            rms["backward_audio"], rms["backward_vlm"],
+            *reduce_frontend.values(), *fa_frontend.values(),
             *reduce_hier.values(),
             *reduce_tp.values(), *reduce_ragged.values(),
             *reduce_moe.values(), *reduce_hybrid.values(),
@@ -2480,10 +2745,10 @@ def main() -> int:
                     rec.get("exps", 0) / EXP_RATE) * 1e3
         rec["bound_ms"] = max(byte_ms, op_ms)
         rec["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
-    for rec in list(agm.values()) + [timing["all_gather_matmul"],
-                                     timing["flash_attention"],
-                                     timing["flash_attention"]["tp"],
-                                     timing["flash_attention"]["moe"]]:
+    for rec in list(agm.values()) + list(fa_frontend.values()) + [
+            timing["all_gather_matmul"], timing["flash_attention"],
+            timing["flash_attention"]["tp"],
+            timing["flash_attention"]["moe"]]:
         rec["bound_tc_ms"] = max(rec["bytes"] / HBM_BW,
                                  3 * rec["flops"] / TF32_PEAK) * 1e3
     record["all_gather_matmul_shapes"] = agm
@@ -2493,7 +2758,6 @@ def main() -> int:
     for name, t in timing.items():
         log(f"[timing] {name} {json.dumps(t)}")
     record["timing"] = timing
-    del q, k, v, qh, kh, vh
     mark("timing")
 
     # 3b. the kernel API: the path of the two reduce_scatter kernels -----
@@ -2508,7 +2772,8 @@ def main() -> int:
     # 4. reference: smoke models on the card vs on the CPU ---------------
     record["reference"] = {}
     for arch, length in (("llama3.2-1b", 1100), (SSM_ARCH, 300),
-                         (HYBRID_ARCH, 300)):
+                         (HYBRID_ARCH, 300), (AUDIO_ARCH, 1100),
+                         (VLM_ARCH, 1100)):
         err, ok = card_vs_cpu(arch, length, dev)
         record["reference"][arch] = {"prefill_len": length,
                                      "max_abs_err": err}
@@ -2526,6 +2791,9 @@ def main() -> int:
     record["serve_ssm"] = serve_phase(SSM_ARCH, "serve_ssm", dev, launches)
     record["serve_hybrid"] = serve_phase(HYBRID_ARCH, "serve_hybrid", dev,
                                          launches)
+    record["serve_audio"] = serve_phase(AUDIO_ARCH, "serve_audio", dev,
+                                        launches)
+    record["serve_vlm"] = serve_phase(VLM_ARCH, "serve_vlm", dev, launches)
     record["launches"] = launches
     mark("serve")
 
@@ -2559,9 +2827,14 @@ def main() -> int:
     # 7. training ---------------------------------------------------------
     del timer
     torch.cuda.empty_cache()
+    log(f"[train] this process holds {torch.cuda.memory_reserved() / 2**30:.2f}"
+        f" GiB of the card before the ranks start")
     record["train"] = train_phase()
+    record["train"]["audio_runs"] = record["train"]["audio"].pop("runs")
+    record["train"]["vlm_runs"] = record["train"]["vlm"].pop("runs")
     (train_launches, hier_launches, tp_launches, ragged_launches,
-     moe_launches, hybrid_launches, hybrid_tp_launches) = (
+     moe_launches, hybrid_launches, hybrid_tp_launches, audio_launches,
+     vlm_launches) = (
         {n: sum(s["launches"][n] for run in record["train"][key].values()
                 for s in run["steps"])
          for n in names}
@@ -2573,7 +2846,9 @@ def main() -> int:
                            ("hybrid", HYBRID_KERNELS + (
                                "chunked_reduce", "all_gather_matmul")),
                            ("hybrid_tp", HYBRID_KERNELS + (
-                               "chunked_reduce", "all_gather_matmul"))))
+                               "chunked_reduce", "all_gather_matmul")),
+                           ("audio_runs", LLAMA_TRAIN_KERNELS),
+                           ("vlm_runs", LLAMA_TRAIN_KERNELS)))
     record["train"]["launches"] = train_launches
     record["train"]["hier_launches"] = hier_launches
     record["train"]["tp_launches"] = tp_launches
@@ -2581,6 +2856,8 @@ def main() -> int:
     record["train"]["moe_launches"] = moe_launches
     record["train"]["hybrid_launches"] = hybrid_launches
     record["train"]["hybrid_tp_launches"] = hybrid_tp_launches
+    record["train"]["audio_launches"] = audio_launches
+    record["train"]["vlm_launches"] = vlm_launches
     mark("train")
 
     # 7f. serve Granite-3.0-MoE at full width through the launcher --------
@@ -2621,6 +2898,12 @@ def main() -> int:
         if n <= 0:
             fail(f"the hybrid (data, model) training path never launched "
                  f"the {name} kernel")
+    for path, counts in (("whisper-tiny", audio_launches),
+                         ("Phi-3-vision", vlm_launches)):
+        for name, n in counts.items():
+            if n <= 0:
+                fail(f"the {path} training path never launched the {name} "
+                     f"kernel")
     api_launches = record["kernel_api"]["launches"]
     for name in API_KERNELS:
         if api_launches[name] <= 0:
@@ -2641,6 +2924,8 @@ def main() -> int:
             by_path["train_tp"] = tp_launches[name]
             by_path["train_ragged"] = ragged_launches[name]
             by_path["train_moe"] = moe_launches[name]
+            by_path["train_audio"] = audio_launches[name]
+            by_path["train_vlm"] = vlm_launches[name]
         if name in hybrid_launches:
             by_path["train_hybrid"] = hybrid_launches[name]
             by_path["train_hybrid_tp"] = hybrid_tp_launches[name]
@@ -2653,7 +2938,31 @@ def main() -> int:
                 "train_ragged": ragged_launches["rms_norm_vjp"],
                 "train_moe": moe_launches["rms_norm_vjp"],
                 "train_hybrid": hybrid_launches["rms_norm_vjp"],
-                "train_hybrid_tp": hybrid_tp_launches["rms_norm_vjp"]}}
+                "train_hybrid_tp": hybrid_tp_launches["rms_norm_vjp"],
+                "train_audio": audio_launches["rms_norm_vjp"],
+                "train_vlm": vlm_launches["rms_norm_vjp"]},
+                # the non-text models' widths
+                **{k: {f: t["shapes"][k][f] for f in (
+                    "ms", "plain_ms", "library_ms", "copy_ms", "bound_ms",
+                    "bound_by", "geometry")}
+                   for k in (f"{RMS_AUDIO[0]}x{RMS_AUDIO[1]}",
+                             f"{RMS_VLM[0]}x{RMS_VLM[1]}")},
+                **{k: {f: t[k][f] for f in (
+                    "ms", "plain_ms", "library_ms", "copy_ms", "bound_ms",
+                    "bound_by", "geometry")}
+                   for k in ("backward_audio", "backward_vlm")}}
+        if name == "flash_attention":
+            # the non-text models' shapes, each measured in this run
+            extra = {k: {f: t[k][f] for f in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "bound_tc_ms", "shape", "causal")} for k in fa_frontend}
+        if name == "all_gather_matmul":
+            extra = {"frontend_shapes": {
+                f"{t_}x{n * ks}@{n}x{ks}x{nout}": {
+                    f: agm[f"{t_}x{n * ks}@{n}x{ks}x{nout}"][f] for f in (
+                        "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by", "bound_tc_ms")}
+                for t_, n, ks, nout in AGM_AUDIO_SHAPES + AGM_VLM_SHAPES}}
         if name == "ssm_scan":
             # the N = 64 forward and the backward kernel at the hybrid
             # path's shapes, each measured in this run beside its bound

@@ -8,8 +8,9 @@ Phi-3-medium-14B, DeepSeek-Coder-33B and the paper's Sec. 5.5 model,
 Llama-3-8B), and the Mixture-of-Experts decoders (Granite-3.0-MoE,
 registered under the reference's id and as ``granite-moe-3b``, and
 Snowflake Arctic), and the Mamba-2 hybrid with a shared attention block
-(Zamba2-1.2B).  Still to port (ROADMAP queue 1, item 8): whisper-tiny's
-encoder-decoder and phi-3-vision's vision frontend.
+(Zamba2-1.2B), and the non-text frontends: whisper-tiny's
+encoder-decoder (an audio stub, cross attention) and Phi-3-vision's
+vision prefix (a stub of patch embeddings).
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ _MODULES = {
     "granite-moe-3b": "granite_moe_3b",
     "arctic-480b": "arctic_480b",
     "zamba2-1.2b": "zamba2_1p2b",
+    "whisper-tiny": "whisper_tiny",
+    "phi-3-vision-4.2b": "phi3_vision_4p2b",
 }
 
 ARCH_IDS = list(_MODULES)
@@ -38,9 +41,10 @@ ALL_IDS = list(_MODULES)
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     if arch_id not in _MODULES:
         raise KeyError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP queue 1, "
-            f"item 8: whisper-tiny, phi-3-vision-4.2b); "
-            f"ported: {ARCH_IDS}")
+            f"unknown arch {arch_id!r}; ported: {ARCH_IDS}.  Still to "
+            f"port (ROADMAP queue 1): pipeline stages (item 9), online "
+            f"re-tuning, metrics and resilience (item 10), the dry-run "
+            f"and sharded decode (item 11)")
     mod = importlib.import_module(
         f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.SMOKE if smoke else mod.CONFIG

@@ -4,8 +4,8 @@ Copy of the numpy part of ``repro.data.pipeline``: ``SyntheticTokens``
 (deterministic zipf-ish LM batches from a seed) and ``batch_for``, which
 give the reference's batches for the same seed.  ``local_batch`` is this
 rank's slice of a global batch (the reference shards it over the dp
-axis with a ``NamedSharding``).  Frontend extras and ``MemmapCorpus``
-come with the rest of the zoo.
+axis with a ``NamedSharding``), extras included.  ``MemmapCorpus`` is
+not ported.
 """
 from __future__ import annotations
 
@@ -19,12 +19,23 @@ from repro_torch.models.config import ModelConfig
 
 def batch_for(cfg: ModelConfig, tokens: np.ndarray,
               rng: Optional[np.random.Generator] = None) -> dict:
-    """tokens (B, L+1) -> training batch with next-token labels."""
-    if cfg.frontend != "text" or cfg.encoder is not None:
-        raise NotImplementedError(f"{cfg.name}: frontend batches are not "
-                                  f"ported yet (ROADMAP queue 1, item 8)")
-    return {"tokens": tokens[:, :-1].astype(np.int32),
-            "labels": tokens[:, 1:].astype(np.int32)}
+    """tokens (B, L+1) -> training batch with next-token labels and the
+    frontend extras (random stub embeddings, f32, drawn from ``rng``
+    after the tokens): ``frontend`` (B, frontend_tokens, frontend_dim)
+    for a vision prefix, ``source`` (B, source_len, frontend_dim) for an
+    encoder."""
+    rng = rng or np.random.default_rng(0)
+    b = {"tokens": tokens[:, :-1].astype(np.int32),
+         "labels": tokens[:, 1:].astype(np.int32)}
+    n = tokens.shape[0]
+    if cfg.frontend == "vision_stub" and cfg.encoder is None:
+        b["frontend"] = rng.standard_normal(
+            (n, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    if cfg.encoder is not None:
+        b["source"] = rng.standard_normal(
+            (n, cfg.encoder.source_len,
+             cfg.frontend_dim or cfg.d_model)).astype(np.float32)
+    return b
 
 
 @dataclasses.dataclass

@@ -28,9 +28,9 @@
 // * One block of 4 warps per (64-row q tile, head, batch); each warp owns
 //   16 query rows.  In f32 at D <= 64 the warp's q fragments are split
 //   once (big = tf32_rn(q), small = tf32_rn(q - big), rounding to
-//   nearest on the bit pattern) and kept in registers; at D = 128 they
-//   are re-read from shared memory each kv tile; bf16 fragments always
-//   stay in registers.
+//   nearest on the bit pattern) and kept in registers; at D = 96 and 128
+//   they are re-read from shared memory each kv tile; bf16 fragments
+//   always stay in registers.
 // * S = Q K^T on the tensor cores (3 mma per product in f32:
 //   small*big + big*small + big*big), the softmax in registers: each
 //   thread holds two rows' scores, the row max and sum are taken across
@@ -43,10 +43,15 @@
 // * K and V tiles go through a 2-stage cp.async ring: the next tile's
 //   16-byte copies are in flight while this tile multiplies, one barrier
 //   per tile.  Row strides padded by 4 floats (8 bf16) keep every
-//   fragment read free of bank conflicts.
+//   fragment read free of bank conflicts: an f32 row is 4 mod 32 words
+//   at every D (68, 100, 132), a bf16 row 4 mod 32 at D = 64 and 128 and
+//   20 mod 32 at D = 96 (52 words: the 8 rows a fragment read spans
+//   still start 4 banks apart or more).
 // * Kv tiles wholly above the causal diagonal or below the window are
-//   skipped, masks are evaluated only on tiles that cut a boundary, and
-//   the grid runs the heaviest causal q tiles (the last ones) first.
+//   skipped, masks are evaluated only on tiles that cut a boundary (the
+//   ragged last kv tile of any length, cross attention's Lk != Lq
+//   included), and the grid runs the heaviest causal q tiles (the last
+//   ones) first.
 // * No atomics: a repeat is bitwise equal.
 //
 // Measured (chip_smoke.py, H100 80GB HBM3, 700 W; PERF.md §6 has the
@@ -446,7 +451,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q/o: (B, Lq, H, D), k/v: (B, Lk, H, D), contiguous, 16-byte aligned.
-// D in {32, 64, 128}; dtype: 0 = float32, 1 = bfloat16.  window <= 0
+// D in {32, 64, 96, 128}; dtype: 0 = float32, 1 = bfloat16.  window <= 0
 // means no window.
 // Keys at positions >= kv_len (<= Lk) are masked.  m_out / l_out: null, or
 // (B, Lq, H) f32 for each row's running max and normaliser.
@@ -463,9 +468,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                        window, q_offset, kv_len, st)
   if (dtype == 0 && D == 32) REPRO_FLASH(float, 32);
   if (dtype == 0 && D == 64) REPRO_FLASH(float, 64);
+  if (dtype == 0 && D == 96) REPRO_FLASH(float, 96);
   if (dtype == 0 && D == 128) REPRO_FLASH(float, 128);
   if (dtype == 1 && D == 32) REPRO_FLASH(__nv_bfloat16, 32);
   if (dtype == 1 && D == 64) REPRO_FLASH(__nv_bfloat16, 64);
+  if (dtype == 1 && D == 96) REPRO_FLASH(__nv_bfloat16, 96);
   if (dtype == 1 && D == 128) REPRO_FLASH(__nv_bfloat16, 128);
 #undef REPRO_FLASH
   return cudaErrorInvalidValue;

@@ -29,7 +29,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 96, 128)
 NEG_INF = -1e30          # masked score, as in models/flash.py
 BWD_BLOCK = 512          # the reference's DEFAULT_BLOCK
 # q, k, v, o, m, l, then B, Lq, Lk, H, D, causal, window, q_offset,

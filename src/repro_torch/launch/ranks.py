@@ -91,12 +91,13 @@ def _rank_main(rank: int, nranks: int, fn: Callable, args: tuple,
 
 
 def spawn(fn: Callable, nranks: int, args: tuple = (), *,
-          device: str = "cpu", partition_bytes: int = 0,
+          device: str, partition_bytes: int = 0,
           groups: Sequence[tuple] = (), world_pool: bool = True,
           poolless: Sequence[tuple] = (), timeout_s: float = 600.0,
           wait_s: Optional[float] = None) -> list:
     """``fn(ctx, *args)`` on ``nranks`` ranks; returns the results in
-    rank order.  ``partition_bytes > 0`` maps a shared pool with that
+    rank order.  ``device`` ("cuda" or "cpu") has no default: a caller
+    states where its ranks run, so none lands on the CPU by omission.  ``partition_bytes > 0`` maps a shared pool with that
     partition per rank (``ctx.pool``; not with ``world_pool=False``)
     and one per level group of ``groups`` (tuples of ranks; see
     :class:`RankContext`) but those in ``poolless``, which get a

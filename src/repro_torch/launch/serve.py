@@ -43,8 +43,21 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --ckpt DIR [--ckpt-step N] --batch 4 --prompt-len 1024
 
-A model whose cache has no token axis (Falcon-Mamba's SSM state) cannot
-share pooled prefixes: ``--prompt-reuse`` then runs plain prefills.
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --batch 4 --prompt-len 1024 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch phi-3-vision-4.2b --batch 4 --prompt-len 1024 --new-tokens 16
+
+A model whose cache has no token axis (Falcon-Mamba's SSM state,
+whisper-tiny's cross-attention keys and values) cannot share pooled
+prefixes: ``--prompt-reuse`` then runs plain prefills.
+
+The fixed batch of a model with a stub frontend carries its seeded
+random embeddings (``stub_batch``): Phi-3-vision's 576 patch
+embeddings, which take the cache's first positions (``max_seq`` is
+sized with them), or whisper-tiny's 1500 encoder frames.  The reference
+launcher's trace builds requests without them, so ``--trace`` refuses
+these models.
 """
 from __future__ import annotations
 
@@ -245,6 +258,11 @@ def engine_from_args(args) -> tuple:
     checkpoint of ``--ckpt``, else from a ``torch.Generator`` seeded 0 on
     the engine's device."""
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.trace and model.frontend_inputs(cfg):
+        raise ValueError(f"{cfg.name}: --trace builds text requests, and "
+                         f"this model takes its frontend's input with "
+                         f"every request (the reference's trace cannot "
+                         f"serve it either); serve the fixed batch")
     device = resolve_device(args.device)
     if args.ckpt:
         params = restore_params(cfg, args.ckpt, args.ckpt_step, device)
@@ -252,7 +270,8 @@ def engine_from_args(args) -> tuple:
         gen = torch.Generator(device=device).manual_seed(0)
         params = model.init_params(cfg, gen, device, torch.float32)
     scfg = ServeConfig(
-        max_seq=args.prompt_len + args.new_tokens + 8,
+        max_seq=model.prefix_tokens(cfg) + args.prompt_len
+        + args.new_tokens + 8,
         window=args.window, temperature=args.temperature,
         decode_slots=args.decode_slots,
         kv_block_tokens=args.kv_block_tokens,
@@ -263,6 +282,23 @@ def engine_from_args(args) -> tuple:
                         or args.prompt_reuse > 0.0),
         plan_path=args.plan)
     return cfg, ServeEngine(cfg, params, scfg, device=device)
+
+
+def stub_batch(cfg, batch: int, prompt_len: int,
+               rng: np.random.Generator) -> dict:
+    """The fixed batch: ``batch`` prompts of ``prompt_len`` tokens and,
+    drawn after them from ``rng``, the frontend's stub embeddings (f32),
+    as the reference launcher draws them."""
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, prompt_len))}
+    if model.prefix_tokens(cfg):
+        out["frontend"] = rng.standard_normal(
+            (batch, cfg.frontend_tokens, cfg.frontend_dim)
+        ).astype(np.float32)
+    if cfg.encoder is not None:
+        out["source"] = rng.standard_normal(
+            (batch, cfg.encoder.source_len, cfg.frontend_dim)
+        ).astype(np.float32)
+    return out
 
 
 def apply_placement(ap, args) -> None:
@@ -298,9 +334,8 @@ def main(argv=None) -> None:
     if args.trace:
         run_trace(eng, cfg, args)
         return
-    rng = np.random.default_rng(0)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size,
-                                    (args.batch, args.prompt_len))}
+    batch = stub_batch(cfg, args.batch, args.prompt_len,
+                       np.random.default_rng(0))
     _sync(eng.device)
     t0 = time.perf_counter()
     out = eng.generate(batch, max_new_tokens=args.new_tokens)

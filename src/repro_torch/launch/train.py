@@ -473,8 +473,12 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
            "profile": None, "init_s": init_s, "capture_s": 0.0}
 
     def to_dev(b):
+        """This rank's rows on the device: token ids as int64, the
+        frontend's stub embeddings in their own dtype (f32)."""
         lb = local_batch(b, dp_index, spec.dp)
-        return {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+        return {k: torch.as_tensor(v, device=dev, dtype=torch.long
+                                   if np.issubdtype(v.dtype, np.integer)
+                                   else None)
                 for k, v in lb.items()}
 
     for i, gb in zip(range(min(spec.steps, tcfg.total_steps)), data):

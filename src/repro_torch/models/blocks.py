@@ -13,8 +13,11 @@ Python where the reference runs ``lax.scan``.  Every row kind trains
 at any tp (the Mamba rows channel- and head-sharded over the model
 axis, ``models.ssm``); prefill, decode and the decode cache at tp > 1
 (the reference's sequence-sharded cache) are not ported yet (ROADMAP
-queue 1, item 11) and raise.  Cross-attention comes with whisper-tiny
-(item 8).
+queue 1, item 11) and raise.  The ``a`` rows of a model with an
+encoder (whisper-tiny) also hold cross attention (``norm_x``,
+``xattn``): their queries attend the encoder's output, and their decode
+cache keeps its projected keys and values (``ck``, ``cv``: no token
+axis, computed once by the prefill).
 """
 from __future__ import annotations
 
@@ -50,11 +53,9 @@ def scan_groups(cfg: ModelConfig) -> list[Group]:
     return groups
 
 
-def _ported(kind: str, cfg: ModelConfig) -> None:
-    if kind not in ("a", "e", "1", "2") or cfg.encoder is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: row kind {kind!r} (or cross attention) is not "
-            f"ported yet (ROADMAP queue 1, item 8)")
+def _check_kind(kind: str, cfg: ModelConfig) -> None:
+    if kind not in ("a", "e", "1", "2"):
+        raise ValueError(f"{cfg.name}: unknown row kind {kind!r}")
 
 
 # ----------------------------------------------------------------------- #
@@ -62,11 +63,12 @@ def _ported(kind: str, cfg: ModelConfig) -> None:
 # ----------------------------------------------------------------------- #
 
 def init_row(gen: torch.Generator, kind: str, cfg: ModelConfig, tp: int,
-             dtype, device, layers_: int = 1) -> Params:
+             dtype, device, layers_: int = 1, cross: bool = False) -> Params:
     """GLOBAL params of ``layers_`` stacked rows (leading layer axis),
     q heads and the FFN laid out for ``tp`` (``sharding.shard_params``
-    slices them per rank)."""
-    _ported(kind, cfg)
+    slices them per rank); ``cross`` adds an ``a`` row's cross attention
+    (``norm_x``, ``xattn``)."""
+    _check_kind(kind, cfg)
     ones = torch.ones((layers_, cfg.d_model), dtype=torch.float32,
                       device=device)
     if kind in ("1", "2"):
@@ -79,9 +81,13 @@ def init_row(gen: torch.Generator, kind: str, cfg: ModelConfig, tp: int,
          "norm2": ones.clone()}
     if kind == "e":
         p["moe"] = moe.init_moe(gen, cfg, tp, dtype, device, layers_)
-    else:
-        p["ffn"] = layers.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype,
-                                   device, layers_)
+        return p
+    p["ffn"] = layers.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                               layers_)
+    if cross:
+        p["norm_x"] = ones.clone()
+        p["xattn"] = layers.init_attention(gen, cfg, tp, dtype, device,
+                                           layers_)
     return p
 
 
@@ -94,12 +100,30 @@ def _ffn_part(p: Params, ff_in: torch.Tensor, kind: str, cfg: ModelConfig,
     return layers.ffn_forward(p["ffn"], ff_in, pc), None
 
 
+def _cross_part(p: Params, h: torch.Tensor, cfg: ModelConfig,
+                pc: ParallelContext, positions: torch.Tensor,
+                encoder_out: torch.Tensor, return_kv: bool = False):
+    """The row's cross-attention half: ``h`` plus attention of its
+    normed queries over ``encoder_out``; with ``return_kv`` also the
+    unroped (ck, cv)."""
+    x_in = layers.rms_norm(h, p["norm_x"], cfg.norm_eps)
+    out = layers.attention_forward(p["xattn"], x_in, cfg, pc, positions,
+                                   causal=False, kv_source=encoder_out,
+                                   return_kv=return_kv)
+    if return_kv:
+        return h + out[0], out[1]
+    return h + out
+
+
 def row_forward(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
                 pc: ParallelContext, positions: torch.Tensor,
+                encoder_out: Optional[torch.Tensor] = None,
                 causal: bool = True, window: Optional[int] = None):
-    """Full-sequence forward for one row (training).  Returns
-    (h, aux_loss); the MoE's router loss, zero for the other kinds."""
-    _ported(kind, cfg)
+    """Full-sequence forward for one row (training, the encoder).  An
+    ``a`` row with cross attention attends ``encoder_out`` after its
+    self attention.  Returns (h, aux_loss); the MoE's router loss, zero
+    for the other kinds."""
+    _check_kind(kind, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind in ("1", "2"):
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
@@ -109,6 +133,8 @@ def row_forward(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
     h = h + layers.attention_forward(p["attn"], attn_in, cfg, pc,
                                      positions, causal=causal,
                                      window=window)
+    if "xattn" in p and encoder_out is not None:
+        h = _cross_part(p, h, cfg, pc, positions, encoder_out)
     ff_in = layers.rms_norm(h, p["norm2"], cfg.norm_eps)
     out, moe_aux = _ffn_part(p, ff_in, kind, cfg, pc)
     return h + out, aux if moe_aux is None else moe_aux
@@ -116,12 +142,14 @@ def row_forward(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
 
 def row_prefill(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
                 pc: ParallelContext, positions: torch.Tensor, cache: dict,
+                encoder_out: Optional[torch.Tensor] = None,
                 window: Optional[int] = None) -> torch.Tensor:
     """Full-sequence forward that also fills this row's decode cache
-    ``cache`` (attention {'k','v'}: (B, max_seq, n_kv, hd); Mamba-1
+    ``cache`` (attention {'k','v'}: (B, max_seq, n_kv, hd), with cross
+    attention also {'ck','cv'}: (B, source_len, n_kv, hd); Mamba-1
     {'conv','ssm'}; Mamba-2 {'conv','conv_bc','ssm'}), written in place
     where the reference returns a new one.  Returns h."""
-    _ported(kind, cfg)
+    _check_kind(kind, cfg)
     layers.require_unsharded_decode(pc)
     if kind in ("1", "2"):
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
@@ -136,6 +164,11 @@ def row_prefill(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
         window=window, return_kv=True)
     h = h + out
     _kv_to_cache(k, v, cache)
+    if "xattn" in p and encoder_out is not None:
+        h, (ck, cv) = _cross_part(p, h, cfg, pc, positions, encoder_out,
+                                  return_kv=True)
+        cache["ck"].copy_(ck)
+        cache["cv"].copy_(cv)
     ff_in = layers.rms_norm(h, p["norm2"], cfg.norm_eps)
     return h + _ffn_part(p, ff_in, kind, cfg, pc)[0]
 
@@ -161,11 +194,12 @@ def row_decode(p: Params, h: torch.Tensor, kind: str, cache: dict,
                window: Optional[int] = None,
                active: Optional[torch.Tensor] = None):
     """Single-token decode for one row; writes the row's cache in place:
-    attention ``{'k','v'}`` (see ``layers.decode_attention``), Mamba-1
+    attention ``{'k','v'}`` (see ``layers.decode_attention``; cross
+    attention reads ``{'ck','cv'}`` and writes nothing), Mamba-1
     ``{'conv','ssm'}``, Mamba-2 ``{'conv','conv_bc','ssm'}``.  With
     ``active`` ((B,) bool) only those slots' state is written; an
     inactive slot's stays bitwise as it was.  Returns (h, cache)."""
-    _ported(kind, cfg)
+    _check_kind(kind, cfg)
     layers.require_unsharded_decode(pc)
     if kind in ("1", "2"):
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
@@ -186,6 +220,10 @@ def row_decode(p: Params, h: torch.Tensor, kind: str, cache: dict,
         p["attn"], attn_in, cache["k"], cache["v"], pos, cfg, pc,
         window=window, kv_write_pos=kv_write, active=active)
     h = h + out
+    if "xattn" in p and "ck" in cache:
+        x_in = layers.rms_norm(h, p["norm_x"], cfg.norm_eps)
+        h = h + _cross_decode(p["xattn"], x_in, cache["ck"], cache["cv"],
+                              cfg, pc)
     ff_in = layers.rms_norm(h, p["norm2"], cfg.norm_eps)
     # decode is drop-free: worst case every assignment lands on one
     # expert, so capacity = tokens * top_k
@@ -195,17 +233,34 @@ def row_decode(p: Params, h: torch.Tensor, kind: str, cache: dict,
     return h, cache
 
 
+def _cross_decode(p: Params, x: torch.Tensor, ck: torch.Tensor,
+                  cv: torch.Tensor, cfg: ModelConfig,
+                  pc: ParallelContext) -> torch.Tensor:
+    """Cross attention of one query a slot against the cached encoder
+    keys and values (B, S_enc, n_kv, hd): local kv heads, the whole
+    encoder sequence, the output row-parallel-reduced over tp."""
+    d = layers.attn_dims(cfg, pc.tp)
+    b = x.shape[0]
+    q = layers.dense(x, p["wq"]).reshape(b, 1, d.n_q, d.head_dim)
+    kk, vv = layers.select_kv(ck, cv, d, cfg, pc)
+    out = layers.attention_scores(q, kk, vv, causal=False)
+    out = layers.dense(out.reshape(b, 1, d.n_q * d.head_dim), p["wo"])
+    return pc.tp_all_reduce(out)
+
+
 def row_cache_init(kind: str, cfg: ModelConfig, pc: ParallelContext,
                    batch: int, max_seq: int, dtype, device,
-                   layers_: Optional[int] = 1) -> dict:
+                   layers_: Optional[int] = 1, cross_len: int = 0) -> dict:
     """Zero decode cache of ``layers_`` stacked rows (``layers_`` None:
     one row without the layer axis, a shared occurrence's): attention
-    {'k','v'}: (layers_, batch, max_seq, n_kv, hd); Mamba-1 {'conv':
+    {'k','v'}: (layers_, batch, max_seq, n_kv, hd), with ``cross_len``
+    also the cross attention's {'ck','cv'}: (layers_, batch, cross_len,
+    n_kv, hd) (no token axis); Mamba-1 {'conv':
     (layers_, batch, d_conv - 1, d_inner) in ``dtype``, 'ssm': (layers_,
     batch, d_inner, d_state) f32}; Mamba-2 {'conv' in ``dtype``,
     'conv_bc': (layers_, batch, d_conv - 1, 2 d_state) f32, 'ssm':
     (layers_, batch, nh, headdim, d_state) f32} (no token axis)."""
-    _ported(kind, cfg)
+    _check_kind(kind, cfg)
     layers.require_unsharded_decode(pc)
     lead = () if layers_ is None else (layers_,)
     if kind in ("1", "2"):
@@ -215,6 +270,11 @@ def row_cache_init(kind: str, cfg: ModelConfig, pc: ParallelContext,
         return {key: torch.zeros(lead + shape, dtype=dt, device=device)
                 for key, shape, dt in zip(_ssm_keys(kind), shapes, dtypes)}
     d = layers.attn_dims(cfg, pc.tp)
-    shape = lead + (batch, max_seq, d.n_kv, d.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    out = {}
+    for name, length in (("", max_seq), ("c", cross_len)):
+        if length:
+            shape = lead + (batch, length, d.n_kv, d.head_dim)
+            for leaf in ("k", "v"):
+                out[name + leaf] = torch.zeros(shape, dtype=dtype,
+                                               device=device)
+    return out

@@ -199,19 +199,27 @@ def attention_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
                       pc: ParallelContext, positions: torch.Tensor,
                       causal: bool = True,
                       window: Optional[int] = None,
+                      kv_source: Optional[torch.Tensor] = None,
                       return_kv: bool = False):
-    """Full-sequence self-attention (prefill).  Returns the output, and
-    with ``return_kv`` also the roped (k, v) before GQA expansion.
-    (Cross-attention comes with the encoder-decoder models.)"""
+    """Full-sequence attention (training, prefill, the encoder).
+    ``kv_source`` (B, Lk, d_model) switches to cross attention: keys and
+    values from it (the encoder's output), no RoPE on q or k, never
+    causal.  The output is row-parallel-reduced over tp.  Returns the
+    output, and with ``return_kv`` also (k, v) before GQA expansion:
+    roped for self attention, unroped for cross attention."""
     d = attn_dims(cfg, pc.tp)
     b, l, _ = x.shape
     q = dense(x, params["wq"]).reshape(b, l, d.n_q, d.head_dim)
-    k = dense(x, params["wk"]).reshape(b, l, d.n_kv, d.head_dim)
-    v = dense(x, params["wv"]).reshape(b, l, d.n_kv, d.head_dim)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    src = x if kv_source is None else kv_source
+    lk = src.shape[1]
+    k = dense(src, params["wk"]).reshape(b, lk, d.n_kv, d.head_dim)
+    v = dense(src, params["wv"]).reshape(b, lk, d.n_kv, d.head_dim)
+    if kv_source is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     kk, vv = select_kv(k, v, d, cfg, pc)
-    out = attention_scores(q, kk, vv, causal=causal, window=window)
+    out = attention_scores(q, kk, vv, causal=causal and kv_source is None,
+                           window=window)
     out = dense(out.reshape(b, l, d.n_q * d.head_dim), params["wo"])
     out = pc.tp_all_reduce(out)
     if return_kv:

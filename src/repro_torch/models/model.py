@@ -1,19 +1,28 @@
 """Top-level language model: init, train forward (loss), prefill, decode.
 
-Port of ``repro/models/model.py`` for decoder-only text models built from
-``a`` (attention), ``e`` (attention + MoE), ``1`` (Mamba-1) or ``2``
-(Mamba-2) rows, with Zamba2's shared attention block; the training loss
+Port of ``repro/models/model.py`` for models built from ``a``
+(attention), ``e`` (attention + MoE), ``1`` (Mamba-1) or ``2``
+(Mamba-2) rows, with Zamba2's shared attention block, and the two stub
+frontends: a vision prefix (Phi-3-vision: projected patch embeddings
+``front_proj`` prepended to the tokens, cut off before the logits) and
+an encoder (whisper-tiny: projected frame embeddings ``enc_proj``
+through a bidirectional stack of ``a`` rows, ``encoder``, and
+``enc_norm``, which the decoder's ``a`` rows cross-attend); the training loss
 adds the MoE rows' router losses (``aux``), each row's counted once: a
 remat replay recomputes tensors, not the sum.  Params keep the
 reference's tree (``embed``/``final_norm``/``g<i>`` groups with a
 leading layer axis, and ``shared_a``, one un-stacked ``a`` row that
 every shared group applies; a shared group has no ``g<i>`` of its
-own), so ``params_from_numpy`` is a renaming, not a reshuffle.  Layer
+own; ``encoder``, stacked like a group), so ``params_from_numpy`` is a
+renaming, not a reshuffle.  Layer
 groups run as Python loops where the reference runs ``lax.scan``;
 decode caches are updated in place.
 ``remat`` maps to ``torch.utils.checkpoint`` (non-reentrant): a row's
 activations, and the FSDP gathers issued inside it, are recomputed in
-the backward pass, as ``jax.checkpoint`` replays them.
+the backward pass, as ``jax.checkpoint`` replays them.  A decoder row
+closes over the encoder's output, so its gradient reaches the encoder
+through the replay too.  The encoder runs without remat and outside
+the FSDP gather, as in the reference.
 """
 from __future__ import annotations
 
@@ -45,9 +54,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     the vocabulary padded to a multiple of ``tp`` (padded q heads
     zeroed)."""
     device = resolve_device(device)
-    if cfg.frontend != "text" or cfg.encoder is not None:
-        raise NotImplementedError(f"{cfg.name}: non-text frontends are "
-                                  f"not ported yet (ROADMAP item 8)")
+    cross = cfg.encoder is not None
     params: Params = {
         "embed": layers.init_embedding(generator, cfg, tp, dtype, device),
         "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
@@ -57,10 +64,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if g.shared:
             if "shared_a" not in params:     # one set for every occurrence
                 params["shared_a"] = _layer(blocks.init_row(
-                    generator, "a", cfg, tp, dtype, device, 1), 0)
+                    generator, "a", cfg, tp, dtype, device, 1, cross), 0)
             continue
         params[f"g{gi}"] = blocks.init_row(generator, g.kind, cfg, tp,
-                                           dtype, device, g.count)
+                                           dtype, device, g.count, cross)
+    fd = cfg.frontend_dim or cfg.d_model
+    if cross:
+        params["encoder"] = blocks.init_row(generator, "a", cfg, tp, dtype,
+                                            device, cfg.encoder.n_layers)
+        params["enc_norm"] = torch.ones((cfg.d_model,), dtype=torch.float32,
+                                        device=device)
+        params["enc_proj"] = layers._dense_init(
+            generator, (fd, cfg.d_model), fd, dtype, device)
+    elif cfg.frontend != "text":
+        params["front_proj"] = layers._dense_init(
+            generator, (fd, cfg.d_model), fd, dtype, device)
     return params
 
 
@@ -112,6 +130,53 @@ def _layer(p: Params, i: int) -> Params:
 
 
 # ----------------------------------------------------------------------- #
+# shared plumbing: the frontends
+# ----------------------------------------------------------------------- #
+
+def prefix_tokens(cfg: ModelConfig) -> int:
+    """Positions a vision prefix takes ahead of the tokens (in the
+    sequence and the decode cache); 0 for the other models."""
+    if cfg.frontend != "text" and cfg.encoder is None:
+        return cfg.frontend_tokens
+    return 0
+
+
+def frontend_inputs(cfg: ModelConfig) -> frozenset:
+    """The batch entries the model takes beside the tokens: a vision
+    prefix's ``frontend``, an encoder's ``source``, or none."""
+    if cfg.encoder is not None:
+        return frozenset({"source"})
+    return frozenset({"frontend"}) if prefix_tokens(cfg) else frozenset()
+
+
+def _encode(params: Params, source: torch.Tensor, cfg: ModelConfig,
+            pc: ParallelContext) -> torch.Tensor:
+    """Stub-frontend frames (B, S, frontend_dim) -> the encoder stack
+    (bidirectional ``a`` rows, RoPE on arange(S)) -> ``enc_norm``."""
+    h = source @ params["enc_proj"]
+    positions = torch.arange(h.shape[1], device=h.device)
+    for i in range(cfg.encoder.n_layers):
+        h, _ = blocks.row_forward(_layer(params["encoder"], i), h, "a", cfg,
+                                  pc, positions, causal=False)
+    return layers.rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def _embed_inputs(params: Params, batch: dict, cfg: ModelConfig,
+                  pc: ParallelContext) -> tuple:
+    """(h, n_prefix, encoder_out): the token embeddings, behind the
+    projected vision prefix of a ``vision_stub`` model (``n_prefix`` its
+    length), and the encoder's output of an encoder-decoder model."""
+    h = layers.embed_tokens(params["embed"], batch["tokens"], cfg, pc)
+    if cfg.encoder is not None:
+        return h, 0, _encode(params, batch["source"], cfg, pc)
+    if cfg.frontend != "text":
+        front = batch["frontend"] @ params["front_proj"]
+        return torch.cat([front.to(h.dtype), h], dim=1), front.shape[1], \
+            None
+    return h, 0, None
+
+
+# ----------------------------------------------------------------------- #
 # training forward
 # ----------------------------------------------------------------------- #
 
@@ -121,8 +186,8 @@ def _maybe_remat(fn, remat: bool):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def _run_groups(params: Params, h, cfg, pc, positions, remat: bool,
-                window=None, gather_fn=None, prefetch: int = 0):
+def _run_groups(params: Params, h, cfg, pc, positions, encoder_out,
+                remat: bool, window=None, gather_fn=None, prefetch: int = 0):
     """Run every layer group.  ``gather_fn(group_key, row_params)`` is the
     FSDP hook; ``prefetch >= 1`` is the reference's double-buffered
     schedule: row ``l + 1``'s gather is issued (under
@@ -142,13 +207,14 @@ def _run_groups(params: Params, h, cfg, pc, positions, remat: bool,
             if gather_fn is not None:
                 p = gather_fn(group_key, p)   # FSDP: gather row params
             return blocks.row_forward(p, hh, kind, cfg, pc, positions,
-                                      window=window)
+                                      encoder_out, window=window)
         return _maybe_remat(body, remat)
 
     def make_prefetch_body(kind, group_key):
         def body(hh, p_cur, p_next):
             out, aux = blocks.row_forward(p_cur, hh, kind, cfg, pc,
-                                          positions, window=window)
+                                          positions, encoder_out,
+                                          window=window)
             # issued after the row's compute: the gather saves no tensor
             # for backward, so the remat replay (checkpoint's early stop)
             # ends before it instead of gathering row l+1 again
@@ -160,7 +226,7 @@ def _run_groups(params: Params, h, cfg, pc, positions, remat: bool,
     def make_consume(kind):
         def body(hh, p):
             return blocks.row_forward(p, hh, kind, cfg, pc, positions,
-                                      window=window)
+                                      encoder_out, window=window)
         return _maybe_remat(body, remat)
 
     for gi, g in enumerate(blocks.scan_groups(cfg)):
@@ -196,20 +262,23 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
             pc: ParallelContext, remat: bool = True,
             window: Optional[int] = None, gather_fn=None,
             prefetch: int = 0):
-    """batch: tokens (B, L), labels (B, L), optional loss_mask.
-    ``gather_fn`` is the FSDP hook (``sharding.fsdp_gather_fn`` /
+    """batch: tokens (B, L), labels (B, L), optional loss_mask, and the
+    frontend's extras: ``frontend`` (B, frontend_tokens, frontend_dim)
+    or ``source`` (B, source_len, frontend_dim).  ``gather_fn`` is the
+    FSDP hook (``sharding.fsdp_gather_fn`` /
     ``core.overlap.make_gather_fn``); ``prefetch >= 1`` double-buffers
     it.  Returns (loss, aux_dict)."""
     if gather_fn is not None:
         # embed is used at both ends of the step: gather once up front.
         params = dict(params, embed=gather_fn("embed", params["embed"]))
-    tokens = batch["tokens"]
-    h = layers.embed_tokens(params["embed"], tokens, cfg, pc)
+    h, n_prefix, encoder_out = _embed_inputs(params, batch, cfg, pc)
     positions = torch.arange(h.shape[1], device=h.device)
-    h, aux = _run_groups(params, h, cfg, pc, positions, remat=remat,
-                         window=window, gather_fn=gather_fn,
+    h, aux = _run_groups(params, h, cfg, pc, positions, encoder_out,
+                         remat=remat, window=window, gather_fn=gather_fn,
                          prefetch=prefetch)
     h = layers.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    if n_prefix:
+        h = h[:, n_prefix:]
     logits = layers.lm_logits(params["embed"], h, cfg, pc)
     xent = layers.sharded_xent(logits, batch["labels"], pc,
                                mask=batch.get("loss_mask"),
@@ -227,11 +296,13 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
             cache_dtype=torch.bfloat16, window: Optional[int] = None):
     """Full-sequence forward producing last-position logits (B, 1, V)
     and the decode cache (a list aligned with layer groups, each
-    {'k','v'}: (layers, B, max_seq, n_kv, hd) for attention rows or the
-    Mamba rows' state, see ``blocks.row_cache_init``; a shared group's
-    entry is a list of its occurrences' un-stacked caches)."""
-    tokens = batch["tokens"]
-    h = layers.embed_tokens(params["embed"], tokens, cfg, pc)
+    {'k','v'}: (layers, B, max_seq, n_kv, hd) for attention rows, with
+    an encoder also {'ck','cv'}, or the Mamba rows' state, see
+    ``blocks.row_cache_init``; a shared group's entry is a list of its
+    occurrences' un-stacked caches).  ``batch`` as for
+    :func:`loss_fn`; a vision prefix takes the cache's first positions,
+    so ``max_seq`` must hold it too."""
+    h, _, encoder_out = _embed_inputs(params, batch, cfg, pc)
     positions = torch.arange(h.shape[1], device=h.device)
     caches = init_cache(cfg, pc, h.shape[0], max_seq, cache_dtype,
                         device=h.device)
@@ -239,7 +310,7 @@ def prefill(params: Params, batch: dict, cfg: ModelConfig,
         for i in range(g.count):
             p, c = _row_and_cache(params, caches, gi, g, i)
             h = blocks.row_prefill(p, h, g.kind, cfg, pc, positions, c,
-                                   window=window)
+                                   encoder_out, window=window)
     h = layers.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = layers.lm_logits(params["embed"], h[:, -1:], cfg, pc)
     return logits, caches
@@ -261,12 +332,13 @@ def init_cache(cfg: ModelConfig, pc: ParallelContext, batch: int,
     is a list of one un-stacked cache per occurrence, as the
     reference's."""
     eff_seq = min(max_seq, window) if window else max_seq
+    cross_len = cfg.encoder.source_len if cfg.encoder else 0
     device = resolve_device(device)
     return [[blocks.row_cache_init(g.kind, cfg, pc, batch, eff_seq,
-                                   cache_dtype, device, None)
+                                   cache_dtype, device, None, cross_len)
              for _ in range(g.count)] if g.shared else
             blocks.row_cache_init(g.kind, cfg, pc, batch, eff_seq,
-                                  cache_dtype, device, g.count)
+                                  cache_dtype, device, g.count, cross_len)
             for g in blocks.scan_groups(cfg)]
 
 

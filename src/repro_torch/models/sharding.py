@@ -86,7 +86,9 @@ TP_DIM = {
     "x_proj": 0, "dt_proj": 1, "dt_bias": 0,
     "A_log": 0, "D": 0, "norm": 0,
     "out_proj": 0,
-    "norm1": None, "norm2": None, "norm_x": None, "final_norm": None,
+    "norm1": None, "norm2": None, "norm_x": None,
+    "final_norm": None, "enc_norm": None,
+    "enc_proj": None, "front_proj": None,
 }
 
 # Axis sizes for spec construction; set by callers before building specs
@@ -137,7 +139,9 @@ def param_specs(params: Any, cfg, *, model_axis: str = "model",
                 dp_axis: Union[str, tuple, None] = None,
                 fsdp: bool = True) -> Any:
     """Spec tree matching ``params`` (tensors, meta tensors included).
-    Axis names resolve through the alias registry first."""
+    Axis names resolve through the alias registry first.  The encoder
+    and the frontend projections stay dp-replicated: the model uses
+    them outside the FSDP gather hook, as the reference does."""
     model_axis = resolve_axis(model_axis)
     dp_axis = resolve_axis(dp_axis)
     tp = _size(model_axis)
@@ -159,7 +163,10 @@ def param_specs(params: Any, cfg, *, model_axis: str = "model",
         numel = 1
         for d in shape:
             numel *= d
-        if fsdp and dp_axis is not None and numel >= FSDP_MIN_SIZE:
+        no_fsdp = any(n in ("encoder", "enc_proj", "front_proj")
+                      for n in names)
+        if fsdp and dp_axis is not None and not no_fsdp \
+                and numel >= FSDP_MIN_SIZE:
             for i in range(1 if stacked else 0, rank):
                 if dims[i] is None and shape[i] % dp == 0:
                     dims[i] = dp_axis

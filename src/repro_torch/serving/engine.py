@@ -25,6 +25,14 @@ in place.  Around it:
   restores the longest pooled prefix instead of prefilling it, and
   teacher-forces only the remainder.
 
+A conditioned model's requests carry their frontend's input in
+``Request.extras`` (``frontend`` patch embeddings of a vision prefix,
+whose ``frontend_tokens`` take the cache's first positions, or an
+encoder's ``source`` frames, whose cross-attention keys and values the
+prefill caches); such requests share no prefixes.  A request whose
+prefix, prompt and new tokens do not fit ``max_seq`` is refused at
+``submit``.
+
 API: ``submit(Request) -> id``, ``step() -> bool`` (one scheduler round
 + one decode step), ``poll() -> finished-token streaming``, and the
 ``generate()`` compat wrapper.  Sampling is per request: token ``i`` of
@@ -124,6 +132,8 @@ class ServeEngine:
                                       ib=INFINIBAND)
         self._uid = f"eng{next(_ENGINE_IDS)}"
         self._cd = getattr(torch, scfg.cache_dtype)
+        self._n_prefix = model.prefix_tokens(cfg)
+        self._extras_keys = model.frontend_inputs(cfg)
 
         # Dense slot cache + its structural layout.
         self.layout = kvcache.CacheLayout(
@@ -171,10 +181,22 @@ class ServeEngine:
     # -- request API -------------------------------------------------------
 
     def submit(self, req: Request) -> str:
-        """Queue a request; returns its id (``poll`` key)."""
-        if req.extras is not None:
-            raise NotImplementedError("conditioned requests (extras) "
-                                      "come with the non-text models")
+        """Queue a request; returns its id (``poll`` key).  Refuses a
+        request without its frontend's extras, and one whose cache would
+        outgrow ``max_seq`` (prefix + prompt + new tokens - 1 positions;
+        a ring-buffer window wraps by design)."""
+        got = set(req.extras or ())
+        if got != self._extras_keys:
+            raise ValueError(f"request {req.id!r} carries extras "
+                             f"{sorted(got)}; {self.cfg.name} takes "
+                             f"{sorted(self._extras_keys)}")
+        need = self._n_prefix + len(req.tokens) + req.max_new_tokens - 1
+        if self.scfg.window is None and need > self.scfg.max_seq:
+            raise ValueError(f"request {req.id!r} needs {need} cache "
+                             f"positions ({self._n_prefix} prefix + "
+                             f"{len(req.tokens)} prompt + "
+                             f"{req.max_new_tokens} new - 1); max_seq is "
+                             f"{self.scfg.max_seq}")
         if req.id in self._states:
             raise ValueError(f"request id {req.id!r} already submitted")
         self._states[req.id] = self.sched.submit(req)
@@ -210,31 +232,39 @@ class ServeEngine:
     def generate(self, batch: dict, max_new_tokens: int,
                  seed: int = 0) -> np.ndarray:
         """Batch API as a thin wrapper: one request per row of
-        ``batch["tokens"]`` (temperature from ``ServeConfig``), stepped
-        until drained.  Returns (B, max_new_tokens)."""
-        if set(batch) != {"tokens"}:
-            raise NotImplementedError("only text batches ({'tokens'}) "
-                                      "are ported")
+        ``batch["tokens"]`` (temperature from ``ServeConfig``), each with
+        its row of the batch's other entries as extras, stepped until
+        drained.  Returns (B, max_new_tokens)."""
         toks = np.asarray(batch["tokens"])
         sp = SamplingParams(temperature=self.scfg.temperature, seed=seed)
-        ids = [self.submit(Request(id=f"gen{next(self._gen)}",
-                                   tokens=toks[b], sampling=sp,
-                                   max_new_tokens=max_new_tokens))
-               for b in range(toks.shape[0])]
+        ids = []
+        for b in range(toks.shape[0]):
+            extras = {k: np.asarray(v)[b] for k, v in batch.items()
+                      if k != "tokens"} or None
+            ids.append(self.submit(Request(
+                id=f"gen{next(self._gen)}", tokens=toks[b], sampling=sp,
+                max_new_tokens=max_new_tokens, extras=extras)))
         while self.step():
             pass
         return np.asarray([self.poll(rid)[1] for rid in ids], np.int32)
 
     # -- internals ---------------------------------------------------------
 
+    def _prompt_ntok(self, st: RequestState) -> int:
+        """Cache positions the prefill fills: the prefix and the prompt."""
+        return self._n_prefix + len(st.req.tokens)
+
     def _hashes(self, st: RequestState) -> list:
-        """Chain hashes of the prompt's complete blocks."""
+        """Chain hashes of the prompt's complete blocks (content
+        addressing is text-only: conditioned requests do not share)."""
+        if st.req.extras is not None or self._n_prefix:
+            return []
         return kvcache.chain_hashes(st.req.tokens, self.blocks.block_tokens)
 
     def _reserve(self, st: RequestState) -> bool:
         """Transactionally claim the blocks an admission needs (the
         scheduler's ``reserve`` callback)."""
-        ntok = st.pos if st.preemptions else len(st.req.tokens)
+        ntok = st.pos if st.preemptions else self._prompt_ntok(st)
         try:
             self.blocks.alloc(st.req.id, max(ntok, 1), self._hashes(st))
             return True
@@ -310,16 +340,20 @@ class ServeEngine:
         self.counters["finished"] += 1
 
     def _prefill_into_slot(self, st: RequestState) -> torch.Tensor:
-        """Full prefill of the prompt, copied into the slot on the
-        device; returns the last-position logits (1, V)."""
-        toks = torch.as_tensor(np.asarray(st.req.tokens, np.int64),
-                               device=self.device)[None]
-        logits, c1 = model.prefill(self.params, {"tokens": toks}, self.cfg,
+        """Full prefill of the prompt (behind its extras), copied into the
+        slot on the device; returns the last-position logits (1, V)."""
+        batch = {"tokens": torch.as_tensor(
+            np.asarray(st.req.tokens, np.int64), device=self.device)[None]}
+        for k, v in (st.req.extras or {}).items():
+            batch[k] = torch.as_tensor(np.asarray(v),
+                                       device=self.device)[None]
+        logits, c1 = model.prefill(self.params, batch, self.cfg,
                                    self.pc, self.scfg.max_seq,
                                    cache_dtype=self._cd,
                                    window=self.scfg.window)
         self.counters["prefills"] += 1
-        st.pos = len(st.req.tokens)
+        st.n_prefix = self._n_prefix
+        st.pos = self._prompt_ntok(st)
         self.layout.copy_slot(self.caches, st.slot, c1, 0, st.pos)
         return logits[:, -1]
 
@@ -423,7 +457,8 @@ class ServeEngine:
         # Re-size the admission reservation (made at the preempted
         # pos) down to the prompt; forced steps grow it back.
         self.blocks.free(st.req.id)
-        self.blocks.alloc(st.req.id, len(st.req.tokens), self._hashes(st))
+        self.blocks.alloc(st.req.id, self._prompt_ntok(st),
+                          self._hashes(st))
         self._prefill_into_slot(st)
         st.generated = done_tokens
         # Feed back everything but the last sampled token; sampling

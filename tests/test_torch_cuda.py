@@ -38,14 +38,17 @@ def _randn(shape, dtype, device):
 
 @pytest.mark.parametrize("t,d", [(4, 2048), (1024, 2048), (300, 384),
                                  (5, 100), (1024, 4096), (4, 4096),
-                                 (1, 2048), (1000, 2048), (2048, 1536)])
+                                 (1, 2048), (1000, 2048), (2048, 1536),
+                                 (1500, 384), (1600, 3072)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rms_norm_kernel_vs_plain(cuda, t, d, dtype):
     """Each launch ``rms_geometry`` chooses: the paths' widths at prefill
     and decode; (5, 100): bf16 rows not 16-byte aligned take one element
     at a time; (300, 384): columns past D predicated off; (1000, 2048): a
     row count that no rows-per-block choice divides; (2048, 1536):
-    Granite-3.0-MoE's width, a rank's 2 x 1024 tokens."""
+    Granite-3.0-MoE's width, a rank's 2 x 1024 tokens; (1500, 384):
+    whisper-tiny's encoder (8 rows a block, a ragged last block);
+    (1600, 3072): Phi-3-vision's 576 + 1024 tokens (a row a block)."""
     x = _randn((t, d), DTYPES[dtype], cuda)
     s = _randn((d,), torch.float32, cuda)
     before = rn.rms_norm.launches
@@ -68,7 +71,15 @@ def test_rms_norm_kernel_vs_plain(cuda, t, d, dtype):
     # Lq not a multiple of the 64-row q tile, q_offset > 0, and a window
     # whose lower edge crosses a kv tile
     (1, 100, 300, 4, 64, True, 70, 200),
-    (2, 77, 141, 3, 128, True, 40, 64)])
+    (2, 77, 141, 3, 128, True, 40, 64),
+    # whisper-tiny: the encoder (non-causal, 1500 = 23 x 64 + 28: the
+    # last q and kv tiles ragged) and cross attention (lq != lk)
+    (4, 1500, 1500, 6, 64, False, None, 0),
+    (4, 1024, 1500, 6, 64, False, None, 0),
+    # Phi-3-vision: head_dim 96, 576 + 1024 tokens, and D = 96 ragged
+    (1, 1600, 1600, 32, 96, True, None, 0),
+    (2, 77, 141, 3, 96, True, 40, 64),
+    (1, 100, 300, 4, 96, False, None, 0)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_vs_plain(cuda, b, lq, lk, h, d, causal, window,
                                q_offset, dtype):
@@ -84,7 +95,7 @@ def test_flash_kernel_vs_plain(cuda, b, lq, lk, h, d, causal, window,
                                atol=tol[1])
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_stats_vs_plain(cuda, d, dtype):
     """The (m, l) the training backward reads: each row's max score and
@@ -667,7 +678,9 @@ def test_fused_dense_grads_kernel_vs_plain(cuda):
                                           (4, 4096, "random"),
                                           (5, 100, "random"),
                                           (1024, 2048, "sum"),
-                                          (2048, 1536, "random")])
+                                          (2048, 1536, "random"),
+                                          (1500, 384, "random"),
+                                          (1600, 3072, "random")])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rms_norm_grads_kernel_vs_plain(cuda, t, d, upstream, dtype):
     """x.grad and scale.grad through the kernels (the forward kernel, then
@@ -1061,3 +1074,138 @@ def test_smoke_moe_model_on_card_matches_cpu(cuda, arch):
     assert fa.flash_attention.launches == before + cfg.n_layers
     for a, b in zip(outs[1], outs[0]):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-5)
+
+
+# ---------------------------------------------------------------------- #
+# the non-text models: the kernels at whisper-tiny's (encoder S = 1500,
+# cross attention lq != lk, d_model 384) and Phi-3-vision's (head_dim
+# 96, 576 + 1024 tokens, d_model 3072) shapes, and both smoke models on
+# the card
+# ---------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,lq,lk,h,d,causal", [
+    (1, 1600, 1600, 32, 96, True), (4, 1024, 1500, 6, 64, False),
+    (2, 77, 141, 3, 96, True)])
+def test_flash_kernel_new_shapes_repeat_bitwise(cuda, b, lq, lk, h, d,
+                                                causal, dtype):
+    """The D = 96 build and the lq != lk launch repeat bitwise, o, m and
+    l (no atomics, fixed-order sums)."""
+    q = _randn((b, lq, h, d), DTYPES[dtype], cuda)
+    k, v = (_randn((b, lk, h, d), DTYPES[dtype], cuda) for _ in range(2))
+    outs = [fa._launch(q, k, v, causal, None, 0, lk, True)
+            for _ in range(2)]
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,d,causal", [
+    (1, 1024, 1500, 6, 64, False), (1, 1500, 1500, 6, 64, False),
+    (1, 1100, 1100, 8, 96, True), (1, 77, 141, 3, 96, False)])
+def test_flash_grads_at_the_frontend_shapes(cuda, b, lq, lk, h, d, causal):
+    """dq/dk/dv through the kernel forward and the recompute VJP against
+    autograd through the dense plain version: cross attention (lq !=
+    lk), the encoder's non-causal 1500, head_dim 96 (causal, and ragged
+    non-causal)."""
+    q0 = _randn((b, lq, h, d), torch.float32, cuda)
+    k0, v0 = (_randn((b, lk, h, d), torch.float32, cuda)
+              for _ in range(2))
+    g = _randn((b, lq, h, d), torch.float32, cuda)
+    res = []
+    for fn in (fa.flash_attention_train, fa.flash_attention_plain):
+        q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+        before = fa.flash_attention.launches
+        (fn(q, k, v, causal) * g).sum().backward()
+        res.append((q.grad, k.grad, v.grad))
+        if fn is fa.flash_attention_train:
+            assert fa.flash_attention.launches == before + 1
+    for a, b_ in zip(*res):
+        torch.testing.assert_close(a, b_, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("t,n,ks,nout,tile", [
+    (1024, 4, 96, 384, 1), (1500, 4, 96, 384, 1), (1024, 4, 96, 1536, 1),
+    (1600, 4, 768, 3072, 0), (1600, 4, 768, 8192, 0)])
+def test_all_gather_matmul_kernel_at_the_frontend_shapes(cuda, t, n, ks,
+                                                         nout, tile):
+    """``--fuse-kernels`` at ``--mesh 4x1``: whisper-tiny's (T, 4 x 96)
+    @ N = 384 (wq, wk, wv; T = 1500 for cross attention's wk / wv on the
+    encoder's output) and 1536 (wg, wu), Phi-3-vision's (1600, 4 x 768)
+    @ N = 3072 and 8192, at the tile ``agm_geometry`` chooses (64 x 32
+    for whisper, 128 x 128 for Phi-3), against the plain version at the
+    tolerance of ``test_all_gather_matmul_kernel_vs_plain``, and bitwise
+    on repeat."""
+    from repro_torch.kernels import fused_collectives as fc
+    assert fc.agm_geometry(t, n, ks, nout)["tile"] == tile
+    x = _randn((t, n * ks), torch.float32, cuda)
+    w = _randn((n, ks, nout), torch.float32, cuda)
+    before = fc.all_gather_matmul.launches
+    got = fc.all_gather_matmul(x, w)
+    torch.cuda.synchronize()
+    assert fc.all_gather_matmul.launches == before + 1
+    torch.testing.assert_close(got, fc.all_gather_matmul_plain(x, w),
+                               rtol=1e-4, atol=8 * n * ks * 2.0 ** -24)
+    assert torch.equal(got, fc.all_gather_matmul(x, w))
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "phi-3-vision-4.2b"])
+def test_frontend_smoke_on_card_matches_cpu(cuda, arch):
+    """A smoke model with a stub frontend: prefill of 2 prompts of 1100
+    tokens with their extras (the decoder's self attention through the
+    flash kernel) and three per-slot decode steps, every cache leaf
+    (whisper's cross-attention ``ck`` / ``cv`` included) and the logits,
+    then the loss and every grad of a training forward, the card against
+    the CPU (rtol 2e-4, atol 2e-5; cache leaves and grads atol 2e-5 of
+    the leaf's largest entry: a cache entry sums over 1100 positions and
+    the model width in other orders on the two sides, so its error
+    scales with the leaf's magnitude, not with an entry that cancels
+    near zero)."""
+    from repro_torch.data.pipeline import batch_for
+    from repro_torch.serving import kvcache
+    cfg = get_config(arch, smoke=True)
+    cpu = model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = model.params_from_numpy(model.params_to_numpy(cpu), cuda)
+    b = batch_for(cfg, RNG.integers(0, cfg.vocab_size, (2, 1101)),
+                  np.random.default_rng(1))
+    prefix = cfg.frontend_tokens if cfg.encoder is None else 0
+    outs, grads = [], []
+    for params, dev in ((cpu, torch.device("cpu")), (gpu, cuda)):
+        batch = {k: torch.as_tensor(v, device=dev, dtype=torch.long
+                                    if v.dtype.kind == "i" else None)
+                 for k, v in b.items()}
+        before = fa.flash_attention.launches
+        logits, caches = model.prefill(
+            params, {k: v for k, v in batch.items() if k != "labels"}, cfg,
+            UNSHARDED, prefix + 1104, cache_dtype=torch.float32)
+        res = [logits]
+        pos = torch.tensor([prefix + 1100] * 2, device=dev)
+        for i in range(3):
+            lg, caches = model.decode_step(
+                params, caches, torch.tensor([[5 + i], [9]], device=dev),
+                pos, cfg, UNSHARDED)
+            res.append(lg)
+            pos = pos + 1
+        if dev.type == "cuda":
+            assert fa.flash_attention.launches == before + cfg.n_layers
+        res += [leaf for leaf in kvcache.cache_leaves(caches)]
+        train = {k: v.clone().requires_grad_()
+                 for k, v in _flat(params).items()}
+        short = {"tokens": batch["tokens"][:, :64],
+                 "labels": batch["labels"][:, :64],
+                 **{k: v for k, v in batch.items()
+                    if k not in ("tokens", "labels")}}
+        loss, _ = model.loss_fn(_unflat(train), short, cfg, UNSHARDED)
+        loss.backward()
+        res.append(loss.detach())
+        outs.append([t.cpu() for t in res])
+        grads.append({k: t.grad.cpu() for k, t in train.items()})
+    assert len(outs[0]) == 4 + (4 if cfg.encoder else 2) + 1
+    for i, (a, b_) in enumerate(zip(outs[1], outs[0])):
+        leaf = 4 <= i < len(outs[0]) - 1       # a cache leaf
+        torch.testing.assert_close(
+            a, b_, rtol=2e-4,
+            atol=2e-5 * (max(1.0, float(b_.abs().max())) if leaf else 1.0))
+    for k, w in grads[0].items():
+        torch.testing.assert_close(grads[1][k], w, rtol=2e-4,
+                                   atol=2e-5 * float(w.abs().max()),
+                                   msg=k)

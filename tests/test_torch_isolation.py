@@ -124,10 +124,19 @@ def test_serve_launcher_activates_the_topology(capsys):
 
 
 def test_unported_arch_names_the_roadmap():
+    """whisper-tiny and phi-3-vision-4.2b resolve (ROADMAP queue 1,
+    item 8 is ported), every reference id does, and an unknown id raises
+    naming what is still to port (items 9-11)."""
+    from repro.configs import ALL_IDS
     from repro_torch.configs import get_config
     for arch in ("whisper-tiny", "phi-3-vision-4.2b"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_config(arch)
+        assert get_config(arch).name == arch
+        assert get_config(arch, smoke=True).frontend != "text"
+    for arch in ALL_IDS:
+        get_config(arch)
+    with pytest.raises(KeyError, match="ROADMAP queue 1.*item 9.*item 10"
+                       ".*item 11"):
+        get_config("no-such-model")
 
 
 def test_train_entry_points_without_device_refuse_cpu_fallback():

@@ -312,20 +312,72 @@ def test_mamba1_forward_and_decode_match_reference(setup):
 
 
 def test_mamba2_rows_name_the_roadmap(setup):
-    """Mamba rows run at every tp (tests/test_torch_ssm_tp.py); what
-    still raises naming ROADMAP item 8 is a model with an encoder (cross
-    attention, whisper-tiny), at tp = 1 and at tp 2, for every row
-    kind."""
+    """Mamba rows run at every tp (tests/test_torch_ssm_tp.py), and since
+    cross attention is ported (ROADMAP queue 1, item 8) a model with an
+    encoder no longer raises.  At tp 1 and tp 2 each row kind of such a
+    config has the reference's params (a Mamba-1 or Mamba-2 row no cross
+    attention, an ``a`` row ``norm_x`` and ``xattn`` of ``attn``'s
+    shapes) and specs (``xattn`` sharded as ``attn``); at tp 1 every
+    kind's forward with an encoder output equals the reference's (the
+    Mamba rows ignore it)."""
+    from repro.models import blocks as jax_blocks
+    from repro.models import sharding as jax_sharding
+    from repro.models.config import EncoderConfig as JaxEncoderConfig
+    from repro_torch.core import tree
+    from repro_torch.models import sharding
     from repro_torch.models.config import EncoderConfig
-    v2 = get_config("zamba2-1.2b", smoke=True)
-    enc = dataclasses.replace(v2, encoder=EncoderConfig(n_layers=1,
+    enc = dataclasses.replace(get_config("zamba2-1.2b", smoke=True),
+                              encoder=EncoderConfig(n_layers=1,
+                                                    source_len=4))
+    jenc = dataclasses.replace(jax_get_config("zamba2-1.2b", smoke=True),
+                               encoder=JaxEncoderConfig(n_layers=1,
                                                         source_len=4))
-    x = torch.zeros(1, 4, v2.d_model)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((1, 6, enc.d_model)).astype(np.float32)
+    src = rng.standard_normal((1, 4, enc.d_model)).astype(np.float32)
     for tp in (1, 2):
-        pc = dataclasses.replace(UNSHARDED, tp_axis="model", tp=tp)
         for kind in ("1", "2", "a"):
-            with pytest.raises(NotImplementedError, match="item 8"):
-                blocks.row_forward({}, x, kind, enc, pc, torch.arange(4))
+            jrow = jax_blocks.init_row(jax.random.key(3), kind, jenc, tp,
+                                       jnp.float32, cross=True)
+            row = blocks.init_row(torch.Generator().manual_seed(3), kind,
+                                  enc, tp, torch.float32, "cpu", 1,
+                                  cross=kind == "a")
+            want = {"/".join(k.key for k in p): tuple(v.shape)
+                    for p, v in jax.tree_util.tree_leaves_with_path(jrow)}
+            got = {"/".join(p): tuple(v.shape[1:])
+                   for p, v in tree.leaves_with_paths(row)}
+            assert got == want, (tp, kind)
+            assert ("xattn" in row) == (kind == "a")
+            sizes = {"data": 1, "model": tp}
+            sharding.set_mesh_sizes(sizes)
+            jax_sharding.set_mesh_sizes(sizes)
+            specs = sharding.param_specs({"g0": row}, enc, dp_axis="data")
+            jstacked = {"g0": jax.tree.map(lambda a: a[None], jrow)}
+            jspecs = jax_sharding.param_specs(jstacked, jenc,
+                                              dp_axis="data")
+            assert {"/".join(p): s for p, s in tree.leaves_with_paths(
+                specs)} == {
+                "/".join(k.key for k in p): tuple(s) for (p, _), s in zip(
+                    jax.tree_util.tree_leaves_with_path(jstacked),
+                    jax.tree.leaves(jspecs, is_leaf=lambda s: isinstance(
+                        s, jax.sharding.PartitionSpec)))}
+            if kind == "a":
+                for leaf in ("wq", "wk", "wv", "wo"):
+                    assert tree.get(specs, ("g0", "xattn", leaf)) == \
+                        tree.get(specs, ("g0", "attn", leaf))
+                assert "model" in tree.get(specs, ("g0", "xattn", "wq"))
+            if tp > 1:
+                continue
+            trow = model._layer(model.params_from_numpy(
+                jax.tree.map(lambda a: np.asarray(a)[None], jrow), "cpu"),
+                0)
+            wout, _ = jax_blocks.row_forward(
+                jrow, jnp.asarray(x), kind, jenc, JAX_UNSHARDED,
+                jnp.arange(6), encoder_out=jnp.asarray(src))
+            out, _ = blocks.row_forward(trow, torch.as_tensor(x), kind, enc,
+                                        UNSHARDED, torch.arange(6),
+                                        torch.as_tensor(src))
+            _close(out, wout)
 
 
 # -- the model ------------------------------------------------------------ #
