@@ -22,7 +22,7 @@ Phases (each fails the run if its check fails):
                  autograd through the plain version);
                  chunked_reduce (f32, bf16; n_src 2, 4, 16; the training
                  path's segment length and a ragged one, the (pod, data),
-                 (data, model), grouped and MoE paths' shapes);
+                 (data, model), grouped, MoE and pipeline paths' shapes);
                  all_gather_matmul at
                  the training paths' shapes (f32; at (data, model) x
                  (2048, 2 x 1024) @ N = 256, 1024, 4096, on the MoE path
@@ -247,6 +247,27 @@ Phases (each fails the run if its check fails):
                  again in the remat replay; Phi-3 64), rms_norm and its
                  backward (all_gather_matmul under --fuse-kernels),
                  every auto call at its plan cell; peak memory a rank.
+7j. train pipeline - llama3.2-smoke over ``--mesh 4x1 --pp-stages 2
+                 --microbatches 2 --topology stage:cxl,data:cxl`` on the
+                 card against the CPU (losses of 3 steps at 128 tokens,
+                 rtol 2e-4),
+                 then Llama-3.2-1B at full width and depth over the same
+                 (stage, data) = (2, 2) under cxl (profiled, 3 steps,
+                 writing ``train --ckpt``) and auto (2 steps, on ``tune
+                 --topology stage:cxl,data:cxl --nranks 2``'s plan), in
+                 7c's spawn (the same rank groups): step-0 losses within
+                 1e-4 of the flat cxl+fused run's (the same params and
+                 global batch), every loss falls, every rank launches
+                 exactly the flash_attention, rms_norm and rms_norm
+                 backward kernels its stage's rows call every step
+                 (``pp_rank_launches``: 32, 64 and 32 on stage 0, 32, 66 and
+                 34 on the last), chunked_reduce on every rank under cxl,
+                 ``p2p`` ledger bytes at the stage level only, both
+                 levels' pools moving bytes under cxl, every auto call
+                 (p2p included) at its level's cell, bubble fraction 1/3
+                 every step, peak memory a rank, and the checkpoint (the
+                 stage slabs concatenated) restored into the GLOBAL
+                 shapes equal to the run's params bitwise, then deleted.
 
 Phase 7 starts with every path's smoke check at once: the eleven smoke
 models' training runs (the SSM models' at ``4x1`` and at ``2x2``, the
@@ -258,10 +279,12 @@ topology in one spawn of the ranks a side (``train.run_many``: a rank's
 start-up on the card is most of a check), every spawn side by side; the
 SSM smoke models' take sequences of 128 tokens (the CPU's plain scan is
 a loop over L), and so does whisper-smoke's at ``2x2``.  For the same
-reason the full-width runs of one mesh and
-topology share a spawn of the ranks: 7's flat Llama runs with 7g's
-Zamba2 runs and 7i's whisper-tiny and Phi-3-vision runs, 7c's Llama
-runs with 7e's Granite and 7h's Zamba2 runs.
+reason the full-width runs of one spawn's rank groups share a spawn of
+the ranks (``train.run_many``: each run its own mesh, topology and
+aliases): 7's flat Llama runs with 7g's Zamba2 runs and 7i's
+whisper-tiny and Phi-3-vision runs, 7c's Llama runs with 7e's Granite,
+7h's Zamba2 and 7j's pipeline runs ((stage, data) has (data, model)'s
+groups), 7d's grouped runs with its ``--placement auto`` run.
 
 The kernels' launch counters are zeroed before each serving run and
 before each training step (in the rank processes), and read after it
@@ -269,7 +292,7 @@ before each training step (in the rank processes), and read after it
 as ``train``, 7b's as ``train_hier``, 7c's as ``train_tp``, 7d's as
 ``train_ragged``, 7e's as ``train_moe``, 7f's as ``serve_moe``, 7g's as
 ``train_hybrid``, 7h's as ``train_hybrid_tp``, 7i's as ``train_audio``
-and ``train_vlm``, Zamba2's serving as ``serve_hybrid`` and the
+and ``train_vlm``, 7j's as ``train_pp``, Zamba2's serving as ``serve_hybrid`` and the
 non-text models' as ``serve_audio`` and ``serve_vlm``; ssm_scan's
 backward kernel under ``backward_launches_by_path``):
 the training path's four kernels and rms_norm's backward kernel must
@@ -370,6 +393,14 @@ HIER_KERNELS = ("chunked_reduce", "rms_norm", "rms_norm_vjp",
 # gloo's stand-in)
 TP_MESH, TP_TOPOLOGY = "2x2", "data:cxl,model:cxl"
 TP_DP = TP_TP = 2
+# the pipeline path (phase 7j): --mesh 4x1 --pp-stages 2 is (stage, data)
+# = (2, 2), each data rank's 2 sequences in 2 microbatches; both levels
+# on the pool
+PP_STAGES, PP_MICROBATCHES = 2, 2
+PP_TOPOLOGY = "stage:cxl,data:cxl"
+PP_FLAGS = ["--mesh", f"{DP}x1", "--pp-stages", str(PP_STAGES),
+            "--microbatches", str(PP_MICROBATCHES), "--topology",
+            PP_TOPOLOGY]
 TP_TOKENS = TRAIN_BATCH // TP_DP * PROMPT      # one rank's tokens, T
 # all_gather_matmul on the (data, model) path (--fuse-kernels): x (T,
 # n*Ks) @ (n, Ks, N), n = 2 data shards of Ks = 1024 rows, N this model
@@ -541,6 +572,39 @@ def hybrid_tp_reduce_shapes() -> tuple:
                sum(n for *_, n in shared) - fused)
     return ((2, TP_TOKENS * cfg.d_model // 2), (2, TP_TOKENS // 2)) + \
         tuple((TP_DP, n // TP_DP) for n in lengths)
+
+
+def pp_reduce_shapes() -> tuple:
+    """chunked_reduce on the pipeline path, all at N = 2: the stage
+    level's sums of the embedding's and the final norm's grads and of
+    the loss's two scalars, the data level's mean of each grad leaf (a
+    stage's slab of each ``g0`` leaf) and of the loss; under cxl each a
+    two-phase AllReduce (each rank reduces 2 sources of half the leaf,
+    padded to even), under auto the plan's faithful cells (2 sources of
+    the whole leaf)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.models import model
+    sizes = {x.numel() // (PP_STAGES if path[0].startswith("g") else 1)
+             for path, x in tree.leaves_with_paths(model.abstract_params(
+                 get_config("llama3.2-1b")))} | {1}
+    return tuple(dict.fromkeys([(2, -(-n // 2)) for n in sorted(sizes)]
+                               + [(2, n) for n in sorted(sizes)]))
+
+
+def pp_rank_launches(stage: int) -> dict:
+    """The kernels a pipeline rank of Llama-3.2-1B launches a step: each
+    of its stage's rows runs each microbatch once forward and once in
+    the remat replay (flash_attention once a pass, rms_norm twice) and
+    once backward (rms_norm's backward twice); the last stage adds the
+    final norm of each microbatch (outside the checkpointed rows) and
+    its backward."""
+    from repro_torch.configs import get_config
+    rows = len(get_config("llama3.2-1b").layer_pattern) // PP_STAGES
+    passes = rows * PP_MICROBATCHES
+    last = PP_MICROBATCHES if stage == PP_STAGES - 1 else 0
+    return {"flash_attention": 2 * passes, "rms_norm": 4 * passes + last,
+            "rms_norm_vjp": 2 * passes + last}
 
 
 def frontend_reduce_shapes(arch: str) -> tuple:
@@ -1710,60 +1774,56 @@ def check_auto_choices(run: dict, plan, topology=None) -> dict:
 def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
                     profile: bool = True, short: tuple = (),
                     arch: str = "llama3.2-1b", archs: dict = None,
-                    ckpt: dict = None) -> dict:
+                    ckpt: dict = None, unprofiled: tuple = ()) -> dict:
     """``arch`` (Llama-3.2-1B) at full width and depth through the
     launcher's flags: each of ``runs`` (label -> its flags, after
-    ``common``) is one variant of a single spawn of the ranks, so the
-    ranks start once; the labels in ``archs`` (label -> arch) train that
-    model instead, in the same spawn (``train.run_many``: one spec a
-    model, the models in turn).  The labels in ``short`` take
-    ``SHORT_STEPS`` steps.  Each model's first variant is profiled for
-    one more step, and with ``ckpt`` (arch -> directory) writes its
-    checkpoint there (``train --ckpt``: its record holds ``ckpt``,
-    ``assemble_s``, ``save_s`` and ``global_params``); ``nvidia-smi``
-    is sampled over all."""
+    ``common``; a later flag overrides ``common``'s) is one variant of a
+    single spawn of the ranks, so the ranks start once; the labels in
+    ``archs`` (label -> arch) train that model instead, in the same spawn
+    (``train.run_many``: one spec a model and mesh, the specs in turn,
+    all on the same rank groups).  The labels in ``short`` take
+    ``SHORT_STEPS`` steps.  Each spec's first variant is profiled for one
+    more step (not one whose label is in ``unprofiled``), and with
+    ``ckpt`` (its label -> directory) writes its checkpoint there
+    (``train --ckpt``: its record holds ``ckpt``, ``assemble_s``,
+    ``save_s`` and ``global_params``); ``nvidia-smi`` is sampled over
+    all."""
     import dataclasses
 
     from repro_torch.launch import train
     archs, ckpt = archs or {}, ckpt or {}
-    by_arch: dict = {}
-    for label in runs:
-        by_arch.setdefault(archs.get(label, arch), []).append(label)
-    specs = []
-    for a, labels in by_arch.items():
-        per = {label: train.spec_from_args(train.build_parser().parse_args(
-            _train_args(common + runs[label] + ["--lr", "3e-5"], mesh,
-                        SHORT_STEPS if label in short else TRAIN_STEPS, a)))
-            for label in labels}
-        first = per[labels[0]]
-        for label, sp in per.items():
-            if dataclasses.replace(sp, variants=first.variants,
-                                   steps=first.steps) != first:
-                fail(f"{label} runs on another mesh than {labels[0]}")
-        specs.append(dataclasses.replace(
-            first, variants=tuple(sp.variants[0] for sp in per.values()),
-            steps=max(sp.steps for sp in per.values()), profile=profile,
-            ckpt=ckpt.get(a)))
+    per = {label: train.spec_from_args(train.build_parser().parse_args(
+        _train_args(common + runs[label] + ["--lr", "3e-5"], mesh,
+                    SHORT_STEPS if label in short else TRAIN_STEPS,
+                    archs.get(label, arch))))
+        for label in runs}
+    groups: list = []          # (the spec but its variants, its labels)
+    for label, sp in per.items():
+        key = dataclasses.replace(sp, variants=(), steps=0)
+        for k, labels in groups:
+            if k == key:
+                labels.append(label)
+                break
+        else:
+            groups.append((key, [label]))
+    specs = [dataclasses.replace(
+        per[labels[0]], variants=tuple(per[x].variants[0] for x in labels),
+        steps=max(per[x].steps for x in labels),
+        profile=profile and labels[0] not in unprofiled,
+        ckpt=ckpt.get(labels[0])) for _, labels in groups]
     t0 = time.perf_counter()
     with SmiSampler() as smi:
         merged = train.run_many(specs)
     wall = time.perf_counter() - t0
     log(f"[train] {' + '.join(runs)}: {wall:.1f}s in one spawn of the "
         f"ranks")
-    got = {label: run for labels, model_runs in zip(by_arch.values(), merged)
-           for label, run in zip(labels, model_runs)}
+    got = {label: run for (_, labels), spec_runs in zip(groups, merged)
+           for label, run in zip(labels, spec_runs)}
     out = {}
     for label in runs:
         got[label]["group_wall_s"] = wall
         out[label] = _report_run(label, got[label], smi)
     return out
-
-
-def full_width_run(label: str, extra: list, mesh: str = f"{DP}x1") -> dict:
-    """One run of Llama-3.2-1B at full width through the launcher's
-    flags, in a spawn of its own, ``SHORT_STEPS`` steps."""
-    return full_width_runs({label: extra}, [], mesh, profile=False,
-                           short=(label,))[label]
 
 
 def _report_run(label: str, run: dict, smi) -> dict:
@@ -1809,10 +1869,11 @@ def check_losses(runs: dict, first: float) -> None:
 
 def smoke_spec(tmp: str, key: str, mesh: str, tp: int = 1,
                extra: tuple = (), arch: str = "llama3.2-1b",
-               seq: int = PROMPT):
-    """The smoke model's training run of one card-vs-CPU check (cxl with
-    fused kernels, sequences of ``seq`` tokens) through the launcher's
-    flags, from numpy params (seed 0, at ``tp``) written under ``tmp``."""
+               seq: int = PROMPT, fuse: bool = True):
+    """The smoke model's training run of one card-vs-CPU check (cxl, with
+    fused kernels unless ``fuse`` is off, sequences of ``seq`` tokens)
+    through the launcher's flags, from numpy params (seed 0, at ``tp``)
+    written under ``tmp``."""
     import dataclasses
     import os
 
@@ -1825,19 +1886,21 @@ def smoke_spec(tmp: str, key: str, mesh: str, tp: int = 1,
         get_config(arch, smoke=True), torch.Generator().manual_seed(0),
         "cpu", tp=tp), path)
     spec = train.spec_from_args(train.build_parser().parse_args(
-        _train_args(["--smoke", "--backend", "cxl", "--fuse-kernels",
-                     *extra], mesh, arch=arch, seq=seq)))
+        _train_args(["--smoke", "--backend", "cxl",
+                     *(["--fuse-kernels"] if fuse else []), *extra], mesh,
+                    arch=arch, seq=seq)))
     return dataclasses.replace(spec, params_path=path)
 
 
 def smoke_checks() -> dict:
     """Phase 7's smoke card-vs-CPU checks, one a training path (flat,
     (data, model), grouped, MoE, Falcon-Mamba's and Zamba2's SSM rows,
-    both at (data, model) too): each smoke model's training on the card
-    against the same run on the CPU (the same numpy params), the losses
-    of 3 steps within rtol 2e-4.  The checks of one mesh and topology
-    run in one spawn of the ranks on each side (``train.run_many``: a
-    rank's start-up is most of a check), every spawn side by side."""
+    both at (data, model) too, the pipeline over (stage, data)): each
+    smoke model's training on the card against the same run on the CPU
+    (the same numpy params), the losses of 3 steps within rtol 2e-4.  The
+    checks of one spawn's rank groups run in one spawn of the ranks on
+    each side (``train.run_many``: a rank's start-up is most of a
+    check), every spawn side by side."""
     import dataclasses
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -1870,14 +1933,19 @@ def smoke_checks() -> dict:
         # sequence: 128 tokens keep the CPU side short)
         "audio_tp_smoke_card_vs_cpu": dict(
             mesh=TP_MESH, tp=TP_TP, arch=AUDIO_ARCH, seq=SSM_SMOKE_SEQ,
-            extra=("--topology", TP_TOPOLOGY))}
+            extra=("--topology", TP_TOPOLOGY)),
+        # the pipeline (its flags past --mesh): nothing to fuse (no FSDP
+        # gather); 128 tokens keep the CPU side of the (data, model)
+        # spawn it rides short
+        "pp_smoke_card_vs_cpu": dict(mesh=flat, extra=tuple(PP_FLAGS[2:]),
+                                     fuse=False, seq=SSM_SMOKE_SEQ)}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         specs = {key: smoke_spec(tmp, key, **kw)
                  for key, kw in checks.items()}
         groups: dict = {}
         for key, sp in specs.items():
-            groups.setdefault((sp.mesh(), sp.topology), []).append(key)
+            groups.setdefault(train._spawn_groups(sp), []).append(key)
         with ThreadPoolExecutor(2 * len(groups)) as pool:
             futures = {(keys[0], device): pool.submit(
                 train.run_many, [dataclasses.replace(specs[k], device=device)
@@ -2051,11 +2119,11 @@ def check_flat_ckpt(run: dict) -> dict:
     return rec
 
 
-def check_moe_ckpt(run: dict) -> dict:
-    """The cxl+fused MoE run's checkpoint restored through
-    ``checkpoint.restore`` into ``abstract_params(cfg, tp=2)`` (the
-    GLOBAL padded shapes) equals the run's captured params bitwise; then
-    it is deleted (13.5 GB)."""
+def check_ckpt_restores(run: dict, arch: str, tp: int, name: str) -> dict:
+    """A run's checkpoint (under ``CKPT_DIR / name``) restored through
+    ``checkpoint.restore`` into ``abstract_params(cfg, tp)`` (the GLOBAL
+    padded shapes) equals the run's captured params bitwise; then it is
+    deleted (13.5 GB for the MoE run's)."""
     import os
     import shutil
 
@@ -2064,25 +2132,25 @@ def check_moe_ckpt(run: dict) -> dict:
     from repro_torch.models import model
     from repro_torch.training import checkpoint
     params = run.pop("global_params")
-    cfg = get_config(MOE_ARCH)
+    cfg = get_config(arch)
     nbytes = os.path.getsize(os.path.join(run["ckpt"], "arrays.npz"))
     t0 = time.perf_counter()
-    got = checkpoint.restore(str(CKPT_DIR / "moe"), TRAIN_STEPS, {
-        "params": model.abstract_params(cfg, tp=TP_TP)})["params"]
+    got = checkpoint.restore(str(CKPT_DIR / name), TRAIN_STEPS, {
+        "params": model.abstract_params(cfg, tp=tp)})["params"]
     restore_s = time.perf_counter() - t0
     bad = [p for p, x in tree.leaves_with_paths(got)
            if not np.array_equal(x.view(np.uint32),
                                  tree.get(params, p).view(np.uint32))]
     n = sum(x.size for x in tree.leaves(got))
     del got, params
-    shutil.rmtree(CKPT_DIR / "moe")
+    shutil.rmtree(CKPT_DIR / name)
     rec = {"ckpt": run["ckpt"], "bytes": nbytes, "params": n,
            "assemble_s": run["assemble_s"], "save_s": run["save_s"],
            "capture_s": run["capture_s"], "restore_s": restore_s,
            "bitwise": not bad}
-    log(f"[train] MoE checkpoint {json.dumps(rec)}")
+    log(f"[train] {name} checkpoint {json.dumps(rec)}")
     if bad:
-        fail(f"the MoE checkpoint restores other params: {bad[:4]}")
+        fail(f"the {name} checkpoint restores other params: {bad[:4]}")
     return rec
 
 
@@ -2299,6 +2367,55 @@ def frontend_train_phase(runs: dict, arch: str, plan) -> dict:
 
 # 7e's runs, Granite-3.0-MoE over (data, model) (variants of 7c's spawn)
 MOE_RUNS = ("moe_cxl_fused", "moe_cxl", "moe_auto")
+PP_RUNS = ("pp_cxl", "pp_auto")
+
+
+def check_pp_runs(runs: dict, first: float, plan) -> dict:
+    """Phase 7j's checks of the pipeline runs: the step-0 loss within
+    1e-4 of the flat cxl+fused run's (the same params and global batch)
+    and every loss falling; every step's bubble fraction; every rank's
+    flash_attention, rms_norm and rms_norm backward launches exactly its
+    stage's (``pp_rank_launches``; rank r at stage r // (DP / PP_STAGES)),
+    chunked_reduce on every rank under cxl; ``p2p`` ledger bytes at the
+    stage level only and all-reduce bytes at data; both levels' pools
+    moving bytes under cxl; every auto call, p2p included, at its
+    level's cell, every p2p at the stage level.  Returns the auto run's
+    decisions."""
+    from repro_torch.core.topology import parse_topology
+    from repro_torch.training.pipeline import bubble_fraction
+    check_losses(runs, first)
+    bub = bubble_fraction(PP_STAGES, PP_MICROBATCHES)
+    data = DP // PP_STAGES
+    for label, run in runs.items():
+        for i, s in enumerate(run["steps"]):
+            if s["bubble_fraction"] != bub:
+                fail(f"{label} step {i}: bubble fraction "
+                     f"{s['bubble_fraction']}, not {bub}")
+            for r, got in enumerate(s["launches_per_rank"]):
+                want = pp_rank_launches(r // data)
+                if any(got[k] != n for k, n in want.items()):
+                    fail(f"{label} step {i} rank {r}: launches {got}, the "
+                         f"stage's rows call {want}")
+                if label == "pp_cxl" and got["chunked_reduce"] <= 0:
+                    fail(f"{label} step {i} rank {r}: no chunked_reduce")
+            ledger = s["level_wire_bytes_rank0"]
+            p2p = {lv for lv, c in ledger.items() if c.get("p2p")}
+            if p2p != {"stage/cxl"} or \
+                    not ledger.get("data/cxl", {}).get("all_reduce"):
+                fail(f"{label} step {i}: ledger bytes by level {ledger}")
+            moved = {a for a, c in s["pool_by_level"].items()
+                     if c["retrieved"] > 0}
+            if label == "pp_cxl" and moved != {"stage", "data"}:
+                fail(f"{label} step {i}: pool bytes by level "
+                     f"{s['pool_by_level']}")
+        log(f"[train] {label}: bubble fraction {bub:.4f}, launches per "
+            f"rank (step 0) {json.dumps(run['steps'][0]['launches_per_rank'])}")
+    choices = check_auto_choices(runs["pp_auto"], plan,
+                                 parse_topology(PP_TOPOLOGY))
+    if not choices.get("p2p") or any(c["level"] != "stage"
+                                     for c in choices["p2p"]):
+        fail(f"pp_auto: the handoffs resolved {choices.get('p2p')}")
+    return choices
 # 7h's runs, Zamba2-1.2B over (data, model) (variants of 7c's spawn)
 HYBRID_TP_RUNS = ("hybrid_tp_cxl_fused", "hybrid_tp_cxl", "hybrid_tp_auto")
 
@@ -2369,7 +2486,7 @@ def train_phase() -> dict:
         archs={**dict.fromkeys(HYBRID_RUNS, HYBRID_ARCH),
                **dict.fromkeys(AUDIO_RUNS, AUDIO_ARCH),
                **dict.fromkeys(VLM_RUNS, VLM_ARCH)},
-        ckpt={"llama3.2-1b": str(CKPT_DIR / "llama")})
+        ckpt={"cxl_fused": str(CKPT_DIR / "llama")})
     hybrid = {k: runs.pop(k) for k in HYBRID_RUNS}
     audio = {k: runs.pop(k) for k in AUDIO_RUNS}
     vlm = {k: runs.pop(k) for k in VLM_RUNS}
@@ -2410,8 +2527,16 @@ def train_phase() -> dict:
                "--sizes-mib", *TUNE_SIZES_MIB, "--quiet", "--out",
                tp_plan_path])
     tp_plan = tuner.load_plan(tp_plan_path)
+    # 7j's plan: p2p cells at the stage level
+    pp_plan_path = str(OUT_DIR / "plan_auto_pp.json")
+    tune.main(["--topology", PP_TOPOLOGY, "--nranks", str(PP_STAGES),
+               "--sizes-mib", *TUNE_SIZES_MIB, "--quiet", "--out",
+               pp_plan_path])
+    pp_plan = tuner.load_plan(pp_plan_path)
     # (7e's Granite-3.0-MoE runs and 7h's Zamba2 runs ride the same
-    # spawn of the ranks: the same mesh and topology, on this plan)
+    # spawn of the ranks: the same mesh and topology, on this plan; 7j's
+    # pipeline runs too: (stage, data) has the same rank groups, its own
+    # topology and plan)
     tp = full_width_runs({
         "tp_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "tp_cxl": ["--backend", "cxl"],
@@ -2423,15 +2548,20 @@ def train_phase() -> dict:
                      "--prefetch", MOE_PREFETCH],
         "hybrid_tp_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "hybrid_tp_cxl": ["--backend", "cxl"],
-        "hybrid_tp_auto": ["--backend", "auto", "--plan", tp_plan_path]},
+        "hybrid_tp_auto": ["--backend", "auto", "--plan", tp_plan_path],
+        "pp_cxl": ["--backend", "cxl", *PP_FLAGS],
+        "pp_auto": ["--backend", "auto", "--plan", pp_plan_path,
+                    *PP_FLAGS]},
         ["--topology", TP_TOPOLOGY], mesh=TP_MESH,
         short=("tp_cxl", "tp_auto", "moe_cxl", "moe_auto", "hybrid_tp_cxl",
-               "hybrid_tp_auto"),
+               "hybrid_tp_auto", "pp_auto"),
         archs={**dict.fromkeys(MOE_RUNS, MOE_ARCH),
                **dict.fromkeys(HYBRID_TP_RUNS, HYBRID_ARCH)},
-        ckpt={MOE_ARCH: str(CKPT_DIR / "moe")})
+        ckpt={"moe_cxl_fused": str(CKPT_DIR / "moe"),
+              "pp_cxl": str(CKPT_DIR / "pp")})
     moe = {k: tp.pop(k) for k in MOE_RUNS}
     hybrid_tp_runs = {k: tp.pop(k) for k in HYBRID_TP_RUNS}
+    pp = {k: tp.pop(k) for k in PP_RUNS}
     check_path_runs(tp, {"data", "model"}, "tp_auto")
     out["tp"] = tp
     out["tp_auto_choices"] = check_auto_choices(
@@ -2446,15 +2576,17 @@ def train_phase() -> dict:
                "--sizes-mib", *TUNE_SIZES_MIB, "--quiet", "--out",
                ragged_plan_path])
     ragged_plan = tuner.load_plan(ragged_plan_path)
+    # (the placement's run rides the same spawn: the placed mesh has the
+    # grouped level's rank groups)
     ragged = full_width_runs({
         "ragged_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "ragged_cxl": ["--backend", "cxl"],
-        "ragged_auto": ["--backend", "auto", "--plan", ragged_plan_path]},
+        "ragged_auto": ["--backend", "auto", "--plan", ragged_plan_path],
+        "ragged_placed": ["--backend", "cxl", "--topology",
+                          RAGGED_PLACEMENT_TOPOLOGY, "--placement", "auto"]},
         ["--topology", RAGGED_TOPOLOGY],
-        short=("ragged_cxl", "ragged_auto"))
-    ragged["ragged_placed"] = full_width_run(
-        "ragged_placed", ["--backend", "cxl", "--topology",
-                          RAGGED_PLACEMENT_TOPOLOGY, "--placement", "auto"])
+        short=("ragged_cxl", "ragged_auto", "ragged_placed"),
+        unprofiled=("ragged_placed",))
     check_path_runs(ragged, {"pod", "data"}, "ragged_auto")
     check_ragged_runs(ragged)
     out["ragged"] = ragged
@@ -2466,7 +2598,8 @@ def train_phase() -> dict:
     # experts parallel over model through the pool's AllToAll, FSDP over
     # data; full width and depth (run in 7c's spawn, on its plan: the
     # same topology)
-    out["moe_ckpt"] = check_moe_ckpt(moe["moe_cxl_fused"])
+    out["moe_ckpt"] = check_ckpt_restores(moe["moe_cxl_fused"], MOE_ARCH,
+                                          TP_TP, "moe")
     check_path_runs(moe, {"data", "model"}, "moe_auto")
     out["moe"] = moe
     out["moe_auto_choices"] = check_auto_choices(
@@ -2483,10 +2616,16 @@ def train_phase() -> dict:
         hybrid_tp_runs, tp_plan,
         hybrid["hybrid_cxl_fused"]["steps"][0]["loss"]))
     hybrid_tp = out["hybrid_tp"]
+    # 7j. the pipeline over (stage, data), in 7c's spawn
+    out["pp_ckpt"] = check_ckpt_restores(pp["pp_cxl"], "llama3.2-1b", 1,
+                                         "pp")
+    out["pp_auto_choices"] = check_pp_runs(pp, first, pp_plan)
+    out["pp"] = pp
     log("[train] step times (s): " + json.dumps(
         {k: [round(s["step_s"], 3) for s in r["steps"]]
          for k, r in {**runs, **hier, **tp, **ragged, **moe,
-                      **hybrid, **hybrid_tp, **audio, **vlm}.items()}))
+                      **hybrid, **hybrid_tp, **audio, **vlm,
+                      **pp}.items()}))
     return out
 
 
@@ -2586,13 +2725,14 @@ def main() -> int:
         if x[0].numel() >= sharding.FSDP_MIN_SIZE) // DP
     hybrid_rs = hybrid_reduce_shapes()
     hybrid_tp_rs = hybrid_tp_reduce_shapes()
+    pp_rs = pp_reduce_shapes()
     frontend_rs = {arch: frontend_reduce_shapes(arch)
                    for arch in (AUDIO_ARCH, VLM_ARCH)}
     for dtype in (torch.float32, torch.bfloat16):
         shapes = [(n, ln) for n in (2, 4, 16) for ln in (rs_len, RAGGED)]
         shapes += [s for s in hier_reduce_shapes(rs_len) + tp_reduce_shapes(
             rs_len) + ragged_reduce_shapes(rs_len) + hybrid_rs +
-            hybrid_tp_rs + moe_reduce_shapes() + sum(
+            hybrid_tp_rs + moe_reduce_shapes() + pp_rs + sum(
                 frontend_rs.values(), ()) if s not in shapes]
         for n_src, length in shapes:
             x = randn(n_src, length, dtype=dtype)
@@ -2693,6 +2833,11 @@ def main() -> int:
                         for n, length in hybrid_tp_rs
                         if f"{n}x{length}" not in reduce_tp}
     timing["chunked_reduce"]["hybrid_tp"] = reduce_hybrid_tp
+    # and at the pipeline path's: every leaf's AllReduce at N = 2 (a
+    # stage's slab of each row leaf, the embedding, the norms, scalars)
+    timing["chunked_reduce"]["pp"] = {
+        f"{n}x{length}": reduce_timing(timer, randn, cr, n, length)
+        for n, length in pp_rs}
     # and at the non-text models' (their row buckets, fused and not, and
     # the grad sync's buckets of the dp-replicated leaves)
     reduce_frontend = {f"{n}x{length}": reduce_timing(timer, randn, cr, n,
@@ -2834,7 +2979,7 @@ def main() -> int:
     record["train"]["vlm_runs"] = record["train"]["vlm"].pop("runs")
     (train_launches, hier_launches, tp_launches, ragged_launches,
      moe_launches, hybrid_launches, hybrid_tp_launches, audio_launches,
-     vlm_launches) = (
+     vlm_launches, pp_launches) = (
         {n: sum(s["launches"][n] for run in record["train"][key].values()
                 for s in run["steps"])
          for n in names}
@@ -2848,7 +2993,9 @@ def main() -> int:
                            ("hybrid_tp", HYBRID_KERNELS + (
                                "chunked_reduce", "all_gather_matmul")),
                            ("audio_runs", LLAMA_TRAIN_KERNELS),
-                           ("vlm_runs", LLAMA_TRAIN_KERNELS)))
+                           ("vlm_runs", LLAMA_TRAIN_KERNELS),
+                           ("pp", ("rms_norm", "rms_norm_vjp",
+                                   "flash_attention", "chunked_reduce"))))
     record["train"]["launches"] = train_launches
     record["train"]["hier_launches"] = hier_launches
     record["train"]["tp_launches"] = tp_launches
@@ -2858,6 +3005,7 @@ def main() -> int:
     record["train"]["hybrid_tp_launches"] = hybrid_tp_launches
     record["train"]["audio_launches"] = audio_launches
     record["train"]["vlm_launches"] = vlm_launches
+    record["train"]["pp_launches"] = pp_launches
     mark("train")
 
     # 7f. serve Granite-3.0-MoE at full width through the launcher --------
@@ -2899,7 +3047,8 @@ def main() -> int:
             fail(f"the hybrid (data, model) training path never launched "
                  f"the {name} kernel")
     for path, counts in (("whisper-tiny", audio_launches),
-                         ("Phi-3-vision", vlm_launches)):
+                         ("Phi-3-vision", vlm_launches),
+                         ("pipeline", pp_launches)):
         for name, n in counts.items():
             if n <= 0:
                 fail(f"the {path} training path never launched the {name} "
@@ -2926,6 +3075,8 @@ def main() -> int:
             by_path["train_moe"] = moe_launches[name]
             by_path["train_audio"] = audio_launches[name]
             by_path["train_vlm"] = vlm_launches[name]
+        if name in pp_launches:
+            by_path["train_pp"] = pp_launches[name]
         if name in hybrid_launches:
             by_path["train_hybrid"] = hybrid_launches[name]
             by_path["train_hybrid_tp"] = hybrid_tp_launches[name]
@@ -2940,7 +3091,8 @@ def main() -> int:
                 "train_hybrid": hybrid_launches["rms_norm_vjp"],
                 "train_hybrid_tp": hybrid_tp_launches["rms_norm_vjp"],
                 "train_audio": audio_launches["rms_norm_vjp"],
-                "train_vlm": vlm_launches["rms_norm_vjp"]},
+                "train_vlm": vlm_launches["rms_norm_vjp"],
+                "train_pp": pp_launches["rms_norm_vjp"]},
                 # the non-text models' widths
                 **{k: {f: t["shapes"][k][f] for f in (
                     "ms", "plain_ms", "library_ms", "copy_ms", "bound_ms",

@@ -35,7 +35,7 @@ an ``auto`` plan embeds), as in the reference:
   recurse with per-level roots split from the flat rank-major root;
 * every level resolves its own plan cell under ``auto`` and books its
   wire bytes against its own level and fabric;
-* ``all_to_all`` and ``send`` stay single-axis.
+* ``all_to_all``, ``send`` and ``recv`` stay single-axis.
 
 Every call books its wire bytes in ``core.ledger`` with the reference's
 convention.  PyTorch runs eagerly, so the ledger books each call as it
@@ -44,8 +44,9 @@ reference books at trace time and scales by trip counts.
 
 The collectives that training differentiates are autograd functions
 whose backward is the transposed collective: all_gather <->
-reduce_scatter, all_reduce <-> all_reduce and all_to_all <-> all_to_all
-(the MoE dispatch and combine).  As under the reference's
+reduce_scatter, all_reduce <-> all_reduce, all_to_all <-> all_to_all
+(the MoE dispatch and combine) and send <-> recv (the pipeline's stage
+handoff).  As under the reference's
 ``shard_map(check_vma=False)``, the transpose of a sum over ranks is a
 sum over ranks, so a loss averaged with ``all_reduce(x) / n`` hands each
 rank a cotangent of 1, and synced grads are the sum of the ranks' local
@@ -520,12 +521,27 @@ class Communicator:
              shift: int = 1) -> torch.Tensor:
         """Ring point-to-point handoff: every rank sends ``x`` to the
         rank ``shift`` ahead and returns the payload from the rank
-        ``shift`` behind (cyclic); S wire bytes per rank."""
+        ``shift`` behind (cyclic); S wire bytes per rank.
+        Differentiable: the cotangent goes back by :meth:`recv` (the
+        reference's ``ppermute`` transposes to the inverse permute),
+        booked in the ledger like the forward."""
         if len(_axes(axis)) != 1:
             raise NotImplementedError("send/recv are single-axis")
         ax = self.axis(axis)
         if ax.size == 1 or shift % ax.size == 0:
             return x
+        return _Send.apply(x, self, ax, shift)
+
+    def recv(self, x: torch.Tensor, axis: AxisSpec, *,
+             shift: int = 1) -> torch.Tensor:
+        """The reverse hop of :meth:`send`: every rank sends ``x`` to the
+        rank ``shift`` behind and returns the payload from the rank
+        ``shift`` ahead (the backward pass's gradient handoff: stage s
+        pushes grads to s - 1)."""
+        return self.send(x, axis, shift=-shift)
+
+    def _send(self, x: torch.Tensor, ax: mc.AxisGroup,
+              shift: int) -> torch.Tensor:
         s = _nbytes(x)
         backend, factor, _, ov, _ = self._choice("p2p", s, ax)
         self._rec("p2p", float(s), ax, ov)
@@ -668,3 +684,19 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.comm._all_to_all(g.contiguous(), ctx.ax), None, None
+
+
+class _Send(torch.autograd.Function):
+    """A cyclic shift's transpose is the shift the other way: the
+    cotangent of the payload received from the rank ``shift`` behind
+    goes back to it."""
+
+    @staticmethod
+    def forward(ctx, x, comm, ax, shift):
+        ctx.comm, ctx.ax, ctx.shift = comm, ax, shift
+        return comm._send(x, ax, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.comm._send(g.contiguous(), ctx.ax, -ctx.shift), None,
+                None, None)

@@ -31,6 +31,10 @@ group), created only with the topology (``level_groups(shape,
 topology)``), and its ``AxisGroup`` carries this rank's
 ``mesh_collectives.Grouping``.
 
+``--pp-stages S`` is ``(("stage", S), ("data", N / S))``
+(:func:`pipeline_shape`): each level group has its own process group and
+pool, as for ``(data, model)``.
+
 ``make_placed_mesh`` applies a placement (``tuner.placement``): it
 installs the axis aliases of a split axis and the placed topology, and
 returns the mesh shape the placement chose; ``dp_axes`` resolves the
@@ -66,6 +70,17 @@ def mesh_shape(dp: int, tp: int = 1, multi_pod: bool = False) -> tuple:
         raise ValueError(f"--multi-pod splits the data ranks over 2 pods: "
                          f"DP must be even, got {dp}")
     return (("pod", 2), ("data", dp // 2), ("model", tp))
+
+
+def pipeline_shape(nranks: int, stages: int) -> tuple:
+    """The rank-major shape of a pipeline's host mesh, ``(("stage", S),
+    ("data", N / S))``, as the reference launcher's ``jax.make_mesh((S,
+    N / S), ("stage", "data"))``: rank r at stage ``r // (N / S)`` and
+    data ``r % (N / S)``."""
+    if stages < 1 or nranks % stages:
+        raise ValueError(f"--pp-stages {stages} does not divide "
+                         f"{nranks} ranks")
+    return (("stage", stages), ("data", nranks // stages))
 
 
 def _coords(shape: Sequence[tuple], rank: int) -> list:

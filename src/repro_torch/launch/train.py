@@ -38,6 +38,14 @@ tensor-parallel paths:
       --batch 4 --seq 1024 [--fuse-kernels]
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch falcon-mamba-7b --smoke --mesh 4x1 --backend cxl --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --mesh 4x1 --pp-stages 2 --microbatches 2 --pp-schedule 1f1b \\
+      --batch 4 --seq 1024 --backend cxl --topology stage:cxl,data:cxl \\
+      --steps 3 [--ckpt DIR]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --smoke --device cpu --mesh 4x1 --pp-stages 2 --microbatches 2 \\
+      --pp-schedule interleaved --pp-chunks 2 --batch 8 --seq 32 \\
+      --backend ring --steps 3
 
 The launcher spawns one process per rank (``spawn`` start method); rank
 r runs on ``cuda:(r % device_count)``, so the ranks of a one-card host
@@ -114,8 +122,24 @@ The ranks build their GLOBAL params one at a time (each shards them and
 frees the rest before the next rank starts), so a model whose params
 fill a fifth of the card still starts on four ranks sharing it.
 
-Not ported yet: online re-tuning (ROADMAP queue 1, item 10), pipeline
-stages (item 9), metrics/trace export, faults and resilience (item 10).
+``--pp-stages S`` (> 1) trains a uniform stack through the microbatch
+pipeline (``training.pipeline``), as the reference launcher does: the
+ranks of ``--mesh Nx1`` form the rank-major mesh ``(("stage", S),
+("data", N / S))``, each stage holds a contiguous slab of the rows
+(embedding and final norm replicated), the ranks of one data index take
+the same batch rows, split into ``--microbatches`` M, and the
+activations and their cotangents hop between stages through
+``Communicator.send`` / ``recv`` (the plan's ``p2p`` cells under
+``auto``); every level has its own process group and pool.
+``--pp-schedule`` and ``--pp-chunks`` validate the schedule and set the
+bubble fraction each step reports; the arithmetic does not depend on
+them.  Refused with it: a model axis > 1, ``--multi-pod``,
+``--placement``, ``--fuse-kernels`` (no FSDP gather to fuse) and a stack
+that is not uniform (``models.pipeline_stages.uniform_stage_rows``).
+``--ckpt`` saves the GLOBAL params, the stage slabs concatenated.
+
+Not ported yet: online re-tuning, metrics/trace export, faults and
+resilience (ROADMAP queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -147,11 +171,15 @@ from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_vjp
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_vjp
 from repro_torch.launch import ranks
 from repro_torch.launch.mesh import (dp_axes, joint_groups, level_groups,
-                                     make_host_mesh, mesh_shape, parse_mesh)
-from repro_torch.models import model, sharding
+                                     make_host_mesh, mesh_shape, parse_mesh,
+                                     pipeline_shape)
+from repro_torch.models import model, pipeline_stages, sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw_init
 from repro_torch.training import checkpoint
+from repro_torch.training.pipeline import (SCHEDULES, bubble_fraction,
+                                           make_schedule,
+                                           make_sharded_pipeline_step)
 from repro_torch.training.train_loop import (TrainConfig, leaf_params,
                                              make_sharded_train_step)
 
@@ -195,7 +223,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--slicing-factor", type=int, default=4)
     ap.add_argument("--allreduce-mode", default="two_phase",
                     choices=["two_phase", "faithful"])
-    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="gradient-accumulation splits; with "
+                         "--pp-stages > 1 this is the pipeline "
+                         "microbatch count M (bubble fraction "
+                         "(S-1)/(M+S-1) under 1F1B)")
+    ap.add_argument("--pp-stages", type=int, default=1,
+                    help="pipeline stages: > 1 trains on a "
+                         "(stage, data) mesh with the microbatch "
+                         "pipeline (training.pipeline); activation/"
+                         "grad handoffs ride the tuned p2p plan cells "
+                         "(cxl pool write + doorbell commit vs direct "
+                         "hop)")
+    ap.add_argument("--pp-schedule", default="1f1b", choices=SCHEDULES,
+                    help="pipeline schedule driving bubble accounting "
+                         "and realizability validation (interleaved "
+                         "needs microbatches %% stages == 0)")
+    ap.add_argument("--pp-chunks", type=int, default=2,
+                    help="model chunks per stage under --pp-schedule "
+                         "interleaved")
     ap.add_argument("--bucket-mb", type=float, default=25.0)
     ap.add_argument("--prefetch", type=int, default=1, choices=[0, 1])
     ap.add_argument("--fuse-kernels", action="store_true")
@@ -247,10 +293,21 @@ class RunSpec:
     profile: bool = False             # the first variant: one more step
     #                                   under the profiler
     timeout_s: float = 600.0
+    pp_stages: int = 1                # > 1: the pipeline over (stage,
+    #                                   data) = (pp_stages, dp / pp_stages)
+    pp_schedule: str = "1f1b"
+    pp_chunks: int = 2
 
     def mesh(self) -> tuple:
         """The rank-major mesh shape every rank builds."""
+        if self.pp_stages > 1:
+            return pipeline_shape(self.dp, self.pp_stages)
         return self.shape or mesh_shape(self.dp, self.tp, self.multi_pod)
+
+    def data_ranks(self) -> int:
+        """The batch's split: the data axis's size (``dp`` counts every
+        rank of a pipeline's mesh)."""
+        return self.dp // self.pp_stages
 
     def model_config(self) -> ModelConfig:
         return self.config or get_config(self.arch, smoke=self.smoke)
@@ -354,12 +411,13 @@ def _rank_run(ctx: ranks.RankContext, specs: Sequence[RunSpec]) -> list:
     return out
 
 
-def _local_params(ctx: ranks.RankContext, spec: RunSpec, cfg, pspecs,
-                  pc) -> dict:
-    """This rank's shards of the GLOBAL params (seed 0 or the .npz), as
-    leaves that require grad.  The ranks take turns: each builds the
-    GLOBAL params, keeps its shards and frees the rest before the next
-    one starts, so only one GLOBAL copy is alive at a time."""
+def _local_params(ctx: ranks.RankContext, spec: RunSpec, cfg, shard
+                  ) -> dict:
+    """This rank's shards of the GLOBAL params (seed 0 or the .npz; its
+    ``shard(full)``), as leaves that require grad.  The ranks take
+    turns: each builds the GLOBAL params, keeps its shards and frees the
+    rest before the next one starts, so only one GLOBAL copy is alive at
+    a time."""
     dev = ctx.device
     params = None
     for turn in range(ctx.nranks):
@@ -370,10 +428,7 @@ def _local_params(ctx: ranks.RankContext, spec: RunSpec, cfg, pspecs,
                 full = model.init_params(
                     cfg, torch.Generator(device=dev).manual_seed(0), dev,
                     tp=spec.tp)
-            params = leaf_params(sharding.shard_params(
-                full, pspecs, pc.dp_axis, pc.comm.axis_index(pc.dp_axis),
-                pc.comm.axis_size(pc.dp_axis), tp_axis="model",
-                tp_rank=pc.tp_index(), tp=spec.tp))
+            params = leaf_params(shard(full))
             del full
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -382,15 +437,22 @@ def _local_params(ctx: ranks.RankContext, spec: RunSpec, cfg, pspecs,
     return params
 
 
-def _layout(pspecs, pc, tp: int) -> dict:
+def _layout(pspecs, pc, tp: int, stage_axis: Optional[str] = None) -> dict:
     """Where this rank's shards sit in the GLOBAL params: the spec of
-    every leaf, the axes they name, and this rank's indices on them."""
+    every leaf, the axes they name, and this rank's indices on them (a
+    pipeline's: its stage slab, on ``stage_axis``)."""
+    dp = pc.dp_axis
     return {"specs": {"/".join(p): s
                       for p, s in tree.leaves_with_paths(pspecs)},
-            "dp_axis": sharding.resolve_axis(pc.dp_axis),
+            "dp_axis": sharding.resolve_axis(dp),
             "tp_axis": sharding.resolve_axis("model"),
-            "dp_index": pc.comm.axis_index(pc.dp_axis),
-            "n_dp": pc.comm.axis_size(pc.dp_axis),
+            "stage_axis": stage_axis,
+            "dp_index": pc.comm.axis_index(dp) if dp is not None else 0,
+            "n_dp": pc.comm.axis_size(dp) if dp is not None else 1,
+            "stage_index": pc.comm.axis_index(stage_axis)
+            if stage_axis is not None else 0,
+            "n_stage": pc.comm.axis_size(stage_axis)
+            if stage_axis is not None else 1,
             "tp_index": pc.tp_index(), "tp": tp}
 
 
@@ -420,13 +482,15 @@ def _staged_shards(ckpt: str, rank: int, paths: Sequence[str]) -> dict:
 def assemble_params(shards: Sequence[dict], layouts: Sequence[dict]) -> dict:
     """The GLOBAL params (numpy, ``model.abstract_params(cfg, tp)``'s
     shapes) from every rank's shards (path -> array) and layouts
-    (``_layout``): a leaf concatenates its data shards along its dp dim
-    and its model shards along its model dim, the inverse of
-    ``sharding.shard_params``; a replicated leaf is a copy of rank 0's
-    (the shards may be memory-mapped files)."""
+    (``_layout``): a leaf concatenates its data shards along its dp dim,
+    its model shards along its model dim and a pipeline's stage slabs
+    along its row dim, the inverse of ``sharding.shard_params``; a
+    replicated leaf is a copy of rank 0's (the shards may be
+    memory-mapped files)."""
     by_index: dict = {}
     for sh, lay in zip(shards, layouts):
-        by_index.setdefault((lay["dp_index"], lay["tp_index"]), sh)
+        by_index.setdefault((lay.get("stage_index", 0), lay["dp_index"],
+                             lay["tp_index"]), sh)
     lay = layouts[0]
     out = []
     for key, spec in lay["specs"].items():
@@ -434,15 +498,22 @@ def assemble_params(shards: Sequence[dict], layouts: Sequence[dict]) -> dict:
             if lay["tp"] > 1 and lay["tp_axis"] in spec else None
         ddim = spec.index(lay["dp_axis"]) if lay["dp_axis"] in spec \
             else None
-        cols = []
-        for t in range(lay["tp"] if tdim is not None else 1):
-            parts = [by_index[d, t][key]
-                     for d in range(lay["n_dp"] if ddim is not None else 1)]
-            cols.append(np.concatenate(parts, ddim) if ddim is not None
-                        else parts[0])
+        stage = lay.get("stage_axis")
+        sdim = spec.index(stage) if stage is not None and stage in spec \
+            else None
+        slabs = []
+        for s in range(lay["n_stage"] if sdim is not None else 1):
+            cols = []
+            for t in range(lay["tp"] if tdim is not None else 1):
+                parts = [by_index[s, d, t][key] for d in range(
+                    lay["n_dp"] if ddim is not None else 1)]
+                cols.append(np.concatenate(parts, ddim) if ddim is not None
+                            else parts[0])
+            slabs.append(np.concatenate(cols, tdim) if tdim is not None
+                         else cols[0])
         out.append((tuple(key.split("/")),
-                    np.concatenate(cols, tdim) if tdim is not None
-                    else np.array(cols[0])))
+                    np.concatenate(slabs, sdim) if sdim is not None
+                    else np.array(slabs[0])))
     return tree.from_paths(out)
 
 
@@ -459,12 +530,32 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
     cfg = spec.model_config()
     mesh = make_host_mesh(spec.mesh(), ctx, pools=tcfg.backend != "ring",
                           topology=spec.topology)
-    step, pspecs, pc = make_sharded_train_step(cfg, tcfg, mesh,
-                                               dp_axis=dp_axes(mesh))
+    stage_axis = None
+    if spec.pp_stages > 1:
+        stage_axis = "stage"
+        step, pspecs, pc = make_sharded_pipeline_step(
+            cfg, tcfg, mesh, n_microbatches=tcfg.microbatches,
+            stage_axis=stage_axis, schedule=spec.pp_schedule,
+            n_chunks=spec.pp_chunks)
+        dp_index = pc.comm.axis_index("data")
+
+        def shard(full):
+            return sharding.shard_params(
+                full, pspecs, stage_axis, pc.comm.axis_index(stage_axis),
+                spec.pp_stages)
+    else:
+        step, pspecs, pc = make_sharded_train_step(cfg, tcfg, mesh,
+                                                   dp_axis=dp_axes(mesh))
+        dp_index = pc.comm.axis_index(pc.dp_axis)
+
+        def shard(full):
+            return sharding.shard_params(
+                full, pspecs, pc.dp_axis, dp_index,
+                pc.comm.axis_size(pc.dp_axis), tp_axis="model",
+                tp_rank=pc.tp_index(), tp=spec.tp)
     t_init = time.perf_counter()
-    params = _local_params(ctx, spec, cfg, pspecs, pc)
+    params = _local_params(ctx, spec, cfg, shard)
     init_s = time.perf_counter() - t_init
-    dp_index = pc.comm.axis_index(pc.dp_axis)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     opt = adamw_init(params)
@@ -475,7 +566,7 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
     def to_dev(b):
         """This rank's rows on the device: token ids as int64, the
         frontend's stub embeddings in their own dtype (f32)."""
-        lb = local_batch(b, dp_index, spec.dp)
+        lb = local_batch(b, dp_index, spec.data_ranks())
         return {k: torch.as_tensor(v, device=dev, dtype=torch.long
                                    if np.issubdtype(v.dtype, np.integer)
                                    else None)
@@ -499,6 +590,7 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
         rec = {"loss": loss, "step_s": time.perf_counter() - t0,
                "t_start": t_start, "t_end": time.time(),
                "lr": metrics["lr"], "launches": _counters(),
+               "bubble_fraction": metrics.get("bubble_fraction"),
                "chunked_reduce_by_n": dict(chunked_reduce.launches_by_n),
                "gathers": dict(step.gathers),
                "wire_bytes": snap["wire_bytes"],
@@ -523,7 +615,7 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
                              for p, x in tree.leaves_with_paths(params)}
         if stage:
             _stage_shards(params, spec.ckpt, ctx.rank)
-        out["layout"] = _layout(pspecs, pc, spec.tp)
+        out["layout"] = _layout(pspecs, pc, spec.tp, stage_axis)
         out["capture_s"] = time.perf_counter() - t_cap
     if profile and dev.type == "cuda":
         batch = to_dev(next(data))
@@ -566,33 +658,42 @@ def run_ranks(spec: RunSpec) -> list:
     return run_many([spec])[0]
 
 
+def _spawn_groups(spec: RunSpec) -> tuple:
+    """What a spawn of the ranks creates for ``spec``: the device, the
+    rank count, the level groups (each a process group and a pool), the
+    poolless joint groups and whether the world has a pool."""
+    shape = spec.mesh()
+    nranks = spec.dp * spec.tp
+    return (spec.device, nranks, tuple(level_groups(shape, spec.topology)),
+            tuple(joint_groups(shape)),
+            any(n == nranks for _, n in shape))
+
+
 def run_many(specs: Sequence[RunSpec]) -> list:
     """:func:`run_ranks` of several specs on ONE spawn of the ranks: the
     specs (models, params, variants, steps) run in turn in the same rank
-    processes, so the ranks start once.  They must share the device, the
-    mesh, the topology and the axis aliases; the pools take the largest
-    partition any spec asks for.  Returns each spec's records, as
-    :func:`run_ranks` returns them (``spawn_s`` the one spawn's)."""
+    processes, so the ranks start once.  They must share the device and
+    the spawn's rank groups (:func:`_spawn_groups`); each activates its
+    own topology, axis aliases and mesh, whose axes may be named
+    otherwise (a (stage, data) pipeline rides a (data, model) spawn of
+    the same sizes).  The pools take the largest partition any spec asks
+    for.  Returns each spec's records, as :func:`run_ranks` returns them
+    (``spawn_s`` the one spawn's)."""
     first = specs[0]
-    place = (first.device, first.mesh(), first.topology, first.aliases)
-    if any((sp.device, sp.mesh(), sp.topology, sp.aliases) != place
-           for sp in specs):
-        raise ValueError("run_many: the specs must share the device, the "
-                         "mesh, the topology and the axis aliases")
+    if any(_spawn_groups(sp) != _spawn_groups(first) for sp in specs):
+        raise ValueError("run_many: the specs must share the device and "
+                         "the ranks' groups")
     if first.device == "cuda":
         resolve_device("cuda")        # raises without a card
         build.build_all()             # once, before the ranks start
     windows = [pool_window(sp.model_config()) for sp in specs
                if any(t.backend != "ring" for t in sp.variants)]
-    shape = first.mesh()
-    nranks = first.dp * first.tp
+    device, nranks, groups, joint, world_pool = _spawn_groups(first)
     t_spawn = time.perf_counter()
     per_rank = ranks.spawn(
-        _rank_run, nranks, (tuple(specs),), device=first.device,
-        partition_bytes=max(windows, default=0),
-        groups=level_groups(shape, first.topology),
-        poolless=joint_groups(shape),
-        world_pool=any(n == nranks for _, n in shape),
+        _rank_run, nranks, (tuple(specs),), device=device,
+        partition_bytes=max(windows, default=0), groups=list(groups),
+        poolless=list(joint), world_pool=world_pool,
         timeout_s=max(sp.timeout_s for sp in specs),
         wait_s=sum(sp.timeout_s * (1 + len(sp.variants) * (sp.steps + 1))
                    for sp in specs))
@@ -640,6 +741,7 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
         levels = sorted({name for r in recs for name in r["pool_by_level"]})
         steps.append({
             "loss": rec0["loss"], "lr": rec0["lr"],
+            "bubble_fraction": rec0["bubble_fraction"],
             "step_s": max(r["step_s"] for r in recs),
             "t_start": min(r["t_start"] for r in recs),
             "t_end": max(r["t_end"] for r in recs),
@@ -653,6 +755,7 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
                          for k in KERNEL_COUNTERS},
             "launches_min_rank": {k: min(r["launches"][k] for r in recs)
                                   for k in KERNEL_COUNTERS},
+            "launches_per_rank": [r["launches"] for r in recs],
             "fallbacks": sum(r["fallbacks"] for r in recs),
             # each rank routes its own tokens: the batch's pairs
             "moe_dropped": sum(r["moe_dropped"] for r in recs),
@@ -696,13 +799,51 @@ def choose_placement(args, topology: Topology, dp: int, tp: int) -> tuple:
     return pplan.best_with_unsplit(("model",)), mix, pplan
 
 
+def check_pipeline_args(args, dp: int, tp: int) -> None:
+    """``--pp-stages > 1``'s refusals: what the reference launcher
+    refuses with it that the port has (``--placement``), what the
+    pipeline path cannot take (a model axis, ``--multi-pod``, a stack
+    that is not uniform: ``uniform_stage_rows``' errors), ``--fuse-
+    kernels`` (no FSDP gather to fuse), a stage count that does not
+    divide the ranks and a schedule that cannot be realised."""
+    pp = args.pp_stages
+    for on, flag in ((args.placement, "--placement"),
+                     (args.placement_from_dryrun, "--placement-from-dryrun"),
+                     (args.multi_pod, "--multi-pod")):
+        if on:
+            raise SystemExit(f"{flag} is not supported with --pp-stages > "
+                             f"1 (plain pipeline training path only)")
+    if args.fuse_kernels:
+        raise SystemExit("--fuse-kernels has nothing to fuse with "
+                         "--pp-stages > 1: the pipeline path gathers no "
+                         "FSDP shards")
+    if tp > 1:
+        raise SystemExit(f"--pp-stages > 1 trains over (stage, data): "
+                         f"the model axis must be 1, got --mesh {args.mesh}")
+    try:
+        pipeline_shape(dp, pp)
+        pipeline_stages.uniform_stage_rows(
+            get_config(args.arch, smoke=args.smoke), pp)
+        make_schedule(args.pp_schedule, pp, args.microbatches,
+                      args.pp_chunks)
+    except (NotImplementedError, ValueError) as e:
+        raise SystemExit(str(e)) from None
+
+
 def spec_from_args(args) -> RunSpec:
     """The run the launcher's flags describe (one variant); with
-    ``--placement`` the placed mesh, topology and axis aliases."""
+    ``--placement`` the placed mesh, topology and axis aliases; with
+    ``--pp-stages > 1`` the pipeline over (stage, data)."""
     from repro_torch import tuner
     dp, tp = parse_mesh(args.mesh)
-    if args.batch % (dp * args.microbatches):
-        raise SystemExit(f"--batch {args.batch} must split over {dp} "
+    if args.pp_stages < 1:
+        raise SystemExit("--pp-stages must be >= 1")
+    data = dp
+    if args.pp_stages > 1:
+        check_pipeline_args(args, dp, tp)
+        data = dp // args.pp_stages
+    if args.batch % (data * args.microbatches):
+        raise SystemExit(f"--batch {args.batch} must split over {data} "
                          f"data ranks x {args.microbatches} microbatches")
     mesh_shape(dp, tp, args.multi_pod)         # odd DP with --multi-pod
     if args.placement_from_dryrun:
@@ -726,7 +867,9 @@ def spec_from_args(args) -> RunSpec:
                    batch=args.batch, seq=args.seq, dp=dp, tp=tp,
                    device=resolve_device(args.device).type,
                    multi_pod=args.multi_pod, topology=topology,
-                   ckpt=args.ckpt, **placed)
+                   ckpt=args.ckpt, pp_stages=args.pp_stages,
+                   pp_schedule=args.pp_schedule, pp_chunks=args.pp_chunks,
+                   **placed)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -743,6 +886,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
           + (f" plan={args.plan}" if args.plan else "")
           + (f" topology={args.topology}" if args.topology else ""),
           flush=True)
+    if spec.pp_stages > 1:
+        bub = bubble_fraction(spec.pp_stages, args.microbatches,
+                              args.pp_schedule, args.pp_chunks)
+        print(f"pipeline: {spec.pp_stages} stages x {spec.data_ranks()} dp, "
+              f"{args.microbatches} microbatches, schedule "
+              f"{args.pp_schedule}, bubble fraction {bub:.3f}", flush=True)
     t0 = time.time()
     run = run_ranks(spec)[0]
     for i, s in enumerate(run["steps"]):
