@@ -116,6 +116,10 @@ Phases (each fails the run if its check fails):
                  with its stub input, Phi-3's ``max_seq`` 1624 holding
                  its 576 patches), roomy and 4 blocks short, no trace
                  (the launcher's trace carries no frontend input);
+                 Llama's roomy run is observed (``ObsSession``, files
+                 ``serve_llama.*`` in ``OUT_DIR``): its ``repro_serve_*``
+                 gauges and ``.prom`` equal ``ServeEngine.counters`` and
+                 state, one ``serve_step`` span a step of the engine;
                  whisper's published 448-position decoder context is
                  replaced by RoPE in the repo's config, and its 1024-
                  token prompts are what bring cross attention to the
@@ -168,13 +172,37 @@ Phases (each fails the run if its check fails):
                  ``--topology data:cxl,model:cxl``: the smoke model on
                  the card against the CPU (losses of 3 steps, rtol 2e-4),
                  then Llama-3.2-1B at full width and depth under cxl
-                 +fused (profiled), cxl and auto (2 steps each) on a plan
-                 that
+                 +fused (profiled), cxl (2 steps) and auto (3 steps, the
+                 re-tuned run's reference) on a plan that
                  ``launch.tune --topology data:cxl,model:cxl --nranks 2``
                  writes: step-0 losses within 1e-4 of the flat cxl+fused
                  run's, every loss falls, cxl moves pool bytes at both
                  levels, every rank launches the kernels of 7b every
                  step, and every auto call took its level's plan cell;
+                 in the same spawn, after them, ``tp_auto_retune``: auto
+                 on the same plan with ``--online-retune
+                 --retune-interval 1 --timing-source profiler
+                 --metrics-out --trace-out --plan-out`` (3 steps, the
+                 files in ``OUT_DIR``: ``retune_tp.*``): step-0 loss
+                 bitwise tp_auto's, steps 1 and 2 within 1e-4 of
+                 tp_auto's (step 2 ran the step-1 refresh's cells), the
+                 loss falls;
+                 every call at the cell of its own epoch's plan (the
+                 plan published after steps 0 and 1), every rank at the
+                 same epoch and the same plan (hash) at every refresh;
+                 one sample a call on every rank every step; the metrics
+                 stream's 3 step and 2 retune events, its gauges = rank
+                 0's ledger snapshot per kind and (level, fabric), the
+                 ``.prom`` parsing; the trace's 3 steps of each rank, a
+                 collective event a sample; ``launch.report`` of both;
+                 ``--plan-out`` loading with every cell the calls took,
+                 measured where its choice ran; ``tune --measurements``
+                 of the run's samples folding 7c's plan to the same
+                 measured cells; rms_norm, its backward and
+                 flash_attention (chunked_reduce under cxl reduce
+                 choices) on every rank every step; the calibration
+                 table, ``calibration_drift``, the regret, the swaps
+                 and the step times against tp_auto's printed;
 7d. train grouped - a grouped (ragged) data axis, ``--topology
                  pod:cxl,data:cxl:3+1`` (the 4 ranks as a node of three
                  beside a lone node on one flat data axis): the smoke
@@ -198,9 +226,10 @@ Phases (each fails the run if its check fails):
                  parallel over model (each row's dispatch and combine an
                  AllToAll through the model level's pool), FSDP over data:
                  the smoke MoE card vs CPU (rtol 2e-4), then cxl+fused
-                 (profiled, writing ``train --ckpt``), cxl and auto (2
-                 steps each, 7c's plan): step-0 losses within 1e-4 of each
-                 other, every loss falls, both levels' pools move bytes,
+                 (3 steps, writing ``train --ckpt``; not profiled, the
+                 time limit), cxl and auto (2 steps each, 7c's plan):
+                 step-0 losses within 1e-4 of each other, every loss
+                 falls, both levels' pools move bytes,
                  the kernels of 7b on every rank every step, every auto
                  call (all_to_all included) at its level's cell, rank 0's
                  all_to_all bytes as reckoned, every (token, slot) pair
@@ -238,9 +267,9 @@ Phases (each fails the run if its check fails):
                  depth over ``--mesh 4x1`` in the flat path's spawn:
                  whisper under cxl+fused (profiled, 3 steps), cxl and
                  auto (2 steps; phase 7's plan), Phi-3 at ``--prefetch
-                 0`` under cxl+fused (profiled) and cxl, 2 steps each (no
-                 auto: about 10 s a step, the time limit): step-0
-                 losses within 1e-4, every loss falls, every rank
+                 0`` under cxl+fused and cxl, 2 steps each (no auto and
+                 no profiled step: about 10 s a step, the time limit):
+                 step-0 losses within 1e-4, every loss falls, every rank
                  launches flash_attention exactly as often as the path
                  calls it every step (whisper 20 a rank-step: 4 encoder
                  rows, 4 self and 4 cross attentions, the decoder's 8
@@ -312,6 +341,7 @@ import datetime
 import functools
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -1577,7 +1607,8 @@ def card_vs_cpu(arch: str, length: int, dev) -> tuple:
     return max(e for e, _ in errs), all(ok for _, ok in errs)
 
 
-def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
+def serve_phase(arch: str, path: str, dev, launches: dict,
+                obs_base: str = None) -> dict:
     """Serve ``arch`` at full width on the card (f32, params from seed 0):
     a fixed batch of SLOTS x PROMPT prompts (with a stub frontend's
     input, ``launch.serve.stub_batch``; a vision prefix sizes
@@ -1589,7 +1620,10 @@ def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
     model whose requests carry a frontend's input, which the launcher's
     trace refuses), then step times, a profiled prefill and 5 profiled
     decode steps, and the peak memory.  Kernel launches per run go to
-    ``launches[path]``."""
+    ``launches[path]``.  With ``obs_base`` the roomy run is observed
+    (``ObsSession``: ``<obs_base>.jsonl`` and ``.trace.json``): its
+    ``repro_serve_*`` gauges must equal the engine's counters, and the
+    trace must hold one ``serve_step`` span a step of the engine."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
@@ -1627,13 +1661,29 @@ def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
         log(f"[{path}] {label}: {wall:.2f}s  launches {runs[label]}")
         return out, wall
 
-    def fixed(**kw):
+    def fixed(obs=None, **kw):
         eng = ServeEngine(cfg, params, ServeConfig(
             max_seq=max_seq, decode_slots=SLOTS, kv_block_tokens=BT,
-            pool_budget_bytes=pool_bytes, **kw), device=dev)
+            pool_budget_bytes=pool_bytes, **kw), device=dev, obs=obs)
+        if obs is not None:
+            step, eng.steps = eng.step, 0
+
+            def counted():
+                eng.steps += 1
+                return step()
+            eng.step = counted
         return eng, eng.generate(batch, NEW)
 
-    (roomy, roomy_toks), roomy_s = run("fixed_roomy", lambda: fixed())
+    sess = None
+    if obs_base is not None:
+        from repro_torch.obs import ObsSession
+        sess = ObsSession(metrics_out=obs_base + ".jsonl",
+                          trace_out=obs_base + ".trace.json", log=log)
+    (roomy, roomy_toks), roomy_s = run("fixed_roomy",
+                                       lambda: fixed(obs=sess))
+    obs_rec = None
+    if sess is not None:
+        obs_rec = check_serve_obs(sess, roomy, obs_base)
     (tight, tight_toks), tight_s = run(
         "fixed_pool_eviction",
         lambda: fixed(kv_placement="pool",
@@ -1645,7 +1695,7 @@ def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
                                                        + NEW),
            "fixed_roomy": {"wall_s": roomy_s,
                            "tok_per_s": SLOTS * NEW / roomy_s,
-                           **roomy.counters},
+                           **roomy.counters, "obs": obs_rec},
            "fixed_pool_eviction": {"wall_s": tight_s,
                                    "tok_per_s": SLOTS * NEW / tight_s,
                                    "hbm_budget_blocks": blocks_needed - 4,
@@ -1735,16 +1785,59 @@ def serve_phase(arch: str, path: str, dev, launches: dict) -> dict:
     return rec
 
 
-def check_auto_choices(run: dict, plan, topology=None) -> dict:
+def check_serve_obs(sess, eng, base: str) -> dict:
+    """Finalize the observed serving run's session and hold its files to
+    the engine: every ``repro_serve_*`` counter gauge equals
+    ``ServeEngine.counters``, the gauges of the engine's state equal it,
+    the ``.prom`` rendering parses to the same values, and the trace
+    holds one ``serve_step`` span a ``step`` of the engine."""
+    sess.finalize(extra={"counters": eng.counters})
+    _, metrics = metric_events(base + ".jsonl")
+    want = {f"repro_serve_{k}_total": eng.counters[k] for k in (
+        "finished", "evictions", "restores", "replays", "prefix_hits",
+        "prefix_publishes")}
+    want.update({"repro_serve_inflight": eng.sched.inflight,
+                 "repro_serve_hbm_blocks_used": eng.blocks.used_blocks,
+                 "repro_serve_pool_blocks_used":
+                     eng.pool.alloc.used_blocks,
+                 "repro_serve_pool_hits_total": eng.pool.hits})
+    got = {name: metrics.get((name, ())) for name in want}
+    if got != want:
+        fail(f"serve metrics {got} != the engine's {want}")
+    prom = parse_prom(pathlib.Path(base).with_suffix(".prom").read_text())
+    if {k: prom.get((k, "")) for k in want} != want:
+        fail("serve .prom disagrees with the engine's counters")
+    doc = json.loads(pathlib.Path(base + ".trace.json").read_text())
+    spans = sum(e.get("name") == "serve_step" for e in doc["traceEvents"])
+    if spans != eng.steps or not spans:
+        fail(f"serve trace: {spans} serve_step spans, {eng.steps} steps")
+    log(f"[serve] metrics {json.dumps(got)}; {spans} serve_step spans for "
+        f"{eng.steps} engine steps")
+    return {"gauges": got, "serve_step_spans": spans, "steps": eng.steps}
+
+
+def check_auto_choices(run: dict, plan, topology=None,
+                       plans: dict = None) -> dict:
     """Every collective call of the auto run (rank 0's audit, each step)
     took the knobs of its plan cell: no call fell back to the ring
     baseline for want of a cell.  With a ``topology`` every call
     resolved at its own level, against that level's cells, and a level
-    without a pool (``ici``) took ring.  Returns and prints the
-    per-primitive decisions of step 0."""
+    without a pool (``ici``) took ring.  With ``plans`` (registry epoch ->
+    the plan published at it: an online re-tuned run) each step's calls
+    are held to the plan of the epoch its record carries, every rank's
+    calls resolved at that epoch.  Returns and prints the per-primitive
+    decisions of step 0."""
     knobs = ("backend", "slicing_factor", "allreduce_mode", "overlap",
              "fused")
     for i, step in enumerate(run["steps"]):
+        if plans is not None:
+            epoch = step["obs_per_rank"][0]["plan_epoch"]
+            if any(o["audit_epochs"] != [epoch]
+                   for o in step["obs_per_rank"]):
+                fail(f"auto run step {i}: calls resolved at epochs "
+                     f"{[o['audit_epochs'] for o in step['obs_per_rank']]}"
+                     f", the step ran under {epoch}")
+            plan = plans[epoch]
         if not step["choices_rank0"]:
             fail(f"auto run step {i} resolved no collective")
         for c in step["choices_rank0"]:
@@ -2309,9 +2402,9 @@ def check_hybrid_tp_runs(runs: dict, first_4x1: float) -> None:
 # 7i's runs, whisper-tiny and Phi-3-vision-4.2B over the flat data axis
 # (variants of the flat path's spawn of the ranks)
 AUDIO_RUNS = ("audio_cxl_fused", "audio_cxl", "audio_auto")
-# Phi-3-vision takes about 10 s a step: its profiled run takes 2 steps
-# too, and it leaves auto to whisper-tiny's run of the same path (the
-# time limit)
+# Phi-3-vision takes about 10 s a step: its first run takes 2 steps too
+# and no profiled step, and it leaves auto to whisper-tiny's run of the
+# same path (the time limit)
 VLM_RUNS = ("vlm_cxl_fused", "vlm_cxl")
 
 
@@ -2418,6 +2511,240 @@ def check_pp_runs(runs: dict, first: float, plan) -> dict:
     return choices
 # 7h's runs, Zamba2-1.2B over (data, model) (variants of 7c's spawn)
 HYBRID_TP_RUNS = ("hybrid_tp_cxl_fused", "hybrid_tp_cxl", "hybrid_tp_auto")
+# 7c's online re-tuned variant: its observability files (rank 0's)
+RETUNE_BASE = "retune_tp"
+RETUNE_KERNELS = ("rms_norm", "rms_norm_vjp", "flash_attention")
+
+
+def retune_flags(plan_path: str) -> list:
+    """``tp_auto_retune``'s flags after 7c's: auto on 7c's plan, re-tuned
+    at every step boundary from per-call samples, with every output."""
+    base = str(OUT_DIR / RETUNE_BASE)
+    return ["--backend", "auto", "--plan", plan_path, "--online-retune",
+            "--retune-interval", "1", "--timing-source", "profiler",
+            "--metrics-out", base + ".jsonl", "--trace-out",
+            base + ".trace.json", "--plan-out", base + ".plan.json"]
+
+
+# one sample line of the Prometheus text format: name{labels} value
+PROM_LINE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{((?:[a-zA-Z_]'
+                       r'[a-zA-Z0-9_]*="(?:[^"\\]|\\.)*",?)*)\})? (\S+)$')
+
+
+def parse_prom(text: str) -> dict:
+    """Prometheus text exposition (0.0.4) -> {(name, labels): value};
+    fails on a line that does not parse."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("# HELP ") or \
+                line.startswith("# TYPE "):
+            continue
+        m = PROM_LINE.match(line)
+        if m is None:
+            fail(f"unparsable Prometheus line {line!r}")
+        v = m.group(4)
+        out[(m.group(1), m.group(3) or "")] = float(
+            "inf" if v == "+Inf" else v)
+    return out
+
+
+def metric_events(path: str) -> tuple:
+    """A metrics stream's events and its final registry's samples,
+    {(name, sorted labels): value}."""
+    from repro_torch.launch import report
+    events = report.load_events(path)
+    metrics = {(e["name"], tuple(sorted(e["labels"].items()))): e["value"]
+               for e in events if e["kind"] == "metric"}
+    return events, metrics
+
+
+def check_retune_run(run: dict, auto: dict, tp_plan, tp_plan_path: str,
+                     topology) -> dict:
+    """7c's ``tp_auto_retune``: the checks of its every output against
+    ``auto`` (``tp_auto``, the same plan with no timing, in the same
+    spawn).  Returns what it measured: the calibration table, the
+    drift recommendations, the regret, the swaps and the step times."""
+    import os
+    import subprocess as sp
+
+    from repro_torch import tuner
+    from repro_torch.launch import tune
+    from repro_torch.obs import calibration_drift
+    t_check = time.perf_counter()
+    steps, n = run["steps"], len(run["steps"])
+    ls, la = [s["loss"] for s in steps], [s["loss"] for s in auto["steps"]]
+    # losses: step 0 bitwise (the same cells; timing touches no number),
+    # later steps within 1e-4 (refreshed cells sum in other orders)
+    if len(la) < n:
+        fail(f"tp_auto ran {len(la)} steps, tp_auto_retune {n}: a step "
+             f"of the re-tuned run has no loss to be held to")
+    if ls[0] != la[0]:
+        fail(f"tp_auto_retune step-0 loss {ls[0]!r} != tp_auto's {la[0]!r}")
+    for i in range(1, n):
+        if abs(ls[i] - la[i]) > 1e-4 * abs(la[i]):
+            fail(f"tp_auto_retune step {i} loss {ls[i]} vs tp_auto {la[i]}")
+    if not ls[-1] < ls[0]:
+        fail(f"tp_auto_retune: the loss did not fall: {ls}")
+    # rank agreement: the same epoch a step, the same plan a refresh
+    plans = {steps[0]["obs_per_rank"][0]["plan_epoch"]: tp_plan}
+    for i, s in enumerate(steps):
+        if len({o["plan_epoch"] for o in s["obs_per_rank"]}) != 1:
+            fail(f"tp_auto_retune step {i}: the ranks ran under epochs "
+                 f"{[o['plan_epoch'] for o in s['obs_per_rank']]}")
+        rts = s["retune_per_rank"]
+        if len({json.dumps(r, sort_keys=True) for r in rts}) != 1:
+            fail(f"tp_auto_retune step {i}: the ranks refreshed apart: "
+                 f"{rts}")
+        rt = s["retune_rank0"]
+        if (rt is None) != (i == n - 1):
+            fail(f"tp_auto_retune step {i}: a refresh at every boundary "
+                 f"between steps and none after the last, got {rt}")
+        if rt is not None:
+            plans[rt["epoch"]] = tuner.Plan.from_json(rt["plan"])
+        # samples: one a call on every rank, from step 0 on
+        for r, o in enumerate(s["obs_per_rank"]):
+            if o["timing_samples"] != o["audit_calls"] or not o["audit_calls"]:
+                fail(f"tp_auto_retune step {i} rank {r}: "
+                     f"{o['timing_samples']} samples of {o['audit_calls']} "
+                     f"calls")
+    epochs = [s["obs_per_rank"][0]["plan_epoch"] for s in steps]
+    if epochs != list(range(epochs[0], epochs[0] + n)):
+        fail(f"tp_auto_retune: epochs a step {epochs}")
+    # plan cells: every call at the cell of its own epoch's plan
+    choices = check_auto_choices(run, tp_plan, topology, plans=plans)
+    # kernels: every rank, every step; chunked_reduce where a step's
+    # choices reduce through the pool
+    for i, s in enumerate(steps):
+        need = list(RETUNE_KERNELS)
+        if any(c["backend"] == "cxl" and c["primitive"] in (
+                "all_reduce", "reduce_scatter") for c in s["choices_rank0"]):
+            need.append("chunked_reduce")
+        idle = [k for k in need if s["launches_min_rank"][k] <= 0]
+        if idle:
+            fail(f"tp_auto_retune step {i}: a rank launched no {idle}")
+    # metrics stream: a step event a step, a retune event a boundary,
+    # from_ledger's gauges = rank 0's ledger snapshot
+    base = OUT_DIR / RETUNE_BASE
+    events, metrics = metric_events(str(base) + ".jsonl")
+    kinds = [e["kind"] for e in events]
+    if kinds.count("step") != n or kinds.count("retune") != n - 1:
+        fail(f"tp_auto_retune metrics: {kinds.count('step')} step and "
+             f"{kinds.count('retune')} retune events")
+    led = run["obs"]["ledger"]
+    for kind, b in led["wire_bytes"].items():
+        if metrics.get(("repro_wire_bytes", (("kind", kind),))) != b:
+            fail(f"tp_auto_retune metrics: wire bytes of {kind}")
+    for lk, kk in led["level_wire_bytes"].items():
+        level, _, fabric = lk.partition("/")
+        for kind, b in kk.items():
+            got = metrics.get(("repro_level_wire_bytes", (
+                ("fabric", fabric), ("kind", kind), ("level", level))))
+            if got != b:
+                fail(f"tp_auto_retune metrics: {lk} {kind} {got} != {b}")
+    if led["level_wire_bytes"] != steps[-1]["level_wire_bytes_rank0"] or \
+            led["wire_bytes"] != steps[-1]["wire_bytes_rank0"]:
+        fail("tp_auto_retune: the finalized ledger is not the last step's")
+    prom = parse_prom((OUT_DIR / (RETUNE_BASE + ".prom")).read_text())
+    if prom.get(("repro_steps_total", "")) != n:
+        fail(f"tp_auto_retune .prom: steps {prom.get(('repro_steps_total', ''))}")
+    # the trace: every rank's steps, a collective event a sample
+    doc = json.loads((OUT_DIR / (RETUNE_BASE + ".trace.json")).read_text())
+    meta = doc["metadata"]
+    if meta["steps_retained_by_rank"] != [list(range(n))] * len(
+            run["obs_per_rank"]):
+        fail(f"tp_auto_retune trace: steps {meta['steps_retained_by_rank']}")
+    for r in range(len(run["obs_per_rank"])):
+        got = sum(e["pid"] == r for e in doc["traceEvents"]
+                  if e.get("cat") == "collective")
+        want = sum(s["obs_per_rank"][r]["timing_samples"] for s in steps)
+        if got != want:
+            fail(f"tp_auto_retune trace: rank {r} {got} collective events, "
+                 f"{want} samples")
+    # the report, through its CLI
+    rep = sp.run([sys.executable, "-m", "repro_torch.launch.report",
+                  str(base) + ".jsonl", "--trace", str(base) + ".trace.json"],
+                 capture_output=True, text=True, timeout=120,
+                 env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    if rep.returncode != 0 or "retunes:" not in rep.stdout:
+        fail(f"launch.report failed: {rep.stderr[-2000:]}")
+    for line in rep.stdout.splitlines():
+        log(f"[report] {line}")
+    # the refined plan: loads (v4), every cell the calls took is there,
+    # measured where the run executed its choice
+    refined = tuner.load_plan(str(base) + ".plan.json")
+    lkeys = {lv.axis: topology.level_key(lv.axis) for lv in topology.levels}
+    ran: dict = {}        # cell -> the candidates the run executed there
+    for s in steps:
+        for c in s["choices_rank0"]:
+            ran.setdefault((c["primitive"], tuner.size_bucket(
+                c["msg_bytes"]), c["nranks"], lkeys[c["level"]]), set()).add(
+                (c["backend"], c["slicing_factor"], c["allreduce_mode"]))
+    measured = unexecuted = 0
+    for key, cands in ran.items():
+        ch = refined.entries.get(key)
+        if ch is None:
+            fail(f"tp_auto_retune plan-out: no cell {key}")
+        if (ch.backend, ch.slicing_factor, ch.allreduce_mode) in cands:
+            if ch.sample_count <= 0:
+                fail(f"tp_auto_retune plan-out: {key} ran {ch} unmeasured")
+            measured += 1
+        else:
+            unexecuted += 1
+    if not measured:
+        fail("tp_auto_retune plan-out: no measured cell")
+    # tune --measurements folds the run's samples into 7c's plan to the
+    # same measured cells
+    folded = tune.main(["--topology", TP_TOPOLOGY, "--nranks", str(TP_TP),
+                        "--sizes-mib", *TUNE_SIZES_MIB, "--quiet", "--out",
+                        str(OUT_DIR / "plan_auto_tp_folded.json"),
+                        "--measurements", str(base) + ".plan.timings.json"])
+
+    def measured_cells(plan):
+        return {k: (c.backend, c.slicing_factor, c.allreduce_mode,
+                    c.measured_us, c.sample_count)
+                for k, c in plan.entries.items() if c.sample_count > 0}
+    if measured_cells(folded) != measured_cells(refined):
+        fail("tune --measurements folds the run's samples to other cells "
+             "than its --plan-out")
+    ob = run["obs"]
+    drift = calibration_drift(ob["calibration"])
+    step_s = [s["step_s"] for s in steps]
+    out = {"calibration": ob["calibration"], "drift": drift,
+           "regret_s": ob["regret_s"], "swaps": ob["swaps"],
+           "swapped": [s["retune_rank0"]["swapped"] for s in steps[:-1]],
+           "epochs": epochs, "samples_a_rank_step": [
+               s["obs_per_rank"][0]["timing_samples"] for s in steps],
+           "losses": ls, "tp_auto_losses": la, "step_s": step_s,
+           "tp_auto_step_s": [s["step_s"] for s in auto["steps"]],
+           "plan_cells_measured": measured,
+           "plan_cells_unexecuted_choice": unexecuted,
+           "measured_cells_folded": len(measured_cells(folded)),
+           "choices": choices,
+           # what the variant costs the script: its set-up and steps in
+           # 7c's spawn, and these checks (the report's subprocess and
+           # the fold included)
+           "init_s": run["init_s"], "steps_s": sum(step_s),
+           "check_s": time.perf_counter() - t_check}
+    for e in ob["calibration"]["scales"]:
+        log(f"[retune] calibration {e['backend']} {e['level']} "
+            f"{e['primitive']}: measured/oracle {e['scale']:.6g} over "
+            f"{e['samples']:.0f} samples")
+    for e in ob["calibration"]["levels"]:
+        log(f"[retune] calibration {e['backend']} {e['level']} (all "
+            f"primitives): {e['scale']:.6g} over {e['samples']:.0f} samples")
+    for d in drift:
+        log(f"[retune] calibration drift {json.dumps(d)}")
+    log(f"[retune] measured regret {ob['regret_s']:.6g} s, choices changed "
+        f"at boundaries {out['swapped']}, epochs {epochs}, samples a "
+        f"rank-step {out['samples_a_rank_step']}")
+    log(f"[retune] step s {[round(t, 4) for t in step_s]} vs tp_auto "
+        f"{[round(t, 4) for t in out['tp_auto_step_s']]}; losses {ls} vs "
+        f"{la}; plan-out {measured} measured cells taken, {unexecuted} "
+        f"whose choice the run never executed; tune --measurements "
+        f"{out['measured_cells_folded']} measured cells")
+    log(f"[retune] the variant's cost: set-up {out['init_s']:.1f}s, steps "
+        f"{out['steps_s']:.1f}s, checks {out['check_s']:.1f}s")
+    return out
 
 
 def hybrid_tp_train_phase(runs: dict, tp_plan, first_4x1: float) -> dict:
@@ -2486,7 +2813,8 @@ def train_phase() -> dict:
         archs={**dict.fromkeys(HYBRID_RUNS, HYBRID_ARCH),
                **dict.fromkeys(AUDIO_RUNS, AUDIO_ARCH),
                **dict.fromkeys(VLM_RUNS, VLM_ARCH)},
-        ckpt={"cxl_fused": str(CKPT_DIR / "llama")})
+        ckpt={"cxl_fused": str(CKPT_DIR / "llama")},
+        unprofiled=("vlm_cxl_fused",))
     hybrid = {k: runs.pop(k) for k in HYBRID_RUNS}
     audio = {k: runs.pop(k) for k in AUDIO_RUNS}
     vlm = {k: runs.pop(k) for k in VLM_RUNS}
@@ -2541,6 +2869,7 @@ def train_phase() -> dict:
         "tp_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "tp_cxl": ["--backend", "cxl"],
         "tp_auto": ["--backend", "auto", "--plan", tp_plan_path],
+        "tp_auto_retune": retune_flags(tp_plan_path),
         "moe_cxl_fused": ["--backend", "cxl", "--fuse-kernels",
                           "--prefetch", MOE_PREFETCH],
         "moe_cxl": ["--backend", "cxl", "--prefetch", MOE_PREFETCH],
@@ -2553,19 +2882,27 @@ def train_phase() -> dict:
         "pp_auto": ["--backend", "auto", "--plan", pp_plan_path,
                     *PP_FLAGS]},
         ["--topology", TP_TOPOLOGY], mesh=TP_MESH,
-        short=("tp_cxl", "tp_auto", "moe_cxl", "moe_auto", "hybrid_tp_cxl",
+        short=("tp_cxl", "moe_cxl", "moe_auto", "hybrid_tp_cxl",
                "hybrid_tp_auto", "pp_auto"),
         archs={**dict.fromkeys(MOE_RUNS, MOE_ARCH),
                **dict.fromkeys(HYBRID_TP_RUNS, HYBRID_ARCH)},
         ckpt={"moe_cxl_fused": str(CKPT_DIR / "moe"),
-              "pp_cxl": str(CKPT_DIR / "pp")})
+              "pp_cxl": str(CKPT_DIR / "pp")},
+        unprofiled=("tp_auto_retune", "moe_cxl_fused"))
     moe = {k: tp.pop(k) for k in MOE_RUNS}
     hybrid_tp_runs = {k: tp.pop(k) for k in HYBRID_TP_RUNS}
     pp = {k: tp.pop(k) for k in PP_RUNS}
+    retune = tp.pop("tp_auto_retune")
     check_path_runs(tp, {"data", "model"}, "tp_auto")
     out["tp"] = tp
     out["tp_auto_choices"] = check_auto_choices(
         tp["tp_auto"], tp_plan, parse_topology(TP_TOPOLOGY))
+    # the online re-tuned variant (its own checks; its launches count
+    # toward 7c's path)
+    out["tp_auto_retune"] = check_retune_run(
+        retune, tp["tp_auto"], tp_plan, tp_plan_path,
+        parse_topology(TP_TOPOLOGY))
+    tp["tp_auto_retune"] = retune
     check_losses(tp, first)
 
     # 7d. a grouped (ragged) data axis: the 4 ranks as a node of three
@@ -2932,7 +3269,9 @@ def main() -> int:
 
     # 5. full-width serve: Llama-3.2-1B, then Falcon-Mamba-7B -------------
     launches: dict = {}
-    record["serve"] = serve_phase("llama3.2-1b", "serve", dev, launches)
+    OUT_DIR.mkdir(exist_ok=True)
+    record["serve"] = serve_phase("llama3.2-1b", "serve", dev, launches,
+                                  obs_base=str(OUT_DIR / "serve_llama"))
     record["serve_ssm"] = serve_phase(SSM_ARCH, "serve_ssm", dev, launches)
     record["serve_hybrid"] = serve_phase(HYBRID_ARCH, "serve_hybrid", dev,
                                          launches)

@@ -80,6 +80,7 @@ its ranks and book one ``ledger.record_fallback`` event each.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Mapping, Optional, Sequence, Union
 
 import torch
@@ -630,6 +631,115 @@ class Communicator:
         # levels fan each block out
         blk = self._scatter_level(x, levels[0], r_out)
         return self._scatter(blk, rest, r_rest)
+
+
+@dataclasses.dataclass(frozen=True)
+class TimedCommunicator(Communicator):
+    """An ``auto`` Communicator that times every collective call it
+    resolves (``train --timing-source profiler``, the port's live source
+    of per-call samples for ``tuner.online`` and ``obs``).
+
+    Each call of one level (the differentiated primitives' backward
+    calls included) books one ``ledger.record_timing`` sample beside its
+    one ``auto_choices`` audit entry, carrying that entry's resolved
+    cell: primitive, message bytes, rank count, backend (after the
+    ring fallback off a pool level), slicing factor, AllReduce mode,
+    level and fabric, and the ambient ``calls`` stamp.  A call that
+    resolves no cell (a rooted primitive on one rank) books none, so
+    audit and samples stay 1:1.
+
+    The sample is the host clock around the call between two device
+    synchronisations.  Neither backend's call returns only once its
+    result has landed: the ring path's copy back to the device
+    (``.to(device)`` of a host tensor) and the pool path's reduction
+    kernel (``chunked_reduce``) run on after the call returns, and both
+    paths' first copy off the device waits for the compute queued before
+    the call.  So the card is synchronised before the clock starts (the
+    queued compute is not charged to the collective) and before it stops
+    (the result has landed).  This class adds both; ``Communicator``'s
+    call path is untouched.
+
+    A grouped (ragged) level resolves two cells (the within-group and
+    the sub-root exchange) inside one schedule that cannot be timed
+    apart: such a call raises.
+    """
+
+    # the cells resolved since the current call started (a list object,
+    # mutated in place: the dataclass is frozen)
+    _cells: list = dataclasses.field(default_factory=list, compare=False,
+                                     repr=False)
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.backend != "auto":
+            raise ValueError("TimedCommunicator times the calls of "
+                             "backend='auto' (each against its plan cell)")
+
+    def _choice(self, primitive: str, msg_bytes: int,
+                ax: Union[mc.AxisGroup, str],
+                n: Optional[int] = None) -> tuple:
+        cell = super()._choice(primitive, msg_bytes, ax, n)
+        name, n = (ax, n) if isinstance(ax, str) else (ax.name, ax.size)
+        _, level = self._level(name)
+        self._cells.append(dict(
+            primitive=primitive, msg_bytes=int(msg_bytes), nranks=int(n),
+            backend=cell[0], slicing_factor=int(cell[1]),
+            allreduce_mode=cell[2],
+            level=name if level is not None else None,
+            fabric=level.fabric if level is not None else None))
+        return cell
+
+    def _timed(self, op, x: torch.Tensor, *args) -> torch.Tensor:
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+        del self._cells[:]
+        t0 = time.perf_counter()
+        out = op(x, *args)
+        if x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+        seconds = time.perf_counter() - t0
+        cells = list(self._cells)
+        del self._cells[:]
+        if len(cells) > 1:
+            raise RuntimeError(f"one timed call resolved {len(cells)} "
+                               f"cells: {cells}")
+        if cells:
+            ledger.record_timing(seconds=seconds, **cells[0])
+        return out
+
+    def _ar_level(self, x, ax):
+        return self._timed(super()._ar_level, x, ax)
+
+    def _ag_level(self, x, ax):
+        return self._timed(super()._ag_level, x, ax)
+
+    def _rs_level(self, x, ax):
+        return self._timed(super()._rs_level, x, ax)
+
+    def _broadcast_level(self, x, ax, root):
+        return self._timed(super()._broadcast_level, x, ax, root)
+
+    def _reduce_level(self, x, ax, root):
+        return self._timed(super()._reduce_level, x, ax, root)
+
+    def _gather_level(self, x, ax, root):
+        return self._timed(super()._gather_level, x, ax, root)
+
+    def _scatter_level(self, x, ax, root):
+        return self._timed(super()._scatter_level, x, ax, root)
+
+    def _all_to_all(self, x, ax):
+        return self._timed(super()._all_to_all, x, ax)
+
+    def _send(self, x, ax, shift):
+        return self._timed(super()._send, x, ax, shift)
+
+    def _ragged(self, *_args):
+        raise NotImplementedError(
+            "per-call timing of a grouped (ragged) level: its schedule "
+            "runs two plan cells in one region (ROADMAP queue 3)")
+
+    _ar_ragged = _ag_ragged = _gather_ragged = _rs_ragged = _ragged
 
 
 # ------------------------------------------------------------------------ #

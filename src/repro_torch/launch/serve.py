@@ -27,8 +27,21 @@ in the reference's layout (``training.checkpoint``; written by either
 package's ``train --ckpt``) at ``--ckpt-step`` (unset or 0: the latest
 committed step), checked against the model's unsharded (tp = 1) shapes
 as the reference checks them: a checkpoint padded for another tp is
-refused.  ``--online-retune`` and ``--metrics-out`` of the reference
-launcher are not ported yet (ROADMAP queue 1, item 10).
+refused.
+
+``--metrics-out`` writes the reference's observability stream
+(``obs.ObsSession``): one event a generate round (fixed batch) or a
+step (``--trace``), the engine's ``serve_step`` spans, its diagnostics
+and, at the end, the final registry with the ``repro_serve_*`` gauges
+of ``ServeEngine.counters`` (and ``<base>.prom``).  ``--online-retune``
+(requires ``--plan``; excludes ``--trace``) treats every generate round
+as a step, as the reference launcher does: the round's wall time is
+apportioned over the round's ``auto`` audit, the plan refreshed every
+``--retune-interval`` rounds (``--rounds`` of them, default 2 x the
+interval) and ``--plan-out`` written at the end.  The engine is
+unsharded (tp = 1) and issues no ``auto`` collective, so the launcher
+says so through ``diag`` and the plan cannot change, as in the
+reference.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
@@ -69,6 +82,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.device import resolve_device
+from repro_torch.core.hw import CXL_POOL, INFINIBAND
 from repro_torch.core.topology import parse_topology, set_active_topology
 from repro_torch.models import model
 from repro_torch.serving import (Request, SamplingParams, ServeConfig,
@@ -115,9 +129,11 @@ def make_trace(cfg, args) -> tuple:
     return reqs, arrivals
 
 
-def run_trace(eng: ServeEngine, cfg, args) -> dict:
+def run_trace(eng: ServeEngine, cfg, args, obs_sess=None) -> dict:
     """Open-loop Poisson request trace against the live engine; prints
-    and returns the summary (wall clock around synchronised steps)."""
+    and returns the summary (wall clock around synchronised steps).  With
+    ``obs_sess`` each engine step is booked (``on_step``) and the session
+    finalized with the summary."""
     reqs, arrivals = make_trace(cfg, args)
     _sync(eng.device)
     t0 = time.perf_counter()
@@ -131,12 +147,17 @@ def run_trace(eng: ServeEngine, cfg, args) -> dict:
             eng.submit(reqs[nxt])
             born[reqs[nxt].id] = time.perf_counter()
             nxt += 1
+        ts = time.perf_counter()
         eng.step()
         _sync(eng.device)
+        dt = time.perf_counter() - ts
         step += 1
         for rid, (status, _fresh) in eng.poll().items():
             if status == "finished" and rid not in done:
                 done[rid] = time.perf_counter()
+        if obs_sess is not None:
+            obs_sess.on_step(step, dt, extra={
+                "inflight": eng.sched.inflight})
     wall = time.perf_counter() - t0
     lats = sorted(done[r] - born[r] for r in done)
     toks = len(done) * args.new_tokens
@@ -158,6 +179,13 @@ def run_trace(eng: ServeEngine, cfg, args) -> dict:
           f"evictions {c['evictions']}  restores {c['restores']}  "
           f"replays {c['replays']}  "
           f"preemptions {eng.sched.preemption_count}")
+    if obs_sess is not None:
+        from repro_torch.core import ledger
+        obs_sess.finalize(snapshot=ledger.snapshot(), extra={
+            "requests": len(done), "wall_s": wall,
+            "req_per_s": len(done) / wall,
+            "latency_p50_s": summary["latency_p50_s"],
+            "latency_p99_s": summary["latency_p99_s"], **eng.stats()})
     return summary
 
 
@@ -235,6 +263,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; "
                          "'cpu' runs on the CPU)")
+    ap.add_argument("--online-retune", action="store_true",
+                    help="treat every generate round as a step: fold its "
+                         "measured wall time back into the plan and "
+                         "hot-swap at --retune-interval round boundaries; "
+                         "requires --plan (the unsharded engine issues no "
+                         "collective to measure: the plan cannot change)")
+    ap.add_argument("--retune-interval", type=int, default=4,
+                    help="generate rounds between plan refresh + hot-swap "
+                         "under --online-retune")
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="number of generate rounds (default 1; 2 x "
+                         "retune-interval under --online-retune)")
+    ap.add_argument("--plan-out", default=None,
+                    help="persist the measurement-refined plan (format "
+                         "v4) here at the end of the run")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write per-round/step and retune events + the "
+                         "final metric registry as JSON-lines here (and a "
+                         "Prometheus rendering to <base>.prom)")
     return ap
 
 
@@ -253,10 +300,10 @@ def restore_params(cfg, ckpt_dir: str, step, device) -> dict:
     return model.params_from_numpy(tree["params"], device, cfg, tp=1)
 
 
-def engine_from_args(args) -> tuple:
+def engine_from_args(args, obs=None) -> tuple:
     """(cfg, engine) for parsed launcher arguments; params come from the
     checkpoint of ``--ckpt``, else from a ``torch.Generator`` seeded 0 on
-    the engine's device."""
+    the engine's device; ``obs`` is the engine's ``ObsSession``."""
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.trace and model.frontend_inputs(cfg):
         raise ValueError(f"{cfg.name}: --trace builds text requests, and "
@@ -281,7 +328,7 @@ def engine_from_args(args) -> tuple:
         prefix_sharing=(args.prefix_sharing
                         or args.prompt_reuse > 0.0),
         plan_path=args.plan)
-    return cfg, ServeEngine(cfg, params, scfg, device=device)
+    return cfg, ServeEngine(cfg, params, scfg, device=device, obs=obs)
 
 
 def stub_batch(cfg, batch: int, prompt_len: int,
@@ -323,27 +370,103 @@ def apply_placement(ap, args) -> None:
     make_placed_mesh(chosen, mix, topo)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Serve as the flags say; returns the fixed batch's output
+    (``out``), the rounds' wall times (``round_s``) and the engine, or
+    the trace's summary (``trace``)."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.online_retune and not args.plan:
+        ap.error("--online-retune requires --plan")
+    if args.trace and args.online_retune:
+        ap.error("--trace and --online-retune are mutually exclusive "
+                 "(retune is driven by fixed-batch rounds)")
     if args.topology:
         set_active_topology(parse_topology(args.topology))
     if args.placement:
         apply_placement(ap, args)
-    cfg, eng = engine_from_args(args)
+    obs_sess = None
+    if args.metrics_out:
+        from repro_torch.obs import ObsSession
+        obs_sess = ObsSession(metrics_out=args.metrics_out)
+    cfg, eng = engine_from_args(args, obs=obs_sess)
     if args.trace:
-        run_trace(eng, cfg, args)
-        return
+        return {"trace": run_trace(eng, cfg, args, obs_sess), "engine": eng}
     batch = stub_batch(cfg, args.batch, args.prompt_len,
                        np.random.default_rng(0))
-    _sync(eng.device)
-    t0 = time.perf_counter()
-    out = eng.generate(batch, max_new_tokens=args.new_tokens)
-    _sync(eng.device)
-    dt = time.perf_counter() - t0
-    print(f"{cfg.name}: {out.shape} in {dt:.2f}s "
-          f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
+    online = None
+    if args.online_retune:
+        import dataclasses
+
+        from repro_torch import tuner
+        from repro_torch.core import ledger
+        online = tuner.OnlineTuner(
+            tuner.load_plan(args.plan, pool=CXL_POOL, ib=INFINIBAND),
+            retune_interval=args.retune_interval)
+        # the refreshed plan lives in a file so rebuilt engines load it
+        live_path = args.plan_out or (args.plan + ".refined.json")
+        ledger.reset()
+    rounds = args.rounds if args.rounds is not None else (
+        2 * args.retune_interval if args.online_retune else 1)
+    out, round_s = None, []
+    profile = None     # the auto audit of the engine's first round
+    for r in range(rounds):
+        _sync(eng.device)
+        t0 = time.perf_counter()
+        out = eng.generate(batch, max_new_tokens=args.new_tokens)
+        _sync(eng.device)
+        dt = time.perf_counter() - t0
+        round_s.append(dt)
+        print(f"{cfg.name}: {out.shape} in {dt:.2f}s "
+              f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
+        if obs_sess is not None:
+            obs_sess.on_step(r, dt, extra={
+                "tok_per_s": args.batch * args.new_tokens / dt})
+        if online is None:
+            continue
+        if profile is None:
+            # the engine's first round: its audit is the per-round
+            # collective profile later rounds rerun (its wall time pays
+            # first-touch costs, so it is not folded)
+            profile = ledger.snapshot()["auto_choices"]
+            if not profile:
+                msg = ("--online-retune: the engine issued no auto "
+                       "collectives (unsharded tp=1 engines have "
+                       "nothing to measure) - rounds will run but "
+                       "the plan cannot change")
+                if obs_sess is not None:
+                    obs_sess.diag("serve", msg)
+                else:
+                    print(f"[serve] {msg}")
+        else:
+            online.observe_step(dt, profile)
+        prev = online.plan
+        refreshed = online.maybe_retune(r)
+        if refreshed is not None:
+            tuner.save_plan(refreshed, live_path)
+            swapped = tuner.choices_changed(prev, refreshed)
+            if obs_sess is not None:
+                obs_sess.on_retune(epoch=tuner.plan_epoch(),
+                                   swapped=swapped,
+                                   regret_s=online.measured_regret())
+            if swapped:
+                # hot-swap between rounds: rebuild the engine against
+                # the refreshed plan
+                eng = ServeEngine(cfg, eng.params, dataclasses.replace(
+                    eng.scfg, plan_path=live_path), device=eng.device,
+                    obs=obs_sess)
+                ledger.reset()
+                profile = None
+                print(f"round {r}: plan hot-swap -> {live_path}")
+    if online is not None and args.plan_out:
+        tuner.save_plan(online.refresh(), args.plan_out)
+        print(f"saved refined plan (v4) -> {args.plan_out}")
+    if obs_sess is not None:
+        from repro_torch.core import ledger as _ledger
+        obs_sess.finalize(snapshot=_ledger.snapshot(),
+                          extra={"rounds": rounds})
     print(out[: min(2, args.batch)].tolist())
+    return {"out": out, "round_s": round_s, "engine": eng}
 
 
 if __name__ == "__main__":

@@ -46,6 +46,16 @@ tensor-parallel paths:
       --smoke --device cpu --mesh 4x1 --pp-stages 2 --microbatches 2 \\
       --pp-schedule interleaved --pp-chunks 2 --batch 8 --seq 32 \\
       --backend ring --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --mesh 2x2 --topology data:cxl,model:cxl --batch 4 --seq 1024 \\
+      --backend auto --plan plan.json --online-retune --retune-interval 1 \\
+      --timing-source profiler --metrics-out run.jsonl \\
+      --trace-out run.trace.json --plan-out refined.json --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --smoke --device cpu --mesh 2x2 --topology data:cxl,model:cxl \\
+      --backend auto --online-retune --retune-interval 1 \\
+      --timing-source emulator --emu-degrade model@cxl=4 --steps 4 \\
+      --seq 32 --metrics-out run.jsonl --trace-out run.trace.json
 
 The launcher spawns one process per rank (``spawn`` start method); rank
 r runs on ``cuda:(r % device_count)``, so the ranks of a one-card host
@@ -138,14 +148,50 @@ them.  Refused with it: a model axis > 1, ``--multi-pod``,
 that is not uniform (``models.pipeline_stages.uniform_stage_rows``).
 ``--ckpt`` saves the GLOBAL params, the stage slabs concatenated.
 
-Not ported yet: online re-tuning, metrics/trace export, faults and
-resilience (ROADMAP queue 1, item 10).
+Observability and online re-tuning (``repro_torch.obs``,
+``tuner.online``), as the reference launcher has them:
+``--metrics-out`` streams step / retune / health events as JSON-lines
+and the final metric registry (+ a Prometheus rendering next to it);
+``--trace-out`` keeps a flight recorder of the last ``--trace-steps``
+steps of every rank, written as one Chrome trace (one ``pid`` a rank);
+rank 0 writes both (``launch.report`` reads them back).
+``--timing-source`` picks where measured per-collective times come
+from: ``step`` (the step's wall time apportioned over its audit),
+``emulator`` (``obs.StepEmulator``, oracle-priced, seeded;
+``--emu-degrade`` injects per-level slowdowns) or ``profiler`` (every
+collective call timed on the host clock between device syncs,
+``core.api.TimedCommunicator``; a step from step 1 on that books no
+sample raises).  With ``--online-retune`` (``--backend auto``) every
+rank activates the plan in its registry (``--plan`` or the default
+plan) and the step resolves through it; each rank runs an
+``OnlineTuner`` and at every step boundary the ranks gather every
+rank's samples over the world group and fold the same list in the same
+order, so every rank refreshes to the same plan at the same boundary
+(``--retune-interval``) and bumps its registry to the same epoch (both
+checked).  The samples are the union in rank order, not a per-call
+maximum: the ranks' audits align on a flat or (data, model) mesh but
+not on a grouped level, whose sub-roots call more.  Step 0's samples
+reach the flight recorder and not the tuner (it pays first-touch
+costs, as the reference's compile step), and no refresh follows the last
+step, which no step runs under.  ``--plan-out`` writes the
+plan after a final refresh, and beside it (``<base>.timings.json``)
+every sample the tuner folded, which ``launch.tune --measurements``
+reads.  Each step's record holds this rank's samples, the epoch it ran
+under and the epochs its calls resolved at, and a boundary's retune
+(epoch, whether the choices changed, the measured regret, the plan's
+hash); the run's, the calibration export.  Refused: ``--online-retune``
+and a timing source other than ``step`` with ``--pp-stages > 1`` (as
+the reference), the profiler source on a grouped level (one schedule,
+two cells), and ``--resilience``, ``--fault-plan`` and
+``--pool-ckpt-interval`` (ROADMAP queue 1, item 10b).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import shutil
@@ -156,12 +202,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs as obs_mod
+from repro_torch import tuner
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import ledger, tree
 from repro_torch.core.device import resolve_device, synchronize
+from repro_torch.core.hw import CXL_POOL, INFINIBAND
 from repro_torch.core.pool import DEFAULT_PARTITION_BYTES
-from repro_torch.core.topology import (Topology, parse_topology,
-                                       set_active_topology, warn_uncovered)
+from repro_torch.core.topology import (Topology, get_active_topology,
+                                       parse_topology, set_active_topology,
+                                       warn_uncovered)
 from repro_torch.data.pipeline import SyntheticTokens, local_batch
 from repro_torch.kernels import build
 from repro_torch.kernels.chunked_reduce import chunked_reduce
@@ -182,6 +232,7 @@ from repro_torch.training.pipeline import (SCHEDULES, bubble_fraction,
                                            make_sharded_pipeline_step)
 from repro_torch.training.train_loop import (TrainConfig, leaf_params,
                                              make_sharded_train_step)
+from repro_torch.tuner import runtime as tuner_runtime
 
 KERNEL_COUNTERS = {"rms_norm": rms_norm, "rms_norm_vjp": rms_norm_vjp,
                    "flash_attention": flash_attention,
@@ -250,6 +301,56 @@ def build_parser() -> argparse.ArgumentParser:
                          "reference's checkpoint layout, step --steps)")
     ap.add_argument("--device", default=None,
                     help="cuda (default: the card) or cpu")
+    ap.add_argument("--online-retune", action="store_true",
+                    help="fold measured collective times back into the "
+                         "plan (tuner.online) and hot-swap the refreshed "
+                         "plan between steps; requires --backend auto.  "
+                         "Samples calibrate only the backend they "
+                         "measured: after a boundary that timed only cxl "
+                         "calls, ring's candidates keep their raw "
+                         "oracle, and the refresh can move cells to a "
+                         "backend never timed (on one H100 it moved the "
+                         "big cells to gloo, 6.5x slower a step)")
+    ap.add_argument("--retune-interval", type=int, default=10,
+                    help="steps between plan refresh + hot-swap under "
+                         "--online-retune")
+    ap.add_argument("--plan-out", default=None,
+                    help="persist the measurement-refined plan (format "
+                         "v4) here at the end of the run, and its samples "
+                         "beside it (<base>.timings.json)")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write step/retune/health events + the final "
+                         "metric registry as JSON-lines here (and a "
+                         "Prometheus rendering to <base>.prom)")
+    ap.add_argument("--trace-out", default=None,
+                    help="flight-recorder Chrome trace JSON of every rank "
+                         "(last --trace-steps steps; open in Perfetto)")
+    ap.add_argument("--trace-steps", type=int, default=32,
+                    help="flight-recorder ring capacity in steps")
+    ap.add_argument("--timing-source", default="step",
+                    choices=["step", "emulator", "profiler"],
+                    help="measured-time source: 'step' apportions the "
+                         "step's wall time over its audit; 'emulator' / "
+                         "'profiler' give per-collective samples (the "
+                         "oracle-priced emulator, or every call timed; "
+                         "requires --backend auto)")
+    ap.add_argument("--emu-degrade", default=None,
+                    help="'key=factor,...' slowdowns for the emulator "
+                         "timing source; keys are level axes ('model'), "
+                         "fabric kinds ('cxl'), backend-qualified "
+                         "'model@cxl', or '*'")
+    ap.add_argument("--ewma-decay", type=float, default=0.0,
+                    help="per-refresh decay of the online tuner's "
+                         "measured EWMAs toward the oracle (requires "
+                         "--online-retune)")
+    ap.add_argument("--explore-eps", type=float, default=0.0,
+                    help="epsilon-greedy re-exploration of measured plan "
+                         "cells at refresh (requires --online-retune)")
+    for flag, kw in (("--resilience", dict(action="store_true")),
+                     ("--fault-plan", dict(default=None)),
+                     ("--pool-ckpt-interval", dict(type=int, default=0))):
+        ap.add_argument(flag, help="not ported yet: resilience (ROADMAP "
+                                   "queue 1, item 10b)", **kw)
     return ap
 
 
@@ -263,6 +364,24 @@ def tcfg_from_args(args) -> TrainConfig:
                        microbatches=args.microbatches, clip_norm=None,
                        bucket_mb=args.bucket_mb, prefetch=args.prefetch,
                        fuse_kernels=args.fuse_kernels, plan_path=args.plan)
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsSpec:
+    """Observability and online re-tuning of a run (the launcher's
+    ``--online-retune`` ... ``--explore-eps``), the same for each of its
+    variants."""
+
+    online_retune: bool = False
+    retune_interval: int = 10
+    timing_source: str = "step"       # "step" | "emulator" | "profiler"
+    emu_degrade: tuple = ()           # ((key, factor), ...)
+    ewma_decay: float = 0.0
+    explore_eps: float = 0.0
+    metrics_out: Optional[str] = None
+    trace_out: Optional[str] = None
+    trace_steps: int = 32
+    plan_out: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,6 +416,7 @@ class RunSpec:
     #                                   data) = (pp_stages, dp / pp_stages)
     pp_schedule: str = "1f1b"
     pp_chunks: int = 2
+    obs: Optional[ObsSpec] = None     # --online-retune, --metrics-out, ...
 
     def mesh(self) -> tuple:
         """The rank-major mesh shape every rank builds."""
@@ -396,6 +516,177 @@ def distinct_choices(audit: list) -> list:
     return [dict(zip(keys, k), calls=n) for k, n in sorted(
         calls.items(), key=lambda kv: tuple("" if v is None else v
                                             for v in kv[0]))]
+
+
+def plan_sha256(plan) -> str:
+    """The hash of a plan's JSON (keys sorted): equal on two ranks iff
+    their plans are byte-identical."""
+    return hashlib.sha256(json.dumps(plan.to_json(), sort_keys=True)
+                          .encode()).hexdigest()
+
+
+def _gather(obj) -> list:
+    """Every rank's ``obj``, in rank order, over the world group."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+class _RankObs:
+    """One rank's observability and online re-tuning of one variant
+    (``RunSpec.obs``): the session (rank 0 writes its files), the timing
+    source and the ``OnlineTuner``.  Every rank is fed the same samples
+    in the same order at every step boundary (``end_step``), so every
+    rank's tuner refreshes to the same plan at the same boundary."""
+
+    def __init__(self, ctx: ranks.RankContext, spec: RunSpec,
+                 tcfg: TrainConfig):
+        o = spec.obs
+        self.o, self.rank = o, ctx.rank
+        self.online = None
+        self.tcfg = tcfg
+        tuner_runtime.clear_link_health()
+        if o.online_retune:
+            # the reference launcher's plan_path=None: the plan lives in
+            # this rank's registry, and the step resolves through it
+            if tcfg.plan_path is not None:
+                tuner_runtime.activate_plan_file(
+                    tcfg.plan_path, pool=CXL_POOL, ib=INFINIBAND)
+            base = tuner.ensure_default_plan(topology=get_active_topology())
+            self.online = tuner.OnlineTuner(
+                base, retune_interval=o.retune_interval,
+                decay=o.ewma_decay, explore_eps=o.explore_eps)
+            self.tcfg = dataclasses.replace(tcfg, plan_path=None)
+        self.sess = None
+        if o.metrics_out or o.trace_out:
+            self.sess = obs_mod.ObsSession(
+                metrics_out=o.metrics_out, trace_out=o.trace_out,
+                trace_steps=o.trace_steps,
+                log=print if ctx.rank == 0 else None, rank=ctx.rank,
+                gather=_gather)
+        self.emu = obs_mod.StepEmulator(
+            topology=get_active_topology(), noise_std=0.02, seed=0,
+            degrade=dict(o.emu_degrade)) \
+            if o.timing_source == "emulator" else None
+        self.timed = o.timing_source == "profiler"
+        self.folded: list = []           # every sample the tuner took
+        self.swaps = 0
+
+    def span(self, i: int):
+        return self.sess.step_span(i) if self.sess is not None \
+            else contextlib.nullcontext()
+
+    def book(self, i: int, snap: dict) -> list:
+        """This rank's samples of step ``i`` (inside its span): the calls
+        the profiler source timed, or the emulator's price of each
+        audited call (booked into the ledger, so the flight recorder
+        takes them; none at step 0, the reference's compile step)."""
+        if self.timed:
+            return snap["timings"]
+        if self.emu is not None and i > 0:
+            return self.emu.step_timings(snap["auto_choices"])
+        return []
+
+    def end_step(self, i: int, wall_s: float, loss: float, mine: list,
+                 snap: dict, epoch: int, last: bool) -> dict:
+        """Gather every rank's samples, feed the health monitor and (from
+        step 1) the tuner the union in rank order, and retune at the
+        boundary (``maybe_retune``; none after the ``last`` step, which
+        no step follows: ``--plan-out`` refreshes once more); returns the
+        step record's observability fields."""
+        audit = snap["auto_choices"]
+        got = _gather((mine, wall_s, audit if self.o.timing_source == "step"
+                       else None, epoch))
+        if len({e for *_, e in got}) != 1:
+            raise RuntimeError(f"step {i}: the ranks ran under different "
+                               f"plan epochs {[e for *_, e in got]}")
+        if self.timed and i > 0:
+            empty = [r for r, g in enumerate(got) if not g[0]]
+            if empty:
+                raise RuntimeError(
+                    f"step {i}: the profiler timing source booked no "
+                    f"sample on ranks {empty}")
+        samples = [t for g in got for t in g[0]]
+        wall = max(g[1] for g in got)     # the step ends with its slowest
+        per_call = self.o.timing_source != "step"
+        folded = 0
+        if self.online is not None and i > 0:
+            if per_call:
+                folded = self.online.observe_timings(samples)
+                self.folded += samples
+            else:
+                folded = self.online.observe_step(wall, got[0][2])
+        rec = {"timing_samples": len(mine), "audit_calls": len(audit),
+               "plan_epoch": epoch,
+               "audit_epochs": sorted({c["plan_epoch"] for c in audit},
+                                      key=lambda e: -1 if e is None else e),
+               "samples_folded": folded, "retune": None}
+        if self.sess is not None:
+            self.sess.on_step(i, wall, timings=samples if per_call and i > 0
+                              else None,
+                              extra={"loss": loss, "plan_epoch": epoch,
+                                     "rank_samples": len(mine)})
+        if self.online is not None and not last:
+            rec["retune"] = self._retune(i)
+        return rec
+
+    def _retune(self, i: int) -> Optional[dict]:
+        online = self.online
+        prev = online.plan
+        refreshed = online.maybe_retune(i)
+        if refreshed is None:
+            return None
+        swapped = tuner.choices_changed(prev, refreshed)
+        self.swaps += swapped
+        epoch = tuner_runtime.plan_epoch()
+        sha = plan_sha256(refreshed)
+        hashes = _gather((epoch, sha))
+        if len(set(hashes)) != 1:
+            raise RuntimeError(f"step {i}: the ranks refreshed to "
+                               f"different plans {hashes}")
+        regret = online.measured_regret()
+        measured = sum(st.samples > 0 for st in online.stats.values())
+        if self.sess is not None:
+            self.sess.on_retune(epoch=epoch, swapped=swapped,
+                                regret_s=regret, measured_cells=measured)
+        drift = obs_mod.calibration_drift(online.calibration_export()) \
+            if online.calibration else []
+        return {"step": i, "epoch": epoch, "swapped": bool(swapped),
+                "regret_s": regret, "measured_cells": measured,
+                "plan_sha256": sha, "drift": drift,
+                "plan": refreshed.to_json() if self.rank == 0 else None}
+
+    def finish(self, steps: int, wall_s: float) -> dict:
+        """The run's end: ``--plan-out`` (rank 0, after a final refresh)
+        and its samples, the session's files, the registry cleared."""
+        out = {"swaps": self.swaps, "samples_folded": len(self.folded)}
+        online, o = self.online, self.o
+        if online is not None:
+            out["calibration"] = online.calibration_export()
+            out["regret_s"] = online.measured_regret()
+            out["final_epoch"] = tuner_runtime.plan_epoch()
+            if o.plan_out:
+                refined = online.refresh()
+                out["plan_out_sha256"] = plan_sha256(refined)
+                if self.rank == 0:
+                    tuner.save_plan(refined, o.plan_out)
+                    with open(os.path.splitext(o.plan_out)[0]
+                              + ".timings.json", "w") as f:
+                        json.dump({"timings": self.folded}, f)
+        snap = ledger.snapshot()
+        out["ledger"] = {k: snap[k] for k in (
+            "wire_bytes", "exposed_bytes", "hidden_bytes",
+            "collective_calls", "level_wire_bytes")}
+        if self.sess is not None:
+            self.sess.finalize(snapshot=snap, extra={
+                "steps": int(steps), "wall_s": wall_s,
+                "timing_source": o.timing_source,
+                **({"calibration": out["calibration"],
+                    "regret_s": out["regret_s"]}
+                   if online is not None else {})})
+        if online is not None:
+            tuner_runtime.clear_active_plan()
+        return out
 
 
 def _rank_run(ctx: ranks.RankContext, specs: Sequence[RunSpec]) -> list:
@@ -525,9 +816,13 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
     rank's data index's slice of the synthetic batches; with
     ``spec.capture_params`` the final param shards, with ``stage`` the
     same written for the checkpoint (``_stage_shards``), each with their
-    layout; with ``profile`` one more step under the profiler."""
+    layout; with ``profile`` one more step under the profiler; with
+    ``spec.obs`` observed and re-tuned (``_RankObs``)."""
     dev = ctx.device
     cfg = spec.model_config()
+    obs = _RankObs(ctx, spec, tcfg) if spec.obs is not None else None
+    if obs is not None:
+        tcfg = obs.tcfg
     mesh = make_host_mesh(spec.mesh(), ctx, pools=tcfg.backend != "ring",
                           topology=spec.topology)
     stage_axis = None
@@ -544,8 +839,9 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
                 full, pspecs, stage_axis, pc.comm.axis_index(stage_axis),
                 spec.pp_stages)
     else:
-        step, pspecs, pc = make_sharded_train_step(cfg, tcfg, mesh,
-                                                   dp_axis=dp_axes(mesh))
+        step, pspecs, pc = make_sharded_train_step(
+            cfg, tcfg, mesh, dp_axis=dp_axes(mesh),
+            timed=obs is not None and obs.timed)
         dp_index = pc.comm.axis_index(pc.dp_axis)
 
         def shard(full):
@@ -572,7 +868,9 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
                                    else None)
                 for k, v in lb.items()}
 
-    for i, gb in zip(range(min(spec.steps, tcfg.total_steps)), data):
+    t_run = time.perf_counter()
+    n_steps = min(spec.steps, tcfg.total_steps)
+    for i, gb in zip(range(n_steps), data):
         batch = to_dev(gb)
         for f in KERNEL_COUNTERS.values():
             f.launches = 0
@@ -580,14 +878,18 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
         step.gathers.clear()
         ledger.reset()
         pool_before = _pool_counts(mesh)
-        synchronize(dev)
-        t_start, t0 = time.time(), time.perf_counter()
-        params, opt, metrics = step(params, opt, batch)
-        loss = float(metrics["loss"])
-        synchronize(dev)
-        snap = ledger.snapshot()
+        epoch = tuner_runtime.plan_epoch() if obs is not None else None
+        with obs.span(i) if obs is not None else contextlib.nullcontext():
+            synchronize(dev)
+            t_start, t0 = time.time(), time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            loss = float(metrics["loss"])
+            synchronize(dev)
+            step_s = time.perf_counter() - t0
+            snap = ledger.snapshot()
+            mine = obs.book(i, snap) if obs is not None else None
         by_level = _delta(_pool_counts(mesh), pool_before)
-        rec = {"loss": loss, "step_s": time.perf_counter() - t0,
+        rec = {"loss": loss, "step_s": step_s,
                "t_start": t_start, "t_end": time.time(),
                "lr": metrics["lr"], "launches": _counters(),
                "bubble_fraction": metrics.get("bubble_fraction"),
@@ -604,10 +906,15 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
                "pool_by_level": by_level,
                "pool_bytes": sum(v for c in by_level.values()
                                  for v in c.values())}
+        if obs is not None:
+            rec["obs"] = obs.end_step(i, step_s, loss, mine, snap, epoch,
+                                      last=i == n_steps - 1)
         out["steps"].append(rec)
         if spec.capture_grads and i == 0:
             out["grads"] = {"/".join(p): x.grad.detach().cpu().numpy()
                             for p, x in tree.leaves_with_paths(params)}
+    if obs is not None:
+        out["obs"] = obs.finish(n_steps, time.perf_counter() - t_run)
     if spec.capture_params or stage:
         t_cap = time.perf_counter()
         if spec.capture_params:
@@ -768,6 +1075,15 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
             "level_wire_bytes_rank0": rec0["level_wire_bytes"],
             "level_counts_rank0": rec0["level_counts"],
             "choices_rank0": rec0["choices"]})
+    if per_rank[0]["steps"] and "obs" in per_rank[0]["steps"][0]:
+        for i, s in enumerate(steps):
+            recs = [r["steps"][i]["obs"] for r in per_rank]
+            s["obs_per_rank"] = [{k: v for k, v in o.items() if k != "retune"}
+                                 for o in recs]
+            s["retune_per_rank"] = [None if o["retune"] is None else {
+                k: v for k, v in o["retune"].items() if k != "plan"}
+                for o in recs]
+            s["retune_rank0"] = recs[0]["retune"]
     out = {"backend": tcfg.backend, "fuse_kernels": tcfg.fuse_kernels,
            "microbatches": tcfg.microbatches, "prefetch": tcfg.prefetch,
            "steps": steps,
@@ -780,6 +1096,9 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
         out["peak_memory_gib"] = [r["peak_memory_gib"] for r in per_rank]
     if per_rank[0]["profile"] is not None:
         out["profile"] = [r["profile"] for r in per_rank]
+    if "obs" in per_rank[0]:
+        out["obs"] = per_rank[0]["obs"]
+        out["obs_per_rank"] = [r["obs"] for r in per_rank]
     return out
 
 
@@ -789,7 +1108,6 @@ def choose_placement(args, topology: Topology, dp: int, tp: int) -> tuple:
     ``topology`` (``auto``) or loaded from a saved placement, and the
     best entry that keeps ``model`` on one level.  Returns (chosen
     placement, mix, placement plan)."""
-    from repro_torch import tuner
     cfg = get_config(args.arch, smoke=args.smoke)
     mix = tuner.CollectiveMix.for_model(
         cfg, {"data": dp, "model": tp}, seq=args.seq,
@@ -809,7 +1127,10 @@ def check_pipeline_args(args, dp: int, tp: int) -> None:
     pp = args.pp_stages
     for on, flag in ((args.placement, "--placement"),
                      (args.placement_from_dryrun, "--placement-from-dryrun"),
-                     (args.multi_pod, "--multi-pod")):
+                     (args.multi_pod, "--multi-pod"),
+                     (args.online_retune, "--online-retune"),
+                     (args.timing_source != "step",
+                      "--timing-source emulator/profiler")):
         if on:
             raise SystemExit(f"{flag} is not supported with --pp-stages > "
                              f"1 (plain pipeline training path only)")
@@ -830,11 +1151,53 @@ def check_pipeline_args(args, dp: int, tp: int) -> None:
         raise SystemExit(str(e)) from None
 
 
+def obs_from_args(args, topology: Optional[Topology]) -> Optional[ObsSpec]:
+    """The run's ``ObsSpec`` (None when no flag of it is given), with the
+    reference launcher's refusals, and ``--resilience``, ``--fault-plan``
+    and ``--pool-ckpt-interval``'s (not ported yet)."""
+    for on, flag in ((args.resilience, "--resilience"),
+                     (args.fault_plan, "--fault-plan"),
+                     (args.pool_ckpt_interval, "--pool-ckpt-interval")):
+        if on:
+            raise SystemExit(f"{flag} is not ported yet: it needs "
+                             f"resilience (ROADMAP queue 1, item 10b)")
+    if args.online_retune and args.backend != "auto":
+        raise SystemExit("--online-retune requires --backend auto")
+    if (args.ewma_decay or args.explore_eps) and not args.online_retune:
+        raise SystemExit("--ewma-decay/--explore-eps tune the online "
+                         "tuner; add --online-retune")
+    if args.timing_source != "step" and args.backend != "auto":
+        raise SystemExit("--timing-source emulator/profiler needs the "
+                         "--backend auto audit to key samples to plan "
+                         "cells")
+    if args.retune_interval < 1:
+        raise SystemExit("--retune-interval must be >= 1")
+    if args.timing_source == "profiler" and topology is not None and any(
+            lv.grouped for lv in topology.levels):
+        raise SystemExit("--timing-source profiler cannot time a grouped "
+                         "(ragged) level: its schedule runs two plan cells "
+                         "in one region")
+    degrade = []
+    for part in (args.emu_degrade or "").split(","):
+        if part.strip():
+            k, _, v = part.partition("=")
+            degrade.append((k.strip(), float(v)))
+    if not (args.online_retune or args.metrics_out or args.trace_out
+            or args.plan_out or args.timing_source != "step"):
+        return None
+    return ObsSpec(online_retune=args.online_retune,
+                   retune_interval=args.retune_interval,
+                   timing_source=args.timing_source,
+                   emu_degrade=tuple(degrade), ewma_decay=args.ewma_decay,
+                   explore_eps=args.explore_eps,
+                   metrics_out=args.metrics_out, trace_out=args.trace_out,
+                   trace_steps=args.trace_steps, plan_out=args.plan_out)
+
+
 def spec_from_args(args) -> RunSpec:
     """The run the launcher's flags describe (one variant); with
     ``--placement`` the placed mesh, topology and axis aliases; with
     ``--pp-stages > 1`` the pipeline over (stage, data)."""
-    from repro_torch import tuner
     dp, tp = parse_mesh(args.mesh)
     if args.pp_stages < 1:
         raise SystemExit("--pp-stages must be >= 1")
@@ -862,6 +1225,7 @@ def spec_from_args(args) -> RunSpec:
         sizes, names, aliases = tuner.mesh_spec(chosen, mix, topology)
         topology = tuner.placed_topology(chosen, topology)
         placed = dict(shape=tuple(zip(names, sizes)), aliases=aliases)
+    obs = obs_from_args(args, topology)
     return RunSpec(arch=args.arch, smoke=args.smoke,
                    variants=(tcfg_from_args(args),), steps=args.steps,
                    batch=args.batch, seq=args.seq, dp=dp, tp=tp,
@@ -869,7 +1233,41 @@ def spec_from_args(args) -> RunSpec:
                    multi_pod=args.multi_pod, topology=topology,
                    ckpt=args.ckpt, pp_stages=args.pp_stages,
                    pp_schedule=args.pp_schedule, pp_chunks=args.pp_chunks,
-                   **placed)
+                   obs=obs, **placed)
+
+
+def print_obs(run: dict, o: ObsSpec) -> None:
+    """The observed run's samples and epochs a step, its retunes, the
+    learned calibration and the measured regret."""
+    for i, s in enumerate(run["steps"]):
+        ob = s["obs_per_rank"]
+        print(f"step {i:5d} timing samples a rank "
+              f"{[x['timing_samples'] for x in ob]} of "
+              f"{[x['audit_calls'] for x in ob]} calls, plan epoch "
+              f"{ob[0]['plan_epoch']}", flush=True)
+        rt = s["retune_rank0"]
+        if rt is not None:
+            print(f"step {i:5d} retune -> epoch {rt['epoch']} "
+                  f"({'choices changed' if rt['swapped'] else 'same choices'}"
+                  f", regret {rt['regret_s']:.6f}s, {rt['measured_cells']} "
+                  f"measured candidates, plan {rt['plan_sha256'][:12]})",
+                  flush=True)
+            for d in rt["drift"]:
+                print(f"step {i:5d} calibration drift: {d['backend']}@"
+                      f"{d['level']} measures {d['scale']}x the oracle - "
+                      f"{d['recommendation']}", flush=True)
+    ob = run["obs"]
+    for e in ob.get("calibration", {}).get("scales", []):
+        print(f"calibration {e['backend']} {e['level']} {e['primitive']}: "
+              f"measured/oracle {e['scale']:.4f} over {e['samples']:.0f} "
+              f"samples", flush=True)
+    if "regret_s" in ob:
+        print(f"measured regret {ob['regret_s']:.6f}s, {ob['swaps']} swaps "
+              f"with changed choices", flush=True)
+    if o.plan_out and o.online_retune:
+        print(f"saved refined plan (v4) -> {o.plan_out} (+ "
+              f"{os.path.splitext(o.plan_out)[0]}.timings.json, "
+              f"{ob['samples_folded']} samples)", flush=True)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -914,6 +1312,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
               f"{c['backend']} factor {c['slicing_factor']} "
               f"{c['allreduce_mode']} fused={c['fused']} "
               f"({c['calls']} calls in step 0)", flush=True)
+    if spec.obs is not None:
+        print_obs(run, spec.obs)
     print(f"ranks' wall {run['spawn_s']:.1f}s (params built "
           f"{run['init_s']:.1f}s, captured {run['capture_s']:.1f}s)"
           + (f", checkpoint assembled {run['assemble_s']:.1f}s, saved "

@@ -10,6 +10,9 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.tune --nranks 4 \\
       --topology pod:cxl,node:cxl:3+1 --placement-report llama3.2-1b \\
       --placement-axes data=4,model=1 --out plan.json
+  PYTHONPATH=src python -m repro_torch.launch.tune --nranks 2 \\
+      --topology data:cxl,model:cxl --measurements refined.timings.json \\
+      --out plan.json                                    # v4 fold
 
 Port of ``repro.launch.tune``.  The sweep prices the fused cells'
 epilogue with the H100 roofline, so a plan tuned here makes the
@@ -28,14 +31,23 @@ in the plan's metadata (``Plan.placement()``); ``--placement-axes
 data=4,model=1`` gives the logical axis degrees (default: the products
 of the placeable levels' declared sizes).
 
+``--measurements`` folds ledger timing records (a directory, glob or
+file of JSON: a bare list of samples, or a record carrying them under
+``timings`` or ``ledger.timings``, e.g. the ``<base>.timings.json`` that
+``train --online-retune --plan-out`` writes) into the swept plan
+(``tuner.fold_measurements``): a format-v4 plan whose measured cells
+override the oracle.
+
 Not ported yet: ``--overlap-from-dryrun`` (needs the dry-run, ROADMAP
-queue 1, item 11) and ``--measurements`` (``tuner/online.py``, item 10);
-each raises naming the ROADMAP.
+queue 1, item 11); it raises naming the ROADMAP.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import glob
+import json
+import os
 import time
 from typing import Optional, Sequence
 
@@ -45,8 +57,7 @@ from repro_torch.core.schedule import PRIMITIVES
 from repro_torch.core.topology import parse_topology
 
 UNPORTED = {"--overlap-from-dryrun": "the dry-run (ROADMAP queue 1, item "
-                                     "11)",
-            "--measurements": "tuner/online.py (ROADMAP queue 1, item 10)"}
+                                     "11)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -89,10 +100,51 @@ def build_parser() -> argparse.ArgumentParser:
                          "'name=size,...' (default: data = the product of "
                          "the placeable levels' sizes but the innermost, "
                          "model = the innermost's)")
+    ap.add_argument("--measurements", default=None,
+                    help="directory/glob/file of ledger timing records "
+                         "(snapshot()['timings'], e.g. a train run's "
+                         "--plan-out sidecar <base>.timings.json); folds "
+                         "the measured per-cell wall times into the swept "
+                         "plan (tuner.online), emitting a format-v4 plan "
+                         "whose measured cells override the oracle")
     ap.add_argument("--quiet", action="store_true")
     for flag, what in UNPORTED.items():
         ap.add_argument(flag, default=None, help=f"not ported: needs {what}")
     return ap
+
+
+def load_records(path: str) -> list:
+    """JSON records from a directory (its ``*.json``), a glob or a file;
+    unreadable files are skipped, as by the reference's loader."""
+    if os.path.isdir(path):
+        files = sorted(glob.glob(os.path.join(path, "*.json")))
+    elif any(c in path for c in "*?["):
+        files = sorted(glob.glob(path))
+    else:
+        files = [path]
+    records = []
+    for f in files:
+        try:
+            with open(f) as fh:
+                records.append(json.load(fh))
+        except (OSError, ValueError):
+            continue
+    return records
+
+
+def load_timings(path: str) -> list:
+    """The timing samples of ``--measurements``: a record may be a bare
+    list of samples or carry them under ``timings`` (top-level or under
+    ``ledger``)."""
+    timings = []
+    for rec in load_records(path):
+        if isinstance(rec, list):
+            timings.extend(rec)
+        elif isinstance(rec, dict):
+            timings.extend(rec.get("timings")
+                           or (rec.get("ledger") or {}).get("timings")
+                           or [])
+    return timings
 
 
 def kv_block_cells(plan: tuner.Plan, arch: str, sizes: Sequence[int], *,
@@ -163,6 +215,12 @@ def main(argv: Optional[Sequence[str]] = None) -> tuner.Plan:
     plan = tuner.generate_plan(grid, topology=topology,
                                overlap_compute=args.overlap_compute_us
                                * 1e-6, progress=progress)
+    if args.measurements:
+        timings = load_timings(args.measurements)
+        plan = tuner.fold_measurements(plan, timings)
+        measured = sum(c.sample_count > 0 for c in plan.entries.values())
+        print(f"folded {len(timings)} measured samples into {measured} "
+              f"cells")
     if args.kv_block_bytes:
         picks = kv_block_cells(plan, args.kv_arch, args.kv_block_bytes,
                                smoke=args.smoke)

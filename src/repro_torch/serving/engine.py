@@ -42,6 +42,7 @@ scheduled, preempted or restored.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from typing import Optional
@@ -108,9 +109,13 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig,
                  pc: ParallelContext = UNSHARDED, *,
                  pool: Optional[kvcache.PooledKVStore] = None,
-                 device=None):
+                 device=None, obs=None):
         """``device``: where the cache lives and the params must already
-        be (``None``: the CUDA card; raises when there is none)."""
+        be (``None``: the CUDA card; raises when there is none).
+        ``obs``: an ``obs.ObsSession``, as the reference's ``obs=`` hook:
+        diagnostics go through its ``diag``, each ``step`` is a
+        ``serve_step`` span, and after each step the serving counters are
+        exported as ``repro_serve_*`` gauges (the reference's set)."""
         self.device = resolve_device(device)
         if scfg.window is not None and scfg.window < scfg.max_seq:
             # The prefill cache spans max_seq while a window cache spans
@@ -126,10 +131,14 @@ class ServeEngine:
         self.params = params
         self.scfg = scfg
         self.pc = pc
+        self.obs = obs
         self._kv_plan = None
         if scfg.plan_path is not None:
             self._kv_plan = load_plan(scfg.plan_path, pool=CXL_POOL,
                                       ib=INFINIBAND)
+            if pc.tp_axis is None or pc.tp == 1:
+                self._diag("plan loaded but the engine is unsharded "
+                           "(tp=1): no collectives to autotune")
         self._uid = f"eng{next(_ENGINE_IDS)}"
         self._cd = getattr(torch, scfg.cache_dtype)
         self._n_prefix = model.prefix_tokens(cfg)
@@ -167,7 +176,10 @@ class ServeEngine:
                          "decode_steps": 0, "prefills": 0}
 
     def _diag(self, msg: str) -> None:
-        print(f"[serve] {msg}")
+        if self.obs is not None:
+            self.obs.diag("serve", msg)
+        else:
+            print(f"[serve] {msg}")
 
     def stats(self) -> dict:
         return {"inflight": self.sched.inflight,
@@ -177,6 +189,23 @@ class ServeEngine:
                 "hbm_blocks_used": self.blocks.used_blocks,
                 "hbm_shared_hits": self.blocks.shared_block_hits,
                 "pool": self.pool.stats, **self.counters}
+
+    def _export_metrics(self) -> None:
+        if self.obs is None or not self.obs.enabled:
+            return
+        g = self.obs.registry.gauge
+        g("repro_serve_inflight",
+          "requests in flight").set(self.sched.inflight)
+        g("repro_serve_hbm_blocks_used",
+          "HBM KV blocks held").set(self.blocks.used_blocks)
+        g("repro_serve_pool_blocks_used",
+          "pool KV blocks held").set(self.pool.alloc.used_blocks)
+        for k in ("finished", "evictions", "restores", "replays",
+                  "prefix_hits", "prefix_publishes"):
+            g(f"repro_serve_{k}_total", f"serving {k}").set(
+                self.counters[k])
+        g("repro_serve_pool_hits_total",
+          "pooled KV store hits").set(self.pool.hits)
 
     # -- request API -------------------------------------------------------
 
@@ -226,7 +255,11 @@ class ServeEngine:
         (evicting to the pool when HBM runs out), run one decode step
         over every running slot, sample/advance each request.  Returns
         True while work remains."""
-        self._do_step()
+        span = self.obs.span("serve_step") if self.obs is not None \
+            else contextlib.nullcontext()
+        with span:
+            self._do_step()
+        self._export_metrics()
         return not self.sched.idle
 
     def generate(self, batch: dict, max_new_tokens: int,

@@ -8,7 +8,10 @@ autograd transpose), the tensor-parallel AllReduces of the activations,
 the replicated-grad AllReduce and the loss mean - goes through the
 ``Communicator``, so ``ring`` vs ``cxl`` swaps the whole
 communication layer, and ``auto`` picks per call from a tuned plan
-(``TrainConfig.plan_path``, loaded by every rank that builds the step).
+(``TrainConfig.plan_path``, loaded by every rank that builds the step;
+with ``plan_path=None`` it resolves through the process-wide registry of
+``tuner.runtime``, as the reference's launcher does, which is how online
+re-tuning's hot-swapped plans reach the step).
 
 Params are leaf tensors with ``requires_grad``; after a step each one's
 ``.grad`` holds its synced gradient (what the optimizer consumed), and
@@ -22,7 +25,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core import overlap, tree
-from repro_torch.core.api import Communicator
+from repro_torch.core.api import Communicator, TimedCommunicator
 from repro_torch.core.hw import CXL_POOL, INFINIBAND
 from repro_torch.models import model, moe, sharding
 from repro_torch.models.config import ModelConfig
@@ -140,7 +143,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
 def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                             mesh: dict, tp_axis: str = "model",
-                            dp_axis=("data",)) -> tuple:
+                            dp_axis=("data",), timed: bool = False) -> tuple:
     """The train step of this rank of ``mesh`` (``launch.mesh``: axis
     name -> ``AxisGroup``).  ``dp_axis`` is a name or a tuple of names,
     outer level first (``launch.mesh.dp_axes``: ``("pod", "data")`` on
@@ -152,7 +155,10 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     rank's shards (``sharding.shard_params`` per ``param_specs``, at
     ``pc.comm.axis_index(pc.dp_axis)`` and, over the model axis, at
     ``pc.tp_index()``), their AdamW state and this rank's batch slice
-    (the ranks of one dp index take the same rows)."""
+    (the ranks of one dp index take the same rows).  With ``timed``
+    (backend ``auto`` only) the step's Communicator is a
+    ``TimedCommunicator``: every collective call books its measured
+    time in the ledger beside its audit entry."""
     tp = mesh[tp_axis].size if tp_axis in mesh else 1
     dp = (dp_axis,) if isinstance(dp_axis, str) else tuple(dp_axis)
     dp = tuple(a for a in dp if mesh[a].size > 1) or (dp[0],)
@@ -161,10 +167,9 @@ def make_sharded_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     if tcfg.plan_path is not None:
         # fingerprint-checked: refuse a plan tuned for other hardware
         plan = load_plan(tcfg.plan_path, pool=CXL_POOL, ib=INFINIBAND)
-    comm = Communicator(backend=tcfg.backend,
-                        slicing_factor=tcfg.slicing_factor,
-                        allreduce_mode=tcfg.allreduce_mode, axes=mesh,
-                        plan=plan)
+    comm = (TimedCommunicator if timed else Communicator)(
+        backend=tcfg.backend, slicing_factor=tcfg.slicing_factor,
+        allreduce_mode=tcfg.allreduce_mode, axes=mesh, plan=plan)
     pc = ParallelContext(tp_axis=tp_axis if tp > 1 else None,
                          dp_axis=dp_spec, tp=tp, comm=comm)
     sharding.set_mesh_sizes({a: g.size for a, g in mesh.items()})

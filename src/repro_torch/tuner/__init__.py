@@ -19,8 +19,10 @@ time; ``train --placement auto`` applies the winner, and ``tune
 --placement-report`` embeds the ranked table in the plan's metadata
 (``Plan.placement()`` reads it back).
 
-Ported from ``repro.tuner``; not ported yet: ``tuner.online`` (ROADMAP
-queue 1, item 10).
+``tuner.online`` folds measured per-call times back into a plan
+(``OnlineTuner``; ``train --online-retune`` hot-swaps the refreshed plan
+through the epoch-versioned registry, ``tune --measurements`` folds a
+run's samples offline).  Ported from ``repro.tuner``.
 """
 from repro_torch.tuner.costmodel import (cache_clear, epilogue_flops,
                                          fused_window, ici_time,
@@ -29,6 +31,8 @@ from repro_torch.tuner.costmodel import (cache_clear, epilogue_flops,
                                          predict_level_time,
                                          predict_p2p_time, predict_time,
                                          roofline_compute_time)
+from repro_torch.tuner.online import (OnlineTuner, choices_changed,
+                                      fold_measurements)
 from repro_torch.tuner.placement import (AxisTraffic, CollectiveCall,
                                          CollectiveMix, Placement,
                                          PlacementPlan, format_report,
@@ -64,4 +68,5 @@ __all__ = [
     "activate_plan_file", "clear_active_plan", "default_plan_path",
     "ensure_default_plan", "get_active_plan", "get_active_plan_versioned",
     "plan_cache_dir", "plan_epoch", "set_active_plan",
+    "OnlineTuner", "choices_changed", "fold_measurements",
 ]

@@ -25,9 +25,10 @@ the plan itself (``TrainConfig.plan_path``).  The plan cache is a
 directory of this package's own: plans tuned here price the fused cells
 with the H100 roofline, so their ``predicted_time`` differs from the
 reference's under the same fingerprint, and the two caches must not
-share files.  The link-health and rank-liveness registries of the
-reference belong to resilience and are not ported yet (ROADMAP queue
-1, item 10).
+share files.  The link-health registry is the reference's
+(``obs.health.HealthMonitor`` publishes, planners consult); its
+rank-liveness registry belongs to resilience and is not ported yet
+(ROADMAP queue 1, item 10b).
 """
 from __future__ import annotations
 
@@ -71,6 +72,38 @@ def get_active_plan_versioned() -> tuple:
 
 def clear_active_plan() -> None:
     set_active_plan(None)
+
+
+# -- link-health registry (obs.health publishes, planners consult) ---------
+#
+# Keyed "<level axis>/<fabric>" -> the health monitor's latest state for
+# that link ({"degraded", "slowdown", "since_step", ...}).  Lives next
+# to the active plan because it is plan-shaped advice: a degraded entry
+# tells a planner (or a human reading the dry-run report) that the
+# measured fabric no longer matches what the plan was tuned against.
+
+_LINK_HEALTH: dict = {}
+
+
+def set_link_health(key: str, state: dict) -> None:
+    _LINK_HEALTH[str(key)] = dict(state)
+
+
+def get_link_health(key: "str | None" = None):
+    """One link's state dict (or None), or a copy of the whole registry
+    when called without a key."""
+    if key is None:
+        return {k: dict(v) for k, v in _LINK_HEALTH.items()}
+    return _LINK_HEALTH.get(str(key))
+
+
+def degraded_links() -> list:
+    return sorted(k for k, v in _LINK_HEALTH.items()
+                  if v.get("degraded"))
+
+
+def clear_link_health() -> None:
+    _LINK_HEALTH.clear()
 
 
 def activate_plan_file(path: str, *,

@@ -44,6 +44,57 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert res.stdout.strip() == "ok"
 
 
+OBS_MODULES = ("repro_torch.obs", "repro_torch.obs.metrics",
+               "repro_torch.obs.trace", "repro_torch.obs.health",
+               "repro_torch.obs.profile", "repro_torch.obs.session",
+               "repro_torch.tuner.online", "repro_torch.launch.report")
+
+
+def test_obs_and_online_modules_import_alone():
+    """The observability and online re-tuning slice exists in the port
+    and runs with ``jax`` and ``repro`` blocked: each module imports, and
+    a tracer, a registry, a health monitor, an emulator, a session and an
+    online tuner do their work, with nothing of either loaded."""
+    code = ("import sys, json, tempfile, os\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import importlib\n"
+            f"for m in {OBS_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "from repro_torch import obs, tuner\n"
+            "from repro_torch.core.topology import parse_topology\n"
+            "from repro_torch.launch import report\n"
+            "topo = parse_topology('data:cxl,model:cxl')\n"
+            "plan = tuner.generate_plan(tuner.SMOKE_GRID, topology=topo)\n"
+            "emu = obs.StepEmulator(topology=topo, seed=0)\n"
+            "c = dict(primitive='all_reduce', msg_bytes=1 << 20, nranks=2,"
+            " backend='cxl', slicing_factor=4, allreduce_mode='two_phase',"
+            " level='model', fabric='cxl', calls=1.0)\n"
+            "d = tempfile.mkdtemp()\n"
+            "s = obs.ObsSession(metrics_out=os.path.join(d, 'm.jsonl'),"
+            " trace_out=os.path.join(d, 't.json'), log=None)\n"
+            "ot = tuner.OnlineTuner(plan, retune_interval=1)\n"
+            "for i in range(3):\n"
+            "    with s.step_span(i):\n"
+            "        t = emu.step_timings([c] * 3)\n"
+            "    ot.observe_timings(t)\n"
+            "    s.on_step(i, 0.1, timings=t)\n"
+            "    ot.maybe_retune(i)\n"
+            "s.finalize(snapshot={'wire_bytes': {'all_reduce': 1.0}})\n"
+            "text = report.summarize(report.load_events("
+            "os.path.join(d, 'm.jsonl')))\n"
+            "assert 'steps: 3' in text and ot.calibration_export()['scales']\n"
+            "bad = [m for m, mod in sys.modules.items() if mod is not "
+            "None and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def _imported_names(tree) -> set:
     names = set()
     for node in ast.walk(tree):
@@ -86,9 +137,17 @@ def test_engine_without_device_refuses_cpu_fallback():
 def test_launcher_rejects_unported_flags(tmp_path):
     from repro_torch.launch import serve
     ap = serve.build_parser()
-    for flag in ("--online-retune", "--metrics-out"):
-        with pytest.raises(SystemExit):
-            ap.parse_args(["--arch", "llama3.2-1b", flag, "x"])
+    # --online-retune and --metrics-out are ported: they parse, and the
+    # launcher refuses --online-retune without --plan or with --trace,
+    # as the reference's does
+    args = ap.parse_args(["--arch", "llama3.2-1b", "--metrics-out", "x",
+                          "--online-retune"])
+    assert args.metrics_out == "x" and args.online_retune
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "llama3.2-1b", "--online-retune"])
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "llama3.2-1b", "--online-retune", "--plan",
+                    "p.json", "--trace", "poisson"])
     # --ckpt / --ckpt-step are ported: they parse and reach the restore
     args = ap.parse_args(["--arch", "llama3.2-1b", "--smoke", "--device",
                           "cpu", "--ckpt", str(tmp_path), "--ckpt-step",
@@ -126,8 +185,8 @@ def test_serve_launcher_activates_the_topology(capsys):
 def test_unported_arch_names_the_roadmap():
     """whisper-tiny and phi-3-vision-4.2b resolve (ROADMAP queue 1,
     item 8 is ported), every reference id does, and an unknown id raises
-    naming what is still to port (items 10-11; item 9, the pipeline, is
-    ported)."""
+    naming what is still to port (items 10b-11; item 9, the pipeline, and
+    item 10a, observability and online re-tuning, are ported)."""
     from repro.configs import ALL_IDS
     from repro_torch.configs import get_config
     for arch in ("whisper-tiny", "phi-3-vision-4.2b"):
@@ -135,7 +194,7 @@ def test_unported_arch_names_the_roadmap():
         assert get_config(arch, smoke=True).frontend != "text"
     for arch in ALL_IDS:
         get_config(arch)
-    with pytest.raises(KeyError, match="ROADMAP queue 1.*item 10"
+    with pytest.raises(KeyError, match="ROADMAP queue 1.*item 10b"
                        ".*item 11") as err:
         get_config("no-such-model")
     assert "item 9" not in str(err.value)
@@ -156,9 +215,19 @@ def test_train_entry_points_without_device_refuse_cpu_fallback():
 def test_train_launcher_rejects_unported_flags_and_tp():
     from repro_torch.launch import train
     ap = train.build_parser()
-    for flag in ("--pp-stages", "--metrics-out", "--online-retune"):
-        with pytest.raises(SystemExit):
-            ap.parse_args(["--arch", "llama3.2-1b", flag, "x"])
+    with pytest.raises(SystemExit):
+        ap.parse_args(["--arch", "llama3.2-1b", "--pp-stages", "x"])
+    # online re-tuning is ported: its flags parse and reach the spec
+    assert train.spec_from_args(ap.parse_args(
+        ["--arch", "llama3.2-1b", "--device", "cpu", "--backend", "auto",
+         "--plan", "plan.json", "--online-retune"])).obs.online_retune
+    # resilience is not ported yet (ROADMAP queue 1, item 10b): its flags
+    # parse and the run's spec refuses them, naming the item
+    for extra in (["--resilience"], ["--fault-plan", "rank_death@2:rank=1"],
+                  ["--pool-ckpt-interval", "2"]):
+        with pytest.raises(SystemExit, match="item 10b"):
+            train.spec_from_args(ap.parse_args(
+                ["--arch", "llama3.2-1b", "--device", "cpu", *extra]))
     # --ckpt is ported: it parses and reaches the run's spec
     assert train.spec_from_args(ap.parse_args(
         ["--arch", "llama3.2-1b", "--ckpt", "ckpt_dir", "--device",

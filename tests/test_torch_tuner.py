@@ -365,9 +365,14 @@ def test_port_tune_cli_matches_the_sweep(tmp_path, monkeypatch, capsys):
     grid = dataclasses.replace(ptuner.SMOKE_GRID, nranks=(4,))
     assert _same_json(plan, ptuner.generate_plan(grid))
     assert "tuned" in capsys.readouterr().out
-    for flag in ("--overlap-from-dryrun", "--measurements"):
-        with pytest.raises(SystemExit):
-            tune.main(["--smoke", flag, "x", "--out", out])
+    with pytest.raises(SystemExit):
+        tune.main(["--smoke", "--overlap-from-dryrun", "x", "--out", out])
+    # --measurements is ported: records it cannot read fold no sample, and
+    # the refreshed plan makes the sweep's choices
+    again = tune.main(["--smoke", "--nranks", "4", "--quiet", "--out", out,
+                       "--measurements", str(tmp_path / "none.json")])
+    assert not ptuner.choices_changed(plan, again)
+    assert again.meta["online"]["measured_candidates"] == 0
     # --placement-report is ported: it needs a topology and parses
     with pytest.raises(SystemExit):
         tune.main(["--smoke", "--placement-report", "llama3.2-1b",
