@@ -158,7 +158,7 @@ Phases (each fails the run if its check fails):
                  rms_norm's device time by kernel name); then the same
                  model with ``--multi-pod --topology pod:cxl,data:ici``
                  (the data axis ("pod", "data") = (2, 2)) under cxl
-                 +fused, cxl and auto (the last two 2 steps) on a plan that
+                 +fused, cxl and auto (2 steps each) on a plan that
                  ``launch.tune --topology pod:cxl,data:ici --nranks 2``
                  writes: step-0
                  losses within 1e-4 of the flat cxl+fused run's, every
@@ -167,7 +167,6 @@ Phases (each fails the run if its check fails):
                  under --fuse-kernels) every step, cxl moves pool bytes
                  on both levels and auto none on the ici level, and every
                  auto call took the cell of its own level (ring on ici);
-                 one extra step of the cxl+fused run is profiled too;
 7c. train (data, model) - tensor parallelism over ``--mesh 2x2`` with
                  ``--topology data:cxl,model:cxl``: the smoke model on
                  the card against the CPU (losses of 3 steps, rtol 2e-4),
@@ -208,18 +207,51 @@ Phases (each fails the run if its check fails):
                  beside a lone node on one flat data axis): the smoke
                  model on the card against the CPU (rtol 2e-4), then
                  Llama-3.2-1B at full width and depth under cxl+fused
-                 (profiled), cxl and auto (2 steps each) on a plan that
-                 ``launch.tune
+                 and cxl (2 steps each) and auto (7k's run, below) on
+                 a plan that ``launch.tune
                  --topology pod:cxl,data:cxl:3+1 --nranks 4`` writes, and
                  ``--topology pod:cxl,node:cxl:3+1 --placement auto`` under
-                 cxl: step-0 losses within 1e-4 of the flat cxl+fused
-                 run's, every loss falls, pool bytes move in the groups'
-                 pools (``data``) and the sub-roots' (``pod``), no
-                 flat-on-ragged fallback event, every rank launches the
+                 cxl (2 steps): step-0 losses within 1e-4 of the flat
+                 cxl+fused run's, every loss falls, pool bytes move in
+                 the groups' pools (``data``) and the sub-roots' (``pod``),
+                 no flat-on-ragged fallback event, every rank launches the
                  kernels of 7b every step and under cxl chunked_reduce at
                  N = its group's size (3) and, on a sub-root, at N = the
                  group count (2), every auto call took its level's cell,
                  and the placement run moves the plain run's bytes;
+7k. train resilient - 7d's auto run with ``--resilience --fault-plan
+                 rank_death@1:rank=1 --pool-ckpt-interval 2 --steps 6``
+                 (rank 1 is in the group of three), in 7d's spawn: every
+                 rank snapshots its shards and AdamW state into its
+                 partition of a pinned shared pool store at steps 0, 2,
+                 4; the death is confirmed at step 3 (the reference's
+                 rule: the last beat 0 + timeout 1 + patience 2) on all 4
+                 ranks with one plan hash, re-planned to ``survivors on
+                 data: -[1] -> 2+1``, and every rank rolls back to the
+                 newest step every rank committed (0: rank 1's step-2
+                 write failed) and replays the data from there: steps 4
+                 and 5 are steps 1 and 2 again, their losses equal the
+                 first runs' within 1e-4; step 0's loss within 1e-4 of
+                 the flat cxl+fused run's; every auto call at 7d's plan
+                 cell before the recovery and at the recovery plan's cell
+                 served at the running mesh's levels after it, no
+                 fallback event; 7d's kernels on every rank every step,
+                 chunked_reduce at N = 3 / 2 wherever the step's choices
+                 put a reduction on cxl at that level; snapshot bytes and
+                 seconds a rank, restore seconds, steps lost, step times
+                 and pool bytes recorded;
+7l. survivor reconfiguration - ``launch.survivor`` on the card: 4 ranks
+                 under cxl over ``pod:cxl,data:cxl:2+2`` run the
+                 reference's step on an (84, 4) parameter, rank 3 dies at
+                 step 2 and is confirmed on every rank, the data level is
+                 re-planned to 2+1, and a spawn of the 3 survivors
+                 restores from the same pool store and runs 3 steps under
+                 auto on the recovery plan, equal to a flat 3-rank cxl
+                 run from the same state (rtol 1e-4, atol 1e-6); ledger
+                 bytes at data/cxl and pod/cxl, pod's fewer; the audit at
+                 (data, 2) and (pod, 2); chunked_reduce on every
+                 survivor (its two spawns run beside phase 2, parity,
+                 and are joined after it);
 7e. train MoE  - Granite-3.0-MoE (32 ``e`` rows, d_model 1536, 40 experts
                  top-8) at full width and depth over ``--mesh 2x2
                  --topology data:cxl,model:cxl --prefetch 0``, experts
@@ -258,8 +290,8 @@ Phases (each fails the run if its check fails):
                  (Mamba channels and heads, the shared block's heads and
                  FFN columns, the vocabulary sharded over model; each
                  Mamba-2 row's gated norm one model-level AllReduce more)
-                 under cxl+fused (profiled, 3 steps), cxl and auto (7c's
-                 plan, 2 steps): the checks of 7g, pool bytes at both
+                 under cxl+fused, cxl and auto (7c's plan), 2 steps
+                 each: the checks of 7g, pool bytes at both
                  levels, every auto call at its level's cell, and the
                  step-0 losses within 1e-4 of each other and of 7g's
                  (the model is the same function at tp 2);
@@ -281,7 +313,7 @@ Phases (each fails the run if its check fails):
                  card against the CPU (losses of 3 steps at 128 tokens,
                  rtol 2e-4),
                  then Llama-3.2-1B at full width and depth over the same
-                 (stage, data) = (2, 2) under cxl (profiled, 3 steps,
+                 (stage, data) = (2, 2) under cxl (3 steps,
                  writing ``train --ckpt``) and auto (2 steps, on ``tune
                  --topology stage:cxl,data:cxl --nranks 2``'s plan), in
                  7c's spawn (the same rank groups): step-0 losses within
@@ -313,7 +345,7 @@ the ranks (``train.run_many``: each run its own mesh, topology and
 aliases): 7's flat Llama runs with 7g's Zamba2 runs and 7i's
 whisper-tiny and Phi-3-vision runs, 7c's Llama runs with 7e's Granite,
 7h's Zamba2 and 7j's pipeline runs ((stage, data) has (data, model)'s
-groups), 7d's grouped runs with its ``--placement auto`` run.
+groups), 7d's grouped runs with its ``--placement auto`` run and 7k's.
 
 The kernels' launch counters are zeroed before each serving run and
 before each training step (in the rank processes), and read after it
@@ -321,7 +353,8 @@ before each training step (in the rank processes), and read after it
 as ``train``, 7b's as ``train_hier``, 7c's as ``train_tp``, 7d's as
 ``train_ragged``, 7e's as ``train_moe``, 7f's as ``serve_moe``, 7g's as
 ``train_hybrid``, 7h's as ``train_hybrid_tp``, 7i's as ``train_audio``
-and ``train_vlm``, 7j's as ``train_pp``, Zamba2's serving as ``serve_hybrid`` and the
+and ``train_vlm``, 7j's as ``train_pp``, 7k's with 7d's, 7l's
+chunked_reduce as ``train_survivor``, Zamba2's serving as ``serve_hybrid`` and the
 non-text models' as ``serve_audio`` and ``serve_vlm``; ssm_scan's
 backward kernel under ``backward_launches_by_path``):
 the training path's four kernels and rms_norm's backward kernel must
@@ -339,6 +372,7 @@ from __future__ import annotations
 
 import datetime
 import functools
+import gc
 import json
 import pathlib
 import re
@@ -467,6 +501,14 @@ CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 RAGGED_TOPOLOGY = "pod:cxl,data:cxl:3+1"
 RAGGED_PLACEMENT_TOPOLOGY = "pod:cxl,node:cxl:3+1"
 RAGGED_GROUPS = (3, 1)
+# 7k: the grouped path's auto run under a fault, through the launcher's
+# flags: rank 1 (in the group of three) dies at step 1; the reference's
+# rule confirms it at step 1 + timeout 1 + patience 2 - 1 = 3, re-plans
+# data to 2+1 and rolls every rank back to the newest step all four
+# committed (0: rank 1's step-2 snapshot fails)
+RESIL_FAULT = "rank_death@1:rank=1"
+RESIL_STEPS, RESIL_INTERVAL, RESIL_CONFIRM = 6, 2, 3
+RESIL_REASON = "survivors on data: -[1] -> 2+1"
 # the earlier paths' runs but the profiled first, and the gloo-bound ones,
 # take 2 steps (step 0 and one to show the loss fall)
 SHORT_STEPS = 2
@@ -1904,12 +1946,17 @@ def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
         steps=max(per[x].steps for x in labels),
         profile=profile and labels[0] not in unprofiled,
         ckpt=ckpt.get(labels[0])) for _, labels in groups]
+    # the ranks share the card with this process: free what an earlier
+    # phase's objects (an engine's reference cycles) still hold first
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 2**30
     t0 = time.perf_counter()
     with SmiSampler() as smi:
         merged = train.run_many(specs)
     wall = time.perf_counter() - t0
     log(f"[train] {' + '.join(runs)}: {wall:.1f}s in one spawn of the "
-        f"ranks")
+        f"ranks ({held:.2f} GiB of the card held by this process)")
     got = {label: run for (_, labels), spec_runs in zip(groups, merged)
            for label, run in zip(labels, spec_runs)}
     out = {}
@@ -2109,7 +2156,7 @@ def check_ragged_runs(runs: dict) -> None:
         for i, s in enumerate(run["steps"]):
             if s["fallbacks"]:
                 fail(f"{label} step {i}: {s['fallbacks']} fallback events")
-            if label == "ragged_auto":
+            if label == "resil_auto":
                 continue
             for r, by_n in enumerate(s["chunked_reduce_by_n_per_rank"]):
                 want = ({sizes[r]} if sizes[r] > 1 else set()) | \
@@ -2463,6 +2510,152 @@ MOE_RUNS = ("moe_cxl_fused", "moe_cxl", "moe_auto")
 PP_RUNS = ("pp_cxl", "pp_auto")
 
 
+def check_resil_run(run: dict, plan, first: float) -> dict:
+    """7k's gates (``resil_auto``): the death confirmed at
+    ``RESIL_CONFIRM`` on every rank (the launcher already failed the run
+    on any disagreement of verdicts or plan hashes), one re-plan to 2+1,
+    every rank rolled back to the newest step every rank committed, the
+    data with it (the replayed steps' losses equal their first runs' at
+    rtol 1e-4), every auto call at its plan cell before the recovery
+    (7d's plan) and at the recovery plan's cell of the survivor level
+    after it, no fallback event, the store's snapshots committed by
+    every live rank; returns what PERF.md records."""
+    from repro_torch.core.topology import Topology, parse_topology
+    from repro_torch.resilience import mesh_topology
+    from repro_torch.tuner.plan import Plan
+    steps = run["steps"]
+    if len(steps) != RESIL_STEPS:
+        fail(f"resil_auto ran {len(steps)} steps")
+    rep = run["resilience"]
+    if rep["replans"] != 1 or rep["dead_ranks"] != [1]:
+        fail(f"resil_auto: {rep['replans']} re-plans, dead ranks "
+             f"{rep['dead_ranks']}")
+    verdicts = {i: s["resilience_per_rank"][0]["verdicts"]
+                for i, s in enumerate(steps)
+                if s["resilience_per_rank"][0]["verdicts"]}
+    deaths = [(i, v) for i, vs in verdicts.items() for v in vs
+              if v[0] == "rank_death"]
+    if deaths != [(RESIL_CONFIRM, ["rank_death", 1, None, RESIL_CONFIRM])]:
+        fail(f"resil_auto: rank deaths confirmed {deaths}")
+    r0 = steps[RESIL_CONFIRM]["resilience_per_rank"]
+    hashes = {r["recovery"]["plan_sha256"] for r in r0}
+    rb = r0[0]["rollback"]
+    if rb["reason"] != RESIL_REASON or len(hashes) != 1:
+        fail(f"resil_auto: re-plan {rb['reason']}, plan hashes {hashes}")
+    snap = rb["snapshot_step"]
+    committed = rb["committed_by_rank"]
+    common = set.intersection(*(set(c) for c in committed))
+    if snap is None or snap != max(common) or \
+            any(r["rollback"]["snapshot_step"] != snap for r in r0):
+        fail(f"resil_auto: rolled back to {snap}, committed {committed}")
+    data = [s["data_step"] for s in steps]
+    if data != list(range(RESIL_CONFIRM + 1)) + list(
+            range(snap + 1, snap + RESIL_STEPS - RESIL_CONFIRM)):
+        fail(f"resil_auto: data steps {data}")
+    replays = []
+    for i in range(RESIL_CONFIRM + 1, RESIL_STEPS):
+        j = data[i]
+        a, b = steps[i]["loss"], steps[j]["loss"]
+        replays.append({"step": i, "replays": j, "loss": a,
+                        "first_run": b, "rel": abs(a - b) / abs(b)})
+        if abs(a - b) > 1e-4 * abs(b):
+            fail(f"resil_auto: step {i} replays step {j}: loss {a} vs {b}")
+    if abs(steps[0]["loss"] - first) > 1e-4 * abs(first):
+        fail(f"resil_auto: step-0 loss {steps[0]['loss']} vs {first}")
+    running = parse_topology(RAGGED_TOPOLOGY)
+    survivor = Topology.from_json(rb["topology"])
+    mesh = mesh_topology(survivor, running)
+    if mesh != running:
+        fail(f"resil_auto: the running topology changed: {mesh}")
+    check_auto_choices({"steps": steps[:RESIL_CONFIRM + 1]}, plan, running)
+    # after it, each call at the recovery plan's own cell of the
+    # survivor level of its axis (priced for 2+1, run on 3+1)
+    after = check_auto_choices({"steps": steps[RESIL_CONFIRM + 1:]},
+                               Plan.from_json(rb["plan"]), survivor)
+    # chunked_reduce at N = the group's size within a group of more than
+    # one and N = the group count on a sub-root, wherever the step's
+    # choices (rank 0's: in the group of three and a sub-root) put a
+    # reduction at that level on cxl
+    n_g = len(RAGGED_GROUPS)
+    roots, sizes, start = [], [], 0
+    for g in RAGGED_GROUPS:
+        roots.append(start)
+        sizes += [g] * g
+        start += g
+    for i, s in enumerate(steps):
+        cxl = {(c["level"], c["nranks"]) for c in s["choices_rank0"]
+               if c["backend"] == "cxl"
+               and c["primitive"] in ("reduce_scatter", "all_reduce")}
+        for r, by_n in enumerate(s["chunked_reduce_by_n_per_rank"]):
+            want = ({sizes[r]} if sizes[r] > 1
+                    and ("data", sizes[r]) in cxl else set()) | \
+                ({n_g} if r in roots and ("pod", n_g) in cxl else set())
+            got = {int(n) for n, k in by_n.items() if k > 0}
+            if not want <= got:
+                fail(f"resil_auto step {i}: rank {r} launched chunked_reduce"
+                     f" at N {by_n}, its cxl choices want {sorted(want)}")
+    snaps = {i: [r.get("snapshot") for r in s["resilience_per_rank"]]
+             for i, s in enumerate(steps)
+             if i % RESIL_INTERVAL == 0}
+    for i, per in snaps.items():
+        # rank 1's writes fail from its death until it is replaced
+        want = [not (r == 1 and 1 <= i <= RESIL_CONFIRM)
+                for r in range(len(per))]
+        if [x is not None for x in per] != want:
+            fail(f"resil_auto step {i}: snapshots {per}")
+    lost = rb["steps_lost"]
+    out = {"confirm_step": RESIL_CONFIRM, "reason": rb["reason"],
+           "plan_sha256": hashes.pop(), "committed_by_rank": committed,
+           "snapshot_step": snap, "steps_lost": lost,
+           "data_steps": data, "replays": replays,
+           "snapshot_bytes_rank": {i: [x["bytes"] if x else None
+                                       for x in per]
+                                   for i, per in snaps.items()},
+           "snapshot_s": {i: [x["seconds"] if x else None for x in per]
+                          for i, per in snaps.items()},
+           "restore_s": [r["rollback"]["restore_seconds"] for r in r0],
+           "state_bytes_rank": rep["state_bytes"],
+           "peak_memory_gib": run["peak_memory_gib"],
+           "store_bytes_rank": rep["capacity_bytes"],
+           "open_s_per_rank": [x["open_s"]
+                               for x in run["resilience_per_rank"]],
+           "close_s_per_rank": [x["close_s"]
+                                for x in run["resilience_per_rank"]],
+           "chunked_reduce_by_n": [s["chunked_reduce_by_n_per_rank"]
+                                   for s in steps],
+           "step_s": [s["step_s"] for s in steps],
+           "pool_bytes": [s["pool_bytes"] for s in steps],
+           "after_choices": after}
+    log(f"[train] resil_auto: {json.dumps(out)}")
+    return out
+
+
+def survivor_phase() -> dict:
+    """7l: ``launch.survivor`` on the card - 4 ranks under cxl over
+    ``pod:cxl,data:cxl:2+2`` lose rank 3 (confirmed on every rank), the
+    re-plan makes data 2+1, and 3 survivors in a new spawn restore from
+    the pool store and run auto on the recovery plan, equal to a flat
+    3-rank cxl run from the same state (rtol 1e-4, atol 1e-6); ledger
+    bytes at data/cxl and pod/cxl, pod's fewer; the audit at (data, 2)
+    and (pod, 2); chunked_reduce launched on every survivor."""
+    from repro_torch.launch import survivor
+    t0 = time.perf_counter()
+    res = survivor.run("cuda")
+    try:
+        out = survivor.check(res)
+    except AssertionError as e:
+        fail(f"survivor reconfiguration: {e}")
+    idle = [r for r, x in enumerate(res["second"]) if x["launches"] <= 0]
+    if idle:
+        fail(f"survivor reconfiguration: ranks {idle} launched no "
+             f"chunked_reduce")
+    out["launches"] = sum(x["launches"] for x in res["first"]) + \
+        sum(x["launches"] for x in res["second"])
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[train] survivor reconfiguration: {json.dumps(out)}")
+    return out
+
+
 def check_pp_runs(runs: dict, first: float, plan) -> dict:
     """Phase 7j's checks of the pipeline runs: the step-0 loss within
     1e-4 of the flat cxl+fused run's (the same params and global batch)
@@ -2752,8 +2945,8 @@ def hybrid_tp_train_phase(runs: dict, tp_plan, first_4x1: float) -> dict:
     ``--mesh 2x2 --topology data:cxl,model:cxl`` (Mamba channels and
     heads, the shared block's heads and FFN columns and the vocabulary
     sharded over model, FSDP over data, both levels on the pool) under
-    cxl+fused (profiled, 3 steps), cxl and auto (7c's plan; 2 steps
-    each), ``runs``, made in 7c's spawn: the checks of 7g, both levels'
+    cxl+fused, cxl and auto (7c's plan; 2 steps each), ``runs``, made
+    in 7c's spawn: the checks of 7g, both levels'
     pools, every auto call at its level's cell, and the step-0 losses
     within 1e-4 of each other and of the ``4x1`` path's."""
     from repro_torch.core.topology import parse_topology
@@ -2835,7 +3028,8 @@ def train_phase() -> dict:
         "hier_cxl": ["--backend", "cxl"],
         "hier_auto": ["--backend", "auto", "--plan", hier_plan_path]},
         ["--multi-pod", "--topology", HIER_TOPOLOGY],
-        short=("hier_cxl", "hier_auto"))
+        short=("hier_cxl_fused", "hier_cxl", "hier_auto"),
+        unprofiled=("hier_cxl_fused",))
     # cxl moves bytes through both levels' pools; auto never through the
     # ici level's
     check_path_runs(hier, {"pod", "data"}, "hier_auto", auto_skip="data")
@@ -2883,12 +3077,13 @@ def train_phase() -> dict:
                     *PP_FLAGS]},
         ["--topology", TP_TOPOLOGY], mesh=TP_MESH,
         short=("tp_cxl", "moe_cxl", "moe_auto", "hybrid_tp_cxl",
-               "hybrid_tp_auto", "pp_auto"),
+               "hybrid_tp_auto", "hybrid_tp_cxl_fused", "pp_auto"),
         archs={**dict.fromkeys(MOE_RUNS, MOE_ARCH),
                **dict.fromkeys(HYBRID_TP_RUNS, HYBRID_ARCH)},
         ckpt={"moe_cxl_fused": str(CKPT_DIR / "moe"),
               "pp_cxl": str(CKPT_DIR / "pp")},
-        unprofiled=("tp_auto_retune", "moe_cxl_fused"))
+        unprofiled=("tp_auto_retune", "moe_cxl_fused", "hybrid_tp_cxl_fused",
+                    "pp_cxl"))
     moe = {k: tp.pop(k) for k in MOE_RUNS}
     hybrid_tp_runs = {k: tp.pop(k) for k in HYBRID_TP_RUNS}
     pp = {k: tp.pop(k) for k in PP_RUNS}
@@ -2915,20 +3110,24 @@ def train_phase() -> dict:
     ragged_plan = tuner.load_plan(ragged_plan_path)
     # (the placement's run rides the same spawn: the placed mesh has the
     # grouped level's rank groups)
+    # (7k: the auto run takes the fault plan, the pool snapshots and the
+    # recovery loop; its steps before the fault make 7d's auto checks)
     ragged = full_width_runs({
         "ragged_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "ragged_cxl": ["--backend", "cxl"],
-        "ragged_auto": ["--backend", "auto", "--plan", ragged_plan_path],
+        "resil_auto": ["--backend", "auto", "--plan", ragged_plan_path,
+                       "--resilience", "--fault-plan", RESIL_FAULT,
+                       "--pool-ckpt-interval", str(RESIL_INTERVAL),
+                       "--steps", str(RESIL_STEPS)],
         "ragged_placed": ["--backend", "cxl", "--topology",
                           RAGGED_PLACEMENT_TOPOLOGY, "--placement", "auto"]},
         ["--topology", RAGGED_TOPOLOGY],
-        short=("ragged_cxl", "ragged_auto", "ragged_placed"),
-        unprofiled=("ragged_placed",))
-    check_path_runs(ragged, {"pod", "data"}, "ragged_auto")
+        short=("ragged_cxl_fused", "ragged_cxl", "ragged_placed"),
+        unprofiled=("ragged_cxl_fused", "ragged_placed", "resil_auto"))
+    check_path_runs(ragged, {"pod", "data"}, "resil_auto")
     check_ragged_runs(ragged)
     out["ragged"] = ragged
-    out["ragged_auto_choices"] = check_auto_choices(
-        ragged["ragged_auto"], ragged_plan, parse_topology(RAGGED_TOPOLOGY))
+    out["resil"] = check_resil_run(ragged["resil_auto"], ragged_plan, first)
     check_losses(ragged, first)
 
     # 7e. Mixture-of-Experts: Granite-3.0-MoE over (data, model) = (2, 2),
@@ -3005,6 +3204,12 @@ def main() -> int:
     record["build_s"] = build.build_all()
     log(f"[build] {build.KERNELS} in {record['build_s']:.1f}s")
     mark("build")
+
+    # 7l runs beside phase 2 (its two small spawns are mostly rank
+    # start-up; phase 2 only checks values), and is joined after it
+    from concurrent.futures import ThreadPoolExecutor
+    side = ThreadPoolExecutor(1)
+    survivor = side.submit(survivor_phase)
 
     # 2. parity --------------------------------------------------------
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -3114,6 +3319,11 @@ def main() -> int:
     if not all(p["ok"] for p in parity):
         fail("a kernel disagrees with its plain version")
     mark("parity")
+    # 7l. the 4 -> 3 survivor reconfiguration (its wall seconds beside
+    # phase 2 in its record; the wait for it here in "survivor")
+    record["survivor"] = survivor.result()
+    side.shutdown()
+    mark("survivor")
 
     # 3. timing (main path shapes, f32) ---------------------------------
     timer = Timer()
@@ -3416,6 +3626,8 @@ def main() -> int:
             by_path["train_vlm"] = vlm_launches[name]
         if name in pp_launches:
             by_path["train_pp"] = pp_launches[name]
+        if name == "chunked_reduce":
+            by_path["train_survivor"] = record["survivor"]["launches"]
         if name in hybrid_launches:
             by_path["train_hybrid"] = hybrid_launches[name]
             by_path["train_hybrid_tp"] = hybrid_tp_launches[name]

@@ -42,7 +42,7 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     if arch_id not in _MODULES:
         raise KeyError(
             f"unknown arch {arch_id!r}; ported: {ARCH_IDS}.  Still to "
-            f"port (ROADMAP queue 1): resilience (item 10b), the dry-run "
+            f"port (ROADMAP queue 1): the dry-run "
             f"and sharded decode (item 11)")
     mod = importlib.import_module(
         f"repro_torch.configs.{_MODULES[arch_id]}")

@@ -14,7 +14,8 @@ This module provides the host-side (Python) state machine used by the
 functional pool emulation and the event-driven simulator, and
 :class:`EpochWords`, the same index-addressed words living in a shared
 host buffer, which the ``cxl`` backend's :class:`core.pool.SharedPool`
-rings across processes.
+rings across processes; :class:`HeartbeatRegion` keeps its liveness
+words there too, so every rank process reads every rank's liveness.
 """
 from __future__ import annotations
 
@@ -172,7 +173,6 @@ class RefcountRegion:
                 f"[0, {self.capacity})")
 
 
-@dataclasses.dataclass
 class HeartbeatRegion:
     """Per-rank liveness words in pool memory, reusing the doorbell
     protocol.
@@ -185,27 +185,37 @@ class HeartbeatRegion:
     every word (invalidate + re-read, a consumer poll) and treats a
     word that has stopped advancing as a missing rank.
 
+    The words are :class:`EpochWords` over ``mem`` (``region_bytes`` of
+    uint8): a buffer every rank process maps, so each rank beats its
+    own word and reads all of them, or, when ``mem`` is None, a zeroed
+    buffer of the region's own.  A word holds the step plus one, so
+    fresh memory reads as never pulsed (-1).
+
     Pulses route through the pool fault hook (``core.pool.check_fault``)
     so injected rank deaths and pool faults surface exactly where a
     real pool store would fail: a dead rank's pulse raises
     ``PoolAccessError`` and its word goes stale on its own.
     """
 
-    nranks: int
-    _words: list[int] = dataclasses.field(default_factory=list)
-    # Telemetry, doorbell-style.
-    pulses: int = 0
-    polls: int = 0
-    flushes: int = 0
-
-    def __post_init__(self) -> None:
-        if self.nranks <= 0:
+    def __init__(self, nranks: int, mem: np.ndarray | None = None):
+        if nranks <= 0:
             raise ValueError("heartbeat region needs at least one rank")
-        self._words = [-1] * self.nranks  # -1: never pulsed
+        self.nranks = nranks
+        if mem is None:
+            mem = np.zeros(self.region_bytes_for(nranks), dtype=np.uint8)
+        self._words = EpochWords(mem, nranks)
+        # Telemetry, doorbell-style.
+        self.pulses = 0
+        self.polls = 0
+        self.flushes = 0
+
+    @staticmethod
+    def region_bytes_for(nranks: int) -> int:
+        return nranks * DOORBELL_BYTES
 
     @property
     def region_bytes(self) -> int:
-        return self.nranks * DOORBELL_BYTES
+        return self.region_bytes_for(self.nranks)
 
     def address(self, rank: int) -> int:
         """Index-calculated heartbeat address for ``rank``."""
@@ -221,7 +231,7 @@ class HeartbeatRegion:
         from repro_torch.core import pool as _pool  # late: pool imports us
         _pool.check_fault("heartbeat", rank=rank, step=step,
                           offset=self.address(rank))
-        self._words[rank] = step
+        self._words.ring(rank, int(step) + 1)
         self.pulses += 1
         self.flushes += 1
 
@@ -230,7 +240,7 @@ class HeartbeatRegion:
         self._check(rank)
         self.polls += 1
         self.flushes += 1
-        return self._words[rank]
+        return self._words.read(rank) - 1
 
     def read_all(self) -> tuple[int, ...]:
         return tuple(self.read(r) for r in range(self.nranks))

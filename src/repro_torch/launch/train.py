@@ -56,6 +56,10 @@ tensor-parallel paths:
       --backend auto --online-retune --retune-interval 1 \\
       --timing-source emulator --emu-degrade model@cxl=4 --steps 4 \\
       --seq 32 --metrics-out run.jsonl --trace-out run.trace.json
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+      --mesh 4x1 --topology pod:cxl,data:cxl:3+1 --backend auto \\
+      --plan plan.json --batch 4 --seq 1024 --resilience \\
+      --fault-plan rank_death@1:rank=1 --pool-ckpt-interval 2 --steps 6
 
 The launcher spawns one process per rank (``spawn`` start method); rank
 r runs on ``cuda:(r % device_count)``, so the ranks of a one-card host
@@ -181,9 +185,28 @@ under and the epochs its calls resolved at, and a boundary's retune
 (epoch, whether the choices changed, the measured regret, the plan's
 hash); the run's, the calibration export.  Refused: ``--online-retune``
 and a timing source other than ``step`` with ``--pp-stages > 1`` (as
-the reference), the profiler source on a grouped level (one schedule,
-two cells), and ``--resilience``, ``--fault-plan`` and
-``--pool-ckpt-interval`` (ROADMAP queue 1, item 10b).
+the reference), and the profiler source on a grouped level (one
+schedule, two cells).
+
+Resilience (``repro_torch.resilience``), as the reference launcher has
+it: ``--fault-plan`` injects a seeded fault schedule (rank deaths, link
+degrades through the run's ``StepEmulator``, pool-error windows);
+``--pool-ckpt-interval N`` snapshots every rank's shards and AdamW state
+into its partition of a pool store every rank maps
+(``checkpoint.PoolRegion``: a ``memfd`` pinned on the card, snapshots
+device-to-host copies) every N steps; ``--resilience`` runs the detect
+-> re-plan -> resume loop after each step: each rank beats its own
+heartbeat word, the monitors (one a rank) fold every rank's pool errors
+and reach the same verdicts (checked every step, with the recovery
+plan's hash), and a confirmed rank death or persistent cxl degrade
+hot-swaps the re-plan and rolls every rank, and the data, back to the
+newest step every rank committed.  How that differs from the one
+process of the reference is in ``_RankResil``.  Refused with
+``--pp-stages > 1``: ``--resilience`` and ``--fault-plan`` (as the
+reference).  Each step's record holds its ``resilience`` fields (the
+snapshot's report, the beats, the pool errors, the verdicts, a
+recovery's rollback); the run's, the reference's report (re-plans, dead
+ranks, degraded links, faults injected).
 """
 from __future__ import annotations
 
@@ -208,7 +231,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import ledger, tree
 from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.core.hw import CXL_POOL, INFINIBAND
-from repro_torch.core.pool import DEFAULT_PARTITION_BYTES
+from repro_torch.core.pool import (DEFAULT_PARTITION_BYTES, PoolAccessError,
+                                   create_backing)
 from repro_torch.core.topology import (Topology, get_active_topology,
                                        parse_topology, set_active_topology,
                                        warn_uncovered)
@@ -225,7 +249,10 @@ from repro_torch.launch.mesh import (dp_axes, joint_groups, level_groups,
                                      pipeline_shape)
 from repro_torch.models import model, pipeline_stages, sharding
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim import adamw_init
+from repro_torch.optim import AdamWState, adamw_init
+from repro_torch.resilience import (RANK_OPS, FailureMonitor, FaultPlan,
+                                    ResilienceController, mesh_plan,
+                                    mesh_topology)
 from repro_torch.training import checkpoint
 from repro_torch.training.pipeline import (SCHEDULES, bubble_fraction,
                                            make_schedule,
@@ -346,11 +373,26 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--explore-eps", type=float, default=0.0,
                     help="epsilon-greedy re-exploration of measured plan "
                          "cells at refresh (requires --online-retune)")
-    for flag, kw in (("--resilience", dict(action="store_true")),
-                     ("--fault-plan", dict(default=None)),
-                     ("--pool-ckpt-interval", dict(type=int, default=0))):
-        ap.add_argument(flag, help="not ported yet: resilience (ROADMAP "
-                                   "queue 1, item 10b)", **kw)
+    ap.add_argument("--resilience", action="store_true",
+                    help="run the detect -> re-plan -> resume loop "
+                         "(repro_torch.resilience): heartbeat + link-health "
+                         "monitoring each step; on a confirmed rank death "
+                         "or persistent cxl degrade, hot-swap a survivor/"
+                         "failover re-plan and roll every rank back to the "
+                         "newest pool snapshot they all committed")
+    ap.add_argument("--fault-plan", default=None,
+                    help="seeded fault schedule, e.g. 'rank_death@12:rank=5;"
+                         "link_degrade@10-18:link=data@cxl,factor=4;"
+                         "pool_error@5-7:rate=0.5' (resilience.FaultPlan; "
+                         "deaths and pool errors reach heartbeats, the pool "
+                         "checkpoint store and the KV tier, not a "
+                         "collective's exchange)")
+    ap.add_argument("--pool-ckpt-interval", type=int, default=0,
+                    help="steps between pool-resident snapshots (training."
+                         "checkpoint.PoolCheckpointStore, one partition a "
+                         "rank); 0 disables; the resume half of "
+                         "--resilience rolls back to the newest step every "
+                         "rank committed")
     return ap
 
 
@@ -382,6 +424,17 @@ class ObsSpec:
     trace_out: Optional[str] = None
     trace_steps: int = 32
     plan_out: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ResilSpec:
+    """Fault injection, recovery and pool snapshots of a run (the
+    launcher's ``--fault-plan``, ``--resilience``,
+    ``--pool-ckpt-interval``), the same for each of its variants."""
+
+    resilience: bool = False
+    fault_plan: Optional[str] = None
+    pool_ckpt_interval: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -417,6 +470,7 @@ class RunSpec:
     pp_schedule: str = "1f1b"
     pp_chunks: int = 2
     obs: Optional[ObsSpec] = None     # --online-retune, --metrics-out, ...
+    resil: Optional[ResilSpec] = None   # --resilience, --fault-plan, ...
 
     def mesh(self) -> tuple:
         """The rank-major mesh shape every rank builds."""
@@ -570,6 +624,7 @@ class _RankObs:
             if o.timing_source == "emulator" else None
         self.timed = o.timing_source == "profiler"
         self.folded: list = []           # every sample the tuner took
+        self.samples = None              # the last step's, for resilience
         self.swaps = 0
 
     def span(self, i: int):
@@ -609,6 +664,9 @@ class _RankObs:
         samples = [t for g in got for t in g[0]]
         wall = max(g[1] for g in got)     # the step ends with its slowest
         per_call = self.o.timing_source != "step"
+        # what the failure monitor's link health reads: per-call samples
+        # past the first step (the reference's ``step_timings``)
+        self.samples = samples if per_call and i > 0 else None
         folded = 0
         if self.online is not None and i > 0:
             if per_call:
@@ -686,6 +744,254 @@ class _RankObs:
                    if online is not None else {})})
         if online is not None:
             tuner_runtime.clear_active_plan()
+        return out
+
+
+def _mem_available_gib() -> Optional[float]:
+    """The host's ``MemAvailable`` (GiB), where the kernel reports it."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) / 2**20
+    except OSError:
+        pass
+    return None
+
+
+def _state_tree(params, opt) -> dict:
+    """What a pool snapshot holds: this rank's param shards and AdamW
+    state (its step count a 1-element tensor)."""
+    return {"params": params,
+            "opt": {"mu": opt.mu, "nu": opt.nu,
+                    "step": torch.tensor([opt.step], dtype=torch.int64)}}
+
+
+class _RankResil:
+    """One rank's fault injection, failure detection, re-planning and
+    pool snapshots of one variant (``RunSpec.resil``), in the reference
+    launcher's order around each step: ``begin_step`` (the fault plan;
+    link degrades reach the run's ``StepEmulator``) before it,
+    ``end_step`` (the snapshot, the rank's heartbeat, the controller)
+    after it.
+
+    What a run of rank processes changes (ROADMAP queue 3, "differs by
+    design"): the fault plan's deaths and pool-error windows reach
+    heartbeats, the pool checkpoint store and the KV tier
+    (``resilience.RANK_OPS``), never a collective's exchange; each rank
+    beats its own word in the region every rank maps
+    (``checkpoint.PoolRegion``) and the ranks' pool-error counts are
+    summed over the world group before the monitor closes the step, so
+    every rank's monitor reaches the same verdicts (checked, with the
+    recovery plan's hash); each rank snapshots its own shards into its
+    partition, and a recovery rolls every rank back to the newest step
+    every partition committed (``common_latest``), the data with it;
+    the ranks keep their mesh: the collectives run over the recovery's
+    topology at the mesh's shapes (``resilience.mesh_topology``) on the
+    recovery plan's cells (``resilience.mesh_plan``), and a confirmed
+    dead rank's process goes on as the node that replaced it
+    (``FaultPlan.replace``)."""
+
+    def __init__(self, ctx: ranks.RankContext, spec: RunSpec,
+                 tcfg: TrainConfig):
+        r = spec.resil
+        self.r, self.ctx, self.rank = r, ctx, ctx.rank
+        self.log = print if ctx.rank == 0 else (lambda *_a, **_k: None)
+        self.running = spec.topology      # what the collectives run over
+        self.tcfg = tcfg
+        self.activated = False
+        if r.resilience and tcfg.backend == "auto" \
+                and tcfg.plan_path is not None:
+            # the plan lives in the registry, where a recovery swaps it
+            tuner_runtime.activate_plan_file(tcfg.plan_path, pool=CXL_POOL,
+                                             ib=INFINIBAND)
+            self.tcfg = dataclasses.replace(tcfg, plan_path=None)
+            self.activated = True
+        tuner_runtime.clear_rank_liveness()
+        self.fp = None
+        if r.fault_plan:
+            self.fp = FaultPlan.parse(r.fault_plan, ops=RANK_OPS)
+            self.fp.install()
+        self.region = self.monitor = self.ctl = None
+        self.recoveries: list = []
+
+    def open(self, params, opt) -> None:
+        """Map the ranks' shared region (rank 0 makes it), sized for the
+        largest rank's state in each of two slots, and start the
+        monitor over its heartbeat words."""
+        r, ctx = self.r, self.ctx
+        if not (r.resilience or r.pool_ckpt_interval > 0):
+            return
+        t0 = time.perf_counter()
+        mine = sum(x.numel() * x.element_size()
+                   for x in tree.leaves(_state_tree(params, opt)))
+        state = max(_gather(mine)) if r.pool_ckpt_interval > 0 else 0
+        # two slots, each big enough for image + header slack (the
+        # reference launcher's sizing)
+        capacity = 2 * (state + (1 << 20)) + 4096
+        total = checkpoint.PoolRegion.total_bytes(ctx.nranks, capacity)
+        fd = None
+        if ctx.rank == 0:
+            path, fd = create_backing(total)
+            avail = _mem_available_gib()
+            self.log(f"pool checkpoints: {ctx.nranks} partitions of "
+                     f"{capacity} B ({total / 2**30:.2f} GiB shared); "
+                     f"host MemAvailable "
+                     f"{'unknown' if avail is None else f'{avail:.1f} GiB'}",
+                     flush=True)
+        else:
+            path = None
+        path = _gather(path)[0]
+        try:
+            self.region = checkpoint.PoolRegion(path, ctx.nranks, ctx.rank,
+                                                capacity, ctx.device)
+        finally:
+            dist.barrier()           # every rank has mapped it
+            if fd is not None:
+                os.close(fd)
+        self.state_bytes, self.capacity = mine, capacity
+        self.open_s = time.perf_counter() - t0     # made, mapped, pinned
+        if r.resilience:
+            self.monitor = FailureMonitor(ctx.nranks,
+                                          heartbeats=self.region.heartbeats)
+            self.ctl = ResilienceController(self.monitor,
+                                            topology=self.running,
+                                            log=self.log)
+            self.log(f"resilience: monitoring {ctx.nranks} ranks "
+                     f"(heartbeat timeout {self.monitor.heartbeat_timeout}, "
+                     f"patience {self.monitor.patience})", flush=True)
+
+    def begin_step(self, i: int, emu) -> list:
+        """Advance the fault plan (its link degrades reach ``emu``)."""
+        if self.fp is None:
+            return []
+        fresh = [e.describe() for e in self.fp.begin_step(i, emulator=emu)]
+        for d in fresh:
+            self.log(f"step {i:5d} fault injected: {d}", flush=True)
+        return fresh
+
+    def end_step(self, i: int, data_step: int, params, opt,
+                 timings: Optional[list]) -> tuple:
+        """The snapshot (every ``--pool-ckpt-interval`` steps), the
+        rank's heartbeat and the controller's verdict.  Returns (the
+        step record's resilience fields, the applied ``RecoveryPlan`` or
+        None)."""
+        r = self.r
+        rec: dict = {}
+        if r.pool_ckpt_interval > 0 and i % r.pool_ckpt_interval == 0:
+            t0 = time.perf_counter()
+            try:
+                rep = self.region.store.snapshot(
+                    i, _state_tree(params, opt),
+                    meta={"data_step": data_step})
+                rec["snapshot"] = {**rep, "seconds":
+                                   time.perf_counter() - t0}
+            except PoolAccessError as e:
+                # persists past the retry budget: the previous committed
+                # snapshot stays restorable
+                if self.monitor is not None:
+                    self.monitor.record_pool_error(i)
+                rec["snapshot_error"] = str(e)
+        if self.ctl is None:
+            return rec, None
+        mon = self.monitor
+        landed = mon.pulse(self.rank, i)
+        own = mon.pool_errors_step
+        got = _gather((own, landed))
+        # every rank's monitor folds every rank's pool errors (after the
+        # gather, every rank's beat of this step has landed or failed)
+        folded = sum(g[0] for g in got)
+        mon.pool_errors_step = folded
+        rp = self.ctl.step(i, timings=timings, pulse=False)
+        verdicts = [[f.kind, f.rank, f.link, f.step]
+                    for f in mon.failures if f.step == i]
+        mine = (verdicts, plan_sha256(rp.plan) if rp is not None else None,
+                rp.describe() if rp is not None else None)
+        every = _gather(mine)
+        if any(g != every[0] for g in every):
+            raise RuntimeError(f"step {i}: the ranks' verdicts differ: "
+                               f"{every}")
+        rec.update({"pool_errors": own,
+                    "pool_errors_folded": folded,
+                    "pulses_landed": [g[1] for g in got],
+                    "verdicts": verdicts,
+                    # the samples the monitor took (the same on every rank)
+                    "timings": timings if self.rank == 0 else None})
+        if rp is not None:
+            rec["recovery"] = {"reason": rp.reason, "plan_sha256": mine[1]}
+        return rec, rp
+
+    def recover(self, i: int, rp, params, opt) -> tuple:
+        """Apply ``rp`` on the mesh the ranks keep and roll every rank
+        back to the newest step every rank committed.  Returns (the
+        recovery record, the restored AdamW state or None, the data step
+        the restored snapshot had consumed or None)."""
+        if self.running is not None:
+            self.running = mesh_topology(rp.topology, self.running)
+            set_active_topology(self.running)
+            if self.tcfg.backend == "auto":
+                tuner_runtime.set_active_plan(
+                    mesh_plan(rp.plan, rp.topology, self.running))
+        dead = self.monitor.dead_ranks()
+        if self.fp is not None:
+            for d in dead:
+                self.fp.replace(d)
+        store = self.region.store if self.r.pool_ckpt_interval > 0 else None
+        snap = store.common_latest() if store is not None else None
+        died = {f.rank for f in rp.failures if f.kind == "rank_death"}
+        fault_steps = [e.step for e in (self.fp.events if self.fp else ())
+                       if e.kind == "rank_death" and e.rank in died]
+        rec = {"step": i, "reason": rp.reason, "dead_ranks": dead,
+               "topology": rp.topology.to_json(),
+               "running_topology": None if self.running is None
+               else self.running.to_json(),
+               "snapshot_step": snap,
+               "committed_by_rank": [store.committed(k) for k in
+                                     range(self.ctx.nranks)]
+               if store is not None else None,
+               "steps_lost": self.ctl.steps_lost(min(fault_steps), i, snap)
+               if fault_steps else None,
+               "plan_epoch": tuner_runtime.plan_epoch(),
+               "plan": rp.plan.to_json() if self.rank == 0 else None}
+        new_opt = data_step = None
+        if snap is not None:
+            t0 = time.perf_counter()
+            state = _state_tree(params, opt)
+            restored, meta = store.restore(state, step=snap, out=state)
+            new_opt = AdamWState(step=int(restored["opt"]["step"][0]),
+                                 mu=opt.mu, nu=opt.nu)
+            data_step = int(meta["data_step"])
+            rec["restore_seconds"] = time.perf_counter() - t0
+            self.log(f"step {i:5d} resume: rolled back to pool snapshot "
+                     f"step {snap} ({i - snap} steps of rollback)",
+                     flush=True)
+        self.recoveries.append(rec)
+        return rec, new_opt, data_step
+
+    def finish(self, spec: RunSpec) -> dict:
+        """The run's report (the reference's: re-plans, dead ranks,
+        degraded links, faults injected), the fault hook removed, the
+        region unmapped, the registry and the spec's topology restored."""
+        out: dict = {"recoveries": self.recoveries}
+        if self.fp is not None:
+            self.fp.uninstall()
+            out["faults_injected"] = [[s, d] for s, d in self.fp.injected]
+        if self.ctl is not None:
+            rep = self.ctl.report()
+            out.update(replans=rep["replans"],
+                       dead_ranks=rep["monitor"]["dead_ranks"],
+                       degraded_links=rep["monitor"]["degraded_links"],
+                       failures=rep["monitor"]["failures"])
+        if self.region is not None:
+            t0 = time.perf_counter()
+            self.region.close()
+            out.update(state_bytes=self.state_bytes,
+                       capacity_bytes=self.capacity, open_s=self.open_s,
+                       close_s=time.perf_counter() - t0)
+        tuner_runtime.clear_rank_liveness()
+        if self.activated or self.recoveries:
+            tuner_runtime.clear_active_plan()
+        set_active_topology(spec.topology)
         return out
 
 
@@ -823,6 +1129,9 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
     obs = _RankObs(ctx, spec, tcfg) if spec.obs is not None else None
     if obs is not None:
         tcfg = obs.tcfg
+    res = _RankResil(ctx, spec, tcfg) if spec.resil is not None else None
+    if res is not None:
+        tcfg = res.tcfg
     mesh = make_host_mesh(spec.mesh(), ctx, pools=tcfg.backend != "ring",
                           topology=spec.topology)
     stage_axis = None
@@ -855,7 +1164,11 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     opt = adamw_init(params)
-    data = iter(SyntheticTokens(cfg, batch=spec.batch, seq=spec.seq))
+    batches = SyntheticTokens(cfg, batch=spec.batch, seq=spec.seq)
+    data = iter(batches)
+    pos = 0                           # the index of the batch data yields
+    if res is not None:
+        res.open(params, opt)
     out = {"steps": [], "grads": None, "params": None, "layout": None,
            "profile": None, "init_s": init_s, "capture_s": 0.0}
 
@@ -870,7 +1183,11 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
 
     t_run = time.perf_counter()
     n_steps = min(spec.steps, tcfg.total_steps)
-    for i, gb in zip(range(n_steps), data):
+    for i in range(n_steps):
+        fresh = res.begin_step(i, obs.emu if obs is not None else None) \
+            if res is not None else None
+        gb, data_step = next(data), pos
+        pos += 1
         batch = to_dev(gb)
         for f in KERNEL_COUNTERS.values():
             f.launches = 0
@@ -909,12 +1226,43 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
         if obs is not None:
             rec["obs"] = obs.end_step(i, step_s, loss, mine, snap, epoch,
                                       last=i == n_steps - 1)
+        if res is not None:
+            rec["data_step"] = data_step
+            rec["faults"] = fresh
+            rec["resilience"], rp = res.end_step(
+                i, data_step, params, opt,
+                obs.samples if obs is not None else None)
+            if rp is not None:
+                rollback, new_opt, restored = res.recover(i, rp, params, opt)
+                rec["resilience"]["rollback"] = rollback
+                if new_opt is not None:
+                    opt = new_opt
+                    # the data rolls back with the state: the next step
+                    # replays the batch after the snapshot's
+                    data = iter(batches)
+                    for _ in range(restored + 1):
+                        next(data)
+                    pos = restored + 1
+                # rebuild the step, as the reference re-traces it: auto
+                # resolves through the recovery plan the registry serves
+                step, pspecs, pc = make_sharded_train_step(
+                    cfg, tcfg, mesh, dp_axis=dp_axes(mesh),
+                    timed=obs is not None and obs.timed)
+                if obs is not None and obs.online is not None:
+                    # restart measured feedback from the recovery plan
+                    o = spec.obs
+                    obs.online = tuner.OnlineTuner(
+                        tuner_runtime.get_active_plan(),
+                        retune_interval=o.retune_interval,
+                        decay=o.ewma_decay, explore_eps=o.explore_eps)
         out["steps"].append(rec)
         if spec.capture_grads and i == 0:
             out["grads"] = {"/".join(p): x.grad.detach().cpu().numpy()
                             for p, x in tree.leaves_with_paths(params)}
     if obs is not None:
         out["obs"] = obs.finish(n_steps, time.perf_counter() - t_run)
+    if res is not None:
+        out["resilience"] = res.finish(spec)
     if spec.capture_params or stage:
         t_cap = time.perf_counter()
         if spec.capture_params:
@@ -1084,6 +1432,12 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
                 k: v for k, v in o["retune"].items() if k != "plan"}
                 for o in recs]
             s["retune_rank0"] = recs[0]["retune"]
+    if per_rank[0]["steps"] and "resilience" in per_rank[0]["steps"][0]:
+        for i, s in enumerate(steps):
+            recs = [r["steps"][i] for r in per_rank]
+            s["data_step"] = recs[0]["data_step"]
+            s["faults"] = recs[0]["faults"]
+            s["resilience_per_rank"] = [r["resilience"] for r in recs]
     out = {"backend": tcfg.backend, "fuse_kernels": tcfg.fuse_kernels,
            "microbatches": tcfg.microbatches, "prefetch": tcfg.prefetch,
            "steps": steps,
@@ -1099,6 +1453,9 @@ def _merge(per_rank: list, tcfg: TrainConfig) -> dict:
     if "obs" in per_rank[0]:
         out["obs"] = per_rank[0]["obs"]
         out["obs_per_rank"] = [r["obs"] for r in per_rank]
+    if "resilience" in per_rank[0]:
+        out["resilience"] = per_rank[0]["resilience"]
+        out["resilience_per_rank"] = [r["resilience"] for r in per_rank]
     return out
 
 
@@ -1119,7 +1476,8 @@ def choose_placement(args, topology: Topology, dp: int, tp: int) -> tuple:
 
 def check_pipeline_args(args, dp: int, tp: int) -> None:
     """``--pp-stages > 1``'s refusals: what the reference launcher
-    refuses with it that the port has (``--placement``), what the
+    refuses with it (``--placement``, ``--online-retune``, the per-call
+    timing sources, ``--resilience``, ``--fault-plan``), what the
     pipeline path cannot take (a model axis, ``--multi-pod``, a stack
     that is not uniform: ``uniform_stage_rows``' errors), ``--fuse-
     kernels`` (no FSDP gather to fuse), a stage count that does not
@@ -1129,6 +1487,8 @@ def check_pipeline_args(args, dp: int, tp: int) -> None:
                      (args.placement_from_dryrun, "--placement-from-dryrun"),
                      (args.multi_pod, "--multi-pod"),
                      (args.online_retune, "--online-retune"),
+                     (args.resilience, "--resilience"),
+                     (args.fault_plan, "--fault-plan"),
                      (args.timing_source != "step",
                       "--timing-source emulator/profiler")):
         if on:
@@ -1151,16 +1511,27 @@ def check_pipeline_args(args, dp: int, tp: int) -> None:
         raise SystemExit(str(e)) from None
 
 
+def resil_from_args(args) -> Optional[ResilSpec]:
+    """The run's ``ResilSpec`` (None when no flag of it is given); the
+    fault plan is parsed here, so a bad spec fails before a rank
+    starts."""
+    if args.pool_ckpt_interval < 0:
+        raise SystemExit("--pool-ckpt-interval must be >= 0")
+    if args.fault_plan:
+        try:
+            FaultPlan.parse(args.fault_plan)
+        except ValueError as e:
+            raise SystemExit(f"--fault-plan: {e}") from None
+    if not (args.resilience or args.fault_plan or args.pool_ckpt_interval):
+        return None
+    return ResilSpec(resilience=args.resilience,
+                     fault_plan=args.fault_plan or None,
+                     pool_ckpt_interval=args.pool_ckpt_interval)
+
+
 def obs_from_args(args, topology: Optional[Topology]) -> Optional[ObsSpec]:
     """The run's ``ObsSpec`` (None when no flag of it is given), with the
-    reference launcher's refusals, and ``--resilience``, ``--fault-plan``
-    and ``--pool-ckpt-interval``'s (not ported yet)."""
-    for on, flag in ((args.resilience, "--resilience"),
-                     (args.fault_plan, "--fault-plan"),
-                     (args.pool_ckpt_interval, "--pool-ckpt-interval")):
-        if on:
-            raise SystemExit(f"{flag} is not ported yet: it needs "
-                             f"resilience (ROADMAP queue 1, item 10b)")
+    reference launcher's refusals."""
     if args.online_retune and args.backend != "auto":
         raise SystemExit("--online-retune requires --backend auto")
     if (args.ewma_decay or args.explore_eps) and not args.online_retune:
@@ -1226,6 +1597,7 @@ def spec_from_args(args) -> RunSpec:
         topology = tuner.placed_topology(chosen, topology)
         placed = dict(shape=tuple(zip(names, sizes)), aliases=aliases)
     obs = obs_from_args(args, topology)
+    resil = resil_from_args(args)
     return RunSpec(arch=args.arch, smoke=args.smoke,
                    variants=(tcfg_from_args(args),), steps=args.steps,
                    batch=args.batch, seq=args.seq, dp=dp, tp=tp,
@@ -1233,7 +1605,7 @@ def spec_from_args(args) -> RunSpec:
                    multi_pod=args.multi_pod, topology=topology,
                    ckpt=args.ckpt, pp_stages=args.pp_stages,
                    pp_schedule=args.pp_schedule, pp_chunks=args.pp_chunks,
-                   obs=obs, **placed)
+                   obs=obs, resil=resil, **placed)
 
 
 def print_obs(run: dict, o: ObsSpec) -> None:
@@ -1268,6 +1640,46 @@ def print_obs(run: dict, o: ObsSpec) -> None:
         print(f"saved refined plan (v4) -> {o.plan_out} (+ "
               f"{os.path.splitext(o.plan_out)[0]}.timings.json, "
               f"{ob['samples_folded']} samples)", flush=True)
+
+
+def print_resil(run: dict) -> None:
+    """Each step's snapshots, beats, verdicts and recovery, then the
+    reference launcher's end-of-run report."""
+    for i, s in enumerate(run["steps"]):
+        rs = s["resilience_per_rank"]
+        snaps = [r.get("snapshot") for r in rs]
+        if any(snaps) or any("snapshot_error" in r for r in rs):
+            print(f"step {i:5d} pool snapshot (data step {s['data_step']}):"
+                  + "".join(
+                      f" rank {k} " + (f"{x['bytes']} B in {x['seconds']:.3f}"
+                                       f"s ({x['retries']} retries)"
+                                       if x else "failed")
+                      for k, x in enumerate(snaps)), flush=True)
+        r0 = rs[0]
+        if "verdicts" in r0:
+            if not all(r0["pulses_landed"]) or r0["pool_errors_folded"]:
+                print(f"step {i:5d} heartbeats landed "
+                      f"{r0['pulses_landed']}, pool errors "
+                      f"{r0['pool_errors_folded']}", flush=True)
+            for kind, rank, link, at in r0["verdicts"]:
+                what = f"rank {rank}" if rank is not None else \
+                    f"link {link}" if link is not None else "pool"
+                print(f"step {i:5d} confirmed {kind}({what}) on every rank",
+                      flush=True)
+        rb = r0.get("rollback")
+        if rb is not None:
+            print(f"step {i:5d} re-plan [{rb['reason']}] (plan "
+                  f"{r0['recovery']['plan_sha256'][:12]} on every rank); "
+                  f"committed by rank {rb['committed_by_rank']}, rolled back "
+                  f"to step {rb['snapshot_step']}, steps lost "
+                  f"{rb['steps_lost']}", flush=True)
+    rep = run["resilience"]
+    if "faults_injected" in rep:
+        print(f"faults injected: {len(rep['faults_injected'])}", flush=True)
+    if "replans" in rep:
+        print(f"resilience: {rep['replans']} re-plan(s), dead ranks "
+              f"{rep['dead_ranks']}, degraded links "
+              f"{rep['degraded_links']}", flush=True)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -1314,6 +1726,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
               f"({c['calls']} calls in step 0)", flush=True)
     if spec.obs is not None:
         print_obs(run, spec.obs)
+    if spec.resil is not None:
+        print_resil(run)
     print(f"ranks' wall {run['spawn_s']:.1f}s (params built "
           f"{run['init_s']:.1f}s, captured {run['capture_s']:.1f}s)"
           + (f", checkpoint assembled {run['assemble_s']:.1f}s, saved "

@@ -25,10 +25,9 @@ the plan itself (``TrainConfig.plan_path``).  The plan cache is a
 directory of this package's own: plans tuned here price the fused cells
 with the H100 roofline, so their ``predicted_time`` differs from the
 reference's under the same fingerprint, and the two caches must not
-share files.  The link-health registry is the reference's
-(``obs.health.HealthMonitor`` publishes, planners consult); its
-rank-liveness registry belongs to resilience and is not ported yet
-(ROADMAP queue 1, item 10b).
+share files.  The link-health registry and the rank-liveness registry are the
+reference's (``obs.health.HealthMonitor`` and
+``resilience.FailureMonitor`` publish, planners consult).
 """
 from __future__ import annotations
 
@@ -104,6 +103,39 @@ def degraded_links() -> list:
 
 def clear_link_health() -> None:
     _LINK_HEALTH.clear()
+
+
+# -- rank-liveness registry (resilience.FailureMonitor publishes) ----------
+#
+# Keyed by global rank -> the monitor's latest verdict for that rank
+# ({"alive", "last_beat_step", "confirmed_step", ...}).  Mirrors the
+# link-health registry: plan-shaped advice living next to the plan,
+# consulted by planners deriving survivor topologies and by launchers
+# deciding whether a re-plan is due.
+
+_RANK_LIVENESS: dict = {}
+
+
+def set_rank_liveness(rank: int, state: dict) -> None:
+    _RANK_LIVENESS[int(rank)] = dict(state)
+
+
+def get_rank_liveness(rank: "int | None" = None):
+    """One rank's state dict (or None), or a copy of the whole registry
+    when called without a rank."""
+    if rank is None:
+        return {r: dict(v) for r, v in _RANK_LIVENESS.items()}
+    return _RANK_LIVENESS.get(int(rank))
+
+
+def dead_ranks() -> list:
+    """Ranks the failure monitor has *confirmed* dead, sorted."""
+    return sorted(r for r, v in _RANK_LIVENESS.items()
+                  if not v.get("alive", True))
+
+
+def clear_rank_liveness() -> None:
+    _RANK_LIVENESS.clear()
 
 
 def activate_plan_file(path: str, *,

@@ -5,6 +5,8 @@ skips without a card.  Imports no JAX, so it runs where JAX is absent:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1209,3 +1211,42 @@ def test_frontend_smoke_on_card_matches_cpu(cuda, arch):
         torch.testing.assert_close(grads[1][k], w, rtol=2e-4,
                                    atol=2e-5 * float(w.abs().max()),
                                    msg=k)
+
+
+def test_pool_store_round_trip_through_pinned_memory(cuda, tmp_path):
+    """``PoolCheckpointStore`` in a ``PoolRegion`` on the card: this
+    rank's partition pinned (``cudaHostRegister``), card tensors
+    snapshotted with device-to-host copies and restored into card
+    tensors in place; the slot's image is bitwise the image a CPU store
+    writes of the same values, and the restored tensors equal the
+    originals bitwise."""
+    from repro_torch.core.pool import create_backing
+    from repro_torch.training.checkpoint import (PoolCheckpointStore,
+                                                 PoolRegion)
+    tree = {"params": {"w": _randn((1000, 257), torch.float32, cuda),
+                       "b": _randn((3,), torch.float32, cuda)},
+            "opt": {"step": torch.tensor([7], device=cuda)}}
+    cap = 2 * (4 * (1000 * 257 + 3) + 8 + (1 << 20)) + 4096
+    path, fd = create_backing(PoolRegion.total_bytes(2, cap))
+    try:
+        region = PoolRegion(path, 2, 1, cap, cuda)
+        rep = region.store.snapshot(5, tree, meta={"data_step": 5})
+        cpu = PoolCheckpointStore(cap)
+        cpu_tree = {"params": {k: v.cpu() for k, v in
+                               tree["params"].items()},
+                    "opt": {"step": tree["opt"]["step"].cpu()}}
+        assert cpu.snapshot(5, cpu_tree, meta={"data_step": 5}) == rep
+        assert region.store.image(5) == cpu.image(5)
+        out = {"params": {k: torch.zeros_like(v) for k, v in
+                          tree["params"].items()},
+               "opt": {"step": torch.zeros_like(tree["opt"]["step"])}}
+        got, meta = region.store.restore(out, out=out)
+        torch.cuda.synchronize()
+        assert meta == {"data_step": 5}
+        for k in tree["params"]:
+            assert got["params"][k] is out["params"][k]
+            assert torch.equal(got["params"][k], tree["params"][k])
+        assert int(got["opt"]["step"][0]) == 7
+        region.close()
+    finally:
+        os.close(fd)

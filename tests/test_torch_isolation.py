@@ -185,8 +185,9 @@ def test_serve_launcher_activates_the_topology(capsys):
 def test_unported_arch_names_the_roadmap():
     """whisper-tiny and phi-3-vision-4.2b resolve (ROADMAP queue 1,
     item 8 is ported), every reference id does, and an unknown id raises
-    naming what is still to port (items 10b-11; item 9, the pipeline, and
-    item 10a, observability and online re-tuning, are ported)."""
+    naming what is still to port (item 11; item 9, the pipeline, and
+    items 10a and 10b, observability, online re-tuning and resilience,
+    are ported)."""
     from repro.configs import ALL_IDS
     from repro_torch.configs import get_config
     for arch in ("whisper-tiny", "phi-3-vision-4.2b"):
@@ -194,10 +195,10 @@ def test_unported_arch_names_the_roadmap():
         assert get_config(arch, smoke=True).frontend != "text"
     for arch in ALL_IDS:
         get_config(arch)
-    with pytest.raises(KeyError, match="ROADMAP queue 1.*item 10b"
-                       ".*item 11") as err:
+    with pytest.raises(KeyError, match="ROADMAP queue 1.*item 11") as err:
         get_config("no-such-model")
     assert "item 9" not in str(err.value)
+    assert "item 10b" not in str(err.value)
 
 
 def test_train_entry_points_without_device_refuse_cpu_fallback():
@@ -221,13 +222,22 @@ def test_train_launcher_rejects_unported_flags_and_tp():
     assert train.spec_from_args(ap.parse_args(
         ["--arch", "llama3.2-1b", "--device", "cpu", "--backend", "auto",
          "--plan", "plan.json", "--online-retune"])).obs.online_retune
-    # resilience is not ported yet (ROADMAP queue 1, item 10b): its flags
-    # parse and the run's spec refuses them, naming the item
-    for extra in (["--resilience"], ["--fault-plan", "rank_death@2:rank=1"],
-                  ["--pool-ckpt-interval", "2"]):
-        with pytest.raises(SystemExit, match="item 10b"):
-            train.spec_from_args(ap.parse_args(
-                ["--arch", "llama3.2-1b", "--device", "cpu", *extra]))
+    # resilience is ported: its flags parse and reach the run's spec, and
+    # the pipeline refuses the two the reference refuses with it
+    for extra, want in (
+            (["--resilience"], train.ResilSpec(resilience=True)),
+            (["--fault-plan", "rank_death@2:rank=1"],
+             train.ResilSpec(fault_plan="rank_death@2:rank=1")),
+            (["--pool-ckpt-interval", "2"],
+             train.ResilSpec(pool_ckpt_interval=2))):
+        assert train.spec_from_args(ap.parse_args(
+            ["--arch", "llama3.2-1b", "--device", "cpu", *extra])).resil \
+            == want
+        if extra[0] != "--pool-ckpt-interval":
+            with pytest.raises(SystemExit, match="--pp-stages > 1"):
+                train.spec_from_args(ap.parse_args(
+                    ["--arch", "llama3.2-1b", "--device", "cpu",
+                     "--pp-stages", "2", *extra]))
     # --ckpt is ported: it parses and reaches the run's spec
     assert train.spec_from_args(ap.parse_args(
         ["--arch", "llama3.2-1b", "--ckpt", "ckpt_dir", "--device",

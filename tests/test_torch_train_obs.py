@@ -273,9 +273,11 @@ def test_launcher_refusals():
               "--pp-stages", "2", "--batch", "8"], "--timing-source"),
             (["--backend", "auto", "--timing-source", "profiler",
               "--topology", "pod:cxl,data:cxl:3+1"], "grouped"),
-            (["--resilience"], "item 10b"),
-            (["--fault-plan", "rank_death@1:rank=0"], "item 10b"),
-            (["--pool-ckpt-interval", "3"], "item 10b")):
+            (["--resilience", "--pp-stages", "2", "--batch", "8"],
+             "--resilience"),
+            (["--fault-plan", "rank_death@1:rank=0", "--pp-stages", "2",
+              "--batch", "8"], "--fault-plan"),
+            (["--pool-ckpt-interval", "-3"], "--pool-ckpt-interval")):
         with pytest.raises(SystemExit, match=match):
             train.spec_from_args(ap.parse_args(base + extra))
     spec = train.spec_from_args(ap.parse_args(base + [
