@@ -171,8 +171,9 @@ Phases (each fails the run if its check fails):
                  ``--topology data:cxl,model:cxl``: the smoke model on
                  the card against the CPU (losses of 3 steps, rtol 2e-4),
                  then Llama-3.2-1B at full width and depth under cxl
-                 +fused (profiled), cxl (2 steps) and auto (3 steps, the
-                 re-tuned run's reference) on a plan that
+                 +fused (3 steps, no profiled step since PR 30), cxl (2
+                 steps) and auto (3 steps, the re-tuned run's reference)
+                 on a plan that
                  ``launch.tune --topology data:cxl,model:cxl --nranks 2``
                  writes: step-0 losses within 1e-4 of the flat cxl+fused
                  run's, every loss falls, cxl moves pool bytes at both
@@ -202,6 +203,22 @@ Phases (each fails the run if its check fails):
                  choices) on every rank every step; the calibration
                  table, ``calibration_drift``, the regret, the swaps
                  and the step times against tp_auto's printed;
+                 and, last in the same spawn, ``decode_tp``: Llama-3.2-1B
+                 decoded at full width over (data, model) = (2, 2) under
+                 cxl through the dry-run's ``decode_32k`` step
+                 (``launch.dryrun.build_step`` with real tensors: f32
+                 params from the seed, TP-resident, an f32 cache), a
+                 global batch of 4, a 1028-token prompt (the prefill
+                 reaches flash_attention and pads to max_seq 2064, 1032
+                 positions a model rank), 8 decode steps writing
+                 positions 1028-1035 across model rank 0's segment into
+                 rank 1's: every step's logits within rtol 2e-4, atol
+                 2e-4 of the port's tp = 1 prefill and decode of the
+                 same data rank's batch on the card (teacher-forced with
+                 its tokens), exactly flash_attention 16, rms_norm 297
+                 and chunked_reduce 553 (all at N = 2) launches on every
+                 rank, and rank 0's ledger of every decode step equal to
+                 the meta-device dry-run record of the same step;
 7d. train grouped - a grouped (ragged) data axis, ``--topology
                  pod:cxl,data:cxl:3+1`` (the 4 ranks as a node of three
                  beside a lone node on one flat data axis): the smoke
@@ -258,8 +275,9 @@ Phases (each fails the run if its check fails):
                  parallel over model (each row's dispatch and combine an
                  AllToAll through the model level's pool), FSDP over data:
                  the smoke MoE card vs CPU (rtol 2e-4), then cxl+fused
-                 (3 steps, writing ``train --ckpt``; not profiled, the
-                 time limit), cxl and auto (2 steps each, 7c's plan):
+                 (writing ``train --ckpt``; not profiled, the time
+                 limit), cxl and auto (2 steps each since PR 30, 7c's
+                 plan):
                  step-0 losses within 1e-4 of each other, every loss
                  falls, both levels' pools move bytes,
                  the kernels of 7b on every rank every step, every auto
@@ -1909,7 +1927,8 @@ def check_auto_choices(run: dict, plan, topology=None,
 def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
                     profile: bool = True, short: tuple = (),
                     arch: str = "llama3.2-1b", archs: dict = None,
-                    ckpt: dict = None, unprofiled: tuple = ()) -> dict:
+                    ckpt: dict = None, unprofiled: tuple = (),
+                    after: tuple = None):
     """``arch`` (Llama-3.2-1B) at full width and depth through the
     launcher's flags: each of ``runs`` (label -> its flags, after
     ``common``; a later flag overrides ``common``'s) is one variant of a
@@ -1922,7 +1941,9 @@ def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
     ``ckpt`` (its label -> directory) writes its checkpoint there
     (``train --ckpt``: its record holds ``ckpt``, ``assemble_s``,
     ``save_s`` and ``global_params``); ``nvidia-smi`` is sampled over
-    all."""
+    all.  With ``after`` = (fn, args) every rank then runs ``fn(ctx,
+    *args)`` in the same spawn (``train.run_many``), and the return is
+    (the runs, its results in rank order)."""
     import dataclasses
 
     from repro_torch.launch import train
@@ -1953,8 +1974,9 @@ def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
     held = torch.cuda.memory_reserved() / 2**30
     t0 = time.perf_counter()
     with SmiSampler() as smi:
-        merged = train.run_many(specs)
+        merged = train.run_many(specs, after)
     wall = time.perf_counter() - t0
+    after_out = merged.pop() if after is not None else None
     log(f"[train] {' + '.join(runs)}: {wall:.1f}s in one spawn of the "
         f"ranks ({held:.2f} GiB of the card held by this process)")
     got = {label: run for (_, labels), spec_runs in zip(groups, merged)
@@ -1963,7 +1985,7 @@ def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
     for label in runs:
         got[label]["group_wall_s"] = wall
         out[label] = _report_run(label, got[label], smi)
-    return out
+    return out if after is None else (out, after_out)
 
 
 def _report_run(label: str, run: dict, smi) -> dict:
@@ -2275,7 +2297,8 @@ def check_ckpt_restores(run: dict, arch: str, tp: int, name: str) -> dict:
     cfg = get_config(arch)
     nbytes = os.path.getsize(os.path.join(run["ckpt"], "arrays.npz"))
     t0 = time.perf_counter()
-    got = checkpoint.restore(str(CKPT_DIR / name), TRAIN_STEPS, {
+    step = int(pathlib.Path(run["ckpt"]).name.removeprefix("step_"))
+    got = checkpoint.restore(str(CKPT_DIR / name), step, {
         "params": model.abstract_params(cfg, tp=tp)})["params"]
     restore_s = time.perf_counter() - t0
     bad = [p for p, x in tree.leaves_with_paths(got)
@@ -2709,6 +2732,220 @@ RETUNE_BASE = "retune_tp"
 RETUNE_KERNELS = ("rms_norm", "rms_norm_vjp", "flash_attention")
 
 
+# decode_tp: the sequence-sharded decode of Llama-3.2-1B at full width
+# over (data, model) = (2, 2) under cxl, in 7c's spawn: the dry-run's
+# decode_32k step (launch.dryrun.build_step) at a global batch of 4 and a
+# cache of 2064 positions (1032 a model rank), after a prefill of 1028
+# (flash_attention; the prefill pads), then 8 decode steps that write
+# positions 1028-1035, across model rank 0's segment into rank 1's
+DECODE_TP_ARCH = "llama3.2-1b"
+DECODE_TP_BATCH, DECODE_TP_PROMPT, DECODE_TP_MAX_SEQ = 4, 1028, 2064
+DECODE_TP_STEPS = 8
+DECODE_TP_TOL = (2e-4, 2e-4)      # rtol, atol of every step's logits
+DECODE_TP_SEED = 0
+
+
+def decode_tp_launches(n_layers: int) -> dict:
+    """Every rank's exact launches over the prefill and the decode steps:
+    flash_attention once a row of the prefill (L = 1028 >= 1024);
+    rms_norm twice a row and once more (the final norm) a forward;
+    chunked_reduce at N = 2 once a model-level AllReduce (cxl's two-phase
+    AllReduce sums its partials once): the prefill's embedding and a
+    row's attention and FFN outputs, a decode step's embedding and a
+    row's three attention AllReduces (the weights' sum, the weighted
+    values, the output projection) and its FFN's.  The global max
+    (``tp_psum_max``) and the gathers reduce nothing."""
+    steps = DECODE_TP_STEPS
+    return {"flash_attention": n_layers,
+            "rms_norm": (2 * n_layers + 1) * (1 + steps),
+            "chunked_reduce": (1 + 2 * n_layers)
+            + steps * (1 + 4 * n_layers)}
+
+
+def _ledger_cells(snap: dict) -> dict:
+    """The parts of a ledger that the dry-run's record must equal."""
+    return {k: snap.get(k) for k in ("wire_bytes", "collective_calls",
+                                     "level_wire_bytes", "level_counts")}
+
+
+def decode_tp_rank(ctx, topology_spec: str) -> dict:
+    """One rank of ``decode_tp`` (``train.run_many``'s ``after``): the
+    port's tp = 1 prefill and greedy decode of this data rank's batch on
+    the card, then the same through the dry-run's step at tp = 2,
+    teacher-forced with the tp = 1 tokens, each step's logits held to
+    tp = 1's; the kernels' launches of the tp = 2 run only; every decode
+    step's ledger; each decode step's seconds at both tp."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ledger
+    from repro_torch.core.topology import parse_topology, set_active_topology
+    from repro_torch.kernels import chunked_reduce as cr
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model
+    from repro_torch.models.pcontext import UNSHARDED
+    t_start = time.perf_counter()
+    dev = ctx.device
+    topo = parse_topology(topology_spec)
+    set_active_topology(topo)
+    mesh = make_host_mesh((("data", TP_DP), ("model", TP_TP)), ctx,
+                          topology=topo)
+    f32 = torch.float32
+    cfg = get_config(DECODE_TP_ARCH)
+    b = DECODE_TP_BATCH // TP_DP
+    gen = torch.Generator(dev).manual_seed(DECODE_TP_SEED + 1
+                                           + mesh["data"].rank)
+    prompt = torch.randint(0, cfg.vocab_size, (b, DECODE_TP_PROMPT),
+                           generator=gen, device=dev)
+
+    def timed(fn, *args):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize(dev)
+        return out, time.perf_counter() - t0
+
+    # tp = 1: the same GLOBAL params from the seed, the whole model
+    params1 = model.init_params(cfg, torch.Generator(dev).manual_seed(
+        DECODE_TP_SEED), dev, f32, tp=TP_TP)
+    logits, cache1 = model.prefill(params1, {"tokens": prompt}, cfg,
+                                   UNSHARDED, DECODE_TP_MAX_SEQ,
+                                   cache_dtype=f32)
+    want_prefill = logits[:, -1].float().cpu()
+    toks, want, secs1 = [], [], []
+    tok = logits[:, -1:].argmax(-1)
+    for i in range(DECODE_TP_STEPS):
+        toks.append(tok)
+        pos = torch.tensor(DECODE_TP_PROMPT + i, device=dev)
+        (logits, cache1), s = timed(model.decode_step, params1, cache1, tok,
+                                    pos, cfg, UNSHARDED)
+        secs1.append(s)
+        want.append(logits.float().cpu())
+        tok = logits.argmax(-1)
+    del params1, cache1, logits
+    torch.cuda.empty_cache()
+
+    # tp = 2 through the dry-run's step, with real tensors
+    fn, (params, cache, _, _), _ = dryrun.build_step(
+        DECODE_TP_ARCH, "decode_32k", mesh, "cxl",
+        seq_len=DECODE_TP_MAX_SEQ, global_batch=DECODE_TP_BATCH,
+        device=dev, param_dtype=f32, cache_dtype=f32, seed=DECODE_TP_SEED)
+    pc = fn.pc
+    del cache
+    torch.cuda.synchronize(dev)
+    for f in (fa.flash_attention, rn.rms_norm, cr.chunked_reduce):
+        f.launches = 0
+    cr.chunked_reduce.launches_by_n = {}
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompt}, cfg, pc,
+                                  DECODE_TP_MAX_SEQ, cache_dtype=f32)
+    torch.cuda.synchronize(dev)
+    prefill_s = time.perf_counter() - t0
+    v_loc = logits.shape[-1]
+    lo = pc.tp_index() * v_loc
+    hi = min(lo + v_loc, cfg.vocab_size)
+    errs = []
+    rel = []
+
+    def held(got, ref):
+        d = (got - ref).abs()
+        errs.append(float(d.max()))
+        rel.append(float((d / (DECODE_TP_TOL[1]
+                               + DECODE_TP_TOL[0] * ref.abs())).max()))
+
+    held(logits[:, -1, :hi - lo].float().cpu(), want_prefill[:, lo:hi])
+    secs2, snaps = [], []
+    for i in range(DECODE_TP_STEPS):
+        pos = torch.tensor(DECODE_TP_PROMPT + i, device=dev)
+        ledger.reset()
+        (logits, cache), s = timed(fn, params, cache, toks[i], pos)
+        snaps.append(_ledger_cells(ledger.snapshot()))
+        secs2.append(s)
+        held(logits.float().cpu(), want[i])
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "rms_norm": rn.rms_norm.launches,
+                "chunked_reduce": cr.chunked_reduce.launches,
+                "chunked_reduce_by_n": dict(
+                    cr.chunked_reduce.launches_by_n)}
+    finite = bool(torch.isfinite(logits).all())
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    set_active_topology(None)
+    return {"rank": ctx.rank, "max_abs_err": max(errs),
+            "max_tol_ratio": max(rel), "finite": finite,
+            "launches": launches, "ledgers": snaps,
+            "prefill_s": prefill_s, "decode_s_tp1": secs1,
+            "decode_s_tp2": secs2,
+            "cache_positions_a_rank": DECODE_TP_MAX_SEQ // TP_TP,
+            "seconds": time.perf_counter() - t_start}
+
+
+def decode_tp_record() -> dict:
+    """The meta-device dry-run record of the same decode step: the same
+    shapes, mesh, backend, topology and dtypes (f32 params and cache)."""
+    from repro_torch.core.topology import parse_topology, set_active_topology
+    from repro_torch.launch import dryrun
+    set_active_topology(parse_topology(TP_TOPOLOGY))
+    try:
+        rec = dryrun.run_one(DECODE_TP_ARCH, "decode_32k", False, "cxl",
+                             None, mesh_shape=TP_MESH,
+                             seq_len=DECODE_TP_MAX_SEQ,
+                             global_batch=DECODE_TP_BATCH,
+                             param_dtype=torch.float32,
+                             cache_dtype=torch.float32)
+    finally:
+        set_active_topology(None)
+    if rec["status"] != "ok":
+        fail(f"decode_tp: the dry-run record failed: {rec.get('error')}")
+    return rec
+
+
+def check_decode_tp(per_rank: list, rec: dict) -> dict:
+    """decode_tp's checks: on every rank every step's logits within
+    ``DECODE_TP_TOL`` of tp = 1 (and finite), the exact launches of
+    :func:`decode_tp_launches` (chunked_reduce all at N = 2), and rank
+    0's ledger of every decode step equal to the dry-run record's."""
+    from repro_torch.configs import get_config
+    want = decode_tp_launches(get_config(DECODE_TP_ARCH).n_layers)
+    for r in per_rank:
+        if not r["finite"] or r["max_tol_ratio"] > 1.0:
+            fail(f"decode_tp: rank {r['rank']}'s logits off tp = 1 by "
+                 f"{r['max_abs_err']:.3e} ({r['max_tol_ratio']:.3f} of "
+                 f"the tolerance rtol {DECODE_TP_TOL[0]}, atol "
+                 f"{DECODE_TP_TOL[1]})")
+        got = {k: r["launches"][k] for k in want}
+        if got != want or set(r["launches"]["chunked_reduce_by_n"]) != {2}:
+            fail(f"decode_tp: rank {r['rank']} launched {r['launches']}, "
+                 f"want {want} (chunked_reduce at N = 2 only)")
+    meta = _ledger_cells(rec["ledger"])
+    for i, snap in enumerate(per_rank[0]["ledgers"]):
+        if snap != meta:
+            fail(f"decode_tp: rank 0's ledger of decode step {i} "
+                 f"{json.dumps(snap)} is not the dry-run record's "
+                 f"{json.dumps(meta)}")
+    med = lambda xs: float(np.median(xs))          # noqa: E731
+    out = {"launches_a_rank": want,
+           "max_abs_err": max(r["max_abs_err"] for r in per_rank),
+           "max_tol_ratio": max(r["max_tol_ratio"] for r in per_rank),
+           "decode_step_ms_tp1": [1e3 * med(r["decode_s_tp1"])
+                                  for r in per_rank],
+           "decode_step_ms_tp2": [1e3 * med(r["decode_s_tp2"])
+                                  for r in per_rank],
+           "prefill_s_tp2": [r["prefill_s"] for r in per_rank],
+           "check_s": max(r["seconds"] for r in per_rank),
+           "ledger": meta, "record_trace_s": rec["lower_s"],
+           "record_memory": rec["memory"], "record_cost": rec["cost"]}
+    log(f"[decode_tp] {DECODE_TP_ARCH} (data, model) = ({TP_DP}, {TP_TP}) "
+        f"cxl: {DECODE_TP_STEPS} steps, logits within "
+        f"{out['max_tol_ratio']:.3f} of the tolerance (max |d| "
+        f"{out['max_abs_err']:.3e}); decode step ms tp1 "
+        f"{out['decode_step_ms_tp1']} tp2 {out['decode_step_ms_tp2']}; "
+        f"launches a rank {want}; rank 0's ledger = the dry-run record's; "
+        f"{out['check_s']:.1f}s in the spawn")
+    return out
+
+
 def retune_flags(plan_path: str) -> list:
     """``tp_auto_retune``'s flags after 7c's: auto on 7c's plan, re-tuned
     at every step boundary from per-call samples, with every output."""
@@ -3058,8 +3295,9 @@ def train_phase() -> dict:
     # (7e's Granite-3.0-MoE runs and 7h's Zamba2 runs ride the same
     # spawn of the ranks: the same mesh and topology, on this plan; 7j's
     # pipeline runs too: (stage, data) has the same rank groups, its own
-    # topology and plan)
-    tp = full_width_runs({
+    # topology and plan; and decode_tp after them)
+    decode_rec = decode_tp_record()
+    tp, decode_ranks = full_width_runs({
         "tp_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "tp_cxl": ["--backend", "cxl"],
         "tp_auto": ["--backend", "auto", "--plan", tp_plan_path],
@@ -3076,14 +3314,17 @@ def train_phase() -> dict:
         "pp_auto": ["--backend", "auto", "--plan", pp_plan_path,
                     *PP_FLAGS]},
         ["--topology", TP_TOPOLOGY], mesh=TP_MESH,
-        short=("tp_cxl", "moe_cxl", "moe_auto", "hybrid_tp_cxl",
-               "hybrid_tp_auto", "hybrid_tp_cxl_fused", "pp_auto"),
+        short=("tp_cxl", "moe_cxl_fused", "moe_cxl", "moe_auto",
+               "hybrid_tp_cxl", "hybrid_tp_auto", "hybrid_tp_cxl_fused",
+               "pp_auto"),
         archs={**dict.fromkeys(MOE_RUNS, MOE_ARCH),
                **dict.fromkeys(HYBRID_TP_RUNS, HYBRID_ARCH)},
         ckpt={"moe_cxl_fused": str(CKPT_DIR / "moe"),
               "pp_cxl": str(CKPT_DIR / "pp")},
-        unprofiled=("tp_auto_retune", "moe_cxl_fused", "hybrid_tp_cxl_fused",
-                    "pp_cxl"))
+        unprofiled=("tp_cxl_fused", "tp_auto_retune", "moe_cxl_fused",
+                    "hybrid_tp_cxl_fused", "pp_cxl"),
+        after=(decode_tp_rank, (TP_TOPOLOGY,)))
+    out["decode_tp"] = check_decode_tp(decode_ranks, decode_rec)
     moe = {k: tp.pop(k) for k in MOE_RUNS}
     hybrid_tp_runs = {k: tp.pop(k) for k in HYBRID_TP_RUNS}
     pp = {k: tp.pop(k) for k in PP_RUNS}
@@ -3608,6 +3849,7 @@ def main() -> int:
             fail(f"the kernel API path never launched the {name} kernel")
 
     # 9. output lines ----------------------------------------------------
+    decode_tp = record["train"]["decode_tp"]
     kernels = []
     for name in KERNELS:
         t = timing[name]
@@ -3683,6 +3925,10 @@ def main() -> int:
                              "tp_backward")}}
         if name in api_launches:
             by_path["kernel_api"] = api_launches[name]
+        if name in decode_tp["launches_a_rank"]:
+            # every rank launched exactly these (check_decode_tp)
+            by_path["serve_tp"] = TP_DP * TP_TP * \
+                decode_tp["launches_a_rank"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1],

@@ -40,10 +40,7 @@ ALL_IDS = list(_MODULES)
 
 def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     if arch_id not in _MODULES:
-        raise KeyError(
-            f"unknown arch {arch_id!r}; ported: {ARCH_IDS}.  Still to "
-            f"port (ROADMAP queue 1): the dry-run "
-            f"and sharded decode (item 11)")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.SMOKE if smoke else mod.CONFIG

@@ -84,7 +84,6 @@ import time
 from typing import Mapping, Optional, Sequence, Union
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import ledger
 from repro_torch.core import mesh_collectives as mc
@@ -170,7 +169,8 @@ class Communicator:
     def _joint(self, levels: tuple) -> mc.AxisGroup:
         """One flat group of all the ranks of a tuple axis, for the fused
         ring AllReduce.  The mesh holds the group under the tuple of
-        names; a tuple that spans every rank is the default group."""
+        names; a tuple that spans every rank of the mesh is the default
+        group."""
         names = tuple(ax.name for ax in levels)
         got = self.axes.get(names)
         if got is not None:
@@ -178,11 +178,14 @@ class Communicator:
         size = 1
         for ax in levels:
             size *= ax.size
-        if size != dist.get_world_size():
+        world = 1
+        for name, ax in self.axes.items():
+            if isinstance(name, str):
+                world *= ax.size
+        if size != world:
             raise ValueError(
-                f"tuple axis {names} spans {size} of "
-                f"{dist.get_world_size()} ranks and the mesh holds no "
-                f"process group for it")
+                f"tuple axis {names} spans {size} of {world} ranks and "
+                f"the mesh holds no process group for it")
         return mc.AxisGroup("+".join(names), self.axis_index(names), size)
 
     # -- topology / plan resolution ---------------------------------------
@@ -517,6 +520,31 @@ class Communicator:
         if backend == "ring":
             return mc.ring_all_to_all(x, ax)
         return mc.all_to_all(x, ax, n_chunks=factor)
+
+    def all_max(self, x: torch.Tensor, axis: AxisSpec) -> torch.Tensor:
+        """Elementwise max over a single axis: the sequence-sharded
+        decode's global softmax max, the reference's ``lax.pmax``, which
+        is no ``Communicator`` call.  So it books nothing in the ledger
+        and resolves no plan cell.  Under ``cxl``, and under ``auto``
+        where the axis has a pool that its level may use, it runs the
+        pool's exchange (``mesh_collectives.all_max``); otherwise the
+        group's own MAX AllReduce.  Not differentiable (decode runs under
+        ``no_grad``)."""
+        if len(_axes(axis)) != 1:
+            raise NotImplementedError("all_max is single-axis")
+        ax = self.axis(axis)
+        if ax.size == 1:
+            return x
+        if self._max_on_pool(ax):
+            return mc.all_max(x, ax, n_chunks=self.slicing_factor)
+        return mc.ring_all_max(x, ax)
+
+    def _max_on_pool(self, ax: mc.AxisGroup) -> bool:
+        if self.backend != "auto":
+            return self.backend == "cxl"
+        _, level = self._level(ax.name)
+        return ax.pool is not None and (
+            level is None or "cxl" in level.backends())
 
     def send(self, x: torch.Tensor, axis: AxisSpec, *,
              shift: int = 1) -> torch.Tensor:

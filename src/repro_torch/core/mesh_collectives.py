@@ -128,6 +128,26 @@ def hierarchical_all_reduce(x: torch.Tensor, levels: Sequence[AxisGroup],
     return seg.reshape(x.shape)
 
 
+class _MetaPool:
+    """The pool of a meta trace: an exchange that moves nothing."""
+
+    def exchange(self, *_args, **_kwargs) -> None:
+        return None
+
+
+META_POOL = _MetaPool()
+
+
+def _meta(x: torch.Tensor) -> bool:
+    return x.device.type == "meta"
+
+
+def _pool(ax: AxisGroup, x: torch.Tensor):
+    """The pool ``x``'s exchange runs on: ``META_POOL`` for a meta
+    tensor, else the axis's (which must exist)."""
+    return META_POOL if _meta(x) else ax.need_pool()
+
+
 def _lead(x: torch.Tensor) -> int:
     return x.shape[0] if x.dim() else 1
 
@@ -173,6 +193,8 @@ def _host(x: torch.Tensor) -> torch.Tensor:
 def ring_all_gather(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
     if ax.size == 1:
         return x
+    if _meta(x):
+        return x.new_empty(_gathered_shape(x, ax.size))
     out = torch.empty(_gathered_shape(x, ax.size), dtype=x.dtype)
     dist.all_gather_into_tensor(out, _host(x), group=ax.group)
     return out.to(x.device)
@@ -182,6 +204,8 @@ def ring_reduce_scatter(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
     if ax.size == 1:
         return x
     _check_divides(x, ax.size)
+    if _meta(x):
+        return x.new_empty((x.shape[0] // ax.size,) + tuple(x.shape[1:]))
     out = torch.empty((x.shape[0] // ax.size,) + tuple(x.shape[1:]),
                       dtype=x.dtype)
     dist.reduce_scatter_tensor(out, _host(x), group=ax.group)
@@ -191,15 +215,31 @@ def ring_reduce_scatter(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
 def ring_all_reduce(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
     if ax.size == 1:
         return x
+    if _meta(x):
+        return torch.empty_like(x)
     out = x.contiguous().clone()
     dist.all_reduce(out, group=ax.group)
     return out
+
+
+def ring_all_max(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    """The elementwise max over the axis: the group's ``MAX``
+    AllReduce."""
+    if ax.size == 1:
+        return x
+    if _meta(x):
+        return torch.empty_like(x)
+    out = _host(x).clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=ax.group)
+    return out.to(x.device)
 
 
 def ring_all_to_all(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
     if ax.size == 1:
         return x
     _check_divides(x, ax.size)
+    if _meta(x):
+        return torch.empty_like(x)
     out = torch.empty(x.shape, dtype=x.dtype)
     dist.all_to_all_single(out, _host(x), group=ax.group)
     return out.to(x.device)
@@ -207,6 +247,8 @@ def ring_all_to_all(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
 
 def ring_broadcast(x: torch.Tensor, ax: AxisGroup,
                    root: int = 0) -> torch.Tensor:
+    if _meta(x):
+        return torch.empty_like(x)
     out = x.contiguous().clone()
     dist.broadcast(out, src=ax.global_rank(root), group=ax.group)
     return out
@@ -214,6 +256,8 @@ def ring_broadcast(x: torch.Tensor, ax: AxisGroup,
 
 def ring_reduce(x: torch.Tensor, ax: AxisGroup,
                 root: int = 0) -> torch.Tensor:
+    if _meta(x):
+        return torch.empty_like(x)
     out = _host(x).clone()
     dist.reduce(out, dst=ax.global_rank(root), group=ax.group)
     if ax.rank != root:
@@ -223,6 +267,8 @@ def ring_reduce(x: torch.Tensor, ax: AxisGroup,
 
 def ring_gather(x: torch.Tensor, ax: AxisGroup,
                 root: int = 0) -> torch.Tensor:
+    if _meta(x):
+        return x.new_empty(_gathered_shape(x, ax.size))
     parts = [torch.empty(x.shape, dtype=x.dtype) for _ in range(ax.size)] \
         if ax.rank == root else None
     dist.gather(_host(x), parts, dst=ax.global_rank(root), group=ax.group)
@@ -237,6 +283,8 @@ def ring_scatter(x: torch.Tensor, ax: AxisGroup,
                  root: int = 0) -> torch.Tensor:
     _check_divides(x, ax.size)
     seg = (x.shape[0] // ax.size,) + tuple(x.shape[1:])
+    if _meta(x):
+        return x.new_empty(seg)
     parts = [p.contiguous() for p in _host(x).reshape(
         (ax.size,) + seg)] if ax.rank == root else None
     out = torch.empty(seg, dtype=x.dtype)
@@ -248,6 +296,8 @@ def ring_p2p(x: torch.Tensor, ax: AxisGroup, shift: int = 1) -> torch.Tensor:
     n = ax.size
     if n == 1 or shift % n == 0:
         return x
+    if _meta(x):
+        return torch.empty_like(x)
     out = torch.empty(x.shape, dtype=x.dtype)
     reqs = [dist.isend(_host(x), ax.global_rank((ax.rank + shift) % n),
                        group=ax.group),
@@ -279,7 +329,7 @@ def all_gather(x: torch.Tensor, ax: AxisGroup,
     out = torch.empty(_gathered_shape(x, n), dtype=x.dtype, device=x.device)
     ob = _bytes(out)
     ob[ax.rank * s:(ax.rank + 1) * s].copy_(_bytes(x))
-    ax.need_pool().exchange(_bytes(x), s,
+    _pool(ax, x).exchange(_bytes(x), s,
                             [(p, 0, ob[p * s:(p + 1) * s])
                              for p in _others(ax)],
                             len(_split_chunks(x, n_chunks)))
@@ -304,7 +354,7 @@ def reduce_scatter(x: torch.Tensor, ax: AxisGroup,
     lo, hi = ax.rank * sb, (ax.rank + 1) * sb
     bb[lo:hi].copy_(xb[lo:hi])
     # nobody reads my own segment of my buffer: leave it unpublished
-    ax.need_pool().exchange(xb, flat.numel() * flat.element_size(),
+    _pool(ax, x).exchange(xb, flat.numel() * flat.element_size(),
                             [(p, lo, bb[p * sb:(p + 1) * sb])
                              for p in _others(ax)],
                             len(_split_chunks(_segment(x, n), n_chunks)),
@@ -322,17 +372,7 @@ def all_reduce(x: torch.Tensor, ax: AxisGroup, *, mode: str = "two_phase",
     if n == 1:
         return x
     if mode == "faithful":
-        x = x.contiguous()
-        flat = x.reshape(-1)
-        s = flat.numel() * flat.element_size()
-        buf = torch.empty((n, flat.numel()), dtype=x.dtype, device=x.device)
-        bb = _bytes(buf)
-        bb[ax.rank * s:(ax.rank + 1) * s].copy_(_bytes(flat))
-        ax.need_pool().exchange(_bytes(flat), s,
-                                [(p, 0, bb[p * s:(p + 1) * s])
-                                 for p in _others(ax)],
-                                len(_split_chunks(x, n_chunks)))
-        return chunked_reduce(buf).reshape(x.shape)
+        return chunked_reduce(_stack(x, ax, n_chunks)).reshape(x.shape)
     if mode == "two_phase":
         flat = x.reshape(-1)
         pad = (-flat.numel()) % n
@@ -344,6 +384,32 @@ def all_reduce(x: torch.Tensor, ax: AxisGroup, *, mode: str = "two_phase",
             full = full[:-pad]
         return full.reshape(x.shape)
     raise ValueError(f"unknown all_reduce mode {mode!r}")
+
+
+def _stack(x: torch.Tensor, ax: AxisGroup, n_chunks: int) -> torch.Tensor:
+    """Every rank's ``x`` flattened, rank-major in one (n, L) buffer:
+    every rank retrieves every peer's full buffer."""
+    x = x.contiguous()
+    flat = x.reshape(-1)
+    s = flat.numel() * flat.element_size()
+    buf = torch.empty((ax.size, flat.numel()), dtype=x.dtype,
+                      device=x.device)
+    bb = _bytes(buf)
+    bb[ax.rank * s:(ax.rank + 1) * s].copy_(_bytes(flat))
+    _pool(ax, x).exchange(_bytes(flat), s,
+                          [(p, 0, bb[p * s:(p + 1) * s])
+                           for p in _others(ax)],
+                          len(_split_chunks(x, n_chunks)))
+    return buf
+
+
+def all_max(x: torch.Tensor, ax: AxisGroup,
+            n_chunks: int = DEFAULT_CHUNKS) -> torch.Tensor:
+    """The elementwise max over the axis: the max of the faithful
+    AllReduce's (n, L) stack."""
+    if ax.size == 1:
+        return x
+    return _stack(x, ax, n_chunks).amax(dim=0).reshape(x.shape)
 
 
 def all_to_all(x: torch.Tensor, ax: AxisGroup,
@@ -359,7 +425,7 @@ def all_to_all(x: torch.Tensor, ax: AxisGroup,
     sb = xb.numel() // n
     lo, hi = ax.rank * sb, (ax.rank + 1) * sb
     ob[lo:hi].copy_(xb[lo:hi])
-    ax.need_pool().exchange(xb, xb.numel(),
+    _pool(ax, x).exchange(xb, xb.numel(),
                             [(p, lo, ob[p * sb:(p + 1) * sb])
                              for p in _others(ax)],
                             len(_split_chunks(_segment(x, n), n_chunks)),
@@ -377,10 +443,10 @@ def broadcast(x: torch.Tensor, ax: AxisGroup, root: int = 0,
     k = len(_split_chunks(x, n_chunks))
     s = x.numel() * x.element_size()
     if ax.rank == root:
-        ax.need_pool().exchange(_bytes(x), s, [], k)
+        _pool(ax, x).exchange(_bytes(x), s, [], k)
         return x
     out = torch.empty_like(x)
-    ax.need_pool().exchange(None, s, [(root, 0, _bytes(out))], k)
+    _pool(ax, x).exchange(None, s, [(root, 0, _bytes(out))], k)
     return out
 
 
@@ -396,12 +462,12 @@ def reduce(x: torch.Tensor, ax: AxisGroup, root: int = 0,
     flat = x.reshape(-1)
     s = flat.numel() * flat.element_size()
     if ax.rank != root:
-        ax.need_pool().exchange(_bytes(flat), s, [], k)
+        _pool(ax, x).exchange(_bytes(flat), s, [], k)
         return torch.zeros_like(x)
     buf = torch.empty((n, flat.numel()), dtype=x.dtype, device=x.device)
     bb = _bytes(buf)
     bb[root * s:(root + 1) * s].copy_(_bytes(flat))
-    ax.need_pool().exchange(None, s, [(p, 0, bb[p * s:(p + 1) * s])
+    _pool(ax, x).exchange(None, s, [(p, 0, bb[p * s:(p + 1) * s])
                                       for p in _others(ax)], k)
     return chunked_reduce(buf).reshape(x.shape)
 
@@ -416,13 +482,13 @@ def gather(x: torch.Tensor, ax: AxisGroup, root: int = 0,
     k = len(_split_chunks(x, n_chunks))
     s = x.numel() * x.element_size()
     if ax.rank != root:
-        ax.need_pool().exchange(_bytes(x), s, [], k)
+        _pool(ax, x).exchange(_bytes(x), s, [], k)
         return torch.zeros(_gathered_shape(x, n), dtype=x.dtype,
                            device=x.device)
     out = torch.empty(_gathered_shape(x, n), dtype=x.dtype, device=x.device)
     ob = _bytes(out)
     ob[root * s:(root + 1) * s].copy_(_bytes(x))
-    ax.need_pool().exchange(None, s, [(p, 0, ob[p * s:(p + 1) * s])
+    _pool(ax, x).exchange(None, s, [(p, 0, ob[p * s:(p + 1) * s])
                                       for p in _others(ax)], k)
     return out
 
@@ -441,10 +507,10 @@ def scatter(x: torch.Tensor, ax: AxisGroup, root: int = 0,
     sb = xb.numel() // n
     if ax.rank == root:
         lo, hi = root * sb, (root + 1) * sb
-        ax.need_pool().exchange(xb, xb.numel(), [], k, skip=(lo, hi))
+        _pool(ax, x).exchange(xb, xb.numel(), [], k, skip=(lo, hi))
         return x[root * seg[0]:(root + 1) * seg[0]]
     out = torch.empty(seg, dtype=x.dtype, device=x.device)
-    ax.need_pool().exchange(None, xb.numel(),
+    _pool(ax, x).exchange(None, xb.numel(),
                             [(root, ax.rank * sb, _bytes(out))], k)
     return out
 
@@ -460,7 +526,7 @@ def p2p_shift(x: torch.Tensor, ax: AxisGroup, shift: int = 1,
     x = x.contiguous()
     k = len(_split_chunks(x, n_chunks))
     out = torch.empty_like(x)
-    ax.need_pool().exchange(_bytes(x), x.numel() * x.element_size(),
+    _pool(ax, x).exchange(_bytes(x), x.numel() * x.element_size(),
                             [((ax.rank - shift) % n, 0, _bytes(out))], k)
     return out
 

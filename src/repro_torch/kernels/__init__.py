@@ -1,5 +1,6 @@
 """The port's hand-written CUDA kernels, their wrappers and their plain
-PyTorch versions (what a wrapper runs on CPU tensors).
+PyTorch versions (what a wrapper runs on CPU tensors, and on meta tensors,
+where they only propagate shapes: ``PLAIN_DEVICES``).
 
 On import, one small ``torch.exp`` on this thread: torch's CPU build
 settles which vector implementation of its math functions to run on the
@@ -14,3 +15,13 @@ likewise), so the plain versions below never make the first one.
 import torch
 
 torch.exp(torch.zeros(16))
+
+# The devices whose tensors take a kernel's plain version: the CPU (the
+# tests, CPU runs) and the meta device (the dry-run's trace: the plain
+# version only propagates shapes there).  A CUDA tensor launches the
+# kernel or raises.
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def _plain_device(x: torch.Tensor) -> bool:
+    return x.device.type in PLAIN_DEVICES

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import _plain_device, build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # x, y, n_src, L, dtype, stream
@@ -37,7 +37,7 @@ def chunked_reduce(x: torch.Tensor) -> torch.Tensor:
     if x.dtype not in _DTYPES:
         raise TypeError(f"chunked_reduce takes float32/bfloat16, got "
                         f"{x.dtype}")
-    if x.device.type == "cpu":
+    if _plain_device(x):
         return chunked_reduce_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"chunked_reduce runs on cuda or cpu, not "

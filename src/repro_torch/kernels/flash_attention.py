@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import PLAIN_DEVICES, _plain_device, build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 96, 128)
@@ -103,7 +103,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`flash_attention_plain`."""
     kv_len = k.shape[1] if kv_len is None else int(kv_len)
     _check(q, k, v, window, q_offset, kv_len)
-    if q.device.type == "cpu":
+    if _plain_device(q):
         return flash_attention_plain(q, k, v, causal, window, q_offset,
                                      kv_len)
     if q.device.type != "cuda":
@@ -192,7 +192,7 @@ def flash_attention_backward(q, k, v, o, m, l, do, causal: bool,
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, kv_len):
-        if q.device.type == "cpu":
+        if _plain_device(q):
             o, m, l = flash_attention_plain(q, k, v, causal, window,
                                             q_offset, kv_len,
                                             return_stats=True)
@@ -224,7 +224,7 @@ def flash_attention_train(q: torch.Tensor, k: torch.Tensor,
         return flash_attention(q, k, v, causal, window, q_offset)
     kv_len = k.shape[1]
     _check(q, k, v, window, q_offset, kv_len)
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in PLAIN_DEVICES + ("cuda",):
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
     return _FlashAttention.apply(q, k, v, causal, window, q_offset,

@@ -32,7 +32,7 @@ from typing import Union
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import PLAIN_DEVICES, _plain_device, build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -93,7 +93,7 @@ def all_gather_matmul(x: torch.Tensor,
     CUDA tensor launches the kernel (float32; or raises); a CPU tensor
     takes :func:`all_gather_matmul_plain`."""
     _check(x, w_shards)
-    if x.device.type == "cpu":
+    if _plain_device(x):
         return all_gather_matmul_plain(x, w_shards)
     if x.device.type != "cuda":
         raise ValueError(f"all_gather_matmul runs on cuda or cpu, not "
@@ -196,7 +196,7 @@ def reduce_scatter_rmsnorm(shards: torch.Tensor, scale: torch.Tensor,
                         f"partials, got {shards.dtype}")
     if shards.device != scale.device:
         raise ValueError("shards and scale must be on one device")
-    if shards.device.type == "cpu":
+    if _plain_device(shards):
         return reduce_scatter_rmsnorm_plain(shards, scale, eps)
     if shards.device.type != "cuda":
         raise ValueError(f"reduce_scatter_rmsnorm runs on cuda or cpu, not "
@@ -299,7 +299,7 @@ def reduce_scatter_adamw(shards: torch.Tensor, p: torch.Tensor,
     :func:`reduce_scatter_adamw_plain`."""
     _check_rs_adamw(shards, p, m, v)
     dev = shards.device
-    if dev.type == "cpu":
+    if dev.type in PLAIN_DEVICES:
         return reduce_scatter_adamw_plain(shards, p, m, v, lr, bc1, bc2, b1,
                                           b2, eps, weight_decay)
     if dev.type != "cuda":

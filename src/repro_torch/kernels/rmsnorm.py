@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import _plain_device, build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # x, scale, y, rows, D, eps, dtype, vec, v, tpr, rows_per_block, grid,
@@ -158,7 +158,7 @@ def _on_card(x: torch.Tensor, scale: torch.Tensor, *others) -> tuple:
 def _forward(x: torch.Tensor, scale: torch.Tensor,
              eps: float) -> torch.Tensor:
     """The kernel for a CUDA tensor, the plain version for a CPU one."""
-    if x.device.type == "cpu":
+    if _plain_device(x):
         return rms_norm_plain(x, scale, eps)
     sms, aligned = _on_card(x, scale)
     geo = _geometry(x.shape[0], x.shape[1], x.element_size(), sms, False,
@@ -186,7 +186,7 @@ def rms_norm_vjp(x: torch.Tensor, scale: torch.Tensor, eps: float,
     if dy.shape != x.shape:
         raise ValueError(f"rms_norm_vjp: dy {tuple(dy.shape)} is not x's "
                          f"shape {tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if _plain_device(x):
         dx, dscale = rms_norm_backward(x, scale, eps, dy)
         return dx if need_dx else None, dscale if need_dscale else None
     # autograd may hand an expanded (stride 0) or other-dtype gradient

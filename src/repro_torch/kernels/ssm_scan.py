@@ -43,7 +43,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import _plain_device, build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATE_SIZES = (1, 2, 4, 8, 16, 32, 64)     # N: a power of two <= 64
@@ -374,7 +374,7 @@ def ssm_scan_vjp(x, dt, A, B, C, D, hc, dy, h0=None, dh_last=None):
     checkpoints ``hc`` (or raise); CPU tensors take
     :func:`ssm_scan_backward_plain`, which needs no checkpoints."""
     dtype = x.dtype
-    if x.device.type == "cpu":
+    if _plain_device(x):
         out = ssm_scan_backward_plain(x, dt, A, B, C, D, dy, h0, dh_last)
         return tuple(None if g is None else
                      g.to(dtype) if i in (0, 1, 3, 4) else g
@@ -415,6 +415,32 @@ class _Scan(torch.autograd.Function):
                      zip(grads, ctx.needs_input_grad))
 
 
+class _MetaScan(torch.autograd.Function):
+    """The scan of meta tensors (the dry-run's trace): the outputs, and
+    in the backward the inputs' grads, as shapes only.  The plain
+    versions step through L in Python (the reference's sequential scan),
+    a few ms a step on the meta device: hours for one training step of
+    an SSM model at its real sequence length."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, D, h0, headdim):
+        ctx.save_for_backward(x, dt, A, B, C, D, h0)
+        return (torch.empty_like(x),
+                x.new_empty((x.shape[0], x.shape[2], B.shape[-1]),
+                            dtype=torch.float32))
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        return tuple(torch.empty_like(t) if need else None
+                     for t, need in zip(ctx.saved_tensors,
+                                        ctx.needs_input_grad)) + (None,)
+
+
+def _meta_scan(x, dt, A, B, C, D, h0, headdim, return_state):
+    y, h_last = _MetaScan.apply(x, dt, A, B, C, D, h0, headdim)
+    return (y, h_last) if return_state else y
+
+
 def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
              h0: Optional[torch.Tensor] = None,
@@ -422,9 +448,12 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Selective scan of ``x`` along L (see the module docstring),
     differentiable in every input.  CUDA tensors launch the kernel (or
     raise), and under grad the backward kernel in the backward; CPU
-    tensors take :func:`ssm_scan_plain`."""
+    tensors take :func:`ssm_scan_plain`; meta tensors its shapes only
+    (:class:`_MetaScan`)."""
     _check(x, dt, A, B, C, D, h0)
-    if x.device.type == "cpu":
+    if x.device.type == "meta":
+        return _meta_scan(x, dt, A, B, C, D, h0, None, return_state)
+    if _plain_device(x):
         return ssm_scan_plain(x, dt, A, B, C, D, h0, return_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu, not {x.device}")
@@ -472,7 +501,7 @@ def ssm_scan_heads_vjp(x, dt, A, B, C, D, hc, dy, headdim: int, h0=None,
     checkpoints ``hc`` (or raise); CPU tensors take
     :func:`ssm_scan_heads_backward_plain`."""
     dtype = x.dtype
-    if x.device.type == "cpu":
+    if _plain_device(x):
         out = ssm_scan_heads_backward_plain(x, dt, A, B, C, D, dy, headdim,
                                             h0, dh_last)
     elif x.device.type == "cuda":
@@ -530,9 +559,11 @@ def ssm_scan_heads(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     :func:`ssm_scan`'s) and under grad the backward kernel in its head
     mode, which forms one decay a (t, head) and returns ddt, dA and dD per
     head; CPU tensors take :func:`ssm_scan_heads_plain`, differentiated by
-    autograd."""
+    autograd; meta tensors its shapes only (:class:`_MetaScan`)."""
     _check_heads(x, dt, A, B, C, D, headdim, h0)
-    if x.device.type == "cpu":
+    if x.device.type == "meta":
+        return _meta_scan(x, dt, A, B, C, D, h0, headdim, return_state)
+    if _plain_device(x):
         return ssm_scan_heads_plain(x, dt, A, B, C, D, headdim, h0,
                                     return_state)
     if x.device.type != "cuda":

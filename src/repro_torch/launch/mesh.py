@@ -35,6 +35,14 @@ topology)``), and its ``AxisGroup`` carries this rank's
 (:func:`pipeline_shape`): each level group has its own process group and
 pool, as for ``(data, model)``.
 
+The production meshes of the reference's dry-run are
+:func:`make_production_mesh`'s axis-size dicts, ``{"data": 16, "model":
+16}`` and ``{"pod": 2, "data": 16, "model": 16}``; with
+``REPRO_DRYRUN_DEVICES`` set, :func:`dryrun_mesh` gives the reduced
+``(2, 2)`` and ``(2, 2, 2)`` the reference's ``run_one`` builds.
+:func:`make_meta_mesh` is one rank's mesh of such a shape with no
+process group and no pool: what the dry-run traces on the meta device.
+
 ``make_placed_mesh`` applies a placement (``tuner.placement``): it
 installs the axis aliases of a split axis and the placed topology, and
 returns the mesh shape the placement chose; ``dp_axes`` resolves the
@@ -43,6 +51,7 @@ returns the mesh shape the placement chose; ``dp_axes`` resolves the
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Sequence
 
 from repro_torch.core.mesh_collectives import AxisGroup, Grouping
@@ -253,6 +262,52 @@ def make_host_mesh(shape: Sequence[tuple], ctx, pools: bool = True,
         mesh[names] = AxisGroup("+".join(names), members.index(ctx.rank),
                                 len(members), pg, None)
     return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> dict:
+    """The reference's production mesh as axis sizes: (data, model) =
+    (16, 16), or (pod, data, model) = (2, 16, 16)."""
+    if multi_pod:
+        return {"pod": 2, "data": 16, "model": 16}
+    return {"data": 16, "model": 16}
+
+
+def dryrun_mesh(multi_pod: bool) -> dict:
+    """The dry-run's mesh as axis sizes: the production mesh, or with
+    ``REPRO_DRYRUN_DEVICES`` set the reduced (data, model) = (2, 2) and
+    (pod, data, model) = (2, 2, 2), as the reference's ``run_one``."""
+    if os.environ.get("REPRO_DRYRUN_DEVICES"):
+        return {"pod": 2, "data": 2, "model": 2} if multi_pod \
+            else {"data": 2, "model": 2}
+    return make_production_mesh(multi_pod=multi_pod)
+
+
+class _NoGroups(dict):
+    """Every level group of a meta mesh: no process group, no pool."""
+
+    def __missing__(self, ranks):
+        return None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class _MetaRank:
+    rank: int
+    nranks: int
+    pool: None = None
+    groups: dict = dataclasses.field(default_factory=_NoGroups)
+
+
+def make_meta_mesh(sizes, rank: int = 0, topology=None) -> dict:
+    """Rank ``rank``'s mesh of the rank-major shape ``sizes`` (an
+    axis-size dict in mesh order, or ``((axis, size), ...)``), as
+    :func:`make_host_mesh` builds it (joint data groups and a grouped
+    level's rank groups included) but with no process group and no pool
+    on any level: what a trace on the meta device runs its collectives
+    over (``core.mesh_collectives`` moves nothing for meta tensors)."""
+    shape = tuple(sizes.items()) if isinstance(sizes, dict) \
+        else tuple(sizes)
+    return make_host_mesh(shape, _MetaRank(rank, _nranks(shape)),
+                          pools=False, topology=topology)
 
 
 def make_placed_mesh(placement, mix, topology) -> tuple:

@@ -84,6 +84,7 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.core.hw import CXL_POOL, INFINIBAND
 from repro_torch.core.topology import parse_topology, set_active_topology
+from repro_torch.launch import add_xla_overlap, refuse_xla_overlap
 from repro_torch.models import model
 from repro_torch.serving import (Request, SamplingParams, ServeConfig,
                                  ServeEngine)
@@ -282,6 +283,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write per-round/step and retune events + the "
                          "final metric registry as JSON-lines here (and a "
                          "Prometheus rendering to <base>.prom)")
+    add_xla_overlap(ap)
     return ap
 
 
@@ -376,6 +378,7 @@ def main(argv=None) -> dict:
     the trace's summary (``trace``)."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    refuse_xla_overlap(args)
     if args.online_retune and not args.plan:
         ap.error("--online-retune requires --plan")
     if args.trace and args.online_retune:

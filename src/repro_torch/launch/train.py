@@ -107,7 +107,10 @@ sub-root exchange booked on the parent level.
 the best that keeps ``model`` on one level is applied (its report
 printed), and every rank runs on the placed mesh with the placed
 topology and the axis aliases of a split axis.  ``--placement-from-
-dryrun`` waits for the dry-run (ROADMAP queue 1, item 11).
+dryrun RECORD`` prices the mix of a dry-run record instead (its
+``auto_choices`` audit, ``CollectiveMix.from_dryrun``; a record of
+either package's ``launch.dryrun --backend auto``).  ``--xla-overlap``
+is refused: XLA flags have no meaning in this package.
 
 A Mixture-of-Experts model (``--arch granite-moe-3b``, ``arctic-480b``)
 trains its experts parallel over the model axis: each row's dispatch and
@@ -243,7 +246,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_collectives import all_gather_matmul
 from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_vjp
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_vjp
-from repro_torch.launch import ranks
+from repro_torch.launch import add_xla_overlap, ranks, refuse_xla_overlap
 from repro_torch.launch.mesh import (dp_axes, joint_groups, level_groups,
                                      make_host_mesh, mesh_shape, parse_mesh,
                                      pipeline_shape)
@@ -291,8 +294,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "tuner.placement) or a saved placement JSON: the "
                          "mesh the placement chose; needs --topology")
     ap.add_argument("--placement-from-dryrun", default=None,
-                    help="not ported: needs the dry-run (ROADMAP queue 1, "
-                         "item 11)")
+                    help="a dry-run JSON record (launch.dryrun --backend "
+                         "auto): --placement prices its auto_choices "
+                         "mix (CollectiveMix.from_dryrun) instead of the "
+                         "model's analytic one")
     ap.add_argument("--backend", choices=["ring", "cxl", "auto"],
                     default="ring")
     ap.add_argument("--plan", default=None,
@@ -393,6 +398,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "rank); 0 disables; the resume half of "
                          "--resilience rolls back to the newest step every "
                          "rank committed")
+    add_xla_overlap(ap)
     return ap
 
 
@@ -995,8 +1001,11 @@ class _RankResil:
         return out
 
 
-def _rank_run(ctx: ranks.RankContext, specs: Sequence[RunSpec]) -> list:
-    """Every spec's variants on this rank, spec after spec."""
+def _rank_run(ctx: ranks.RankContext, specs: Sequence[RunSpec],
+              after: Optional[tuple] = None) -> list:
+    """Every spec's variants on this rank, spec after spec; then, with
+    ``after`` = (fn, args), ``fn(ctx, *args)``'s result as the last
+    entry."""
     out = []
     for spec in specs:
         set_active_topology(spec.topology)
@@ -1005,6 +1014,10 @@ def _rank_run(ctx: ranks.RankContext, specs: Sequence[RunSpec]) -> list:
             ctx, spec, tcfg, profile=spec.profile and k == 0,
             stage=spec.ckpt is not None and k == 0)
             for k, tcfg in enumerate(spec.variants)])
+    if after is not None:
+        set_active_topology(None)
+        sharding.set_axis_aliases({})
+        out.append(after[0](ctx, *after[1]))
     return out
 
 
@@ -1324,7 +1337,8 @@ def _spawn_groups(spec: RunSpec) -> tuple:
             any(n == nranks for _, n in shape))
 
 
-def run_many(specs: Sequence[RunSpec]) -> list:
+def run_many(specs: Sequence[RunSpec], after: Optional[tuple] = None
+             ) -> list:
     """:func:`run_ranks` of several specs on ONE spawn of the ranks: the
     specs (models, params, variants, steps) run in turn in the same rank
     processes, so the ranks start once.  They must share the device and
@@ -1333,7 +1347,11 @@ def run_many(specs: Sequence[RunSpec]) -> list:
     otherwise (a (stage, data) pipeline rides a (data, model) spawn of
     the same sizes).  The pools take the largest partition any spec asks
     for.  Returns each spec's records, as :func:`run_ranks` returns them
-    (``spawn_s`` the one spawn's)."""
+    (``spawn_s`` the one spawn's).  ``after`` = (fn, args), a
+    module-level ``fn(ctx, *args)``, runs on every rank after the specs
+    (no topology active), in the same processes and rank groups; its
+    results, in rank order, follow the specs' records as one more
+    entry."""
     first = specs[0]
     if any(_spawn_groups(sp) != _spawn_groups(first) for sp in specs):
         raise ValueError("run_many: the specs must share the device and "
@@ -1346,7 +1364,7 @@ def run_many(specs: Sequence[RunSpec]) -> list:
     device, nranks, groups, joint, world_pool = _spawn_groups(first)
     t_spawn = time.perf_counter()
     per_rank = ranks.spawn(
-        _rank_run, nranks, (tuple(specs),), device=device,
+        _rank_run, nranks, (tuple(specs), after), device=device,
         partition_bytes=max(windows, default=0), groups=list(groups),
         poolless=list(joint), world_pool=world_pool,
         timeout_s=max(sp.timeout_s for sp in specs),
@@ -1366,6 +1384,8 @@ def run_many(specs: Sequence[RunSpec]) -> list:
         if saved is not None:
             runs[0].update(saved)
         out.append(runs)
+    if after is not None:
+        out.append([r[-1] for r in per_rank])
     return out
 
 
@@ -1465,10 +1485,16 @@ def choose_placement(args, topology: Topology, dp: int, tp: int) -> tuple:
     ``topology`` (``auto``) or loaded from a saved placement, and the
     best entry that keeps ``model`` on one level.  Returns (chosen
     placement, mix, placement plan)."""
-    cfg = get_config(args.arch, smoke=args.smoke)
-    mix = tuner.CollectiveMix.for_model(
-        cfg, {"data": dp, "model": tp}, seq=args.seq,
-        batch_per_rank=max(1, args.batch // max(1, dp)))
+    if args.placement_from_dryrun:
+        with open(args.placement_from_dryrun) as f:
+            record = json.load(f)
+        mix = tuner.CollectiveMix.from_dryrun(record,
+                                              {"data": dp, "model": tp})
+    else:
+        mix = tuner.CollectiveMix.for_model(
+            get_config(args.arch, smoke=args.smoke),
+            {"data": dp, "model": tp}, seq=args.seq,
+            batch_per_rank=max(1, args.batch // max(1, dp)))
     pplan = tuner.plan_placement(mix, topology) \
         if args.placement == "auto" else tuner.load_placement(args.placement)
     return pplan.best_with_unsplit(("model",)), mix, pplan
@@ -1580,9 +1606,10 @@ def spec_from_args(args) -> RunSpec:
         raise SystemExit(f"--batch {args.batch} must split over {data} "
                          f"data ranks x {args.microbatches} microbatches")
     mesh_shape(dp, tp, args.multi_pod)         # odd DP with --multi-pod
-    if args.placement_from_dryrun:
-        raise SystemExit("--placement-from-dryrun is not ported yet: it "
-                         "needs the dry-run (ROADMAP queue 1, item 11)")
+    refuse_xla_overlap(args)
+    if args.placement_from_dryrun and not args.placement:
+        raise SystemExit("--placement-from-dryrun feeds the placement "
+                         "planner; add --placement auto")
     topology = parse_topology(args.topology) if args.topology else None
     placed: dict = {}
     if args.placement:

@@ -38,8 +38,11 @@ file of JSON: a bare list of samples, or a record carrying them under
 (``tuner.fold_measurements``): a format-v4 plan whose measured cells
 override the oracle.
 
-Not ported yet: ``--overlap-from-dryrun`` (needs the dry-run, ROADMAP
-queue 1, item 11); it raises naming the ROADMAP.
+``--overlap-from-dryrun`` (a directory, glob or file of dry-run
+records, of either package's ``launch.dryrun``) derives the overlap
+window of each primitive from the records' roofline compute and ledger
+(``tuner.overlap_windows_from_dryrun``), in place of the constant
+``--overlap-compute-us``.
 """
 from __future__ import annotations
 
@@ -55,10 +58,6 @@ from repro_torch import tuner
 from repro_torch.core.hw import MiB
 from repro_torch.core.schedule import PRIMITIVES
 from repro_torch.core.topology import parse_topology
-
-UNPORTED = {"--overlap-from-dryrun": "the dry-run (ROADMAP queue 1, item "
-                                     "11)"}
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -107,9 +106,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "the measured per-cell wall times into the swept "
                          "plan (tuner.online), emitting a format-v4 plan "
                          "whose measured cells override the oracle")
+    ap.add_argument("--overlap-from-dryrun", default=None,
+                    help="directory/glob/file of dry-run JSON records: "
+                         "derive per-primitive overlap windows from "
+                         "their roofline compute and ledger "
+                         "(tuner.overlap_windows_from_dryrun) instead of "
+                         "the constant --overlap-compute-us")
     ap.add_argument("--quiet", action="store_true")
-    for flag, what in UNPORTED.items():
-        ap.add_argument(flag, default=None, help=f"not ported: needs {what}")
     return ap
 
 
@@ -193,9 +196,6 @@ def placement_axes(topology) -> dict:
 def main(argv: Optional[Sequence[str]] = None) -> tuner.Plan:
     ap = build_parser()
     args = ap.parse_args(argv)
-    for flag, what in UNPORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} is not ported yet: it needs {what}")
     if args.kv_block_bytes and not args.kv_arch:
         ap.error("--kv-block-bytes requires --kv-arch")
 
@@ -210,11 +210,22 @@ def main(argv: Optional[Sequence[str]] = None) -> tuner.Plan:
         else base.slicing_factors)
     topology = parse_topology(args.topology) if args.topology else None
 
+    overlap = args.overlap_compute_us * 1e-6
+    if args.overlap_from_dryrun:
+        if args.overlap_compute_us:
+            ap.error("--overlap-from-dryrun and --overlap-compute-us "
+                     "are mutually exclusive")
+        records = load_records(args.overlap_from_dryrun)
+        overlap = tuner.overlap_windows_from_dryrun(records)
+        got = {p: f"{w * 1e6:.1f}us"
+               for p, w in overlap.per_primitive.items()}
+        print(f"overlap windows from {len(records)} dry-run records: "
+              f"{got}")
+
     progress = None if args.quiet else (lambda msg: print(f"  {msg}"))
     t0 = time.time()
     plan = tuner.generate_plan(grid, topology=topology,
-                               overlap_compute=args.overlap_compute_us
-                               * 1e-6, progress=progress)
+                               overlap_compute=overlap, progress=progress)
     if args.measurements:
         timings = load_timings(args.measurements)
         plan = tuner.fold_measurements(plan, timings)

@@ -11,10 +11,13 @@ form a group whose params are stacked along a leading layer axis (the
 reference's ``g<i>`` layout); the model loops over a group's layers in
 Python where the reference runs ``lax.scan``.  Every row kind trains
 at any tp (the Mamba rows channel- and head-sharded over the model
-axis, ``models.ssm``); prefill, decode and the decode cache at tp > 1
-(the reference's sequence-sharded cache) are not ported yet (ROADMAP
-queue 1, item 11) and raise.  The ``a`` rows of a model with an
-encoder (whisper-tiny) also hold cross attention (``norm_x``,
+axis, ``models.ssm``), and prefills and decodes at any tp: at tp > 1
+an attention row's KV cache is sharded over the sequence (each rank
+holds max_seq / tp positions of every kv head, the reference's
+flash-decoding layout, ``layers.decode_attention``), cross attention's
+``ck``/``cv`` hold the rank's kv heads when kv is sharded (else all of
+them), and a Mamba row's state its channels.  The ``a`` rows of a model
+with an encoder (whisper-tiny) also hold cross attention (``norm_x``,
 ``xattn``): their queries attend the encoder's output, and their decode
 cache keeps its projected keys and values (``ck``, ``cv``: no token
 axis, computed once by the prefill).
@@ -145,12 +148,9 @@ def row_prefill(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
                 encoder_out: Optional[torch.Tensor] = None,
                 window: Optional[int] = None) -> torch.Tensor:
     """Full-sequence forward that also fills this row's decode cache
-    ``cache`` (attention {'k','v'}: (B, max_seq, n_kv, hd), with cross
-    attention also {'ck','cv'}: (B, source_len, n_kv, hd); Mamba-1
-    {'conv','ssm'}; Mamba-2 {'conv','conv_bc','ssm'}), written in place
-    where the reference returns a new one.  Returns h."""
+    ``cache`` (see :func:`row_cache_init`), written in place where the
+    reference returns a new one.  Returns h."""
     _check_kind(kind, cfg)
-    layers.require_unsharded_decode(pc)
     if kind in ("1", "2"):
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
         fwd = ssm.mamba1_forward if kind == "1" else ssm.mamba2_forward
@@ -163,7 +163,7 @@ def row_prefill(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
         p["attn"], attn_in, cfg, pc, positions, causal=True,
         window=window, return_kv=True)
     h = h + out
-    _kv_to_cache(k, v, cache)
+    _kv_to_cache(k, v, cfg, pc, cache)
     if "xattn" in p and encoder_out is not None:
         h, (ck, cv) = _cross_part(p, h, cfg, pc, positions, encoder_out,
                                   return_kv=True)
@@ -173,15 +173,27 @@ def row_prefill(p: Params, h: torch.Tensor, kind: str, cfg: ModelConfig,
     return h + _ffn_part(p, ff_in, kind, cfg, pc)[0]
 
 
-def _kv_to_cache(k: torch.Tensor, v: torch.Tensor, cache: dict) -> None:
-    """(B, L, n_kv, hd) head layout -> the first L positions of the
-    decode cache (B, max_seq, n_kv, hd); positions past L stay zero
-    (unsharded: the whole sequence is local)."""
-    l, max_seq = k.shape[1], cache["k"].shape[1]
-    if l > max_seq:
-        raise ValueError(f"prefill length {l} exceeds max_seq {max_seq}")
-    cache["k"][:, :l] = k
-    cache["v"][:, :l] = v
+def _kv_to_cache(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                 pc: ParallelContext, cache: dict) -> None:
+    """(B, L, n_kv_local, hd) head layout -> this rank's slice of the
+    flash-decoding cache (B, S_local, n_kv_full, hd): at tp > 1 the heads
+    are gathered when kv is sharded, and the L positions, zero-padded to
+    max_seq = S_local * tp, give rank i positions i * S_local ... (i +
+    1) * S_local - 1 (the reference slices without padding, ROADMAP
+    queue 3); at tp = 1 the first L positions.  Positions past L stay
+    zero."""
+    l, s_local = k.shape[1], cache["k"].shape[1]
+    if l > s_local * pc.tp:
+        raise ValueError(f"prefill length {l} exceeds max_seq "
+                         f"{s_local * pc.tp}")
+    if layers.attn_dims(cfg, pc.tp).kv_sharded:
+        k = layers._gather_heads(k, pc)
+        v = layers._gather_heads(v, pc)
+    lo = pc.tp_index() * s_local
+    n = min(l, lo + s_local) - lo
+    if n > 0:
+        cache["k"][:, :n] = k[:, lo:lo + n]
+        cache["v"][:, :n] = v[:, lo:lo + n]
 
 
 def _ssm_keys(kind: str) -> tuple:
@@ -200,7 +212,6 @@ def row_decode(p: Params, h: torch.Tensor, kind: str, cache: dict,
     ``active`` ((B,) bool) only those slots' state is written; an
     inactive slot's stays bitwise as it was.  Returns (h, cache)."""
     _check_kind(kind, cfg)
-    layers.require_unsharded_decode(pc)
     if kind in ("1", "2"):
         m_in = layers.rms_norm(h, p["norm1"], cfg.norm_eps)
         dec = ssm.mamba1_decode if kind == "1" else ssm.mamba2_decode
@@ -251,17 +262,18 @@ def _cross_decode(p: Params, x: torch.Tensor, ck: torch.Tensor,
 def row_cache_init(kind: str, cfg: ModelConfig, pc: ParallelContext,
                    batch: int, max_seq: int, dtype, device,
                    layers_: Optional[int] = 1, cross_len: int = 0) -> dict:
-    """Zero decode cache of ``layers_`` stacked rows (``layers_`` None:
-    one row without the layer axis, a shared occurrence's): attention
-    {'k','v'}: (layers_, batch, max_seq, n_kv, hd), with ``cross_len``
-    also the cross attention's {'ck','cv'}: (layers_, batch, cross_len,
-    n_kv, hd) (no token axis); Mamba-1 {'conv':
-    (layers_, batch, d_conv - 1, d_inner) in ``dtype``, 'ssm': (layers_,
-    batch, d_inner, d_state) f32}; Mamba-2 {'conv' in ``dtype``,
-    'conv_bc': (layers_, batch, d_conv - 1, 2 d_state) f32, 'ssm':
-    (layers_, batch, nh, headdim, d_state) f32} (no token axis)."""
+    """Zero decode cache of this rank of ``layers_`` stacked rows
+    (``layers_`` None: one row without the layer axis, a shared
+    occurrence's): attention {'k','v'}: (layers_, batch, max_seq / tp,
+    n_kv_full, hd) (the sequence sharded over tp, every kv head), with
+    ``cross_len`` also the cross attention's {'ck','cv'}: (layers_,
+    batch, cross_len, n_kv, hd) (the rank's kv heads when kv is sharded,
+    else all; no token axis); Mamba-1 {'conv': (layers_, batch, d_conv -
+    1, d_inner / tp) in ``dtype``, 'ssm': (layers_, batch, d_inner / tp,
+    d_state) f32}; Mamba-2 {'conv' in ``dtype``, 'conv_bc': (layers_,
+    batch, d_conv - 1, 2 d_state) f32, 'ssm': (layers_, batch, nh / tp,
+    headdim, d_state) f32} (no token axis)."""
     _check_kind(kind, cfg)
-    layers.require_unsharded_decode(pc)
     lead = () if layers_ is None else (layers_,)
     if kind in ("1", "2"):
         shapes = ssm.mamba_state_shapes(cfg, pc.tp, batch, int(kind))
@@ -270,10 +282,15 @@ def row_cache_init(kind: str, cfg: ModelConfig, pc: ParallelContext,
         return {key: torch.zeros(lead + shape, dtype=dt, device=device)
                 for key, shape, dt in zip(_ssm_keys(kind), shapes, dtypes)}
     d = layers.attn_dims(cfg, pc.tp)
+    if max_seq % pc.tp:
+        raise ValueError(f"max_seq {max_seq} must divide over tp {pc.tp}: "
+                         f"the KV cache is sharded over the sequence")
+    n_kv_full = d.n_kv * pc.tp if d.kv_sharded else d.n_kv
     out = {}
-    for name, length in (("", max_seq), ("c", cross_len)):
+    for name, length, heads in (("", max_seq // pc.tp, n_kv_full),
+                                ("c", cross_len, d.n_kv)):
         if length:
-            shape = lead + (batch, length, d.n_kv, d.head_dim)
+            shape = lead + (batch, length, heads, d.head_dim)
             for leaf in ("k", "v"):
                 out[name + leaf] = torch.zeros(shape, dtype=dtype,
                                                device=device)

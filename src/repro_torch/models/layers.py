@@ -8,8 +8,9 @@ row-parallel weights hold their local in-features slice and the partial
 product is summed with ``pc.tp_all_reduce``; q heads are padded to a
 multiple of tp (zero weights, inert); kv heads are sharded when tp
 divides them, else replicated; the vocabulary is sharded over tp for the
-embedding and the head.  The sequence-sharded decode path (tp > 1)
-is not ported yet (ROADMAP queue 1, item 11) and raises.
+embedding and the head.  Decode at tp > 1 shards the KV cache over the
+sequence (flash-decoding, :func:`decode_attention`): every rank holds
+all kv heads of its slice of the positions.
 
 Names, layouts and the float32 math follow the reference; ``rms_norm``,
 the long-sequence branch of ``attention_scores`` and ``dense`` on a
@@ -229,28 +230,31 @@ def attention_forward(params: Params, x: torch.Tensor, cfg: ModelConfig,
 
 # -- decode path --------------------------------------------------------- #
 
-def require_unsharded_decode(pc: ParallelContext) -> None:
-    """The reference's tp > 1 decode shards the KV cache over the
-    sequence (flash-decoding); that path is not ported yet."""
-    if pc.tp_active:
-        raise NotImplementedError(
-            "decode and its cache at tp > 1 (the sequence-sharded KV "
-            "cache) are not ported yet (ROADMAP queue 1, item 11)")
-
-
 def decode_attention(params: Params, x: torch.Tensor, cache_k, cache_v,
                      pos: torch.Tensor, cfg: ModelConfig,
                      pc: ParallelContext,
                      window: Optional[int] = None,
                      kv_write_pos: Optional[torch.Tensor] = None,
                      active: Optional[torch.Tensor] = None):
-    """One-token decode against an unsharded KV cache.
+    """One-token decode with a sequence-sharded KV cache, the
+    reference's (``src/repro/models/layers.py:231-336``).
 
-    x: (B, 1, d_model).  cache_{k,v}: (B, S, n_kv, hd).  ``pos``: the
-    position being written - a 0-d int tensor (whole batch at one
-    position) or a ``(B,)`` int tensor (per-slot positions, the
-    continuous-batching engine).  For a ring-buffer window cache the
-    caller passes ``kv_write_pos`` = pos % window (same rank as ``pos``).
+    x: (B, 1, d_model).  cache_{k,v}: (B, S_local, n_kv_full, hd), this
+    rank's slice of a cache whose global length is S_local * tp (rank i
+    holds global slots i * S_local ... (i + 1) * S_local - 1; the whole
+    cache at tp = 1), with every kv head.  ``pos``: the global position
+    being written - a 0-d int tensor (whole batch at one position) or a
+    ``(B,)`` int tensor (per-slot positions, the continuous-batching
+    engine).  For a ring-buffer window cache the caller passes
+    ``kv_write_pos`` = pos % window (same rank as ``pos``).
+
+    The new token's k and v are computed on every rank (head-sharded kv
+    gathers its heads first); the rank that owns global slot ``write //
+    S_local`` writes it at ``write % S_local``.  Each rank attends every
+    q head (gathered) over its slots, masked by their global index; the
+    softmax takes the global max (``pc.tp_psum_max``) and three
+    AllReduces (the sum of the weights, the weighted values, the output
+    projection of this rank's q-head slice) complete it.
 
     Unlike the reference, which returns new caches, this writes the new
     token's k/v into ``cache_k``/``cache_v`` IN PLACE.  ``active`` (a
@@ -259,11 +263,13 @@ def decode_attention(params: Params, x: torch.Tensor, cache_k, cache_v,
 
     Returns (attn_out (B,1,d_model), cache_k, cache_v).
     """
-    require_unsharded_decode(pc)
     d = attn_dims(cfg, pc.tp)
     b = x.shape[0]
-    s_len = cache_k.shape[1]
+    s_local = cache_k.shape[1]
+    tp_idx = pc.tp_index()
     vec = pos.dim() > 0
+    if active is not None and not vec:
+        raise ValueError("active slots need per-slot (vector) pos")
 
     q = dense(x, params["wq"]).reshape(b, 1, d.n_q, d.head_dim)
     rope_pos = pos.reshape(b, 1) if vec else pos.reshape(1)
@@ -271,29 +277,40 @@ def decode_attention(params: Params, x: torch.Tensor, cache_k, cache_v,
     k_new = dense(x, params["wk"]).reshape(b, 1, d.n_kv, d.head_dim)
     v_new = dense(x, params["wv"]).reshape(b, 1, d.n_kv, d.head_dim)
     k_new = apply_rope(k_new, rope_pos, cfg.rope_theta)
+    if d.kv_sharded:
+        k_new = _gather_heads(k_new, pc)      # the cache holds all heads
+        v_new = _gather_heads(v_new, pc)
 
-    write = (kv_write_pos if kv_write_pos is not None else pos) % s_len
+    write = kv_write_pos if kv_write_pos is not None else pos
+    local_off = write % s_local
+    # whether this rank owns the slot (always, at tp = 1)
+    keep = write // s_local == tp_idx if pc.tp_active else None
+    if active is not None:
+        keep = active if keep is None else keep & active
+    # index tensors, never a Python int: no host sync, and the meta
+    # device traces it
     if vec:
-        rows = torch.arange(b, device=x.device)
-        k_row = k_new[:, 0].to(cache_k.dtype)
-        v_row = v_new[:, 0].to(cache_v.dtype)
-        if active is not None:
-            keep = active.reshape(b, 1, 1)
-            k_row = torch.where(keep, k_row, cache_k[rows, write])
-            v_row = torch.where(keep, v_row, cache_v[rows, write])
-        cache_k[rows, write] = k_row
-        cache_v[rows, write] = v_row
+        at = (torch.arange(b, device=x.device), local_off)
+        k_row, v_row = k_new[:, 0], v_new[:, 0]
     else:
-        if active is not None:
-            raise ValueError("active slots need per-slot (vector) pos")
-        cache_k[:, write] = k_new[:, 0].to(cache_k.dtype)
-        cache_v[:, write] = v_new[:, 0].to(cache_v.dtype)
+        at = (slice(None), local_off.reshape(1))
+        k_row, v_row = k_new, v_new
+    k_row, v_row = k_row.to(cache_k.dtype), v_row.to(cache_v.dtype)
+    if keep is not None:
+        keep = keep.reshape(b, 1, 1) if vec else keep
+        k_row = torch.where(keep, k_row, cache_k[at])
+        v_row = torch.where(keep, v_row, cache_v[at])
+    cache_k[at] = k_row
+    cache_v[at] = v_row
 
-    kk, vv = select_kv_global(cache_k, cache_v, d.n_q, cfg)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float())
+    # partial attention over the local slots, all q heads
+    q_full = _gather_heads(q, pc)                        # (B,1,Hq_full,hd)
+    kk, vv = select_kv_global(cache_k, cache_v, q_full.shape[2], cfg)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q_full.float(), kk.float())
     logits = logits / math.sqrt(d.head_dim)
-    # mask invalid cache slots
-    sp = torch.arange(s_len, device=x.device)[None, None, None, :]
+    # mask invalid cache slots by their global slot index
+    sp = (tp_idx * s_local + torch.arange(s_local, device=x.device)
+          )[None, None, None, :]
     pv = pos.reshape(b, 1, 1, 1) if vec else pos
     if window is not None:
         # ring buffer: before the buffer wraps (pos < window) only slots
@@ -302,17 +319,28 @@ def decode_attention(params: Params, x: torch.Tensor, cache_k, cache_v,
     else:
         valid = sp <= pv
     logits = logits.masked_fill(~valid, float("-inf"))
-    m = pc.tp_psum_max(logits.amax(dim=-1))                # (B,H,1)
+    m = pc.tp_psum_max(logits.amax(dim=-1))              # (B,H,1) global
     p = torch.exp(logits - m[..., None])
     p = torch.where(valid, p, 0.0)
-    l_glob = pc.tp_all_reduce(p.sum(dim=-1))               # (B,H,1)
+    l_glob = pc.tp_all_reduce(p.sum(dim=-1))             # (B,H,1)
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(vv.dtype), vv)
     o = pc.tp_all_reduce(o.float())
     out = o / torch.clamp(l_glob, min=1e-20).transpose(1, 2)[..., None]
+    # row-parallel output projection: this rank's q-head slice only
+    out = out[:, :, tp_idx * d.n_q:(tp_idx + 1) * d.n_q]
     out = dense(out.to(x.dtype).reshape(b, 1, d.n_q * d.head_dim),
                 params["wo"])
     out = pc.tp_all_reduce(out)
     return out, cache_k, cache_v
+
+
+def _gather_heads(x: torch.Tensor, pc: ParallelContext) -> torch.Tensor:
+    """(B, L, h_local, hd) -> (B, L, h_local * tp, hd): an AllGather over
+    tp of the heads (the identity at tp = 1)."""
+    if not pc.tp_active:
+        return x
+    gathered = pc.comm.all_gather(x.movedim(2, 0), pc.tp_axis)
+    return gathered.movedim(0, 2)
 
 
 # ---------------------------------------------------------------------- #

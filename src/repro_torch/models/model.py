@@ -294,10 +294,12 @@ def loss_fn(params: Params, batch: dict, cfg: ModelConfig,
 def prefill(params: Params, batch: dict, cfg: ModelConfig,
             pc: ParallelContext, max_seq: int,
             cache_dtype=torch.bfloat16, window: Optional[int] = None):
-    """Full-sequence forward producing last-position logits (B, 1, V)
-    and the decode cache (a list aligned with layer groups, each
-    {'k','v'}: (layers, B, max_seq, n_kv, hd) for attention rows, with
-    an encoder also {'ck','cv'}, or the Mamba rows' state, see
+    """Full-sequence forward producing last-position logits (B, 1, V;
+    at tp > 1 this rank's vocabulary slice, (B, 1, V_pad / tp)) and
+    this rank's decode cache (a list aligned with layer groups, each
+    {'k','v'}: (layers, B, max_seq / tp, n_kv_full, hd) for attention
+    rows, the sequence sharded over tp, with an encoder also
+    {'ck','cv'}, or the Mamba rows' state, see
     ``blocks.row_cache_init``; a shared group's entry is a list of its
     occurrences' un-stacked caches).  ``batch`` as for
     :func:`loss_fn`; a vision prefix takes the cache's first positions,
@@ -327,8 +329,10 @@ def _row_and_cache(params: Params, caches: list, gi: int, g, i: int):
 def init_cache(cfg: ModelConfig, pc: ParallelContext, batch: int,
                max_seq: int, cache_dtype=torch.bfloat16,
                window: Optional[int] = None, device=None):
-    """Zero decode cache; ``device="meta"`` probes shapes without
-    allocating (the serving layout uses that).  A shared group's entry
+    """This rank's zero decode cache (``blocks.row_cache_init``: at tp
+    > 1 the KV cache's sequence and the Mamba state's channels sharded
+    over tp); ``device="meta"`` probes shapes without allocating (the
+    serving layout and the dry-run use that).  A shared group's entry
     is a list of one un-stacked cache per occurrence, as the
     reference's."""
     eff_seq = min(max_seq, window) if window else max_seq
@@ -352,7 +356,9 @@ def decode_step(params: Params, caches: list, tokens: torch.Tensor,
     for the continuous-batching engine).  ``caches`` is updated IN PLACE
     (the reference returns new caches); with ``active`` ((B,) bool,
     vector ``pos``) only those slots' caches are written.  Returns
-    (logits (B, 1, vocab_size), caches)."""
+    (logits (B, 1, vocab_size), caches); at tp > 1 the ranks'
+    vocabulary slices are gathered over the model axis, as the
+    reference's."""
     h = layers.embed_tokens(params["embed"], tokens, cfg, pc)
     for gi, g in enumerate(blocks.scan_groups(cfg)):
         for i in range(g.count):
@@ -361,4 +367,8 @@ def decode_step(params: Params, caches: list, tokens: torch.Tensor,
                                      window=window, active=active)
     h = layers.rms_norm(h, params["final_norm"], cfg.norm_eps)
     logits = layers.lm_logits(params["embed"], h, cfg, pc)
+    if pc.tp_active:
+        # the vocabulary slices of every rank: one AllGather over tp
+        logits = pc.comm.all_gather(logits.movedim(-1, 0),
+                                    pc.tp_axis).movedim(0, -1)
     return logits[..., :cfg.vocab_size], caches

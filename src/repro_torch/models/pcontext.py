@@ -48,12 +48,13 @@ class ParallelContext:
         return self.comm.all_to_all(x, self.tp_axis)
 
     def tp_psum_max(self, x: torch.Tensor) -> torch.Tensor:
-        """The reference's ``pmax`` over tp, used only by decode."""
+        """The reference's ``pmax`` over tp, used only by the
+        sequence-sharded decode: the axis group's max exchange on the
+        Communicator's backend (``Communicator.all_max``), booked in no
+        ledger, as the reference's ``lax.pmax`` books nothing."""
         if not self.tp_active:
             return x
-        raise NotImplementedError(
-            "tp_psum_max at tp > 1 serves the sequence-sharded decode "
-            "path, which is not ported yet (ROADMAP queue 1, item 11)")
+        return self.comm.all_max(x, self.tp_axis)
 
     def tp_max(self, x: torch.Tensor) -> torch.Tensor:
         """Cross-shard max that stays differentiable, as the reference's:

@@ -83,7 +83,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     dp_axis=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics) for
     the params and batch this process holds.  With ``microbatches > 1``
-    the local batch is split and gradients are accumulated.
+    the local batch is split and gradients are accumulated in f32, as
+    the reference's accumulator (the synced grads are then f32 whatever
+    the params' dtype).
     ``param_spec_tree`` enables the replicated-grad AllReduce sync."""
     lr_fn = linear_warmup_cosine(tcfg.lr, tcfg.warmup, tcfg.total_steps)
 
@@ -106,6 +108,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         loss_sum = 0.0
         aux_sum: dict = {}
         dropped, assigned = 0, 0
+        acc: dict = {}      # microbatch grads summed in f32, as the reference
         for b in parts:
             moe.DROPS.start()
             loss, aux = lf(params, b)
@@ -113,12 +116,17 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             d, a = moe.DROPS.stop()
             dropped, assigned = dropped + d, assigned + a
             loss.backward()
+            if mb > 1:
+                for path, p in tree.leaves_with_paths(params):
+                    g = p.grad.float()
+                    acc[path] = g if path not in acc else acc[path].add_(g)
+                    p.grad = None
             loss_sum += loss.detach()
             for k, v in aux.items():
                 aux_sum[k] = aux_sum.get(k, 0.0) + v.detach()
         with torch.no_grad():
             grads = tree.map_with_path(
-                lambda _path, p: p.grad / mb if mb > 1 else p.grad, params)
+                lambda path, p: acc[path] / mb if mb > 1 else p.grad, params)
             if param_spec_tree is not None:
                 if tcfg.bucket_bytes > 0:
                     grads = overlap.bucketed_sync_grads(
@@ -131,7 +139,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             if tcfg.clip_norm is not None and pc.tp_axis is None:
                 grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
             for path, p in tree.leaves_with_paths(params):
-                p.grad = tree.get(grads, path)
+                p.grad = tree.get(grads, path).to(p.dtype)
             lr = lr_fn(opt_state.step)
             params, opt_state = adamw_update(params, grads, opt_state, lr)
         metrics = {"loss": loss_sum / mb, "lr": lr, "grad_norm": gnorm,

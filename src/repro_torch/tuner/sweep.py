@@ -301,9 +301,10 @@ def overlap_windows_from_dryrun(records: list, *,
     by that primitive's launch count: the result is the average compute
     window one launch of that primitive can hide behind.  Returns a
     ``(primitive, msg_bytes, nranks) -> seconds`` callable for
-    ``generate_plan(overlap_compute=...)``.  The port has no dry-run
-    yet (ROADMAP queue 1, item 11): records in the reference's format
-    work, priced at ``peak_flops``/``hbm_bw`` (the H100's by default).
+    ``generate_plan(overlap_compute=...)``.  Records of either
+    package's dry-run work (the port's ``cost`` holds the trace's FLOPs
+    and aten-op bytes), priced at ``peak_flops``/``hbm_bw`` (the H100's
+    by default).
     """
     tot_window: dict = {}
     tot_n: dict = {}

@@ -1250,3 +1250,49 @@ def test_pool_store_round_trip_through_pinned_memory(cuda, tmp_path):
         region.close()
     finally:
         os.close(fd)
+
+
+def _launch_cases(dev):
+    """Each kernel's call at a small shape on ``dev``, with the counter
+    its wrapper adds one to where it launches."""
+    from repro_torch.kernels import chunked_reduce as cr
+    from repro_torch.kernels import fused_collectives as fc
+
+    def m(*shape):
+        return torch.randn(shape, device=dev) if dev.type == "cuda" \
+            else torch.empty(shape, device=dev)
+    return {
+        "rms_norm": (lambda: rn.rms_norm(m(6, 256), m(256), 1e-5),
+                     lambda: rn.rms_norm.launches),
+        "flash_attention": (lambda: fa.flash_attention(
+            m(1, 64, 2, 64), m(1, 64, 2, 64), m(1, 64, 2, 64)),
+            lambda: fa.flash_attention.launches),
+        "chunked_reduce": (lambda: cr.chunked_reduce(m(3, 4096)),
+                           lambda: cr.chunked_reduce.launches),
+        "all_gather_matmul": (lambda: fc.all_gather_matmul(
+            m(64, 2 * 64), m(2, 64, 128)),
+            lambda: fc.all_gather_matmul.launches),
+        "ssm_scan": (lambda: ss.ssm_scan(
+            m(1, 16, 64), m(1, 16, 64).abs(), -m(64, 16).abs(),
+            m(1, 16, 16), m(1, 16, 16), m(64)),
+            lambda: ss.ssm_scan.launches),
+    }
+
+
+@pytest.mark.parametrize("name", ["rms_norm", "flash_attention",
+                                  "chunked_reduce", "all_gather_matmul",
+                                  "ssm_scan"])
+def test_cuda_launches_while_meta_traces(cuda, name):
+    """The dry-run's dispatch on the card's machine: a CUDA tensor still
+    launches the kernel (its counter moves by one), while a meta tensor
+    of the same shape takes the plain version's shape-only path (a meta
+    result of the same shape, no launch)."""
+    fn, count = _launch_cases(cuda)[name]
+    before = count()
+    got = fn()
+    torch.cuda.synchronize()
+    assert count() == before + 1 and got.device.type == "cuda"
+    meta_fn, _ = _launch_cases(torch.device("meta"))[name]
+    out = meta_fn()
+    assert count() == before + 1
+    assert out.device.type == "meta" and out.shape == got.shape

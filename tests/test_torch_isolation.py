@@ -183,22 +183,21 @@ def test_serve_launcher_activates_the_topology(capsys):
 
 
 def test_unported_arch_names_the_roadmap():
-    """whisper-tiny and phi-3-vision-4.2b resolve (ROADMAP queue 1,
-    item 8 is ported), every reference id does, and an unknown id raises
-    naming what is still to port (item 11; item 9, the pipeline, and
-    items 10a and 10b, observability, online re-tuning and resilience,
-    are ported)."""
+    """whisper-tiny and phi-3-vision-4.2b resolve, every reference id
+    does, and an unknown id raises naming the known ones: no module of
+    ROADMAP queue 1 is left to port, so the message names no item."""
     from repro.configs import ALL_IDS
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ARCH_IDS, get_config
     for arch in ("whisper-tiny", "phi-3-vision-4.2b"):
         assert get_config(arch).name == arch
         assert get_config(arch, smoke=True).frontend != "text"
     for arch in ALL_IDS:
         get_config(arch)
-    with pytest.raises(KeyError, match="ROADMAP queue 1.*item 11") as err:
+    with pytest.raises(KeyError, match="unknown arch 'no-such-model'") \
+            as err:
         get_config("no-such-model")
-    assert "item 9" not in str(err.value)
-    assert "item 10b" not in str(err.value)
+    assert "item" not in str(err.value)
+    assert all(a in str(err.value) for a in ARCH_IDS)
 
 
 def test_train_entry_points_without_device_refuse_cpu_fallback():

@@ -457,10 +457,10 @@ def test_train_placement_reaches_the_spec(capsys):
     assert placed.aliases == {}
     with pytest.raises(SystemExit):
         train.spec_from_args(ap.parse_args(base + ["--placement", "auto"]))
-    with pytest.raises(SystemExit, match="item 11"):
+    with pytest.raises(SystemExit, match="add --placement auto"):
         train.spec_from_args(ap.parse_args(
-            base + ["--topology", "pod:cxl,node:cxl:3+1", "--placement",
-                    "auto", "--placement-from-dryrun", "rec.json"]))
+            base + ["--topology", "pod:cxl,node:cxl:3+1",
+                    "--placement-from-dryrun", "rec.json"]))
 
 
 def test_serve_placement_installs_aliases_and_topology(capsys):

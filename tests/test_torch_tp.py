@@ -18,7 +18,7 @@ per-level decomposition under cxl and auto, with each level's ledger
 bytes under a topology) against the reference's; the four dense configs
 the port copies, field by field and with ``param_count`` at tp 1, 2 and
 4; the tuner's plan for a topology with a model level; and the tp > 1
-paths that still raise (decode, its cache, ``tp_psum_max``).
+decode paths on a one-rank stand-in (its cache, ``tp_psum_max``).
 
 Also runnable as a script: ``python tests/test_torch_tp.py --reference
 OUT.npz TMPDIR`` writes the reference's results.
@@ -595,58 +595,79 @@ def test_agm_geometry_at_the_tp_shapes(nout, tile, blocks):
 
 def test_tp_paths_not_ported_raise():
     """Decode, its cache and prefill at tp > 1 (the reference's
-    sequence-sharded KV cache) and ``tp_psum_max`` raise with their
-    ROADMAP item, never computing at tp = 1; a Mamba-1 row computes at
-    tp 2 (through its two model-axis AllReduces, the identity on a
-    one-rank stand-in here: tests/test_torch_ssm_tp.py holds the values
-    on 2 and 4 ranks), and its prefill and decode raise item 11."""
+    sequence-sharded KV cache) and ``tp_psum_max`` no longer raise: on a
+    one-rank stand-in of a model axis of 2 (its AllReduce and max the
+    identity, its AllGather two copies) the cache has the sharded
+    layout, ``tp_psum_max`` is the Communicator's ``all_max`` over the
+    model axis, and a dense and a Mamba-1 row prefill and decode to
+    finite values of the right shapes, through their model-axis
+    collectives (tests/test_torch_decode_tp.py holds the values on 2
+    and 4 ranks against the reference).  At tp = 1 the same context is
+    the identity."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import blocks, layers, model, sharding
+    from repro_torch.models import blocks, model, sharding
     from repro_torch.models.pcontext import ParallelContext
-    cfg = get_config(ARCH, smoke=True)
-    pc = ParallelContext(tp_axis="model", tp=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pc.tp_psum_max(torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.init_cache(cfg, pc, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        layers.decode_attention({}, torch.zeros(1, 1, 256), None, None,
-                                torch.tensor(0), cfg, pc)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        blocks.row_decode({}, torch.zeros(1, 1, 256), "a", {},
-                          torch.tensor(0), cfg, pc)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        blocks.row_prefill({}, torch.zeros(1, 1, 256), "a", cfg, pc,
-                           torch.arange(1), {})
-    mcfg = get_config("falcon-mamba-7b", smoke=True)
-    row = model._layer(blocks.init_row(torch.Generator().manual_seed(0),
-                                       "1", mcfg, 2, torch.float32,
-                                       "cpu"), 0)
-    row = sharding.shard_params(
-        row, sharding.param_specs(row, mcfg, fsdp=False), None, 0, 1,
-        tp_axis="model", tp_rank=0, tp=2)
     calls = []
 
-    class _Identity:                  # a model axis of one rank's sums
+    class _OneRank:                   # a model axis of 2, seen by rank 0
         def all_reduce(self, x, axis):
-            calls.append((tuple(x.shape), axis))
+            calls.append(("all_reduce", axis))
             return x
-    mpc = ParallelContext(tp_axis="model", tp=2, comm=_Identity())
-    h = torch.randn(1, 3, mcfg.d_model,
-                    generator=torch.Generator().manual_seed(1))
-    out, aux = blocks.row_forward(row, h, "1", mcfg, mpc, torch.arange(3))
-    assert out.shape == h.shape and bool(torch.isfinite(out).all())
-    assert float(aux) == 0.0
-    # x_proj's and out_proj's row-parallel sums, over the model axis
-    assert [a for _, a in calls] == ["model", "model"]
-    for fn in (blocks.row_prefill, blocks.row_decode):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            args = (row, h, "1", mcfg, mpc, torch.arange(3), {}) \
-                if fn is blocks.row_prefill else \
-                (row, h, "1", {}, torch.tensor(0), mcfg, mpc)
-            fn(*args)
+
+        def all_gather(self, x, axis):
+            calls.append(("all_gather", axis))
+            return torch.cat([x, x])
+
+        def all_max(self, x, axis):
+            calls.append(("all_max", axis))
+            return x
+
+        def axis_index(self, axis):
+            return 0
+    pc = ParallelContext(tp_axis="model", tp=2, comm=_OneRank())
+    sharding.set_mesh_sizes({"model": 2})     # kv sharded at tp 2
+    x = torch.arange(3.0)
+    assert pc.tp_psum_max(x) is x and calls == [("all_max", "model")]
+    cfg = get_config(ARCH, smoke=True)
+    cache = model.init_cache(cfg, pc, 1, 8, device="cpu")
+    assert tuple(cache[0]["k"].shape) == (cfg.n_layers, 1, 4,
+                                          cfg.n_kv_heads, cfg.head_dim)
+    with pytest.raises(ValueError, match="must divide over tp"):
+        model.init_cache(cfg, pc, 1, 7, device="cpu")
+    for arch, kind in ((ARCH, "a"), ("falcon-mamba-7b", "1")):
+        rcfg = get_config(arch, smoke=True)
+        row = model._layer(blocks.init_row(
+            torch.Generator().manual_seed(0), kind, rcfg, 2, torch.float32,
+            "cpu"), 0)
+        row = sharding.shard_params(
+            row, sharding.param_specs(row, rcfg, fsdp=False), None, 0, 1,
+            tp_axis="model", tp_rank=0, tp=2)
+        h = torch.randn(1, 3, rcfg.d_model,
+                        generator=torch.Generator().manual_seed(1))
+        del calls[:]
+        out, aux = blocks.row_forward(row, h, kind, rcfg, pc,
+                                      torch.arange(3))
+        assert out.shape == h.shape and bool(torch.isfinite(out).all())
+        assert float(aux) == 0.0
+        if kind == "1":
+            # x_proj's and out_proj's row-parallel sums, over the model axis
+            assert calls == [("all_reduce", "model")] * 2
+        c = model._layer(blocks.row_cache_init(kind, rcfg, pc, 1, 8,
+                                               torch.float32, "cpu"), 0)
+        out = blocks.row_prefill(row, h, kind, rcfg, pc, torch.arange(3),
+                                 c)
+        assert out.shape == h.shape and bool(torch.isfinite(out).all())
+        del calls[:]
+        out, _ = blocks.row_decode(row, h[:, :1], kind, c, torch.tensor(3),
+                                   rcfg, pc)
+        assert out.shape == (1, 1, rcfg.d_model)
+        assert bool(torch.isfinite(out).all())
+        assert {a for _, a in calls} == {"model"}
+        if kind == "a":
+            assert ("all_max", "model") in calls
+    sharding.set_mesh_sizes({})
     # at tp = 1 the same context is the identity
     one = ParallelContext(tp_axis="model", tp=1)
     x = torch.ones(3)

@@ -365,8 +365,19 @@ def test_port_tune_cli_matches_the_sweep(tmp_path, monkeypatch, capsys):
     grid = dataclasses.replace(ptuner.SMOKE_GRID, nranks=(4,))
     assert _same_json(plan, ptuner.generate_plan(grid))
     assert "tuned" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        tune.main(["--smoke", "--overlap-from-dryrun", "x", "--out", out])
+    with pytest.raises(SystemExit):        # two sources of windows
+        tune.main(["--smoke", "--overlap-from-dryrun", "x",
+                   "--overlap-compute-us", "5", "--out", out])
+    # --overlap-from-dryrun is ported: a path with no record gives no
+    # window, so the sweep's cells (tests/test_torch_dryrun.py feeds it
+    # records)
+    none = tune.main(["--smoke", "--nranks", "4", "--quiet",
+                      "--overlap-from-dryrun", str(tmp_path / "none"),
+                      "--out", out])
+    assert "overlap windows from 0 dry-run records" in \
+        capsys.readouterr().out
+    assert none.entries == plan.entries
+    assert none.meta["overlap_compute_s"] == "per-cell"
     # --measurements is ported: records it cannot read fold no sample, and
     # the refreshed plan makes the sweep's choices
     again = tune.main(["--smoke", "--nranks", "4", "--quiet", "--out", out,
