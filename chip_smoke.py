@@ -267,7 +267,8 @@ Phases (each fails the run if its check fails):
                  run from the same state (rtol 1e-4, atol 1e-6); ledger
                  bytes at data/cxl and pod/cxl, pod's fewer; the audit at
                  (data, 2) and (pod, 2); chunked_reduce on every
-                 survivor (its two spawns run beside phase 2, parity,
+                 survivor (its two spawns run beside the build and
+                 phase 2, parity,
                  and are joined after it);
 7e. train MoE  - Granite-3.0-MoE (32 ``e`` rows, d_model 1536, 40 experts
                  top-8) at full width and depth over ``--mesh 2x2
@@ -323,7 +324,8 @@ Phases (each fails the run if its check fails):
                  launches flash_attention exactly as often as the path
                  calls it every step (whisper 20 a rank-step: 4 encoder
                  rows, 4 self and 4 cross attentions, the decoder's 8
-                 again in the remat replay; Phi-3 64), rms_norm and its
+                 again in the remat replay; Phi-3 2 a row kept: 16),
+                 rms_norm and its
                  backward (all_gather_matmul under --fuse-kernels),
                  every auto call at its plan cell; peak memory a rank.
 7j. train pipeline - llama3.2-smoke over ``--mesh 4x1 --pp-stages 2
@@ -347,6 +349,43 @@ Phases (each fails the run if its check fails):
                  every step, peak memory a rank, and the checkpoint (the
                  stage slabs concatenated) restored into the GLOBAL
                  shapes equal to the run's params bitwise, then deleted.
+8. examples    - the seven examples of ``repro_torch.examples`` that run
+                 on the card, through their ``main`` (or, to share a
+                 spawn, the spec or rank function their ``main`` runs):
+                 8a ``train_lm --steps 30`` at one rank, full width
+                 (124.6M params, batch 8 x 256), before phase 7: the
+                 logged loss at step 29 below step 0's, exactly
+                 ``train_lm_launches`` a step (12 rows under remat:
+                 rms_norm 49, its backward 25, no flash at 256 tokens),
+                 the checkpoint restored bitwise, the mean step; 8b
+                 ``train_lm --backend cxl --tp 2 --dp 2 --steps 4`` from
+                 8a's initial params, a spec of 7c's spawn: step-0 loss
+                 within 1e-4 of 8a's, the loss falls, chunked_reduce at
+                 N = 2 on every rank every step, its GLOBAL checkpoint
+                 restored bitwise and into a one-rank ``train()``
+                 whose loss is that of the returned params' (rtol
+                 1e-4); 8c
+                 quickstart's part 3 (4 ranks AllReduce under cxl
+                 through the pool of all four) after the flat spawn's
+                 runs, the spawn that maps that pool: the numpy sum at
+                 rtol 1e-4, chunked_reduce at N = 4 on every rank; 8d
+                 ``serve_lm`` at full width, Llama-3.2-1B (batch 4,
+                 prompt 16, 16 new) and Falcon-Mamba-7B ``--window
+                 64``: tokens (4, 16) inside the vocabulary, tok/s,
+                 rms_norm (and ssm_scan) launched; 8e
+                 ``autotune_workflow``'s auto step on the card and the
+                 CPU from the same params: loss at rtol 2e-4, audit
+                 (primitive, bytes, nranks, backend) equal.
+
+Depth cuts that pay for phase 8 (every count a cut run checks is
+reckoned from the rows it keeps): Phi-3-vision's and Granite-3.0-MoE's
+training runs (7i, 7e) keep 8 of their 32 rows; the Llama runs whose
+steps ride gloo - the flat ring run, (pod, data)'s auto and 7c's
+``tp_auto_retune`` with ``tp_auto``, the run it is held to - keep 4 of
+16, and their step-0 losses are held to ``cut_cxl``, a cxl run of the
+same cut model in the flat spawn.  (pod, data)'s runs (7b) ride 7c's
+spawn (the same rank groups), and 7l starts beside the build, once
+chunked_reduce, the one kernel its ranks launch, is built.
 
 Phase 7 starts with every path's smoke check at once: the eleven smoke
 models' training runs (the SSM models' at ``4x1`` and at ``2x2``, the
@@ -361,9 +400,13 @@ a loop over L), and so does whisper-smoke's at ``2x2``.  For the same
 reason the full-width runs of one spawn's rank groups share a spawn of
 the ranks (``train.run_many``: each run its own mesh, topology and
 aliases): 7's flat Llama runs with 7g's Zamba2 runs and 7i's
-whisper-tiny and Phi-3-vision runs, 7c's Llama runs with 7e's Granite,
-7h's Zamba2 and 7j's pipeline runs ((stage, data) has (data, model)'s
-groups), 7d's grouped runs with its ``--placement auto`` run and 7k's.
+whisper-tiny and Phi-3-vision runs (and 8c after them), 7c's Llama
+runs with 7b's (pod, data) runs, 7e's Granite, 7h's Zamba2, 7j's
+pipeline runs ((stage, data) and (pod, data) have (data, model)'s
+groups) and 8b's train_lm run (and decode_tp after them), 7d's grouped
+runs with its ``--placement auto`` run and 7k's.  The ranks of phase 7
+allocate in expandable segments (``PYTORCH_CUDA_ALLOC_CONF``), and 7j's
+pipeline runs, 16 GiB a rank, come first in their spawn.
 
 The kernels' launch counters are zeroed before each serving run and
 before each training step (in the rank processes), and read after it
@@ -373,7 +416,10 @@ as ``train``, 7b's as ``train_hier``, 7c's as ``train_tp``, 7d's as
 ``train_hybrid``, 7h's as ``train_hybrid_tp``, 7i's as ``train_audio``
 and ``train_vlm``, 7j's as ``train_pp``, 7k's with 7d's, 7l's
 chunked_reduce as ``train_survivor``, Zamba2's serving as ``serve_hybrid`` and the
-non-text models' as ``serve_audio`` and ``serve_vlm``; ssm_scan's
+non-text models' as ``serve_audio`` and ``serve_vlm``, phase 8's as
+``example_train_lm``, ``example_train_lm_tp``, ``example_quickstart``,
+``example_serve_lm``, ``example_serve_lm_ssm`` and
+``example_autotune``; ssm_scan's
 backward kernel under ``backward_launches_by_path``):
 the training path's four kernels and rms_norm's backward kernel must
 have run on it, rms_norm and
@@ -392,6 +438,7 @@ import datetime
 import functools
 import gc
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -530,6 +577,44 @@ RESIL_REASON = "survivors on data: -[1] -> 2+1"
 # the earlier paths' runs but the profiled first, and the gloo-bound ones,
 # take 2 steps (step 0 and one to show the loss fall)
 SHORT_STEPS = 2
+# depth cuts of earlier paths (the time limit): Phi-3-vision's training
+# runs (7i) and Granite-3.0-MoE's (7e) keep the first 8 of their 32 rows
+# at full width; every count they check is reckoned from the rows kept
+VLM_TRAIN_ROWS = MOE_TRAIN_ROWS = 8
+# the Llama runs with gloo-bound steps keep 4 of the 16 rows: the flat
+# ring run, (pod, data)'s auto (its ici level rides gloo) and 7c's
+# re-tuned auto (its step 2 sends the big cells to gloo) with tp_auto,
+# the run it is held to; ``cut_cxl``, a cxl run of the same cut model in
+# the flat spawn, is what their step-0 losses are held to
+GLOO_ROWS = 4
+CUT_RUNS = ("ring", "cut_cxl")
+CUT_TP_RUNS = ("tp_auto", "tp_auto_retune")
+# phase 8, the examples (``repro_torch.examples``): 8a train_lm at one
+# rank, 8b at (data, model) = (2, 2) under cxl in 7c's spawn, 8c
+# quickstart's part 3 in the flat spawn (the spawn that maps a pool of
+# all four ranks), 8d serve_lm, 8e autotune_workflow's auto step
+TRAIN_LM_STEPS, TRAIN_LM_TP_STEPS = 30, 4
+# train_lm's row norms at d_model 768: 8a's batch of 8 x 256 tokens, and
+# a rank's 4 x 256 of it at data 2 in 8b
+TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_D = 8, 256, 768
+RMS_TRAIN_LM = (TRAIN_LM_BATCH * TRAIN_LM_SEQ, TRAIN_LM_D)
+RMS_TRAIN_LM_TP = (TRAIN_LM_BATCH // TP_DP * TRAIN_LM_SEQ, TRAIN_LM_D)
+TRAIN_LM_DIR = CKPT_DIR / "train_lm"
+SERVE_LM_RUNS = {"serve_lm": ["--arch", "llama3.2-1b"],
+                 "serve_lm_ssm": ["--arch", "falcon-mamba-7b", "--window",
+                                  "64"]}
+
+
+def cut_config(arch: str, rows: int):
+    """``arch``'s full-width config cut to its first ``rows`` rows (its
+    widths, vocabulary and frontend unchanged)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return dataclasses.replace(
+        cfg, name=f"{cfg.name}[{rows} of {cfg.n_layers} rows]",
+        n_layers=rows, layer_pattern=cfg.layer_pattern[:rows])
 # the flat collectives table runs ring (gloo) up to this size a rank
 RING_MAX_MB = 16
 # the tuple collectives table's sizes a rank (256 MB, under auto about a
@@ -826,9 +911,11 @@ AGM_AUDIO_SHAPES = ((PROMPT, DP, 96, 384), (AUDIO_FRAMES, DP, 96, 384),
                     (PROMPT, DP, 96, 1536))
 AGM_VLM_SHAPES = ((VLM_TOKENS, DP, 768, 3072), (VLM_TOKENS, DP, 768, 8192))
 # rms_norm (T, D): Llama's prefill and decode, Falcon-Mamba's; the
-# training path's backward (one rank's 1024 tokens at d_model 2048)
+# training path's backward (one rank's 1024 tokens at d_model 2048);
+# train_lm's at one rank and a rank of (data, model)
 RMS_SHAPES = ((PROMPT, 2048), (SLOTS, 2048), (PROMPT, 4096), (SLOTS, 4096),
-              RMS_MOE, (TP_TOKENS, 2048), RMS_AUDIO, RMS_VLM)
+              RMS_MOE, (TP_TOKENS, 2048), RMS_AUDIO, RMS_VLM, RMS_TRAIN_LM,
+              RMS_TRAIN_LM_TP)
 RMS_BWD = (PROMPT, 2048)
 RMS_TP = (TP_TOKENS, 2048)       # a rank's row norms at (data, model)
 RMS_HYBRID = (PROMPT, HYBRID_D)      # Zamba2's gated norm over d_inner
@@ -999,7 +1086,8 @@ def grad_parity(randn, rn, fa, fc) -> list:
                     "max_abs_err": max(e for e, _ in errs),
                     "ok": all(ok for _, ok in errs)})
 
-    for t, d in (RMS_BWD, RMS_MOE, RMS_HYBRID, RMS_AUDIO, RMS_VLM):
+    for t, d in (RMS_BWD, RMS_MOE, RMS_HYBRID, RMS_AUDIO, RMS_VLM,
+                 RMS_TRAIN_LM, RMS_TRAIN_LM_TP):
         before = rn.rms_norm_vjp.launches
         compare("rms_norm", [t, d], (rn.rms_norm, rn.rms_norm_plain),
                 [randn(t, d), randn(d)], randn(t, d))
@@ -1481,8 +1569,9 @@ def rs_timing(timer, randn, rand, fc, rs_len: int) -> dict:
 def rms_timing(timer, randn, rn, sms: int) -> dict:
     """rms_norm (f32) at :data:`RMS_SHAPES` and its backward at
     :data:`RMS_BWD` (``backward``), :data:`RMS_MOE` (``backward_moe``),
-    :data:`RMS_HYBRID` (``backward_hybrid``) and :data:`RMS_TP`
-    (``backward_tp``, a rank's row norms at (data, model)):
+    :data:`RMS_HYBRID` (``backward_hybrid``), :data:`RMS_TP`
+    (``backward_tp``, a rank's row norms at (data, model)) and
+    :data:`RMS_TRAIN_LM` (``backward_train_lm``, train_lm at one rank):
     the kernels, the plain versions, the library call
     and ``copy_ms``, the same bytes moved under the same timer
     (``y.copy_(x)``; for the backward ``torch.add(x, dy, out=dx)``: read
@@ -1513,6 +1602,8 @@ def rms_timing(timer, randn, rn, sms: int) -> dict:
                                                 *RMS_AUDIO)
     out["backward_vlm"] = rms_backward_timing(timer, randn, rn, sms,
                                               *RMS_VLM)
+    out["backward_train_lm"] = rms_backward_timing(timer, randn, rn, sms,
+                                                   *RMS_TRAIN_LM)
     return out
 
 
@@ -1924,11 +2015,19 @@ def check_auto_choices(run: dict, plan, topology=None,
     return by_prim
 
 
+def _after_all(ctx, calls: tuple) -> list:
+    """Every ``(fn, args)`` of ``calls`` on this rank, in turn: what
+    :func:`full_width_runs` hands ``train.run_many`` as its one
+    ``after``."""
+    return [fn(ctx, *args) for fn, args in calls]
+
+
 def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
                     profile: bool = True, short: tuple = (),
                     arch: str = "llama3.2-1b", archs: dict = None,
                     ckpt: dict = None, unprofiled: tuple = (),
-                    after: tuple = None):
+                    after: tuple = (), configs: dict = None,
+                    extra: dict = None):
     """``arch`` (Llama-3.2-1B) at full width and depth through the
     launcher's flags: each of ``runs`` (label -> its flags, after
     ``common``; a later flag overrides ``common``'s) is one variant of a
@@ -1941,18 +2040,26 @@ def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
     ``ckpt`` (its label -> directory) writes its checkpoint there
     (``train --ckpt``: its record holds ``ckpt``, ``assemble_s``,
     ``save_s`` and ``global_params``); ``nvidia-smi`` is sampled over
-    all.  With ``after`` = (fn, args) every rank then runs ``fn(ctx,
-    *args)`` in the same spawn (``train.run_many``), and the return is
-    (the runs, its results in rank order)."""
+    all.  The labels in ``configs`` (label -> ``ModelConfig``) train that
+    config in place of their arch's (a depth cut, :func:`cut_config`);
+    ``extra`` (label -> ``train.RunSpec``) adds runs given as specs (an
+    example's), after the others.  With ``after`` = ((fn, args), ...)
+    every rank then runs each ``fn(ctx, *args)`` in turn in the same
+    spawn (``train.run_many``), and the return is (the runs, a list with
+    each fn's results in rank order)."""
     import dataclasses
 
     from repro_torch.launch import train
     archs, ckpt = archs or {}, ckpt or {}
+    configs, extra = configs or {}, extra or {}
     per = {label: train.spec_from_args(train.build_parser().parse_args(
         _train_args(common + runs[label] + ["--lr", "3e-5"], mesh,
                     SHORT_STEPS if label in short else TRAIN_STEPS,
                     archs.get(label, arch))))
         for label in runs}
+    for label, cfg in configs.items():
+        per[label] = dataclasses.replace(per[label], config=cfg)
+    per.update(extra)
     groups: list = []          # (the spec but its variants, its labels)
     for label, sp in per.items():
         key = dataclasses.replace(sp, variants=(), steps=0)
@@ -1966,7 +2073,8 @@ def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
         per[labels[0]], variants=tuple(per[x].variants[0] for x in labels),
         steps=max(per[x].steps for x in labels),
         profile=profile and labels[0] not in unprofiled,
-        ckpt=ckpt.get(labels[0])) for _, labels in groups]
+        ckpt=ckpt.get(labels[0], per[labels[0]].ckpt))
+        for _, labels in groups]
     # the ranks share the card with this process: free what an earlier
     # phase's objects (an engine's reference cycles) still hold first
     gc.collect()
@@ -1974,18 +2082,20 @@ def full_width_runs(runs: dict, common: list, mesh: str = f"{DP}x1",
     held = torch.cuda.memory_reserved() / 2**30
     t0 = time.perf_counter()
     with SmiSampler() as smi:
-        merged = train.run_many(specs, after)
+        merged = train.run_many(specs, (_after_all, (tuple(after),))
+                                if after else None)
     wall = time.perf_counter() - t0
-    after_out = merged.pop() if after is not None else None
-    log(f"[train] {' + '.join(runs)}: {wall:.1f}s in one spawn of the "
+    after_out = [[r[k] for r in merged.pop()] for k in range(len(after))] \
+        if after else None
+    log(f"[train] {' + '.join(per)}: {wall:.1f}s in one spawn of the "
         f"ranks ({held:.2f} GiB of the card held by this process)")
     got = {label: run for (_, labels), spec_runs in zip(groups, merged)
            for label, run in zip(labels, spec_runs)}
     out = {}
-    for label in runs:
+    for label in per:
         got[label]["group_wall_s"] = wall
         out[label] = _report_run(label, got[label], smi)
-    return out if after is None else (out, after_out)
+    return out if not after else (out, after_out)
 
 
 def _report_run(label: str, run: dict, smi) -> dict:
@@ -2015,16 +2125,17 @@ def _report_run(label: str, run: dict, smi) -> dict:
     return run
 
 
-def check_losses(runs: dict, first: float) -> None:
-    """Every run's step-0 loss within 1e-4 of ``first`` (the flat
-    cxl_fused run's), every loss finite, and every run's loss falls."""
+def check_losses(runs: dict, first: float, of: str = "cxl_fused") -> None:
+    """Every run's step-0 loss within 1e-4 of ``first`` (run ``of``'s,
+    by default the flat cxl_fused run's), every loss finite, and every
+    run's loss falls."""
     for label, run in runs.items():
         ls = [s["loss"] for s in run["steps"]]
         if not all(np.isfinite(ls)):
             fail(f"{label}: a loss is not finite: {ls}")
         if abs(ls[0] - first) > 1e-4 * abs(first):
             fail(f"step-0 losses disagree: {label} {ls[0]} vs "
-                 f"cxl_fused {first}")
+                 f"{of} {first}")
         if not ls[-1] < ls[0]:
             fail(f"{label}: the loss did not fall: {ls}")
 
@@ -2108,16 +2219,22 @@ def smoke_checks() -> dict:
         groups: dict = {}
         for key, sp in specs.items():
             groups.setdefault(train._spawn_groups(sp), []).append(key)
+        def timed(specs):
+            t = time.perf_counter()
+            return train.run_many(specs), time.perf_counter() - t
+
         with ThreadPoolExecutor(2 * len(groups)) as pool:
             futures = {(keys[0], device): pool.submit(
-                train.run_many, [dataclasses.replace(specs[k], device=device)
-                                 for k in keys])
+                timed, [dataclasses.replace(specs[k], device=device)
+                        for k in keys])
                 for keys in groups.values() for device in ("cuda", "cpu")}
             losses = {}
             for keys in groups.values():
                 for device in ("cuda", "cpu"):
-                    for k, runs in zip(keys,
-                                       futures[keys[0], device].result()):
+                    got, wall = futures[keys[0], device].result()
+                    log(f"[train] smoke spawn {' + '.join(keys)} on "
+                        f"{device}: {wall:.1f}s")
+                    for k, runs in zip(keys, got):
                         losses.setdefault(k, {})[device] = [
                             s["loss"] for s in runs[0]["steps"]]
     out = {}
@@ -2281,20 +2398,18 @@ def check_flat_ckpt(run: dict) -> dict:
     return rec
 
 
-def check_ckpt_restores(run: dict, arch: str, tp: int, name: str) -> dict:
+def check_ckpt_restores(run: dict, cfg, tp: int, name: str) -> dict:
     """A run's checkpoint (under ``CKPT_DIR / name``) restored through
     ``checkpoint.restore`` into ``abstract_params(cfg, tp)`` (the GLOBAL
     padded shapes) equals the run's captured params bitwise; then it is
-    deleted (13.5 GB for the MoE run's)."""
+    deleted."""
     import os
     import shutil
 
-    from repro_torch.configs import get_config
     from repro_torch.core import tree
     from repro_torch.models import model
     from repro_torch.training import checkpoint
     params = run.pop("global_params")
-    cfg = get_config(arch)
     nbytes = os.path.getsize(os.path.join(run["ckpt"], "arrays.npz"))
     t0 = time.perf_counter()
     step = int(pathlib.Path(run["ckpt"]).name.removeprefix("step_"))
@@ -2317,14 +2432,12 @@ def check_ckpt_restores(run: dict, arch: str, tp: int, name: str) -> dict:
     return rec
 
 
-def moe_a2a_bytes() -> float:
-    """Wire bytes of one rank's all_to_all in a step (the ledger's
-    convention, s (n - 1) / n): 6 calls a row (dispatch and combine in
-    the forward, the remat replay and the backward's transposes) of the
-    (E, C, d) f32 buffer, C = int(t k 1.25) // E at a model rank's t =
-    1024 tokens."""
-    from repro_torch.configs import get_config
-    cfg = get_config(MOE_ARCH)
+def moe_a2a_bytes(cfg) -> float:
+    """Wire bytes of one rank's all_to_all in a step of ``cfg`` (the
+    ledger's convention, s (n - 1) / n): 6 calls a row (dispatch and
+    combine in the forward, the remat replay and the backward's
+    transposes) of the (E, C, d) f32 buffer, C = int(t k 1.25) // E at a
+    model rank's t = 1024 tokens."""
     m = cfg.moe
     t = TP_TOKENS // TP_TP
     e = m.padded_experts(TP_TP)
@@ -2332,15 +2445,13 @@ def moe_a2a_bytes() -> float:
     return 6 * cfg.n_layers * e * cap * cfg.d_model * 4 * (TP_TP - 1) / TP_TP
 
 
-def check_moe_runs(runs: dict) -> dict:
-    """Every step of every MoE run: the model level's all_to_all bytes on
-    rank 0's ledger equal :func:`moe_a2a_bytes`, the model level's pool
-    moves bytes, and every (token, slot) pair of the batch was routed
-    once in the forward (32 rows x 4096 tokens x top-8); returns the
-    pairs dropped by capacity per step."""
-    from repro_torch.configs import get_config
-    cfg = get_config(MOE_ARCH)
-    want = moe_a2a_bytes()
+def check_moe_runs(runs: dict, cfg) -> dict:
+    """Every step of every MoE run of ``cfg``: the model level's
+    all_to_all bytes on rank 0's ledger equal :func:`moe_a2a_bytes`, the
+    model level's pool moves bytes, and every (token, slot) pair of the
+    batch was routed once in the forward (rows x 4096 tokens x top-8);
+    returns the pairs dropped by capacity per step."""
+    want = moe_a2a_bytes(cfg)
     pairs = cfg.n_layers * TRAIN_BATCH * PROMPT * cfg.moe.top_k
     out = {}
     for label, run in runs.items():
@@ -2478,20 +2589,18 @@ AUDIO_RUNS = ("audio_cxl_fused", "audio_cxl", "audio_auto")
 VLM_RUNS = ("vlm_cxl_fused", "vlm_cxl")
 
 
-def frontend_flash_launches(arch: str) -> int:
-    """flash_attention launches a rank-step (batch 1 a rank, --seq
-    PROMPT): whisper's 4 encoder rows, 4 self and 4 cross attentions, and
-    the decoder rows' 8 again in the remat replay; Phi-3-vision's 32
-    rows (576 + 1024 tokens) and their replay.  The encoder has no
-    remat."""
-    from repro_torch.configs import get_config
-    cfg = get_config(arch)
+def frontend_flash_launches(cfg) -> int:
+    """flash_attention launches a rank-step of ``cfg`` (batch 1 a rank,
+    --seq PROMPT): whisper's 4 encoder rows, 4 self and 4 cross
+    attentions, and the decoder rows' 8 again in the remat replay;
+    Phi-3-vision's rows (576 + 1024 tokens) and their replay.  The
+    encoder has no remat."""
     per_row = 2 if cfg.encoder is not None else 1
     enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
     return enc + 2 * per_row * cfg.n_layers
 
 
-def frontend_train_phase(runs: dict, arch: str, plan) -> dict:
+def frontend_train_phase(runs: dict, cfg, plan) -> dict:
     """Phase 7i's checks of one model (``runs``: its cxl+fused and cxl
     runs and its auto run where it has one, made in the flat path's
     spawn): every step of every run,
@@ -2500,7 +2609,7 @@ def frontend_train_phase(runs: dict, arch: str, plan) -> dict:
     under --fuse-kernels all_gather_matmul; cxl moved pool bytes; every
     auto call took its plan cell; the step-0 losses within 1e-4 of each
     other and every loss falls."""
-    want = frontend_flash_launches(arch)
+    want = frontend_flash_launches(cfg)
     for label, run in runs.items():
         need = ("rms_norm", "rms_norm_vjp") + (
             ("all_gather_matmul",) if run["fuse_kernels"] else ())
@@ -2531,6 +2640,8 @@ def frontend_train_phase(runs: dict, arch: str, plan) -> dict:
 # 7e's runs, Granite-3.0-MoE over (data, model) (variants of 7c's spawn)
 MOE_RUNS = ("moe_cxl_fused", "moe_cxl", "moe_auto")
 PP_RUNS = ("pp_cxl", "pp_auto")
+# 7b's runs, Llama over (pod, data) (variants of 7c's spawn)
+HIER_RUNS = ("hier_cxl_fused", "hier_cxl", "hier_auto")
 
 
 def check_resil_run(run: dict, plan, first: float) -> dict:
@@ -3195,10 +3306,266 @@ def hybrid_tp_train_phase(runs: dict, tp_plan, first_4x1: float) -> dict:
     return out
 
 
-def train_phase() -> dict:
+def _zero_counters() -> None:
+    from repro_torch.kernels.chunked_reduce import chunked_reduce
+    from repro_torch.launch.train import KERNEL_COUNTERS
+    for f in KERNEL_COUNTERS.values():
+        f.launches = 0
+    chunked_reduce.launches_by_n = {}
+
+
+def _read_counters() -> dict:
+    from repro_torch.launch.train import KERNEL_COUNTERS
+    return {k: f.launches for k, f in KERNEL_COUNTERS.items()}
+
+
+def train_lm_launches(n_layers: int) -> dict:
+    """Kernel launches of one train_lm step at one rank (remat, sequences
+    of 256 tokens): rms_norm on each row's two norms, again in the remat
+    replay, and on the final norm; its backward kernel once a norm;
+    attention under ``FLASH_THRESHOLD`` (1024) takes the plain path, and
+    one rank runs no collective."""
+    return {"rms_norm": 4 * n_layers + 1, "rms_norm_vjp": 2 * n_layers + 1,
+            "flash_attention": 0, "chunked_reduce": 0,
+            "all_gather_matmul": 0, "ssm_scan": 0, "ssm_scan_vjp": 0}
+
+
+def _restore_bitwise(ckpt_dir, step: int, cfg, params) -> list:
+    """The paths where ``checkpoint.restore`` of ``ckpt_dir`` at
+    ``step`` into ``cfg``'s GLOBAL shapes differs from ``params``
+    (tensors or numpy) bitwise."""
+    from repro_torch.core import tree
+    from repro_torch.models import model
+    from repro_torch.training import checkpoint
+    got = checkpoint.restore(str(ckpt_dir), step, {
+        "params": model.abstract_params(cfg)})["params"]
+    bad = []
+    for p, x in tree.leaves_with_paths(got):
+        want = tree.get(params, p)
+        if isinstance(want, torch.Tensor):
+            want = want.detach().cpu().numpy()
+        if not np.array_equal(x.view(np.uint32), want.view(np.uint32)):
+            bad.append("/".join(p))
+    return bad
+
+
+def train_lm_phase() -> dict:
+    """8a: ``python -m repro_torch.examples.train_lm --steps 30`` (the
+    example's ``main``) at one rank on the card, full width (CFG_100M,
+    batch 8 x 256 tokens): the logged loss at the last step below step
+    0's, exactly :func:`train_lm_launches` a step, the checkpoint
+    restored bitwise to the returned params, the mean seconds of a step
+    after the first (the example's, from the clock at its logged steps:
+    no sync of its own between them).
+    First the params it starts from (seed 0 on the card, as ``train()``
+    makes them) go to an .npz, 8b's start (``init_path``)."""
+    import shutil
+
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    cfg = train_lm.CFG_100M
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shutil.rmtree(TRAIN_LM_DIR, ignore_errors=True)
+    TRAIN_LM_DIR.mkdir(parents=True)
+    init_path = str(TRAIN_LM_DIR / "init.npz")
+    train.save_params_npz(model.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev), init_path)
+    _zero_counters()
+    t0 = time.perf_counter()
+    out = train_lm.main(["--steps", str(TRAIN_LM_STEPS), "--ckpt",
+                         str(TRAIN_LM_DIR / "one")])
+    wall = time.perf_counter() - t0
+    got = _read_counters()
+    want = {k: TRAIN_LM_STEPS * n
+            for k, n in train_lm_launches(cfg.n_layers).items()}
+    losses = out["losses"]
+    bad = _restore_bitwise(TRAIN_LM_DIR / "one", TRAIN_LM_STEPS, cfg,
+                           out["params"])
+    rec = {"wall_s": wall, "losses_logged": {
+        i: v for i, v in enumerate(losses) if v is not None},
+        "mean_step_s": out["mean_step_s"],
+        "launches": got, "launches_a_step": train_lm_launches(cfg.n_layers),
+        "ckpt_bitwise": not bad, "params": cfg.param_count(),
+        "init_path": init_path}
+    log(f"[examples] train_lm 1 rank: {json.dumps(rec)}")
+    if not losses[-1] < losses[0]:
+        fail(f"train_lm: the loss did not fall: {rec['losses_logged']}")
+    if got != want:
+        fail(f"train_lm: launches {got}, want {want}")
+    if bad:
+        fail(f"train_lm: the checkpoint restores other params: {bad[:4]}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def train_lm_tp_spec(init_path: str):
+    """8b's run: ``train_lm --backend cxl --tp 2 --dp 2 --steps 4`` from
+    8a's initial params, as the example builds it (its
+    ``sharded_spec``), for 7c's spawn (the same rank groups)."""
+    from repro_torch.examples import train_lm
+    args = train_lm.build_parser().parse_args([
+        "--backend", "cxl", "--tp", str(TP_TP), "--dp", str(TP_DP),
+        "--steps", str(TRAIN_LM_TP_STEPS), "--ckpt",
+        str(TRAIN_LM_DIR / "tp")])
+    return train_lm.sharded_spec(args, init_path)
+
+
+def check_train_lm_tp(run: dict, one: dict, device: str = "cuda") -> dict:
+    """8b's checks: step-0 loss within 1e-4 of 8a's (the same params and
+    batch; the sharded step's sums in other orders), the loss falls,
+    every rank launched chunked_reduce at N = 2 every step, and the
+    GLOBAL checkpoint restores bitwise to the run's params and into a
+    one-rank ``train_loop.train`` step on the card whose loss is, at
+    rtol 1e-4, that of the same step from the params the ranks returned
+    (not read from the file)."""
+    import shutil
+
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.examples import train_lm
+    from repro_torch.models import model
+    from repro_torch.training import checkpoint
+    from repro_torch.training.train_loop import train
+    cfg = train_lm.CFG_100M
+    ls = [s["loss"] for s in run["steps"]]
+    first = one["losses_logged"][0]
+    if abs(ls[0] - first) > 1e-4 * abs(first):
+        fail(f"train_lm tp 2 x dp 2: step-0 loss {ls[0]}, one rank's "
+             f"{first}")
+    if not ls[-1] < ls[0]:
+        fail(f"train_lm tp 2 x dp 2: the loss did not fall: {ls}")
+    for i, s in enumerate(run["steps"]):
+        for r, by_n in enumerate(s["chunked_reduce_by_n_per_rank"]):
+            if by_n.get(2, 0) <= 0:
+                fail(f"train_lm tp 2 x dp 2 step {i}: rank {r} launched "
+                     f"chunked_reduce at N {by_n}, wants 2")
+    params = run.pop("global_params")
+    bad = _restore_bitwise(TRAIN_LM_DIR / "tp", TRAIN_LM_TP_STEPS, cfg,
+                           params)
+    if bad:
+        fail(f"train_lm tp 2 x dp 2: the checkpoint restores other params: "
+             f"{bad[:4]}")
+    restored = checkpoint.restore(str(TRAIN_LM_DIR / "tp"),
+                                  TRAIN_LM_TP_STEPS, {
+                                      "params": params})["params"]
+    tcfg = train_lm.train_config(train_lm.build_parser().parse_args([]))
+
+    def one_rank_loss(tree) -> float:
+        _, _, m = train(cfg, tcfg, iter(SyntheticTokens(cfg, batch=2,
+                                                        seq=256)),
+                        steps=1, params=model.params_from_numpy(
+                            tree, device, cfg),
+                        log_fn=lambda line: None, device=device)
+        return float(m["loss"])
+    resumed, returned = one_rank_loss(restored), one_rank_loss(params)
+    del params, restored
+    rec = {"losses": ls, "step_s": [s["step_s"] for s in run["steps"]],
+           "chunked_reduce_by_n_per_rank": [
+               s["chunked_reduce_by_n_per_rank"] for s in run["steps"]],
+           "ckpt_bitwise": True, "resumed_one_rank_loss": resumed,
+           "returned_one_rank_loss": returned,
+           "spawn_s": run["spawn_s"], "save_s": run.get("save_s")}
+    log(f"[examples] train_lm tp 2 x dp 2: {json.dumps(rec)}")
+    if not (np.isfinite(resumed)
+            and abs(resumed - returned) <= 1e-4 * abs(returned)):
+        fail(f"train_lm: the tp-2 checkpoint trains to loss {resumed} at "
+             f"one rank, the params the ranks returned to {returned}")
+    shutil.rmtree(TRAIN_LM_DIR, ignore_errors=True)
+    return rec
+
+
+def check_quickstart(per_rank: list, y: np.ndarray) -> dict:
+    """8c: quickstart's part 3 (its ``allreduce_rank`` on 4 ranks under
+    cxl, run after the flat spawn's specs): every rank's result the
+    numpy sum at rtol 1e-4 (the example's own check), and every rank
+    launched chunked_reduce at N = 4."""
+    from repro_torch.examples import quickstart
+    quickstart.check_allreduce(per_rank, y)
+    by_n = [r["chunked_reduce_by_n"] for r in per_rank]
+    log(f"[examples] quickstart part 3 on {len(per_rank)} ranks: exact, "
+        f"chunked_reduce by N a rank {by_n}")
+    if any(b.get(DP, 0) <= 0 for b in by_n):
+        fail(f"quickstart: a rank launched no chunked_reduce at N = {DP}: "
+             f"{by_n}")
+    return {"chunked_reduce_by_n_per_rank": by_n}
+
+
+def examples_phase() -> dict:
+    """8d and 8e: ``serve_lm`` at full width (Llama-3.2-1B with its
+    defaults, then Falcon-Mamba-7B with ``--window 64``, each engine and
+    its params freed before the next), checking the tokens' shape (4, 16)
+    and range and that the kernels ran; ``autotune_workflow``'s body on
+    the card at its smoke size and on the CPU from the same params (drawn
+    once on the CPU, seed 0): the loss card vs CPU at rtol 2e-4 and the
+    audited (primitive, bytes, nranks, backend) equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import autotune_workflow, serve_lm
+    from repro_torch.models import model
+    out: dict = {}
+    need = {"serve_lm": ("rms_norm",), "serve_lm_ssm": ("rms_norm",
+                                                         "ssm_scan")}
+    for key, argv in SERVE_LM_RUNS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        _zero_counters()
+        got = serve_lm.main(argv)
+        launches = _read_counters()
+        toks = got["tokens"]
+        vocab = get_config(argv[1]).vocab_size
+        rec = {"argv": argv, "shape": list(toks.shape),
+               "seconds": got["seconds"], "tok_s": got["tok_s"],
+               "launches": launches, "first": toks[0].tolist()}
+        log(f"[examples] {key}: {json.dumps(rec)}")
+        if toks.shape != (4, 16) or toks.min() < 0 or toks.max() >= vocab:
+            fail(f"{key}: tokens of shape {toks.shape} in "
+                 f"[{toks.min()}, {toks.max()}], vocabulary {vocab}")
+        idle = [k for k in need[key] if launches[k] <= 0]
+        if idle:
+            fail(f"{key}: never launched {idle}")
+        out[key] = rec
+        del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke = get_config(autotune_workflow.ARCH, smoke=True)
+    cpu_dev = torch.device("cpu")
+    cpu_params = model.init_params(smoke, torch.Generator().manual_seed(0),
+                                   cpu_dev)
+    card_params = model.params_from_numpy(
+        model.params_to_numpy(cpu_params), "cuda", smoke)
+    _zero_counters()
+    card = autotune_workflow.run(card_params, torch.device("cuda"), log)
+    launches = _read_counters()
+    cpu = autotune_workflow.run(cpu_params, cpu_dev, log)
+
+    def cells(audit):
+        return [(a["primitive"], a["msg_bytes"], a["nranks"], a["backend"])
+                for a in audit]
+    rec = {"loss_card": card["loss"], "loss_cpu": cpu["loss"],
+           "auto_choices": cells(card["auto_choices"]),
+           "launches": launches}
+    log(f"[examples] autotune_workflow: {json.dumps(rec)}")
+    if cells(card["auto_choices"]) != cells(cpu["auto_choices"]):
+        fail(f"autotune_workflow: the card's audit "
+             f"{cells(card['auto_choices'])} is not the CPU's "
+             f"{cells(cpu['auto_choices'])}")
+    if launches["rms_norm"] <= 0 or not (
+            abs(card["loss"] - cpu["loss"]) <= 2e-4 * abs(cpu["loss"])):
+        fail(f"autotune_workflow: launches {launches}, loss on the card "
+             f"{card['loss']}, on the CPU {cpu['loss']} (rtol 2e-4)")
+    out["autotune"] = rec
+    return out
+
+
+def train_phase(train_lm_init: str) -> dict:
     """Phase 7: FSDP training on DP ranks sharing the card; 7b over
-    (pod, data), 7c over (data, model), 7d over a grouped data axis."""
+    (pod, data), 7c over (data, model), 7d over a grouped data axis; and
+    phase 8's runs that share a spawn: 8b (from ``train_lm_init``, 8a's
+    initial params) in 7c's, 8c in the flat one."""
+    from repro_torch.configs import get_config
     from repro_torch.core.topology import parse_topology
+    from repro_torch.examples import quickstart
 
     # every path's smoke model: the card's training path against the
     # CPU's
@@ -3225,10 +3592,14 @@ def train_phase() -> dict:
     # sake).  7g's Zamba2 runs and 7i's whisper-tiny and Phi-3-vision
     # runs ride the same spawn of the ranks.
     vlm = ["--prefetch", VLM_PREFETCH]
-    runs = full_width_runs({
+    vlm_cfg = cut_config(VLM_ARCH, VLM_TRAIN_ROWS)
+    llama_cut = cut_config("llama3.2-1b", GLOO_ROWS)
+    qs_input = quickstart.part3_input(DP)
+    runs, (qs_ranks,) = full_width_runs({
         "cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "cxl": ["--backend", "cxl"],
         "ring": ["--backend", "ring"],
+        "cut_cxl": ["--backend", "cxl"],
         "auto": ["--backend", "auto", "--plan", plan_path],
         "hybrid_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "hybrid_cxl": ["--backend", "cxl"],
@@ -3238,46 +3609,34 @@ def train_phase() -> dict:
         "audio_auto": ["--backend", "auto", "--plan", plan_path],
         "vlm_cxl_fused": ["--backend", "cxl", "--fuse-kernels", *vlm],
         "vlm_cxl": ["--backend", "cxl", *vlm]}, [],
-        short=("cxl", "ring", "auto", "hybrid_cxl", "hybrid_auto",
+        short=("cxl", *CUT_RUNS, "auto", "hybrid_cxl", "hybrid_auto",
                "audio_cxl", "audio_auto", "vlm_cxl_fused", "vlm_cxl"),
         archs={**dict.fromkeys(HYBRID_RUNS, HYBRID_ARCH),
                **dict.fromkeys(AUDIO_RUNS, AUDIO_ARCH),
                **dict.fromkeys(VLM_RUNS, VLM_ARCH)},
         ckpt={"cxl_fused": str(CKPT_DIR / "llama")},
-        unprofiled=("vlm_cxl_fused",))
+        unprofiled=("vlm_cxl_fused", "ring"),
+        configs={**dict.fromkeys(VLM_RUNS, vlm_cfg),
+                 **dict.fromkeys(CUT_RUNS, llama_cut)},
+        after=((quickstart.allreduce_rank, (qs_input,)),))
+    # 8c. quickstart's part 3 on the flat spawn's ranks and world pool
+    out["quickstart"] = check_quickstart(qs_ranks, qs_input)
     hybrid = {k: runs.pop(k) for k in HYBRID_RUNS}
     audio = {k: runs.pop(k) for k in AUDIO_RUNS}
     vlm = {k: runs.pop(k) for k in VLM_RUNS}
     # 7i. the non-text models, on phase 7's plan
-    out["audio"] = frontend_train_phase(audio, AUDIO_ARCH, plan)
-    out["vlm"] = frontend_train_phase(vlm, VLM_ARCH, plan)
+    out["audio"] = frontend_train_phase(audio, get_config(AUDIO_ARCH), plan)
+    out["vlm"] = frontend_train_phase(vlm, vlm_cfg, plan)
     out["flat_ckpt"] = check_flat_ckpt(runs["cxl_fused"])
     out["full_width"] = runs
     out["auto_choices"] = check_auto_choices(runs["auto"], plan)
     first = runs["cxl_fused"]["steps"][0]["loss"]
-    check_losses(runs, first)
+    check_losses({k: r for k, r in runs.items() if k not in CUT_RUNS},
+                 first)
+    # the ring run against cxl on the same cut model
+    cut_first = runs["cut_cxl"]["steps"][0]["loss"]
+    check_losses({k: runs[k] for k in CUT_RUNS}, cut_first, "cut_cxl")
 
-    # the same model over the data axis (pod, data) = (2, DP/2), the
-    # pool spanning pods and GPU links inside one; auto, whose ici level
-    # rides gloo, takes SHORT_STEPS
-    hier = full_width_runs({
-        "hier_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
-        "hier_cxl": ["--backend", "cxl"],
-        "hier_auto": ["--backend", "auto", "--plan", hier_plan_path]},
-        ["--multi-pod", "--topology", HIER_TOPOLOGY],
-        short=("hier_cxl_fused", "hier_cxl", "hier_auto"),
-        unprofiled=("hier_cxl_fused",))
-    # cxl moves bytes through both levels' pools; auto never through the
-    # ici level's
-    check_path_runs(hier, {"pod", "data"}, "hier_auto", auto_skip="data")
-    out["hier"] = hier
-    out["hier_auto_choices"] = check_auto_choices(
-        hier["hier_auto"], hier_plan, parse_topology(HIER_TOPOLOGY))
-    data_backends = {c["backend"] for s in hier["hier_auto"]["steps"]
-                     for c in s["choices_rank0"] if c["level"] == "data"}
-    if data_backends != {"ring"}:
-        fail(f"hier_auto: the data (ici) level resolved {data_backends}")
-    check_losses(hier, first)
 
     # 7c. tensor parallelism: (data, model) = (2, 2), both levels on the
     # pool; full width and depth
@@ -3294,10 +3653,27 @@ def train_phase() -> dict:
     pp_plan = tuner.load_plan(pp_plan_path)
     # (7e's Granite-3.0-MoE runs and 7h's Zamba2 runs ride the same
     # spawn of the ranks: the same mesh and topology, on this plan; 7j's
-    # pipeline runs too: (stage, data) has the same rank groups, its own
-    # topology and plan; and decode_tp after them)
+    # pipeline runs and 7b's (pod, data) runs too: (stage, data) and
+    # (pod, data) = (2, 2) have the same rank groups, each its own
+    # topology and plan; 8b's train_lm run; and decode_tp after them)
     decode_rec = decode_tp_record()
-    tp, decode_ranks = full_width_runs({
+    moe_cfg = cut_config(MOE_ARCH, MOE_TRAIN_ROWS)
+    hier_flags = ["--mesh", f"{DP}x1", "--multi-pod", "--topology",
+                  HIER_TOPOLOGY]
+    tp, (decode_ranks,) = full_width_runs({
+        # 7j first, while the ranks' memory is whole: the pipeline's 15.5-16
+        # GiB a rank is the spawn's largest
+        "pp_cxl": ["--backend", "cxl", *PP_FLAGS],
+        "pp_auto": ["--backend", "auto", "--plan", pp_plan_path,
+                    *PP_FLAGS],
+        # 7b: the data axis (pod, data) = (2, DP/2), the pool spanning
+        # pods and GPU links inside one; auto, whose ici level rides
+        # gloo, takes SHORT_STEPS like the others
+        "hier_cxl_fused": [*hier_flags, "--backend", "cxl",
+                           "--fuse-kernels"],
+        "hier_cxl": [*hier_flags, "--backend", "cxl"],
+        "hier_auto": [*hier_flags, "--backend", "auto", "--plan",
+                      hier_plan_path],  # the cut model, as ring's
         "tp_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "tp_cxl": ["--backend", "cxl"],
         "tp_auto": ["--backend", "auto", "--plan", tp_plan_path],
@@ -3309,22 +3685,38 @@ def train_phase() -> dict:
                      "--prefetch", MOE_PREFETCH],
         "hybrid_tp_cxl_fused": ["--backend", "cxl", "--fuse-kernels"],
         "hybrid_tp_cxl": ["--backend", "cxl"],
-        "hybrid_tp_auto": ["--backend", "auto", "--plan", tp_plan_path],
-        "pp_cxl": ["--backend", "cxl", *PP_FLAGS],
-        "pp_auto": ["--backend", "auto", "--plan", pp_plan_path,
-                    *PP_FLAGS]},
+        "hybrid_tp_auto": ["--backend", "auto", "--plan", tp_plan_path]},
         ["--topology", TP_TOPOLOGY], mesh=TP_MESH,
-        short=("tp_cxl", "moe_cxl_fused", "moe_cxl", "moe_auto",
-               "hybrid_tp_cxl", "hybrid_tp_auto", "hybrid_tp_cxl_fused",
-               "pp_auto"),
+        short=(*HIER_RUNS, "tp_cxl", "moe_cxl_fused", "moe_cxl",
+               "moe_auto", "hybrid_tp_cxl", "hybrid_tp_auto",
+               "hybrid_tp_cxl_fused", "pp_auto"),
         archs={**dict.fromkeys(MOE_RUNS, MOE_ARCH),
                **dict.fromkeys(HYBRID_TP_RUNS, HYBRID_ARCH)},
+        configs={**dict.fromkeys(MOE_RUNS, moe_cfg),
+                 **dict.fromkeys(("hier_auto", *CUT_TP_RUNS), llama_cut)},
         ckpt={"moe_cxl_fused": str(CKPT_DIR / "moe"),
               "pp_cxl": str(CKPT_DIR / "pp")},
-        unprofiled=("tp_cxl_fused", "tp_auto_retune", "moe_cxl_fused",
-                    "hybrid_tp_cxl_fused", "pp_cxl"),
-        after=(decode_tp_rank, (TP_TOPOLOGY,)))
+        unprofiled=("hier_cxl_fused", "tp_cxl_fused", "tp_auto_retune",
+                    "moe_cxl_fused", "hybrid_tp_cxl_fused", "pp_cxl",
+                    "train_lm_tp"),
+        after=((decode_tp_rank, (TP_TOPOLOGY,)),),
+        extra={"train_lm_tp": train_lm_tp_spec(train_lm_init)})
     out["decode_tp"] = check_decode_tp(decode_ranks, decode_rec)
+    # 8b. train_lm over (data, model) = (2, 2)
+    out["train_lm_tp_run"] = tp.pop("train_lm_tp")
+    # 7b. cxl moves bytes through both levels' pools; auto never through
+    # the ici level's
+    hier = {k: tp.pop(k) for k in HIER_RUNS}
+    check_path_runs(hier, {"pod", "data"}, "hier_auto", auto_skip="data")
+    out["hier"] = hier
+    out["hier_auto_choices"] = check_auto_choices(
+        hier["hier_auto"], hier_plan, parse_topology(HIER_TOPOLOGY))
+    data_backends = {c["backend"] for s in hier["hier_auto"]["steps"]
+                     for c in s["choices_rank0"] if c["level"] == "data"}
+    if data_backends != {"ring"}:
+        fail(f"hier_auto: the data (ici) level resolved {data_backends}")
+    check_losses({k: r for k, r in hier.items() if k != "hier_auto"}, first)
+    check_losses({"hier_auto": hier["hier_auto"]}, cut_first, "cut_cxl")
     moe = {k: tp.pop(k) for k in MOE_RUNS}
     hybrid_tp_runs = {k: tp.pop(k) for k in HYBRID_TP_RUNS}
     pp = {k: tp.pop(k) for k in PP_RUNS}
@@ -3339,7 +3731,9 @@ def train_phase() -> dict:
         retune, tp["tp_auto"], tp_plan, tp_plan_path,
         parse_topology(TP_TOPOLOGY))
     tp["tp_auto_retune"] = retune
-    check_losses(tp, first)
+    check_losses({k: r for k, r in tp.items() if k not in CUT_TP_RUNS},
+                 first)
+    check_losses({k: tp[k] for k in CUT_TP_RUNS}, cut_first, "cut_cxl")
 
     # 7d. a grouped (ragged) data axis: the 4 ranks as a node of three
     # beside a lone node; full width and depth, and the same run chosen
@@ -3375,7 +3769,7 @@ def train_phase() -> dict:
     # experts parallel over model through the pool's AllToAll, FSDP over
     # data; full width and depth (run in 7c's spawn, on its plan: the
     # same topology)
-    out["moe_ckpt"] = check_ckpt_restores(moe["moe_cxl_fused"], MOE_ARCH,
+    out["moe_ckpt"] = check_ckpt_restores(moe["moe_cxl_fused"], moe_cfg,
                                           TP_TP, "moe")
     check_path_runs(moe, {"data", "model"}, "moe_auto")
     out["moe"] = moe
@@ -3383,7 +3777,7 @@ def train_phase() -> dict:
         moe["moe_auto"], tp_plan, parse_topology(TP_TOPOLOGY))
     if "all_to_all" not in out["moe_auto_choices"]:
         fail("moe_auto resolved no all_to_all")
-    out["moe_routing"] = check_moe_runs(moe)
+    out["moe_routing"] = check_moe_runs(moe, moe_cfg)
     check_losses(moe, moe["moe_cxl_fused"]["steps"][0]["loss"])
 
     # 7g. the hybrid path; 7h. the same model over (data, model), on
@@ -3394,8 +3788,8 @@ def train_phase() -> dict:
         hybrid["hybrid_cxl_fused"]["steps"][0]["loss"]))
     hybrid_tp = out["hybrid_tp"]
     # 7j. the pipeline over (stage, data), in 7c's spawn
-    out["pp_ckpt"] = check_ckpt_restores(pp["pp_cxl"], "llama3.2-1b", 1,
-                                         "pp")
+    out["pp_ckpt"] = check_ckpt_restores(pp["pp_cxl"],
+                                         get_config("llama3.2-1b"), 1, "pp")
     out["pp_auto_choices"] = check_pp_runs(pp, first, pp_plan)
     out["pp"] = pp
     log("[train] step times (s): " + json.dumps(
@@ -3442,15 +3836,16 @@ def main() -> int:
         log(f"[wall] {phase} {walls[phase]:.1f}s")
 
     # 1. build ---------------------------------------------------------
-    record["build_s"] = build.build_all()
-    log(f"[build] {build.KERNELS} in {record['build_s']:.1f}s")
-    mark("build")
-
-    # 7l runs beside phase 2 (its two small spawns are mostly rank
-    # start-up; phase 2 only checks values), and is joined after it
+    # chunked_reduce first: 7l, whose ranks launch only it, runs beside
+    # the rest of the build and phase 2 (its two small spawns are mostly
+    # rank start-up; phase 2 only checks values), and is joined after it
     from concurrent.futures import ThreadPoolExecutor
+    record["build_s"] = build.build_all(("chunked_reduce",))
     side = ThreadPoolExecutor(1)
     survivor = side.submit(survivor_phase)
+    record["build_s"] += build.build_all()
+    log(f"[build] {build.KERNELS} in {record['build_s']:.1f}s")
+    mark("build")
 
     # 2. parity --------------------------------------------------------
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -3578,7 +3973,8 @@ def main() -> int:
                          backward_hybrid=rms["backward_hybrid"],
                          backward_tp=rms["backward_tp"],
                          backward_audio=rms["backward_audio"],
-                         backward_vlm=rms["backward_vlm"]),
+                         backward_vlm=rms["backward_vlm"],
+                         backward_train_lm=rms["backward_train_lm"]),
         "flash_attention": flash_timing(timer, randn, fa, 1, PROMPT, PROMPT,
                                         32, 64, True),
     }
@@ -3666,7 +4062,7 @@ def main() -> int:
             *rms["forward"].values(), rms["backward"],
             rms["backward_moe"], rms["backward_hybrid"], rms["backward_tp"],
             rms["backward_audio"], rms["backward_vlm"],
-            *reduce_frontend.values(), *fa_frontend.values(),
+            rms["backward_train_lm"], *reduce_frontend.values(), *fa_frontend.values(),
             *reduce_hier.values(),
             *reduce_tp.values(), *reduce_ragged.values(),
             *reduce_moe.values(), *reduce_hybrid.values(),
@@ -3759,12 +4155,29 @@ def main() -> int:
              f"axis: {bad}")
     mark("collectives")
 
-    # 7. training ---------------------------------------------------------
+    # 8a. the train_lm example at one rank (its initial params start 8b,
+    # which rides phase 7's (data, model) spawn) ------------------------
     del timer
     torch.cuda.empty_cache()
+    record["train_lm"] = train_lm_phase()
+    mark("examples_train_lm")
+
+    # 7. training ---------------------------------------------------------
+    # the rank processes, spawned from here on, map their memory in
+    # expandable segments: four ranks of 16 GiB (7j's) leave no room for
+    # the fragments a fixed-segment allocator keeps
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     log(f"[train] this process holds {torch.cuda.memory_reserved() / 2**30:.2f}"
         f" GiB of the card before the ranks start")
-    record["train"] = train_phase()
+    record["train"] = train_phase(record["train_lm"]["init_path"])
+    # 8b. train_lm over (data, model) = (2, 2), against 8a
+    tp_run = record["train"].pop("train_lm_tp_run")
+    record["train_lm_tp"] = check_train_lm_tp(tp_run, record["train_lm"])
+    train_lm_tp_launches = {
+        n: sum(s["launches"][n] for s in tp_run["steps"])
+        for n in ("rms_norm", "rms_norm_vjp", "chunked_reduce")}
+    record["train_lm_tp"]["launches"] = train_lm_tp_launches
     record["train"]["audio_runs"] = record["train"]["audio"].pop("runs")
     record["train"]["vlm_runs"] = record["train"]["vlm"].pop("runs")
     (train_launches, hier_launches, tp_launches, ragged_launches,
@@ -3801,6 +4214,10 @@ def main() -> int:
     # 7f. serve Granite-3.0-MoE at full width through the launcher --------
     record["serve_moe"] = moe_serve(launches)
     mark("serve_moe")
+
+    # 8d, 8e. the serve_lm and autotune_workflow examples ----------------
+    record["examples"] = examples_phase()
+    mark("examples")
 
     # 8. launch check ----------------------------------------------------
     serve_launches = {path: {n: sum(run[n] for run in launches[path]
@@ -3847,6 +4264,27 @@ def main() -> int:
     for name in API_KERNELS:
         if api_launches[name] <= 0:
             fail(f"the kernel API path never launched the {name} kernel")
+    # phase 8: the examples' paths, each counted around its own run
+    example_launches = {
+        "example_train_lm": record["train_lm"]["launches"],
+        "example_train_lm_tp": train_lm_tp_launches,
+        "example_quickstart": {"chunked_reduce": sum(
+            b.get(DP, 0) for b in record["train"]["quickstart"][
+                "chunked_reduce_by_n_per_rank"])},
+        "example_serve_lm": record["examples"]["serve_lm"]["launches"],
+        "example_serve_lm_ssm":
+            record["examples"]["serve_lm_ssm"]["launches"],
+        "example_autotune": record["examples"]["autotune"]["launches"]}
+    for path, names in (("example_train_lm", ("rms_norm", "rms_norm_vjp")),
+                        ("example_train_lm_tp", ("rms_norm", "rms_norm_vjp",
+                                                 "chunked_reduce")),
+                        ("example_quickstart", ("chunked_reduce",)),
+                        ("example_serve_lm", ("rms_norm",)),
+                        ("example_serve_lm_ssm", ("rms_norm", "ssm_scan")),
+                        ("example_autotune", ("rms_norm",))):
+        for name in names:
+            if example_launches[path][name] <= 0:
+                fail(f"the {path} path never launched the {name} kernel")
 
     # 9. output lines ----------------------------------------------------
     decode_tp = record["train"]["decode_tp"]
@@ -3885,17 +4323,24 @@ def main() -> int:
                 "train_hybrid_tp": hybrid_tp_launches["rms_norm_vjp"],
                 "train_audio": audio_launches["rms_norm_vjp"],
                 "train_vlm": vlm_launches["rms_norm_vjp"],
-                "train_pp": pp_launches["rms_norm_vjp"]},
+                "train_pp": pp_launches["rms_norm_vjp"],
+                "example_train_lm": example_launches["example_train_lm"][
+                    "rms_norm_vjp"],
+                "example_train_lm_tp": train_lm_tp_launches[
+                    "rms_norm_vjp"]},
                 # the non-text models' widths
                 **{k: {f: t["shapes"][k][f] for f in (
                     "ms", "plain_ms", "library_ms", "copy_ms", "bound_ms",
                     "bound_by", "geometry")}
                    for k in (f"{RMS_AUDIO[0]}x{RMS_AUDIO[1]}",
-                             f"{RMS_VLM[0]}x{RMS_VLM[1]}")},
+                             f"{RMS_VLM[0]}x{RMS_VLM[1]}",
+                             f"{RMS_TRAIN_LM[0]}x{RMS_TRAIN_LM[1]}",
+                             f"{RMS_TRAIN_LM_TP[0]}x{RMS_TRAIN_LM_TP[1]}")},
                 **{k: {f: t[k][f] for f in (
                     "ms", "plain_ms", "library_ms", "copy_ms", "bound_ms",
                     "bound_by", "geometry")}
-                   for k in ("backward_audio", "backward_vlm")}}
+                   for k in ("backward_audio", "backward_vlm",
+                             "backward_train_lm")}}
         if name == "flash_attention":
             # the non-text models' shapes, each measured in this run
             extra = {k: {f: t[k][f] for f in (
@@ -3925,6 +4370,9 @@ def main() -> int:
                              "tp_backward")}}
         if name in api_launches:
             by_path["kernel_api"] = api_launches[name]
+        for path, counts in example_launches.items():
+            if counts.get(name, 0) > 0:
+                by_path[path] = counts[name]
         if name in decode_tp["launches_a_rank"]:
             # every rank launched exactly these (check_decode_tp)
             by_path["serve_tp"] = TP_DP * TP_TP * \

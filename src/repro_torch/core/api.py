@@ -661,6 +661,19 @@ class Communicator:
         return self._scatter(blk, rest, r_rest)
 
 
+def make_communicator(backend: str = "ring", *, slicing_factor: int = 4,
+                      allreduce_mode: str = "two_phase",
+                      plan: Optional[Plan] = None,
+                      topology: Optional[topo_mod.Topology] = None
+                      ) -> Communicator:
+    """The reference's factory.  Its Communicator has no axes: give it
+    this rank's mesh (``launch.mesh``) with ``dataclasses.replace(comm,
+    axes=mesh)`` before it runs a collective."""
+    return Communicator(backend=backend, slicing_factor=slicing_factor,
+                        allreduce_mode=allreduce_mode, plan=plan,
+                        topology=topology)
+
+
 @dataclasses.dataclass(frozen=True)
 class TimedCommunicator(Communicator):
     """An ``auto`` Communicator that times every collective call it

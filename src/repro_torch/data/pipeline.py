@@ -1,11 +1,17 @@
-"""Token data pipeline: the synthetic stream.
+"""Token data pipeline.
 
-Copy of the numpy part of ``repro.data.pipeline``: ``SyntheticTokens``
-(deterministic zipf-ish LM batches from a seed) and ``batch_for``, which
-give the reference's batches for the same seed.  ``local_batch`` is this
-rank's slice of a global batch (the reference shards it over the dp
-axis with a ``NamedSharding``), extras included.  ``MemmapCorpus`` is
-not ported.
+Copy of the numpy part of ``repro.data.pipeline``, which gives the
+reference's batches for the same seed and file:
+
+* ``SyntheticTokens`` - deterministic zipf-ish LM batches from a seed;
+* ``MemmapCorpus`` - a flat binary token file sampled in windows (the
+  "one big .bin" pretraining layout), written by ``write_corpus``;
+* ``batch_for`` - tokens (B, L+1) -> a training batch.
+
+``local_batch`` is this rank's slice of a global batch (the reference
+shards it over the dp axis with a ``NamedSharding``), extras included.
+The reference's ``make_batch_specs`` makes JAX ``PartitionSpec``s and has
+no counterpart.
 """
 from __future__ import annotations
 
@@ -53,6 +59,37 @@ class SyntheticTokens:
             toks = rng.choice(self.cfg.vocab_size,
                               size=(self.batch, self.seq + 1), p=zipf_p)
             yield batch_for(self.cfg, toks, rng)
+
+
+@dataclasses.dataclass
+class MemmapCorpus:
+    cfg: ModelConfig
+    path: str
+    batch: int
+    seq: int
+    dtype: str = "uint16"
+    seed: int = 0
+
+    def __post_init__(self):
+        self.tokens = np.memmap(self.path, dtype=self.dtype, mode="r")
+        if len(self.tokens) < self.seq + 1:
+            raise ValueError("corpus shorter than one sample window")
+
+    def __iter__(self) -> Iterator[dict]:
+        rng = np.random.default_rng(self.seed)
+        n = len(self.tokens) - self.seq - 1
+        while True:
+            starts = rng.integers(0, n, size=self.batch)
+            toks = np.stack([np.asarray(
+                self.tokens[s:s + self.seq + 1]) for s in starts])
+            toks = np.minimum(toks.astype(np.int64),
+                              self.cfg.vocab_size - 1)
+            yield batch_for(self.cfg, toks, rng)
+
+
+def write_corpus(path: str, tokens: np.ndarray,
+                 dtype: str = "uint16") -> None:
+    np.asarray(tokens, dtype=dtype).tofile(path)
 
 
 def local_batch(batch: dict, rank: int, n: int) -> dict:

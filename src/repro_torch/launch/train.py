@@ -260,7 +260,8 @@ from repro_torch.training import checkpoint
 from repro_torch.training.pipeline import (SCHEDULES, bubble_fraction,
                                            make_schedule,
                                            make_sharded_pipeline_step)
-from repro_torch.training.train_loop import (TrainConfig, leaf_params,
+from repro_torch.training.train_loop import (TrainConfig, batch_to_device,
+                                             leaf_params,
                                              make_sharded_train_step)
 from repro_torch.tuner import runtime as tuner_runtime
 
@@ -1186,13 +1187,9 @@ def _run_variant(ctx: ranks.RankContext, spec: RunSpec, tcfg: TrainConfig,
            "profile": None, "init_s": init_s, "capture_s": 0.0}
 
     def to_dev(b):
-        """This rank's rows on the device: token ids as int64, the
-        frontend's stub embeddings in their own dtype (f32)."""
-        lb = local_batch(b, dp_index, spec.data_ranks())
-        return {k: torch.as_tensor(v, device=dev, dtype=torch.long
-                                   if np.issubdtype(v.dtype, np.integer)
-                                   else None)
-                for k, v in lb.items()}
+        """This rank's rows on the device."""
+        return batch_to_device(local_batch(b, dp_index, spec.data_ranks()),
+                               dev)
 
     t_run = time.perf_counter()
     n_steps = min(spec.steps, tcfg.total_steps)

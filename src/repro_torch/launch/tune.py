@@ -135,6 +135,9 @@ def load_records(path: str) -> list:
     return records
 
 
+load_dryrun_records = load_records      # the reference's name
+
+
 def load_timings(path: str) -> list:
     """The timing samples of ``--measurements``: a record may be a bare
     list of samples or carry them under ``timings`` (top-level or under

@@ -16,21 +16,28 @@ re-tuning's hot-swapped plans reach the step).
 Params are leaf tensors with ``requires_grad``; after a step each one's
 ``.grad`` holds its synced gradient (what the optimizer consumed), and
 params and moments have been updated in place.
+
+``train`` is the reference's single-host loop (the examples' and a CPU
+smoke run's): the unsharded step over every batch of an iterator, logged
+as the reference logs it.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import overlap, tree
 from repro_torch.core.api import Communicator, TimedCommunicator
+from repro_torch.core.device import resolve_device
 from repro_torch.core.hw import CXL_POOL, INFINIBAND
 from repro_torch.models import model, moe, sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.pcontext import ParallelContext, UNSHARDED
-from repro_torch.optim import (AdamWState, adamw_update,
+from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
                                clip_by_global_norm, linear_warmup_cosine)
 from repro_torch.tuner.plan import load_plan
 
@@ -197,3 +204,43 @@ def leaf_params(params: Any) -> Any:
     train step holds and updates in place."""
     return tree.map_with_path(
         lambda _p, x: x.detach().clone().requires_grad_(True), params)
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """A host batch (numpy) on ``device``: token ids as int64, the
+    frontends' stub embeddings in their own dtype (f32)."""
+    return {k: torch.as_tensor(v, device=device, dtype=torch.long
+                               if np.issubdtype(np.asarray(v).dtype,
+                                                np.integer) else None)
+            for k, v in batch.items()}
+
+
+def train(cfg: ModelConfig, tcfg: TrainConfig, data_iter, steps: int,
+          params=None, generator: Optional[torch.Generator] = None,
+          log_every: int = 10, log_fn=print, device=None) -> tuple:
+    """Single-host training loop: ``steps`` unsharded steps
+    (:func:`make_train_step`) over the batches of ``data_iter``, logging
+    step, loss, lr and seconds every ``log_every`` steps and at the last,
+    in the reference's format.  ``params=None`` makes them with
+    ``model.init_params(cfg, generator, device)`` (``generator=None``: a
+    generator on the device seeded 0); given params are copied, not
+    updated.  ``device=None`` is the CUDA card (raises without one).
+    Returns (params, opt_state, metrics of the last step)."""
+    dev = resolve_device(device)
+    if params is None:
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        params = model.init_params(cfg, generator, dev)
+    params = leaf_params(params)
+    opt_state = adamw_init(params)
+    step = make_train_step(cfg, tcfg)
+    t0 = time.time()
+    metrics: dict = {}
+    for i, batch in zip(range(steps), data_iter):
+        params, opt_state, metrics = step(params, opt_state,
+                                          batch_to_device(batch, dev))
+        if i % log_every == 0 or i == steps - 1:
+            log_fn(f"step {i:5d} loss {float(metrics['loss']):.4f} "
+                   f"lr {float(metrics['lr']):.2e} "
+                   f"({(time.time()-t0):.1f}s)")
+    return params, opt_state, metrics

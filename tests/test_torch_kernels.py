@@ -79,7 +79,12 @@ def test_rms_norm_wrapper_checks():
     (1024, 2048, 4, True, (256, 2, 4, 264)),     # two blocks an SM
     (5, 100, 4, False, (32, 1, 8, 1)),
     (5, 100, 2, False, (128, 1, 2, 3)),          # unaligned bf16: N = 1
-    (5, 100, 4, True, (32, 1, 1, 5))])
+    (5, 100, 4, True, (32, 1, 1, 5)),
+    # train_lm's d_model 768 at one rank (8 x 256 rows) and a rank at data
+    # 2: 192 vectors over 64 threads, 4 a thread, the last predicated off
+    (2048, 768, 4, False, (64, 4, 4, 512)),
+    (1024, 768, 4, False, (64, 4, 4, 256)),
+    (2048, 768, 4, True, (128, 2, 4, 528))])
 def test_rms_geometry_pins(rows, d, itemsize, backward, want):
     """rms_geometry's launch per shape: a forward thread holds at most 16
     elements (a backward 8), a block 256 threads, a short grid spreads its

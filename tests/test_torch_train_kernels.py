@@ -192,7 +192,7 @@ def _emulate_rms_backward(x, s, g, eps, geo):
     return dx, _butterfly(ranges.T)[:, 0]
 
 
-@pytest.mark.parametrize("t,d", [(7, 64), (128, 384), (37, 96)])
+@pytest.mark.parametrize("t,d", [(7, 64), (128, 384), (37, 96), (64, 768)])
 def test_rms_norm_grads_vs_jax(t, d):
     """The autograd Function on the CPU (the plain backward) and an
     emulation of the backward kernel's order of sums, at the H100's
